@@ -1,0 +1,156 @@
+"""Build and load the port's CUDA kernels: nvcc into shared libraries with a
+plain C interface, loaded with ctypes.
+
+Each ``csrc/<name>.cu`` compiles to its own library under ``build/kernels``
+at the repository root, all sources at once (one nvcc process each), the
+first time a kernel is launched.  Libraries are named by a hash of their
+sources and flags, so an edited source rebuilds and an unchanged one loads
+from the previous build.  Nothing here runs at import time: the CPU tests
+import every module, and this machine's CPU-only PyTorch has no nvcc.
+
+Also here: :func:`pinned_empty`, the exact-size pinned, device-mapped host
+allocation that holds the remote tier.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import weakref
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("splitk_gemm", "paged_flashattn", "host_mem")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Error codes of csrc/dak_common.cuh (cudaError_t values are positive).
+_DAK_ERRORS = {
+    -1: "remote-tier pointer is not pinned host memory mapped into the device",
+    -2: "shape or launch parameter the kernel does not take",
+}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "splitk_gemm": {
+        "dak_splitk_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "paged_flashattn": {
+        "dak_paged_attention": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _I, _I, _P],
+        "dak_scatter_rows": [_P] * 5 + [_I] * 6 + [_P],
+    },
+    "host_mem": {
+        "dak_host_alloc": [ctypes.c_size_t, ctypes.POINTER(ctypes.c_void_p)],
+        "dak_host_free": [_P],
+        "dak_check_mapped": [_P],
+    },
+}
+
+
+def build_dir() -> Path:
+    """``build/kernels`` at the repository root (listed in .gitignore)."""
+    return Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and Path(root, "bin", "nvcc").exists():
+            return str(Path(root, "bin", "nvcc"))
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit (put nvcc on PATH or set CUDA_HOME)")
+
+
+@dataclasses.dataclass
+class KernelLibs:
+    """The loaded kernel libraries and what ptxas reported for each."""
+
+    libs: dict[str, ctypes.CDLL]     # source name -> library
+    ptxas: dict[str, str]            # source name -> nvcc/ptxas output
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build_all() -> KernelLibs:
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    targets = {name: out / f"{name}-{_digest(name)}.so" for name in SOURCES}
+    procs = {}
+    for name, so in targets.items():
+        if so.exists():
+            continue
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), tmp)
+    logs = {name: proc.communicate()[0] for name, (proc, _) in procs.items()}
+    for name, (proc, tmp) in procs.items():
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}.cu:\n{logs[name]}")
+        targets[name].with_suffix(".log").write_text(logs[name])
+        os.replace(tmp, targets[name])
+    libs, ptxas = {}, {}
+    for name, so in targets.items():
+        lib = ctypes.CDLL(str(so))
+        for fn, argtypes in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+        log = so.with_suffix(".log")
+        ptxas[name] = log.read_text() if log.exists() else ""
+    return KernelLibs(libs, ptxas)
+
+
+_LOADED: KernelLibs | None = None
+
+
+def load() -> KernelLibs:
+    """Build (if needed) and load every kernel library, once per process."""
+    global _LOADED
+    if _LOADED is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("the CUDA kernels need a CUDA device")
+        _LOADED = _build_all()
+    return _LOADED
+
+
+def check(rc: int, what: str) -> None:
+    """Raise unless a C entry point returned 0."""
+    if rc == 0:
+        return
+    if rc in _DAK_ERRORS:
+        raise RuntimeError(f"{what}: {_DAK_ERRORS[rc]}")
+    raise RuntimeError(
+        f"{what}: CUDA error {rc} ({torch.cuda.cudart().cudaGetErrorString(rc)})")
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def pinned_empty(shape, dtype: torch.dtype) -> torch.Tensor:
+    """An uninitialised CPU tensor in pinned host memory mapped into the
+    device (cudaHostAlloc, mapped and portable), exactly as large as asked.
+
+    The memory is freed when the last tensor viewing it is gone."""
+    host = load().libs["host_mem"]
+    n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    nbytes = max(n, 1)
+    ptr = ctypes.c_void_p()
+    check(host.dak_host_alloc(nbytes, ctypes.byref(ptr)), "cudaHostAlloc")
+    buf = (ctypes.c_uint8 * nbytes).from_address(ptr.value)
+    weakref.finalize(buf, host.dak_host_free, ptr.value).atexit = False
+    return torch.frombuffer(buf, dtype=torch.uint8)[:n].view(dtype).view(tuple(shape))
