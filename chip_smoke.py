@@ -9,17 +9,26 @@ runs, printing each result on its own line:
 1. the card (name, power limit, PCIe link) and what ptxas reports for each
    kernel (registers, shared memory, spills);
 2. every kernel against its plain PyTorch version on the card, with the
-   remote operand in pinned host memory, at the main path's decode and
+   remote operand in pinned host memory, at the main paths' decode and
    prefill shapes and windows {1, 2, 4}, plus edge cases; bound: 2e-4
-   relative error in fp32, 5e-2 in bf16 (the reference's own tolerances);
+   relative error in fp32, 5e-2 in bf16 (the reference's own tolerances),
+   taken per query row for flash_prefill;
 3. token parity: a 2-layer full-width llama2-7b in fp32 served by the
    engine must emit exactly the tokens of the plain per-request reference;
 4. the served run: full llama2-7b (32 layers, bf16) at offload 0.5 through
    `ServingEngine` — requests, tokens/s, TPOT, TTFT, kernel launches, page
    high-water marks, pinned host bytes and peak device memory;
 5. each kernel's time on the card (CUDA events, L2 flushed), its plain
-   version's time, its bound and the prefetch-then-cuBLAS yardstick;
-6. one JSON line listing the kernels, then the card's name and power
+   version's time, its bound and a library yardstick;
+6. batch-split token parity: the same 2-layer fp32 model through prefill,
+   `split_cache_batch` and greedy `tiered_decode_step`s (the paper's §5
+   layout) must emit exactly the tokens of the plain `decode_step` path;
+7. the batch-split served run: full llama2-7b (32 layers, bf16) at offload
+   0.5, 4 requests (2 local + 2 remote cache rows) of 256 prompt + 32 new
+   tokens — launches per step, pinned remote rows, peak device memory, TPOT;
+8. `flash_prefill` (off the serving path, as in the reference) through its
+   entry point at llama2-7b prefill shape, once per layer;
+9. one JSON line listing the kernels, then the card's name and power
    limit, then the final JSON status line.
 
 Any failed check exits non-zero; without a CUDA card, or without the port
@@ -30,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -46,7 +56,9 @@ HBM_BW = 3.35e12            # H100 SXM data sheet, bytes/s
 BF16_PEAK = 989e12          # H100 SXM dense bf16 FLOP/s
 PCIE_LANE_GBPS = {1: 0.25, 2: 0.5, 3: 0.985, 4: 1.969, 5: 3.938, 6: 7.563}
 DECODE_BATCH = 4
-PREFILL_LEN = 128
+PREFILL_LEN = 128           # prompt length of the paged served run (phase 4)
+SPLIT_PROMPT_LEN = 256      # prompt length of the batch-split served run (phase 7)
+KERNELS = ("splitk_gemm", "paged_attention", "splitk_flashattn", "flash_prefill")
 
 FAILURES: list[str] = []
 
@@ -57,11 +69,28 @@ def check(ok: bool, what: str) -> None:
         FAILURES.append(what)
 
 
+def note_err(stats: dict | None, rel: float, ab: float) -> None:
+    """Fold one check's errors into a kernel's running maxima."""
+    if stats is not None:
+        stats["max_abs_err"] = max(stats["max_abs_err"], ab)
+        stats["max_rel_err"] = max(stats["max_rel_err"], rel)
+
+
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
     a, b = a.float(), b.float()
     diff = (a - b).abs().max().item() if a.numel() else 0.0
     scale = b.abs().max().item() if b.numel() else 0.0
     return diff / (scale + 1e-9), diff
+
+
+def row_rel_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
+    """Like `rel_err`, but each row (the last axis) is measured against its
+    own largest reference value, so rows of small outputs count as much as
+    rows of large ones."""
+    a, b = a.float(), b.float()
+    diff = (a - b).abs().amax(dim=-1)
+    rel = diff / (b.abs().amax(dim=-1) + 1e-9)
+    return rel.max().item(), diff.max().item()
 
 
 # ---------------------------------------------------------------------------
@@ -103,14 +132,19 @@ GEMM_SHAPES = {          # name: (K, N_loc, N_rem) at offload 0.5, llama2-7b
 }
 
 
-def make_tier_pair(k, n_loc, n_rem, dtype, gen):
+def pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    """`t` copied into exact-size pinned, device-mapped host memory."""
     from repro_torch.kernels import _build
 
+    host = _build.pinned_empty(t.shape, t.dtype)
+    host.copy_(t)
+    return host
+
+
+def make_tier_pair(k, n_loc, n_rem, dtype, gen):
     wl = (torch.randn((k, n_loc), generator=gen, device="cuda") * 0.02).to(dtype)
     wr_dev = (torch.randn((k, n_rem), generator=gen, device="cuda") * 0.02).to(dtype)
-    wr = _build.pinned_empty((k, n_rem), dtype)
-    wr.copy_(wr_dev)
-    return wl, wr, wr_dev
+    return wl, pinned_copy(wr_dev), wr_dev
 
 
 def gemm_case(label, m, k, n_loc, n_rem, dtype, windows, gen, stats=None, tiers=None):
@@ -127,14 +161,10 @@ def gemm_case(label, m, k, n_loc, n_rem, dtype, windows, gen, stats=None, tiers=
         check(rel < TOL[dtype] and torch.isfinite(got.float()).all().item(),
               f"splitk_gemm {label} M={m} K={k} N={n_loc}|{n_rem} {str(dtype)[6:]} "
               f"window={w}: max rel err {rel:.2e} (abs {ab:.2e}, bound {TOL[dtype]:.0e})")
-        if stats is not None:
-            stats["max_abs_err"] = max(stats["max_abs_err"], ab)
-            stats["max_rel_err"] = max(stats["max_rel_err"], rel)
+        note_err(stats, rel, ab)
 
 
 def paged_inputs(b, h, kh, hd, ps, mp, p_loc, p_rem, lens, dtype, gen, alias_v=False):
-    from repro_torch.kernels import _build
-
     def pool(p):
         return torch.randn((p + 1, ps, kh, hd), generator=gen, device="cuda").to(dtype)
 
@@ -147,9 +177,7 @@ def paged_inputs(b, h, kh, hd, ps, mp, p_loc, p_rem, lens, dtype, gen, alias_v=F
             if alias_v and key == "v_remote":
                 pools[key] = pools["k_remote"]
                 continue
-            host = _build.pinned_empty(t.shape, dtype)
-            host.copy_(t)
-            pools[key] = host
+            pools[key] = pinned_copy(t)
         else:
             pools[key] = t
     q = torch.randn((b, h, hd), generator=gen, device="cuda").to(dtype)
@@ -181,13 +209,10 @@ def attn_case(label, b, h, kh, hd, ps, mp, p_loc, p_rem, lens, dtype, windows, g
               f"{' scale=' + str(scale) if scale else ''}{' V=K' if alias_v else ''}: "
               f"max rel err {rel:.2e} (abs {ab:.2e}, bound {TOL[dtype]:.0e}), "
               f"zero rows for lens 0: {zeros_ok}")
-        if stats is not None:
-            stats["max_abs_err"] = max(stats["max_abs_err"], ab)
-            stats["max_rel_err"] = max(stats["max_rel_err"], rel)
+        note_err(stats, rel, ab)
 
 
 def scatter_case(gen):
-    from repro_torch.kernels import _build
     from repro_torch.kernels.splitk_flashattn import scatter_rows, scatter_rows_ref
 
     p, ps, kh, hd, b = 6, 16, 32, 128, 4
@@ -200,8 +225,7 @@ def scatter_case(gen):
         dev_pool = torch.randn((p + 1, ps, kh, hd), generator=gen, device="cuda").to(torch.bfloat16)
         pool = dev_pool.clone()
         if remote:
-            pool = _build.pinned_empty(dev_pool.shape, dev_pool.dtype)
-            pool.copy_(dev_pool)
+            pool = pinned_copy(dev_pool)
         scatter_rows(pool, rows, wr_tier, wr_idx, wr_off, tier_sel, p, remote=remote)
         torch.cuda.synchronize()
         sel = wr_tier == tier_sel
@@ -211,14 +235,65 @@ def scatter_case(gen):
               "bit-identical to the plain index_put")
 
 
+def batch_split_inputs(b_loc, b_rem, h, kh, hd, s, dtype, gen):
+    """q [B, H, hd] and a batch-split cache: the device copy of every tier
+    (for the plain version) and the kernel's operands, remote tier pinned."""
+    q = torch.randn((b_loc + b_rem, h, hd), generator=gen, device="cuda").to(dtype)
+    dev = {f"{kv}_{tier}": torch.randn((n, s, kh, hd), generator=gen, device="cuda").to(dtype)
+           for kv in ("k", "v") for tier, n in (("local", b_loc), ("remote", b_rem))}
+    cache = {k: (pinned_copy(t) if k.endswith("remote") else t) for k, t in dev.items()}
+    return q, cache, dev
+
+
+def splitk_attn_case(label, b_loc, b_rem, h, kh, hd, s, kv_lens, dtype, windows, gen,
+                     stats=None):
+    from repro_torch.kernels import ops, ref
+
+    q, cache, dev = batch_split_inputs(b_loc, b_rem, h, kh, hd, s, dtype, gen)
+    for kv_len in kv_lens:
+        want = ref.splitk_flashattn_ref(q, dev["k_local"], dev["v_local"], dev["k_remote"],
+                                        dev["v_remote"], kv_len)
+        for w in windows:
+            got = ops.tiered_decode_attention(q, cache, kv_len=kv_len, window=w)
+            torch.cuda.synchronize()
+            rel, ab = rel_err(got, want)
+            check(rel < TOL[dtype] and torch.isfinite(got.float()).all().item(),
+                  f"splitk_flashattn {label} B={b_loc}|{b_rem} H={h} Kh={kh} hd={hd} S={s} "
+                  f"kv_len={kv_len} {str(dtype)[6:]} window={w}: max rel err "
+                  f"{rel:.2e} (abs {ab:.2e}, bound {TOL[dtype]:.0e})")
+            note_err(stats, rel, ab)
+
+
+def prefill_case(label, b, h, kh, t, hd, dtype, gen, stats=None):
+    from repro_torch.kernels import flash_prefill, ref
+
+    q = torch.randn((b, h, t, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, kh, t, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, kh, t, hd), generator=gen, device="cuda").to(dtype)
+    for causal in (True, False):
+        want = ref.flash_prefill_ref(q, k, v, causal)
+        got = flash_prefill(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        # per query row: causal row 0 is v[0] (values near 4) while late rows
+        # average thousands of keys (near 0.05), so one global scale would
+        # hide wrong late rows
+        rel, ab = row_rel_err(got, want)
+        check(rel < TOL[dtype] and torch.isfinite(got.float()).all().item(),
+              f"flash_prefill {label} B={b} H={h} Kh={kh} T={t} hd={hd} "
+              f"{'causal' if causal else 'full'} {str(dtype)[6:]}: max rel err per query row "
+              f"{rel:.2e} (abs {ab:.2e}, bound {TOL[dtype]:.0e})")
+        note_err(stats, rel, ab)
+    del q, k, v, want
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1)
-    stats = {n: {"max_abs_err": 0.0, "max_rel_err": 0.0}
-             for n in ("splitk_gemm", "paged_attention")}
+    stats = {n: {"max_abs_err": 0.0, "max_rel_err": 0.0} for n in KERNELS}
     bf = torch.bfloat16
     for name, (k, n_loc, n_rem) in GEMM_SHAPES.items():
         tiers = make_tier_pair(k, n_loc, n_rem, bf, gen)
-        for m in (DECODE_BATCH, PREFILL_LEN):
+        # M: decode batch, paged prefill (phase 4), batch-split prefill (phase 7)
+        for m in (DECODE_BATCH, PREFILL_LEN, DECODE_BATCH * SPLIT_PROMPT_LEN):
             gemm_case(name, m, k, n_loc, n_rem, bf, (1, 2, 4), gen,
                       stats["splitk_gemm"], tiers)
         del tiers
@@ -243,6 +318,23 @@ def phase_kernels() -> dict:
     attn_case("unaligned", b=3, mp=3, p_loc=4, p_rem=4, lens=(9, 0, 12), dtype=bf,
               windows=(1, 2), gen=gen, h=4, kh=2, hd=30, ps=4)
     scatter_case(gen)
+    f32 = torch.float32
+    for dtype in (bf, f32):
+        splitk_attn_case("full-width", 2, 2, 32, 32, 128, 512, (1, 255, 257, 512), dtype,
+                         (1, 2, 4), gen, stats=stats["splitk_flashattn"] if dtype == bf else None)
+    splitk_attn_case("empty-local", 0, 3, 32, 32, 128, 512, (288,), bf, (1, 2), gen)
+    splitk_attn_case("empty-remote", 3, 0, 32, 32, 128, 512, (288,), bf, (1, 2), gen)
+    # S = 300 is no multiple of any chunk the kernel takes (64 or 32 rows)
+    splitk_attn_case("ragged", 2, 2, 32, 32, 128, 300, (300, 37), bf, (1, 2), gen)
+    splitk_attn_case("gqa", 2, 3, 8, 2, 64, 200, (1, 150, 200), f32, (1, 2, 4), gen)
+    splitk_attn_case("unaligned", 1, 2, 8, 2, 30, 40, (17, 40), bf, (1, 3), gen)
+    for t in (128, 256, 2048):
+        for dtype in (bf, f32):
+            prefill_case("full-width", DECODE_BATCH, 32, 32, t, 128, dtype, gen,
+                         stats=stats["flash_prefill"] if dtype == bf else None)
+    prefill_case("gqa", 2, 8, 2, 512, 64, f32, gen)
+    prefill_case("ragged", 2, 4, 2, 100, 64, bf, gen)
+    prefill_case("unaligned", 1, 4, 1, 77, 30, f32, gen)
     return stats
 
 
@@ -413,6 +505,7 @@ def phase_timing(card: dict, window: int) -> dict:
                                 t_bytes=0.0, t_ops=0.0),
             "paged_attention": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
                                     t_bytes=0.0, t_ops=0.0)}
+    n_layers = 32
     print(f"timing on {card['name']} (power limit {card['power']}), CUDA events, "
           f"L2 flushed before each launch, median of 10; window {window} unless noted")
     for name, (k, n_loc, n_rem) in GEMM_SHAPES.items():
@@ -482,14 +575,274 @@ def phase_timing(card: dict, window: int) -> dict:
     print(f"  per decode step at batch 4 (32 layers + lm_head): splitk_gemm "
           f"{step['splitk_gemm']['ms']:.3f} ms vs bound {step['splitk_gemm']['bound_ms']:.3f} ms;"
           f" paged_attention {s['ms']:.3f} ms vs bound {s['bound_ms']:.3f} ms")
+    del q, pools, pools_dev
+    step["splitk_flashattn"] = time_splitk_attention(link, flush, gen, window, n_layers)
+    step["flash_prefill"] = time_flash_prefill(flush, gen)
     return step
 
 
+def time_splitk_attention(link, flush, gen, window, n_layers) -> dict:
+    """The batch-split kernel at the batch-split served run's late-step
+    shape: 2 local + 2 remote requests, S = 512, kv_len = 288."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import splitk_flashattn_ref
+
+    b_loc = b_rem = 2
+    h = kh = 32
+    hd, s_len, kv_len = 128, 512, 288
+    q, cache, dev = batch_split_inputs(b_loc, b_rem, h, kh, hd, s_len, torch.bfloat16, gen)
+    t = {w: time_ms(lambda w=w: ops.tiered_decode_attention(q, cache, kv_len=kv_len, window=w),
+                    flush=flush) for w in (1, 2, 4)}
+    t_plain = time_ms(lambda: splitk_flashattn_ref(q, dev["k_local"], dev["v_local"],
+                                                   dev["k_remote"], dev["v_remote"], kv_len),
+                      flush=flush)
+    # library yardstick: copy the remote requests' rows into HBM beside the
+    # local ones, then one scaled_dot_product_attention call
+    kbuf = torch.cat([dev["k_local"], torch.empty_like(dev["k_remote"])])
+    vbuf = torch.cat([dev["v_local"], torch.empty_like(dev["v_remote"])])
+
+    def prefetch_sdpa():
+        for r in range(b_rem):
+            kbuf[b_loc + r, :kv_len].copy_(cache["k_remote"][r, :kv_len], non_blocking=True)
+            vbuf[b_loc + r, :kv_len].copy_(cache["v_remote"][r, :kv_len], non_blocking=True)
+        return F.scaled_dot_product_attention(
+            q[:, :, None], kbuf[:, :kv_len].transpose(1, 2), vbuf[:, :kv_len].transpose(1, 2))
+
+    t_lib = time_ms(prefetch_sdpa, flush=flush)
+    row = kh * hd * 2 * 2                                   # K + V of one position, bf16
+    loc_b = q.numel() * 2 * 2 + b_loc * kv_len * row
+    rem_b = b_rem * kv_len * row
+    flops = 4 * (b_loc + b_rem) * kv_len * h * hd
+    b_ms, b_by = bound(loc_b, rem_b, flops, link, BF16_PEAK)
+    tk = t[window]
+    print(f"  splitk_flashattn B={b_loc}|{b_rem} H=Kh={h} hd={hd} S={s_len} kv_len={kv_len} "
+          f"bf16: kernel {tk:.4f} ms (windows 1/2/4: {t[1]:.4f}/{t[2]:.4f}/{t[4]:.4f}) | plain "
+          f"{t_plain:.4f} ms | bound {b_ms:.4f} ms ({b_by}) | prefetch+SDPA {t_lib:.4f} ms | "
+          f"remote {rem_b / (tk * 1e-3) / 1e9:.2f} GB/s (windows 1/2/4: "
+          f"{'/'.join(f'{rem_b / (t[w] * 1e-3) / 1e9:.2f}' for w in (1, 2, 4))})")
+    print(f"  per decode step ({n_layers} layers): splitk_flashattn {n_layers * tk:.3f} ms vs "
+          f"bound {n_layers * b_ms:.3f} ms")
+    return dict(ms=n_layers * tk, plain_ms=n_layers * t_plain, bound_ms=n_layers * b_ms,
+                library_ms=n_layers * t_lib,
+                t_bytes=n_layers * max(loc_b / HBM_BW, rem_b / link),
+                t_ops=n_layers * flops / BF16_PEAK)
+
+
+def time_flash_prefill(flush, gen) -> dict:
+    """flash_prefill at B = 4, H = Kh = 32, hd = 128, causal, bf16; the last
+    shape timed (T = 2048) is the one the kernels line reports."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_prefill
+    from repro_torch.kernels.ref import flash_prefill_ref
+
+    b, h, hd = DECODE_BATCH, 32, 128
+    out = {}
+    for t_len in (128, 2048):
+        q, k, v = (torch.randn((b, h, t_len, hd), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        args = (q, k, v)
+        tk = time_ms(lambda a=args: flash_prefill(*a, causal=True), flush=flush)
+        t_plain = time_ms(lambda a=args: flash_prefill_ref(*a, True), flush=flush)
+        t_lib = time_ms(lambda a=args: F.scaled_dot_product_attention(*a, is_causal=True),
+                        flush=flush)
+        nbytes = 4 * q.numel() * 2                       # q, k, v read and out written once
+        flops = 2 * b * h * t_len * (t_len + 1) * hd     # causal: key s <= query t
+        t_bytes, t_ops = nbytes / HBM_BW, flops / BF16_PEAK
+        b_ms = max(t_bytes, t_ops) * 1e3
+        print(f"  flash_prefill B={b} H=Kh={h} T={t_len} hd={hd} causal bf16: kernel {tk:.4f} ms"
+              f" | plain {t_plain:.4f} ms | bound {b_ms:.4f} ms "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}) | SDPA(is_causal) "
+              f"{t_lib:.4f} ms | {flops / (tk * 1e-3) / 1e12:.2f} TFLOP/s")
+        out = dict(ms=tk, plain_ms=t_plain, bound_ms=b_ms, library_ms=t_lib, t_bytes=t_bytes,
+                   t_ops=t_ops)
+        del q, k, v, args
+    return out
+
+
 # ---------------------------------------------------------------------------
+# Phase 6: batch-split token parity on the card (fp32, full width, 2 layers)
+# ---------------------------------------------------------------------------
+def batch_split_setup(cfg, batch, max_len, dtype, seed):
+    """Random weights from `seed`, planned at offload 0.5 and partitioned
+    (remote tiers pinned).  Returns (unsplit params, tiered params, window)."""
+    from repro_torch.core import engine as offload_engine
+    from repro_torch.core.ebmodel import WorkloadSpec
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.models import model as M
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = M.init_params(cfg, gen, dtype=dtype, device="cuda")
+    plan = offload_engine.plan(cfg, WorkloadSpec(batch=batch, seq_len=max_len, phase="decode"),
+                               H100_SXM, global_ratio=0.5)
+    tparams = plan.partition(params, align=128, place_remote=True)
+    return params, tparams, plan.window.n_inflight
+
+
+def batch_split_generate(cfg, tparams, prompts, max_len, new_tokens, window, steps_out=None):
+    """Prefill through the tiered kernel matmul, split the cache by batch
+    (half the requests remote), then greedy batch-split decode steps.
+    Returns the tokens [B, new_tokens] and the split cache."""
+    from repro_torch.models import model as M
+    from repro_torch.serving import tiered_decode as TD
+
+    logits, cache = M.prefill(cfg, tparams, {"tokens": prompts}, max_len=max_len,
+                              mm=lambda a, w: TD._mm(a, w, window))
+    kv = TD.split_cache_batch(cache, 0.5)
+    del cache
+    tok = torch.argmax(logits[:, -1], dim=-1)
+    out = [tok.cpu()]
+    t_len = prompts.shape[1]
+    for i in range(new_tokens - 1):
+        t0 = time.time()
+        logits, kv = TD.tiered_decode_step(cfg, tparams, kv, tok[:, None], t_len + i,
+                                           window=window)
+        tok = torch.argmax(logits[:, 0], dim=-1)
+        out.append(tok.cpu())                      # the host needs each step's tokens
+        if steps_out is not None:
+            steps_out.append(time.time() - t0)
+    return torch.stack(out, dim=1), kv
+
+
+def phase_batch_split_parity() -> None:
+    import repro_torch.configs as C
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(C.get("llama2_7b"), n_layers=2)
+    b, t_len, max_len, new_tokens = DECODE_BATCH, 16, 32, 9
+    params, tparams, window = batch_split_setup(cfg, b, max_len, torch.float32, seed=11)
+    rng = np.random.default_rng(11)
+    prompts = torch.tensor(rng.integers(3, cfg.vocab, (b, t_len)).astype(np.int32),
+                           device="cuda")
+    got, kv = batch_split_generate(cfg, tparams, prompts, max_len, new_tokens, window)
+    check(kv["k_local"].shape[1] == b // 2 and kv["k_remote"].shape[1] == b // 2
+          and kv["k_remote"].is_pinned(),
+          f"cache split {kv['k_local'].shape[1]} local | {kv['k_remote'].shape[1]} remote "
+          f"(pinned host) requests")
+    logits, cache = M.prefill(cfg, params, {"tokens": prompts}, max_len=max_len)
+    tok = torch.argmax(logits[:, -1], dim=-1)
+    want, gaps = [tok.cpu()], [torch.topk(logits[:, -1].float(), 2).values.diff().abs().min()]
+    for i in range(new_tokens - 1):
+        logits, cache = M.decode_step(cfg, params, cache, tok[:, None], t_len + i)
+        tok = torch.argmax(logits[:, 0], dim=-1)
+        want.append(tok.cpu())
+        gaps.append(torch.topk(logits[:, 0].float(), 2).values.diff().abs().min())
+    want = torch.stack(want, dim=1)
+    for r in range(b):
+        check(torch.equal(got[r], want[r]),
+              f"batch-split request {r} ({'remote' if r >= b // 2 else 'local'} cache): "
+              f"{got[r].tolist()} vs plain decode_step {want[r].tolist()}")
+    print(f"  smallest top-2 logit gap on the plain path: {float(min(gaps)):.3e} "
+          f"({new_tokens - 1} decode steps)")
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the batch-split served run (full llama2-7b, bf16, offload 0.5)
+# ---------------------------------------------------------------------------
+def phase_batch_split_serve() -> dict:
+    import repro_torch.configs as C
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.splitk_flashattn import scatter_rows, splitk_flashattn
+    from repro_torch.kernels.splitk_gemm import splitk_gemm
+    from repro_torch.runtime.telemetry import weight_tier_bytes
+
+    cfg = C.get("llama2_7b")
+    b, t_len, max_len, new_tokens = DECODE_BATCH, SPLIT_PROMPT_LEN, 512, 32
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    params, tparams, window = batch_split_setup(cfg, b, max_len, torch.bfloat16, seed=0)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"batch-split run set-up (weights drawn, partitioned, remote tier pinned): "
+          f"{time.time() - t0:.1f} s; window {window}")
+    leaves = list(remote_leaves(tparams))
+    w_local, w_remote = weight_tier_bytes(tparams)
+    rng = np.random.default_rng(1)
+    prompts = torch.tensor(rng.integers(3, cfg.vocab, (b, t_len)).astype(np.int32),
+                           device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    splitk_gemm.launches = splitk_flashattn.launches = scatter_rows.launches = 0
+    steps: list[float] = []
+    t0 = time.time()
+    toks, kv = batch_split_generate(cfg, tparams, prompts, max_len, new_tokens, window, steps)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"splitk_gemm": splitk_gemm.launches,
+                "splitk_flashattn": splitk_flashattn.launches,
+                "scatter_rows": scatter_rows.launches}
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = len(steps)
+    tpot = sum(steps) / n_steps
+    host = _build.load().libs["host_mem"]
+    kv_pinned = all(kv[k].device.type == "cpu" and kv[k].is_pinned()
+                    and host.dak_check_mapped(kv[k].data_ptr()) == 0
+                    for k in ("k_remote", "v_remote"))
+    kv_local = kv["k_local"].nbytes + kv["v_local"].nbytes
+    kv_remote = kv["k_remote"].nbytes + kv["v_remote"].nbytes
+    total_w = w_local + w_remote
+    print(f"served {b} requests ({t_len} prompt + {new_tokens} new tokens each, batch-split "
+          f"cache, S={max_len}) in {wall:.2f} s | {b * new_tokens / wall:.2f} tokens/s | TPOT "
+          f"{tpot * 1e3:.1f} ms over {n_steps} decode steps (median "
+          f"{statistics.median(steps) * 1e3:.1f} ms)")
+    print(f"launches during the batch-split run: {launches} "
+          f"({launches['splitk_flashattn'] / n_steps:.2f} splitk_flashattn per decode step)")
+    print(f"kv cache: {kv_local} B local ({kv_local / 1e9:.3f} GB) + {kv_remote} B remote "
+          f"({kv_remote / 1e9:.3f} GB, pinned host) | weights {w_local / 1e9:.3f} GB local + "
+          f"{w_remote / 1e9:.3f} GB remote | peak device memory {peak} ({peak / 1e9:.3f} GB) "
+          f"vs total weights {total_w / 1e9:.3f} GB")
+    check(toks.shape == (b, new_tokens) and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          f"every request emitted {new_tokens} tokens in [0, vocab)")
+    check(launches["splitk_flashattn"] == cfg.n_layers * n_steps,
+          f"splitk_flashattn launched exactly {cfg.n_layers} times per decode step")
+    check(launches["splitk_gemm"] > 0 and launches["scatter_rows"] > 0,
+          "the tiered GEMM and the remote-row writer launched on the batch-split path")
+    check(kv_pinned and all(leaf.remote.is_pinned() and leaf.remote.device.type == "cpu"
+                            for leaf in leaves) and len(leaves) == 6,
+          "remote KV rows and all 6 remote weight tiers are pinned, mapped host memory")
+    check(peak < total_w, "peak device memory below the model's total weight bytes")
+    return {"launches": launches, "tpot_ms": tpot * 1e3}
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: flash_prefill through its entry point at llama2-7b prefill shape
+# ---------------------------------------------------------------------------
+def phase_flash_prefill() -> dict:
+    from repro_torch.kernels import flash_prefill
+
+    b, h, t_len, hd, n_layers = DECODE_BATCH, 32, 256, 128, 32
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((b, h, t_len, hd), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    flash_prefill.launches = 0
+    outs_ok = True
+    for _ in range(n_layers):
+        o = flash_prefill(q, k, v, causal=True)
+        outs_ok = outs_ok and o.shape == q.shape and bool(torch.isfinite(o.float()).all())
+    torch.cuda.synchronize()
+    launches = flash_prefill.launches
+    check(outs_ok and launches == n_layers,
+          f"flash_prefill B={b} H=Kh={h} T={t_len} hd={hd} causal bf16, once per layer: "
+          f"{launches} launches, outputs finite and [B, H, T, hd]")
+    return {"launches": {"flash_prefill": launches}}
+
+
+# ---------------------------------------------------------------------------
+def add_launches(launches: dict, path: dict) -> None:
+    """Keep each kernel's count from the first path run that launched it: the
+    paged served run (phase 4) for the kernels of the main path."""
+    for name, n in path.items():
+        launches.setdefault(name, n)
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5",
-                    help="comma-separated subset of phases 1-5 (default: all)")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+                    help="comma-separated subset of phases 1-8 (default: all)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -509,9 +862,8 @@ def main(argv: list[str] | None = None) -> int:
     print(f"kernels built from {_build.CSRC.relative_to(REPO)} in {time.time() - t0:.1f} s "
           f"into {_build.build_dir().relative_to(REPO)}")
     card = phase_card(libs)
-    stats = {n: {"max_abs_err": None, "max_rel_err": None}
-             for n in ("splitk_gemm", "paged_attention")}
-    served = {"launches": {}}
+    stats = {n: {"max_abs_err": None, "max_rel_err": None} for n in KERNELS}
+    launches: dict[str, int] = {}
     step = {}
     if 2 in phases:
         print("phase 2: kernels against their plain versions on the card")
@@ -521,10 +873,19 @@ def main(argv: list[str] | None = None) -> int:
         phase_parity()
     if 4 in phases:
         print("phase 4: served run, llama2-7b (32 layers, bf16), offload 0.5, page 16")
-        served = phase_serve()
+        add_launches(launches, phase_serve()["launches"])
     if 5 in phases:
         print("phase 5: timing")
         step = phase_timing(card, window=1)
+    if 6 in phases:
+        print("phase 6: batch-split token parity, 2-layer full-width llama2-7b, fp32, offload 0.5")
+        phase_batch_split_parity()
+    if 7 in phases:
+        print("phase 7: batch-split served run, llama2-7b (32 layers, bf16), offload 0.5")
+        add_launches(launches, phase_batch_split_serve()["launches"])
+    if 8 in phases:
+        print("phase 8: flash_prefill at llama2-7b prefill shape (off the serving path)")
+        add_launches(launches, phase_flash_prefill()["launches"])
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:
@@ -535,21 +896,28 @@ def main(argv: list[str] | None = None) -> int:
                         "src/repro/kernels/splitk_gemm.py:37"),
         "paged_attention": ("src/repro_torch/kernels/csrc/paged_flashattn.cu",
                             "src/repro/kernels/splitk_flashattn.py:236"),
+        "splitk_flashattn": ("src/repro_torch/kernels/csrc/splitk_flashattn.cu",
+                             "src/repro/kernels/splitk_flashattn.py:33"),
+        "flash_prefill": ("src/repro_torch/kernels/csrc/flash_prefill.cu",
+                          "src/repro/kernels/flash_prefill.py:30"),
     }
     kernels = []
     for name, (source, tpu) in replaces.items():
         s = step.get(name, {})
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": tpu,
-            "launches": served["launches"].get(name),
+            "launches": launches.get(name),
             "max_abs_err": stats[name]["max_abs_err"],
             "ms": s.get("ms"), "plain_ms": s.get("plain_ms"), "bound_ms": s.get("bound_ms"),
             "bound_by": (None if not s else
                          "bytes" if s["t_bytes"] >= s["t_ops"] else "operations"),
             "library_ms": s.get("library_ms"),
         })
-    print("kernel times are per decode step at batch 4 (32 layers + lm_head); "
-          "max_abs_err is over the bf16 main-path shape checks")
+    print("kernel times: splitk_gemm and paged_attention per decode step of the served run "
+          "(batch 4, 32 layers + lm_head), splitk_flashattn per batch-split decode step "
+          "(32 layers, kv_len 288), flash_prefill per call at B=4 T=2048 causal; launches: "
+          "splitk_gemm and paged_attention in phase 4, splitk_flashattn in phase 7, "
+          "flash_prefill in phase 8; max_abs_err is over the bf16 full-width shape checks")
     print(json.dumps({"kernels": kernels}))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

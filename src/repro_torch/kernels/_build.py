@@ -26,7 +26,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("splitk_gemm", "paged_flashattn", "host_mem")
+SOURCES = ("splitk_gemm", "paged_flashattn", "splitk_flashattn", "flash_prefill",
+           "host_mem")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,6 +45,12 @@ _SIGNATURES = {
     "paged_flashattn": {
         "dak_paged_attention": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _I, _I, _P],
         "dak_scatter_rows": [_P] * 5 + [_I] * 6 + [_P],
+    },
+    "splitk_flashattn": {
+        "dak_splitk_attention": [_P] * 6 + [_I] * 9 + [_P],
+    },
+    "flash_prefill": {
+        "dak_flash_prefill": [_P] * 4 + [_I] * 8 + [_P],
     },
     "host_mem": {
         "dak_host_alloc": [ctypes.c_size_t, ctypes.POINTER(ctypes.c_void_p)],

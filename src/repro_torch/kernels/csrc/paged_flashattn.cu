@@ -20,20 +20,20 @@
 //    derives its slot from the page tables itself, so no extra launch.
 //  * `window` pages (K and V) are in flight per CTA in a shared-memory ring.
 //  * Online softmax in fp32 over the group-major query heads
-//    h = g*Kh + kvh; `lens == 0` gives zeros; `scale` overrides hd**-0.5.
+//    h = g*Kh + kvh (decode_attn.cuh, shared with splitk_flashattn.cu),
+//    over each page's rows below the slot's length only; `lens == 0`
+//    gives zeros; `scale` overrides hd**-0.5.
 //    A caller that passes the K pool as the V pool gets V read from it.
 //
 // `dak_scatter_rows` below is the decode step's K/V row writer (the
 // reference's `.at[].set` in `serving.tiered_decode._paged_writer`): a
 // helper, not a TPU kernel.  It writes each slot's new row into its page
 // in one tier's pool, the remote pool through its mapped pointer.
-#include "dak_common.cuh"
+#include "decode_attn.cuh"
 
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
-constexpr float NEG_INF = -1e30f;   // the reference's mask value, finite
 
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(THREADS) paged_attn_kernel(
@@ -51,16 +51,12 @@ __global__ void __launch_bounds__(THREADS) paged_attn_kernel(
   const int G = H / Kh;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* kv_s = reinterpret_cast<T*>(smem_raw);               // [stages][2][ps*hd]
-  float* q_s = reinterpret_cast<float*>(kv_s + (size_t)stages * 2 * ps * hd);
-  float* acc_s = q_s + G * hd;                            // [G][hd]
-  float* sc_s = acc_s + G * hd;                           // [G][ps]
-  float* m_s = sc_s + G * ps;                             // [G]
-  float* l_s = m_s + G;
-  float* corr_s = l_s + G;
-  int* has_remote = reinterpret_cast<int*>(corr_s + G);  // [B]
+  float* st_base = reinterpret_cast<float*>(kv_s + (size_t)stages * 2 * ps * hd);
+  const DecodeState st = decode_state(st_base, G, hd, ps);
+  int* has_remote = reinterpret_cast<int*>(st_base + decode_state_floats(G, hd, ps));  // [B]
   __shared__ int slot_sh;
 
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int tid = threadIdx.x;
   const int rank = blockIdx.x / Kh, kvh = blockIdx.x % Kh;
 
   // Host-first slot order, stable within each class (argsort of !has_remote).
@@ -91,12 +87,7 @@ __global__ void __launch_bounds__(THREADS) paged_attn_kernel(
   int n_chunks = (n + ps - 1) / ps;
   if (n_chunks > MP) n_chunks = MP;
 
-  for (int e = tid; e < G * hd; e += THREADS) {
-    const int g = e / hd, d = e % hd;
-    q_s[e] = to_f32(q[((size_t)b * H + g * Kh + kvh) * hd + d]) * scale;
-    acc_s[e] = 0.f;
-  }
-  for (int g = tid; g < G; g += THREADS) { m_s[g] = NEG_INF; l_s[g] = 0.f; }
+  decode_init<THREADS>(st, q, b, H, Kh, kvh, scale);
 
   const size_t row_stride = (size_t)Kh * hd;   // between tokens of a page
   auto load_page = [&](int c, int slot) {
@@ -129,56 +120,19 @@ __global__ void __launch_bounds__(THREADS) paged_attn_kernel(
     if (s < n_chunks) load_page(s, s);
     cp_async_commit();
   }
-  __syncthreads();   // q_s / m_s / l_s initialised
+  __syncthreads();   // the softmax state is initialised
 
   for (int c = 0; c < n_chunks; ++c) {
     const int slot = c % stages;
     cp_async_wait(stages - 1);
     __syncthreads();
     const T* kd = kv_s + (size_t)slot * 2 * ps * hd;
-    const T* vd = kd + ps * hd;
-    // scores: one warp per (query head, token) pair
-    for (int pr = warp; pr < G * ps; pr += WARPS) {
-      const int g = pr / ps, t = pr % ps;
-      float s = 0.f;
-      for (int d = lane; d < hd; d += 32) s = fmaf(q_s[g * hd + d], to_f32(kd[t * hd + d]), s);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0) sc_s[pr] = (c * ps + t < n) ? s : NEG_INF;
-    }
-    __syncthreads();
-    // online-softmax update, one thread per query head
-    for (int g = tid; g < G; g += THREADS) {
-      const float m_old = m_s[g];
-      float m_new = m_old;
-      for (int t = 0; t < ps; ++t) m_new = fmaxf(m_new, sc_s[g * ps + t]);
-      float sum = 0.f;
-      for (int t = 0; t < ps; ++t) {
-        const float p = expf(sc_s[g * ps + t] - m_new);
-        sc_s[g * ps + t] = p;
-        sum += p;
-      }
-      const float corr = expf(m_old - m_new);
-      l_s[g] = l_s[g] * corr + sum;
-      m_s[g] = m_new;
-      corr_s[g] = corr;
-    }
-    __syncthreads();
-    for (int e = tid; e < G * hd; e += THREADS) {
-      const int g = e / hd, d = e % hd;
-      float a = acc_s[e] * corr_s[g];
-      for (int t = 0; t < ps; ++t) a = fmaf(sc_s[g * ps + t], to_f32(vd[t * hd + d]), a);
-      acc_s[e] = a;
-    }
-    __syncthreads();   // done with this slot and with sc_s
+    const int rows = n - c * ps < ps ? n - c * ps : ps;   // the page's rows below lens[b]
+    decode_update<THREADS>(st, kd, kd + ps * hd, rows);            // ends with a barrier
     if (c + stages < n_chunks) load_page(c + stages, slot);
     cp_async_commit();
   }
-
-  for (int e = tid; e < G * hd; e += THREADS) {
-    const int g = e / hd, d = e % hd;
-    out[((size_t)b * H + g * Kh + kvh) * hd + d] = from_f32<T>(acc_s[e] / fmaxf(l_s[g], 1e-30f));
-  }
+  decode_finish<THREADS>(st, out, b, H, Kh, kvh);
 }
 
 template <typename T, bool VEC>
@@ -188,8 +142,7 @@ int launch_attn(const void* q, const void* kl, const void* vl, const void* kr,
                 float scale, int stages, cudaStream_t stream) {
   const int G = H / Kh;
   const size_t smem = (size_t)stages * 2 * ps * hd * sizeof(T) +
-                      ((size_t)2 * G * hd + (size_t)G * ps + 3 * (size_t)G) * sizeof(float) +
-                      (size_t)B * sizeof(int);
+                      decode_state_floats(G, hd, ps) * sizeof(float) + (size_t)B * sizeof(int);
   if (smem > 227 * 1024) return DAK_ERR_BAD_ARGUMENT;
   auto kern = paged_attn_kernel<T, VEC>;
   if (smem > 48 * 1024) {

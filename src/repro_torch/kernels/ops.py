@@ -1,12 +1,13 @@
 """The compute ops the serving engine calls around the direct-access kernels.
 
-`tiered_matmul` and `paged_decode_attention` are the port's counterparts of
-``src/repro/kernels/ops.py``: they normalise the window (an int >= 1; it
-paces the kernel's copies and never changes results) and reshape around
-the kernel wrappers.  Unlike the reference they neither pad to block
-multiples nor fall back to the oracle for an empty tier: the CUDA kernels
-mask ragged edges themselves and take an empty tier, so every tiered
-operand on the card goes through a kernel.  On a CPU tensor the wrappers
+`tiered_matmul`, `tiered_decode_attention` and `paged_decode_attention` are
+the port's counterparts of ``src/repro/kernels/ops.py``: they normalise the
+window (an int >= 1; it paces the kernel's copies and never changes
+results) and reshape around the kernel wrappers.  Unlike the reference they
+neither pad to block multiples nor fall back to the oracle for an empty
+tier or a cache length that is not a multiple of a block: the CUDA
+kernels mask ragged edges themselves and take an empty tier, so every
+tiered operand on the card goes through a kernel.  On a CPU tensor the wrappers
 compute the plain version.
 """
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.tiering import TieredTensor
-from repro_torch.kernels.splitk_flashattn import paged_splitk_flashattn
+from repro_torch.kernels.splitk_flashattn import paged_splitk_flashattn, splitk_flashattn
 from repro_torch.kernels.splitk_gemm import splitk_gemm
 
 
@@ -30,6 +31,21 @@ def tiered_matmul(
     k = x.shape[-1]
     y = splitk_gemm(x.reshape(-1, k).contiguous(), w.local, w.remote, window=window)
     return y.reshape(*lead, y.shape[-1])
+
+
+def tiered_decode_attention(
+    q: torch.Tensor,                     # [B, H, hd]
+    kv: dict[str, torch.Tensor],         # k_local/v_local [B_loc,S,Kh,hd], k_remote/v_remote
+    *,
+    kv_len: int,
+    window: int = 2,
+) -> torch.Tensor:
+    """Batch-split tiered decode attention over positions [0, kv_len):
+    requests [0, B_loc) read the local cache, [B_loc, B) the remote one."""
+    window = max(1, int(window))
+    return splitk_flashattn(
+        q.contiguous(), kv["k_local"], kv["v_local"], kv["k_remote"], kv["v_remote"],
+        kv_len=int(kv_len), window=window)
 
 
 def paged_decode_attention(

@@ -60,3 +60,52 @@ def paged_flashattn_ref(
     probs = torch.where(lens[:, None, None, None] > 0, probs, torch.zeros_like(probs))
     out = torch.einsum("bgks,bskh->bgkh", probs, v)
     return out.reshape(b, h, hd).to(q.dtype)
+
+
+def splitk_flashattn_ref(
+    q: torch.Tensor,         # [B, H, hd], B = B_loc + B_rem
+    k_local: torch.Tensor,   # [B_loc, S, Kh, hd]
+    v_local: torch.Tensor,
+    k_remote: torch.Tensor,  # [B_rem, S, Kh, hd]
+    v_remote: torch.Tensor,
+    kv_len: int,
+) -> torch.Tensor:
+    """Batch-split tiered decode attention: softmax attention over positions
+    [0, kv_len), batch rows [0, B_loc) from the local cache and [B_loc, B)
+    from the remote cache, each tier attended on its own and the outputs
+    concatenated (group-major GQA).  The reference masks positions past
+    ``kv_len``; slicing them off gives the same result and never reads them."""
+
+    def _attend(qt: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        b, h, hd = qt.shape
+        kh = k.shape[2]
+        qg = qt.reshape(b, h // kh, kh, hd).float() * (hd ** -0.5)
+        logits = torch.einsum("bgkh,bskh->bgks", qg, k[:, :kv_len].float())
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bgks,bskh->bgkh", probs, v[:, :kv_len].float())
+        return out.reshape(b, h, hd)
+
+    b_loc = k_local.shape[0]
+    out_local = _attend(q[:b_loc], k_local, v_local)
+    out_remote = _attend(q[b_loc:], k_remote, v_remote)
+    return torch.cat([out_local, out_remote], dim=0).to(q.dtype)
+
+
+def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True) -> torch.Tensor:
+    """Causal (or full) attention in the kernel's layout: q [B, H, Tq, hd],
+    k/v [B, Kh, Tk, hd] -> [B, H, Tq, hd] in q's dtype.  The math of the
+    reference's ``layers._attend_dense`` (group-major GQA: q head h reads kv
+    head h % Kh; key positions above the query's masked), kept in fp32
+    throughout as the kernel keeps it."""
+    b, h, tq, hd = q.shape
+    kh, tk = k.shape[1], k.shape[2]
+    qg = q.reshape(b, h // kh, kh, tq, hd).float() * (hd ** -0.5)
+    logits = torch.einsum("bgktd,bksd->bgkts", qg, k.float())
+    if causal:
+        qpos = torch.arange(tq, device=q.device)[:, None]
+        kpos = torch.arange(tk, device=q.device)[None, :]
+        logits = logits.masked_fill(kpos > qpos, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bgkts,bksd->bgktd", probs, v.float())
+    return out.reshape(b, h, tq, hd).to(q.dtype)

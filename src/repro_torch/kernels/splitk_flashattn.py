@@ -1,26 +1,32 @@
-"""SplitK_FlashAttn, paged variant — direct-access tiered decode attention
-(paper §5) on Hopper.
+"""SplitK_FlashAttn — direct-access tiered decode attention (paper §5) on
+Hopper, in both of the reference's layouts.
 
-Ragged, paged decode attention: each slot's KV pages are read from the
-pool its page table names — local pages from HBM, remote pages straight
-from pinned, device-mapped host memory — through a ``window``-deep
-shared-memory ring, slots holding remote pages first, with an fp32 online
-softmax over group-major GQA heads.  The CUDA kernel is
-``csrc/paged_flashattn.cu``; its head note says what bounds it and what
-the design does about that.
+* :func:`paged_splitk_flashattn` — ragged, paged decode attention: each
+  slot's KV pages are read from the pool its page table names (local pages
+  from HBM, remote pages straight from pinned, device-mapped host memory)
+  through a ``window``-deep shared-memory ring, slots holding remote pages
+  first.  CUDA kernel ``csrc/paged_flashattn.cu``; counterpart of the
+  reference's ``_paged_kernel``.  The serving engine's decode step runs it.
+* :func:`splitk_flashattn` — the paper's batch-split layout: requests
+  ``[0, B_loc)`` attend a local cache in HBM and ``[B_loc, B)`` a remote
+  cache in pinned host memory, every request over the same ``kv_len``
+  positions, remote requests first (the reference's host-first batch
+  order, which the kernel takes from its block index).  CUDA kernel ``csrc/splitk_flashattn.cu``; counterpart of the reference's
+  ``_kernel``.  The batch-split ``serving.tiered_decode.tiered_decode_step``
+  runs it.
 
-Counterpart of ``src/repro/kernels/splitk_flashattn.py`` (``_paged_kernel``;
-the batch-split ``_kernel`` is not ported yet).  Also here:
-:func:`scatter_rows`, the decode step's K/V row writer, whose CUDA side
-writes remote rows through the mapped pointer.  A CPU tensor takes each
-function's plain version; a CUDA tensor launches the kernel or raises.
+Both keep an fp32 online softmax over group-major GQA heads; each kernel's
+head note says what bounds it and what the design does about that.  Also
+here: :func:`scatter_rows`, the decode steps' K/V row writer, whose CUDA
+side writes remote rows through the mapped pointer.  A CPU tensor takes
+each function's plain version; a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import paged_flashattn_ref
+from repro_torch.kernels.ref import paged_flashattn_ref, splitk_flashattn_ref
 
 DEFAULT_WINDOW = 2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -107,6 +113,82 @@ def paged_splitk_flashattn(
 
 
 paged_splitk_flashattn.launches = 0   # kernel launches since the count was last reset
+
+
+def _check_cache(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
+    if t.dtype != like.dtype:
+        raise TypeError(f"{name} is {t.dtype}, q is {like.dtype}")
+    if t.dim() != 4 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous [B_tier, S, Kh, hd] cache, "
+                         f"got {tuple(t.shape)}")
+
+
+def splitk_flashattn(
+    q: torch.Tensor,          # [B, H, hd], B = B_loc + B_rem, local requests first
+    k_local: torch.Tensor,    # [B_loc, S, Kh, hd]
+    v_local: torch.Tensor,
+    k_remote: torch.Tensor,   # [B_rem, S, Kh, hd]
+    v_remote: torch.Tensor,
+    *,
+    kv_len: int,
+    window: int = DEFAULT_WINDOW,
+) -> torch.Tensor:
+    """Batch-split tiered flash-decode over positions ``[0, kv_len)`` ->
+    [B, H, hd] in q's dtype.
+
+    Either tier may be empty (offload 0 or 1).  On the card ``q`` and the
+    local cache are device tensors and a non-empty remote cache is pinned
+    host memory that the kernel reads in place.  ``window`` (>= 1) is the
+    depth of the kernel's chunk ring and never changes the result; the
+    kernel sizes its chunks from ``window`` and hd and masks the ragged
+    tail, so any ``S`` is taken."""
+    if q.dim() != 3:
+        raise ValueError(f"q must be a [B, H, hd] tensor, got {tuple(q.shape)}")
+    for name, t in (("k_local", k_local), ("v_local", v_local),
+                    ("k_remote", k_remote), ("v_remote", v_remote)):
+        _check_cache(name, t, q)
+    b, h, hd = q.shape
+    b_loc, s, kh, hd_c = k_local.shape
+    b_rem = k_remote.shape[0]
+    if tuple(v_local.shape) != tuple(k_local.shape) or \
+            tuple(v_remote.shape) != tuple(k_remote.shape) or \
+            tuple(k_remote.shape[1:]) != (s, kh, hd_c):
+        raise ValueError(f"caches do not match: K/V local {tuple(k_local.shape)}/"
+                         f"{tuple(v_local.shape)}, remote {tuple(k_remote.shape)}/"
+                         f"{tuple(v_remote.shape)}")
+    if b != b_loc + b_rem:
+        raise ValueError(f"batch mismatch: q has {b} requests, the tiers {b_loc}+{b_rem}")
+    if hd_c != hd or kh == 0 or h % kh:
+        raise ValueError(f"q [B, H={h}, hd={hd}] does not fit caches with Kh={kh}, hd={hd_c}")
+    if not 1 <= kv_len <= s:
+        raise ValueError(f"kv_len={kv_len} must lie in [1, S={s}]")
+    if q.device.type == "cpu":
+        return splitk_flashattn_ref(q, k_local, v_local, k_remote, v_remote, kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"splitk_flashattn runs on cpu or cuda tensors, got {q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"splitk_flashattn takes float32 or bfloat16, got {q.dtype}")
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous")
+    for name, t in (("k_local", k_local), ("v_local", v_local)):
+        if t.numel() and t.device != q.device:
+            raise ValueError(f"{name} must live on {q.device} (the local tier)")
+    for name, t in (("k_remote", k_remote), ("v_remote", v_remote)):
+        if t.numel() and (t.device.type != "cpu" or not t.is_pinned()):
+            raise ValueError(f"{name} must be pinned host memory (the remote tier)")
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    rc = _build.load().libs["splitk_flashattn"].dak_splitk_attention(
+        q.data_ptr(), k_local.data_ptr(), v_local.data_ptr(), k_remote.data_ptr(),
+        v_remote.data_ptr(), out.data_ptr(), b_loc, b_rem, s, h, kh, hd, int(kv_len),
+        max(1, int(window)), _DTYPES[q.dtype], _build.stream_handle(q.device))
+    _build.check(rc, "splitk_flashattn")
+    splitk_flashattn.launches += 1
+    return out
+
+
+splitk_flashattn.launches = 0   # kernel launches since the count was last reset
 
 
 def scatter_rows_ref(pool: torch.Tensor, rows: torch.Tensor, idx: torch.Tensor,

@@ -4,13 +4,21 @@ Counterpart of the single-chip dense part of
 ``src/repro/serving/tiered_decode.py``.  Params come from
 ``TieringPlan.partition`` (stacked leaves, tierable operands wrapped in
 `TieredTensor`); dispatch is by operand type: every tiered weight goes
-through the direct-access GEMM (`kernels.ops.tiered_matmul`) and the KV
-cache is attended by the paged tiered attention kernel
-(`kernels.ops.paged_decode_attention`), both under the congestion
-``window`` passed per step (it paces copies, never changes results).
+through the direct-access GEMM (`kernels.ops.tiered_matmul`), under the
+congestion ``window`` passed per step (it paces copies, never changes
+results).  Two cache layouts:
 
-Not ported yet: MLA, MoE, SSM and hybrid steps, the mesh fetch, and the
-deprecated batch-split ``tiered_decode_step``.
+* ``paged_tiered_decode_step`` — the serving engine's ragged step over the
+  paged tiered cache, attended by the paged kernel
+  (`kernels.ops.paged_decode_attention`).
+* ``split_cache_batch`` + ``tiered_decode_step`` — the paper's §5
+  slot-aligned layout, kept for the kernel experiments: a dense cache split
+  along the batch, remote requests' rows in pinned host memory, attended by
+  the batch-split kernel (`kernels.ops.tiered_decode_attention`).
+
+Not ported: the reference's deprecated ``partition_dense_params`` shim and
+its ``TIERABLE`` list (``TieringPlan.partition`` is the one partition path
+here).  Not ported yet: MLA, MoE, SSM and hybrid steps, and the mesh fetch.
 """
 from __future__ import annotations
 
@@ -20,12 +28,39 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tiering import TieredTensor
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels.splitk_flashattn import scatter_rows
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models.model import layer_slice
 from repro_torch.serving.paged_cache import LOCAL, REMOTE
+
+
+def split_cache_batch(cache: dict[str, torch.Tensor], kv_ratio: float,
+                      align: int = 1) -> dict[str, torch.Tensor]:
+    """Batch-split a dense KV cache {k, v: [L, B, S, Kh, hd]} across tiers
+    (paper §5: SplitK_FlashAttn partitions the KV cache along the batch).
+
+    Requests [0, B_loc) stay local and the last B_rem ~ kv_ratio * B go
+    remote.  Both halves are fresh copies: the local one on the cache's
+    device, the remote one, on a CUDA device, in one exact-size pinned,
+    device-mapped host buffer (`kernels._build.pinned_empty`).  A caller
+    that drops the unsplit cache frees it, so the remote half does not stay
+    in HBM."""
+    b = cache["k"].shape[1]
+    b_rem = int(round(b * kv_ratio / align)) * align
+    b_loc = b - b_rem
+    out = {}
+    for name in ("k", "v"):
+        full = cache[name]
+        out[f"{name}_local"] = full[:, :b_loc].clone(memory_format=torch.contiguous_format)
+        remote = full[:, b_loc:]
+        if full.device.type == "cuda":
+            out[f"{name}_remote"] = _build.pinned_empty(remote.shape, remote.dtype)
+            out[f"{name}_remote"].copy_(remote)
+        else:
+            out[f"{name}_remote"] = remote.clone(memory_format=torch.contiguous_format)
+    return out
 
 
 def _mm(x: torch.Tensor, w: Any, window: int) -> torch.Tensor:
@@ -84,6 +119,46 @@ def _decode_transformer(
         x = x + _mm(attn, lp["wo"], window)
         x = x + L.mlp_block(cfg, L.norm(cfg, x, lp, "ln2"), lp, mm=kmm)
     return _head(cfg, params, x, window)
+
+
+def tiered_decode_step(
+    cfg: ModelConfig,
+    params: dict[str, Any],          # stacked tiered params
+    cache: dict[str, torch.Tensor],  # from split_cache_batch
+    tokens: torch.Tensor,            # [B,1] int
+    pos: int,
+    *,
+    window: int = 2,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """One slot-aligned decode step over tiered weights + batch-split KV
+    (the paper's §5 layout; dense decoders).  Every request writes its new
+    K/V row at ``pos`` in its own tier, in place, and attends positions
+    [0, pos]; returns (logits [B,1,vocab], the cache)."""
+    b = tokens.shape[0]
+    b_loc = cache["k_local"].shape[1]
+    b_rem = b - b_loc
+    dev = tokens.device
+    # Remote rows go through the row writer, each remote request's
+    # [S, Kh, hd] cache seen as one page of S rows (a CUDA index_put_ cannot
+    # write host memory): request r writes page r at offset pos.
+    wr_tier = torch.zeros(b_rem, dtype=torch.int32, device=dev)
+    wr_idx = torch.arange(b_rem, dtype=torch.int32, device=dev)
+    wr_off = torch.full((b_rem,), pos, dtype=torch.int32, device=dev)
+
+    def write_and_attend(i, q, k_new, v_new, scale=None):   # dense GQA: no scale override
+        for name, new in (("k", k_new), ("v", v_new)):
+            local, remote = cache[f"{name}_local"][i], cache[f"{name}_remote"][i]
+            if b_loc:
+                local[:, pos] = new[:b_loc, 0].to(local.dtype)
+            if b_rem:
+                scatter_rows(remote, new[b_loc:, 0].to(remote.dtype).contiguous(), wr_tier,
+                             wr_idx, wr_off, 0, b_rem, remote=True)
+        layer = {key: cache[key][i] for key in ("k_local", "v_local", "k_remote", "v_remote")}
+        return ops.tiered_decode_attention(q, layer, kv_len=pos + 1, window=window)
+
+    positions = torch.full((b,), pos, dtype=torch.int32, device=dev)
+    logits = _decode_transformer(cfg, params, tokens, positions, window, write_and_attend)
+    return logits, cache
 
 
 def _paged_writer(

@@ -14,15 +14,20 @@ import pytest
 import torch
 
 import repro_torch.configs as TC
-from repro_torch.kernels import _build, ops
+from repro_torch.core import engine as TE
+from repro_torch.core.ebmodel import WorkloadSpec
+from repro_torch.core.hardware import H100_SXM
+from repro_torch.kernels import _build, flash_prefill, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.splitk_flashattn import (
     paged_splitk_flashattn,
     scatter_rows,
     scatter_rows_ref,
+    splitk_flashattn,
 )
 from repro_torch.kernels.splitk_gemm import splitk_gemm
 from repro_torch.models import model as TM
+from repro_torch.serving import tiered_decode as TD
 from repro_torch.serving.engine import Request, ServingEngine
 from torch_helpers import cuda_device, rel_err  # noqa: F401  (fixture)
 
@@ -131,3 +136,81 @@ def test_engine_matches_plain_reference_on_card(cuda_device, ratio):
             want.append(int(torch.argmax(logits.reshape(-1))))
             pos += 1
         assert r.out_tokens == want, f"request {r.rid}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b_loc,b_rem,h,kh,hd,s,kv_len", [
+    (2, 2, 8, 2, 32, 64, 64),           # GQA, whole cache
+    (2, 3, 4, 4, 64, 200, 150),         # kv_len < S, several chunks, ragged last chunk
+    (0, 3, 4, 2, 32, 40, 40),           # every request remote
+    (3, 0, 4, 2, 32, 40, 1),            # every request local, one position
+    (1, 2, 4, 2, 30, 150, 130),         # hd not a multiple of 16 B, several chunks
+])
+@pytest.mark.parametrize("window", [1, 3])
+def test_splitk_flashattn_matches_plain(cuda_device, dtype, b_loc, b_rem, h, kh, hd, s,
+                                        kv_len, window):
+    gen = torch.Generator(device=cuda_device).manual_seed(b_loc * 7 + b_rem)
+    q = torch.randn((b_loc + b_rem, h, hd), generator=gen, device=cuda_device).to(dtype)
+    dev = {f"{kv}_{t}": torch.randn((n, s, kh, hd), generator=gen, device=cuda_device).to(dtype)
+           for kv in ("k", "v") for t, n in (("local", b_loc), ("remote", b_rem))}
+    cache = {k: (_pinned(v) if k.endswith("remote") else v) for k, v in dev.items()}
+    before = splitk_flashattn.launches
+    got = ops.tiered_decode_attention(q, cache, kv_len=kv_len, window=window)
+    torch.cuda.synchronize()
+    assert splitk_flashattn.launches == before + 1
+    want = tref.splitk_flashattn_ref(q, dev["k_local"], dev["v_local"], dev["k_remote"],
+                                     dev["v_remote"], kv_len)
+    assert rel_err(got, want) < TOL[dtype]
+    if b_rem:
+        with pytest.raises(ValueError, match="pinned host memory"):
+            splitk_flashattn(q, dev["k_local"], dev["v_local"], dev["k_remote"],
+                             dev["v_remote"], kv_len=kv_len)      # remote tier on the card
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,kh,t,hd", [
+    (2, 8, 2, 256, 64),                 # GQA: q head h reads kv head h % Kh
+    (1, 4, 4, 100, 128),                # ragged T
+    (2, 4, 1, 77, 30),                  # hd not a multiple of 16
+])
+def test_flash_prefill_matches_plain(cuda_device, dtype, causal, b, h, kh, t, hd):
+    gen = torch.Generator(device=cuda_device).manual_seed(t)
+    q = torch.randn((b, h, t, hd), generator=gen, device=cuda_device).to(dtype)
+    k, v = (torch.randn((b, kh, t, hd), generator=gen, device=cuda_device).to(dtype)
+            for _ in range(2))
+    before = flash_prefill.launches
+    got = flash_prefill(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches == before + 1
+    assert rel_err(got, tref.flash_prefill_ref(q, k, v, causal)) < TOL[dtype]
+
+
+@pytest.mark.parametrize("ratio", [0.0, 0.5, 1.0])
+def test_batch_split_decode_matches_plain_decode_on_card(cuda_device, ratio):
+    """Prefill, split_cache_batch (remote rows pinned) and 4 greedy
+    tiered_decode_steps emit the tokens of the plain decode_step path
+    (fp32, llama2-7b smoke), one attention launch per layer and step."""
+    cfg = TC.get_smoke("llama2_7b")
+    params = TM.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                            device=cuda_device)
+    plan = TE.plan(cfg, WorkloadSpec(batch=4, seq_len=32, phase="decode"), H100_SXM,
+                   global_ratio=0.5)
+    tparams = plan.partition(params, align=32, place_remote=True)
+    prompts = torch.tensor(np.random.default_rng(1).integers(3, cfg.vocab, (4, 6)),
+                           dtype=torch.int32, device=cuda_device)
+    logits, cache = TM.prefill(cfg, tparams, {"tokens": prompts}, max_len=32,
+                               mm=lambda a, w: TD._mm(a, w, 2))
+    kv = TD.split_cache_batch(cache, ratio)
+    assert kv["k_remote"].shape[1] == round(4 * ratio)
+    assert kv["k_remote"].is_pinned()
+    plogits, pcache = TM.prefill(cfg, params, {"tokens": prompts}, max_len=32)
+    tok, ptok = torch.argmax(logits[:, -1], -1), torch.argmax(plogits[:, -1], -1)
+    for i in range(4):
+        assert torch.equal(tok, ptok), f"step {i}"
+        before = splitk_flashattn.launches
+        logits, kv = TD.tiered_decode_step(cfg, tparams, kv, tok[:, None], 6 + i)
+        assert splitk_flashattn.launches == before + cfg.n_layers
+        plogits, pcache = TM.decode_step(cfg, params, pcache, ptok[:, None], 6 + i)
+        tok, ptok = torch.argmax(logits[:, 0], -1), torch.argmax(plogits[:, 0], -1)
+    assert torch.equal(tok, ptok)

@@ -17,7 +17,12 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import tiering as TT
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.splitk_flashattn import paged_splitk_flashattn, scatter_rows
+from repro_torch.kernels import flash_prefill
+from repro_torch.kernels.splitk_flashattn import (
+    paged_splitk_flashattn,
+    scatter_rows,
+    splitk_flashattn,
+)
 from repro_torch.kernels.splitk_gemm import splitk_gemm
 from torch_helpers import FP32_TOL, rel_err
 
@@ -127,11 +132,14 @@ def test_scatter_rows_matches_reference_scatter():
 def test_wrappers_take_the_plain_version_only_on_cpu():
     """CPU tensors compute the plain version and count no launch; any
     other device raises instead of falling back."""
-    before = (splitk_gemm.launches, paged_splitk_flashattn.launches)
+    counters = (splitk_gemm, paged_splitk_flashattn, splitk_flashattn, flash_prefill)
+    before = [f.launches for f in counters]
     x = torch.ones(2, 4)
     y = splitk_gemm(x, torch.ones(4, 3), torch.ones(4, 2))
     assert torch.equal(y, torch.full((2, 5), 4.0))
-    assert (splitk_gemm.launches, paged_splitk_flashattn.launches) == before
+    splitk_flashattn(torch.ones(2, 2, 4), *[torch.ones(1, 3, 1, 4)] * 4, kv_len=2)
+    flash_prefill(torch.ones(1, 2, 3, 4), torch.ones(1, 1, 3, 4), torch.ones(1, 1, 3, 4))
+    assert [f.launches for f in counters] == before
     meta = torch.empty(2, 4, device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         splitk_gemm(meta, torch.empty(4, 3, device="meta"), torch.empty(4, 2, device="meta"))
@@ -140,3 +148,15 @@ def test_wrappers_take_the_plain_version_only_on_cpu():
                                *[torch.empty(2, 1, 1, 4, device="meta")] * 4,
                                *[torch.empty(1, 1, dtype=torch.int32, device="meta")] * 2,
                                torch.empty(1, dtype=torch.int32, device="meta"))
+
+
+def test_batch_split_and_prefill_wrappers_raise_on_other_devices():
+    """The two newer wrappers refuse a tensor that is on neither the CPU nor
+    a CUDA card (here `meta`) instead of falling back."""
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        splitk_flashattn(torch.empty(2, 4, 8, **meta), *[torch.empty(1, 6, 2, 8, **meta)] * 4,
+                         kv_len=3)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        flash_prefill(torch.empty(1, 4, 5, 8, **meta), torch.empty(1, 2, 5, 8, **meta),
+                      torch.empty(1, 2, 5, 8, **meta))
