@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py              # every phase, needs one CUDA card
+    python3 chip_smoke.py              # phases 1-8, needs one CUDA card
+    python3 chip_smoke.py --phases 1,9 # the host-link read probe
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 runs, printing each result on its own line:
@@ -19,7 +20,12 @@ runs, printing each result on its own line:
    `ServingEngine` — requests, tokens/s, TPOT, TTFT, kernel launches, page
    high-water marks, pinned host bytes and peak device memory;
 5. each kernel's time on the card (CUDA events, L2 flushed), its plain
-   version's time, its bound and a library yardstick;
+   version's time, its bound and a library yardstick; the decode GEMM
+   (split-K, the wrapper's design at M <= 16) beside the whole-K design it
+   replaced and prefetch + cuBLAS, in alternating rounds, at offload 0.5
+   and at the planner's split for launch/serve.py's default offload 0.4;
+   the tensor-core `flash_prefill` beside the FMA design; each with its
+   remote GB/s or TFLOP/s;
 6. batch-split token parity: the same 2-layer fp32 model through prefill,
    `split_cache_batch` and greedy `tiered_decode_step`s (the paper's §5
    layout) must emit exactly the tokens of the plain `decode_step` path;
@@ -28,8 +34,13 @@ runs, printing each result on its own line:
    tokens — launches per step, pinned remote rows, peak device memory, TPOT;
 8. `flash_prefill` (off the serving path, as in the reference) through its
    entry point at llama2-7b prefill shape, once per layer;
-9. one JSON line listing the kernels, then the card's name and power
-   limit, then the final JSON status line.
+9. only when asked (``--phases 1,9``), the host-link read probe: a
+   read-only measurement kernel (``csrc/host_probe.cu``, on no path) over
+   64 MiB of pinned host memory, swept over copy form (16-byte cp.async,
+   1-D bulk copy, 2-D TMA), CTAs, bytes in flight per CTA and row width,
+   beside the copy engine (printed lines only);
+then one JSON line listing the kernels, the card's name and power limit,
+and the final JSON status line.
 
 Any failed check exits non-zero; without a CUDA card, or without the port
 beside this file, it exits non-zero and prints no result.  ``--phases``
@@ -56,6 +67,8 @@ HBM_BW = 3.35e12            # H100 SXM data sheet, bytes/s
 BF16_PEAK = 989e12          # H100 SXM dense bf16 FLOP/s
 PCIE_LANE_GBPS = {1: 0.25, 2: 0.5, 3: 0.985, 4: 1.969, 5: 3.938, 6: 7.563}
 DECODE_BATCH = 4
+ROUNDS = 10                 # alternating rounds of the decode GEMM comparison (phase 5)
+SERVE_OFFLOAD = 0.4         # launch/serve.py's default --offload-ratio
 PREFILL_LEN = 128           # prompt length of the paged served run (phase 4)
 SPLIT_PROMPT_LEN = 256      # prompt length of the batch-split served run (phase 7)
 KERNELS = ("splitk_gemm", "paged_attention", "splitk_flashattn", "flash_prefill")
@@ -486,10 +499,114 @@ def time_ms(fn, iters=10, flush=None) -> float:
     return statistics.median(times)
 
 
+def whole_k(x, wl, wr):
+    """splitk_gemm's kernel on its whole-K design (the decode design that
+    split-K replaced, still the prefill design) at any M, through the
+    wrapper's own launch; uncounted.  Returns the call, taking the window."""
+    from repro_torch.kernels.splitk_gemm import _launch
+
+    return lambda window: _launch(x, wl, wr, window, 0)
+
+
+def planner_shapes(ratio: float) -> dict:
+    """(K, N_loc, N_rem) of each llama2-7b projection as the serving
+    engine's planner splits it at global offload `ratio`, with
+    launch/serve.py's other defaults (batch 4, max_len 64, page 8; align
+    128)."""
+    import repro_torch.configs as C
+    from repro_torch.core import engine as E
+    from repro_torch.core.ebmodel import WorkloadSpec
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.tiering import split_sizes
+
+    plan = E.plan(C.get("llama2_7b"), WorkloadSpec(batch=4, seq_len=64, phase="decode"),
+                  H100_SXM, global_ratio=ratio, kv_page_size=8)
+    ratios = {od.path[-1]: plan.op_ratios.get(od.op, 0.0) for od in plan.registry}
+    return {name: (k, *split_sizes(n_loc + n_rem, ratios[name], 128))
+            for name, (k, n_loc, n_rem) in GEMM_SHAPES.items()}
+
+
+def alternate(fns, flush) -> list[list[float]]:
+    """ROUNDS timings of each call in `fns`, in alternating order (forward
+    on even rounds, backward on odd), so the machine's drift falls on each
+    alike."""
+    rounds = [[] for _ in fns]
+    for r in range(ROUNDS):
+        for i in (range(len(fns)) if r % 2 == 0 else range(len(fns) - 1, -1, -1)):
+            rounds[i].append(time_ms(fns[i], flush=flush))
+    return rounds
+
+
 def bound(local_bytes, remote_bytes, flops, link_bw, peak):
     t_bytes = max(local_bytes / HBM_BW, remote_bytes / link_bw)
     t_ops = flops / peak
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_decode_gemm(shapes, window, gen, flush, link, label) -> dict:
+    """The wrapper's decode GEMM (split-K), the whole-K design and prefetch
+    + cuBLAS at M = DECODE_BATCH over `shapes`, in alternating rounds; one
+    line per projection with each one's remote GB/s, then the sums per
+    decode step (32 layers + lm_head)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.splitk_gemm import splitk_gemm
+
+    bf, m = torch.bfloat16, DECODE_BATCH
+    step = dict(ms=0.0, whole_k_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                t_bytes=0.0, t_ops=0.0, rounds=[[0.0, 0.0] for _ in range(ROUNDS)])
+    for name, (k, n_loc, n_rem) in shapes.items():
+        wl, wr, wr_dev = make_tier_pair(k, n_loc, n_rem, bf, gen)
+        count = 1 if name == "lm_head" else 32
+        x = torch.randn((m, k), generator=gen, device="cuda").to(bf)
+        old = whole_k(x, wl, wr)
+        want = ref.splitk_gemm_ref(x, wl, wr_dev)
+        for design, y in (("split-K", splitk_gemm(x, wl, wr, window=window)),
+                          ("whole-K", old(window))):
+            rel, _ = rel_err(y, want)
+            check(rel < TOL[bf], f"splitk_gemm {design} design {label} {name} M={m}: max rel "
+                                 f"err {rel:.2e}")
+        t = {w: time_ms(lambda w=w: splitk_gemm(x, wl, wr, window=w), flush=flush)
+             for w in (1, 2, 4)}
+        t_old = {w: time_ms(lambda w=w: old(w), flush=flush) for w in (1, 2, 4)}
+        t_plain = time_ms(lambda: ref.splitk_gemm_ref(x, wl, wr_dev), flush=flush)
+
+        def prefetch(x=x, wl=wl, wr=wr, wr_dev=wr_dev):
+            wr_dev.copy_(wr, non_blocking=True)
+            return torch.cat([x @ wl, x @ wr_dev], dim=1)
+
+        rounds = alternate([lambda: splitk_gemm(x, wl, wr, window=window),
+                            lambda: old(window), prefetch], flush)
+        t[window], t_old[window], t_lib = (statistics.median(v) for v in rounds)
+        wins = sum(a < b for a, b in zip(rounds[0], rounds[1]))
+        loc_b = (x.numel() + wl.numel() + m * (n_loc + n_rem)) * 2
+        rem_b = wr.numel() * 2
+        flops = 2 * m * k * (n_loc + n_rem)
+        b_ms, b_by = bound(loc_b, rem_b, flops, link, BF16_PEAK)
+        gbs = lambda ms: rem_b / (ms * 1e-3) / 1e9  # noqa: E731
+        print(f"  splitk_gemm {label} {name} M={m} K={k} N={n_loc}|{n_rem} bf16: kernel "
+              f"(split-K) {t[window]:.4f} ms (windows 1/2/4: {t[1]:.4f}/{t[2]:.4f}/{t[4]:.4f}), "
+              f"remote {gbs(t[window]):.2f} GB/s | whole-K design {t_old[window]:.4f} ms "
+              f"(windows 1/2/4: {t_old[1]:.4f}/{t_old[2]:.4f}/{t_old[4]:.4f}), remote "
+              f"{gbs(t_old[window]):.2f} GB/s | window {window}: medians of {ROUNDS} "
+              f"alternating rounds, split-K faster in {wins} | plain {t_plain:.4f} ms | bound "
+              f"{b_ms:.4f} ms ({b_by}) | prefetch+cuBLAS {t_lib:.4f} ms ({gbs(t_lib):.2f} GB/s)")
+        for r in range(ROUNDS):
+            step["rounds"][r][0] += count * rounds[0][r]
+            step["rounds"][r][1] += count * rounds[1][r]
+        step["ms"] += count * t[window]
+        step["whole_k_ms"] += count * t_old[window]
+        step["plain_ms"] += count * t_plain
+        step["bound_ms"] += count * b_ms
+        step["library_ms"] += count * t_lib
+        step["t_bytes"] += count * max(loc_b / HBM_BW, rem_b / link)
+        step["t_ops"] += count * flops / BF16_PEAK
+        del wl, wr, wr_dev
+    step_wins = sum(a < b for a, b in step.pop("rounds"))
+    print(f"  per decode step {label} at batch 4 (32 layers + lm_head): splitk_gemm "
+          f"{step['ms']:.3f} ms (whole-K design {step['whole_k_ms']:.3f} ms, split-K faster in "
+          f"{step_wins} of {ROUNDS} rounds; prefetch+cuBLAS {step['library_ms']:.3f} ms) vs "
+          f"bound {step['bound_ms']:.3f} ms")
+    return step
 
 
 def phase_timing(card: dict, window: int) -> dict:
@@ -501,44 +618,39 @@ def phase_timing(card: dict, window: int) -> dict:
     flush = scratch.zero_
     gen = torch.Generator(device="cuda").manual_seed(3)
     bf = torch.bfloat16
-    step = {"splitk_gemm": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                                t_bytes=0.0, t_ops=0.0),
-            "paged_attention": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
-                                    t_bytes=0.0, t_ops=0.0)}
     n_layers = 32
     print(f"timing on {card['name']} (power limit {card['power']}), CUDA events, "
           f"L2 flushed before each launch, median of 10; window {window} unless noted")
+    step = {"splitk_gemm": time_decode_gemm(GEMM_SHAPES, window, gen, flush, link,
+                                            "offload 0.5"),
+            "paged_attention": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                                    t_bytes=0.0, t_ops=0.0)}
+    # the planner's split at launch/serve.py's default offload (0.4), where
+    # wq, wo and wdown have 26 remote tiles
+    time_decode_gemm(planner_shapes(SERVE_OFFLOAD), window, gen, flush, link,
+                     f"offload {SERVE_OFFLOAD} (planner)")
+    # prefill (M = PREFILL_LEN): the whole-K design, one m-tile
     for name, (k, n_loc, n_rem) in GEMM_SHAPES.items():
         wl, wr, wr_dev = make_tier_pair(k, n_loc, n_rem, bf, gen)
-        count = 1 if name == "lm_head" else 32
-        for m in (DECODE_BATCH, PREFILL_LEN):
-            x = torch.randn((m, k), generator=gen, device="cuda").to(bf)
-            t = {w: time_ms(lambda w=w: splitk_gemm(x, wl, wr, window=w), flush=flush)
-                 for w in (1, 2, 4)}
-            t_plain = time_ms(lambda: ref.splitk_gemm_ref(x, wl, wr_dev), flush=flush)
+        x = torch.randn((PREFILL_LEN, k), generator=gen, device="cuda").to(bf)
+        t = {w: time_ms(lambda w=w: splitk_gemm(x, wl, wr, window=w), flush=flush)
+             for w in (1, 2, 4)}
+        t_plain = time_ms(lambda: ref.splitk_gemm_ref(x, wl, wr_dev), flush=flush)
 
-            def prefetch(x=x, wl=wl, wr=wr, wr_dev=wr_dev):
-                wr_dev.copy_(wr, non_blocking=True)
-                return torch.cat([x @ wl, x @ wr_dev], dim=1)
+        def prefetch(x=x, wl=wl, wr=wr, wr_dev=wr_dev):
+            wr_dev.copy_(wr, non_blocking=True)
+            return torch.cat([x @ wl, x @ wr_dev], dim=1)
 
-            t_lib = time_ms(prefetch, flush=flush)
-            loc_b = (x.numel() + wl.numel() + m * (n_loc + n_rem)) * 2
-            rem_b = wr.numel() * 2
-            flops = 2 * m * k * (n_loc + n_rem)
-            b_ms, b_by = bound(loc_b, rem_b, flops, link, BF16_PEAK)
-            tk = t[window]
-            print(f"  splitk_gemm {name} M={m} K={k} N={n_loc}|{n_rem} bf16: kernel "
-                  f"{tk:.4f} ms (windows 1/2/4: {t[1]:.4f}/{t[2]:.4f}/{t[4]:.4f}) | plain "
-                  f"{t_plain:.4f} ms | bound {b_ms:.4f} ms ({b_by}) | prefetch+cuBLAS "
-                  f"{t_lib:.4f} ms | remote {rem_b / (tk * 1e-3) / 1e9:.2f} GB/s")
-            if m == DECODE_BATCH:
-                s = step["splitk_gemm"]
-                s["ms"] += count * tk
-                s["plain_ms"] += count * t_plain
-                s["bound_ms"] += count * b_ms
-                s["library_ms"] += count * t_lib
-                s["t_bytes"] += count * max(loc_b / HBM_BW, rem_b / link)
-                s["t_ops"] += count * flops / BF16_PEAK
+        t_lib = time_ms(prefetch, flush=flush)
+        loc_b = (x.numel() + wl.numel() + PREFILL_LEN * (n_loc + n_rem)) * 2
+        rem_b = wr.numel() * 2
+        b_ms, b_by = bound(loc_b, rem_b, 2 * PREFILL_LEN * k * (n_loc + n_rem), link,
+                           BF16_PEAK)
+        gbs = lambda ms: rem_b / (ms * 1e-3) / 1e9  # noqa: E731
+        print(f"  splitk_gemm {name} M={PREFILL_LEN} K={k} N={n_loc}|{n_rem} bf16: kernel "
+              f"{t[window]:.4f} ms (windows 1/2/4: {t[1]:.4f}/{t[2]:.4f}/{t[4]:.4f}), remote "
+              f"{gbs(t[window]):.2f} GB/s | plain {t_plain:.4f} ms | bound {b_ms:.4f} ms "
+              f"({b_by}) | prefetch+cuBLAS {t_lib:.4f} ms ({gbs(t_lib):.2f} GB/s)")
         del wl, wr, wr_dev
     # decode attention at the served run's late-step shape: 4 slots, ~150
     # tokens each, pages split across the tiers
@@ -564,21 +676,59 @@ def phase_timing(card: dict, window: int) -> dict:
                 loc_b += 32 * page_bytes
     flops = 4 * sum(lens) * 32 * 128
     b_ms, b_by = bound(loc_b, rem_b, flops, link, BF16_PEAK)
+    lib = paged_prefetch_sdpa(q, pools, table, tier, lens_t)
+    rel, _ = rel_err(lib(), paged_flashattn_ref(
+        q, pools_dev["k_local"], pools_dev["v_local"], pools_dev["k_remote"],
+        pools_dev["v_remote"], table, tier, lens_t))
+    check(rel < TOL[bf], f"paged attention's library yardstick computes the kernel's function "
+                         f"(max rel err {rel:.2e})")
+    t_lib = time_ms(lib, flush=flush)
     tk = t[window]
     print(f"  paged_attention B=4 H=Kh=32 hd=128 page=16 lens={list(lens)} bf16: kernel "
           f"{tk:.4f} ms (windows 1/2/4: {t[1]:.4f}/{t[2]:.4f}/{t[4]:.4f}) | plain "
-          f"{t_plain:.4f} ms | bound {b_ms:.4f} ms ({b_by}) | library call: none | "
-          f"remote {rem_b / (tk * 1e-3) / 1e9:.2f} GB/s")
+          f"{t_plain:.4f} ms | bound {b_ms:.4f} ms ({b_by}) | prefetch+gather+SDPA "
+          f"{t_lib:.4f} ms | remote {rem_b / (tk * 1e-3) / 1e9:.2f} GB/s")
     s = step["paged_attention"]
-    s.update(ms=32 * tk, plain_ms=32 * t_plain, bound_ms=32 * b_ms,
+    s.update(ms=32 * tk, plain_ms=32 * t_plain, bound_ms=32 * b_ms, library_ms=32 * t_lib,
              t_bytes=32 * max(loc_b / HBM_BW, rem_b / link), t_ops=32 * flops / BF16_PEAK)
-    print(f"  per decode step at batch 4 (32 layers + lm_head): splitk_gemm "
-          f"{step['splitk_gemm']['ms']:.3f} ms vs bound {step['splitk_gemm']['bound_ms']:.3f} ms;"
-          f" paged_attention {s['ms']:.3f} ms vs bound {s['bound_ms']:.3f} ms")
+    print(f"  per decode step at batch 4 (32 layers): paged_attention {s['ms']:.3f} ms "
+          f"(prefetch+gather+SDPA {s['library_ms']:.3f} ms) vs bound {s['bound_ms']:.3f} ms")
     del q, pools, pools_dev
     step["splitk_flashattn"] = time_splitk_attention(link, flush, gen, window, n_layers)
     step["flash_prefill"] = time_flash_prefill(flush, gen)
     return step
+
+
+def paged_prefetch_sdpa(q, pools, table, tier, lens):
+    """The library yardstick of paged attention: copy the remote page pool
+    into HBM (one copy each for K and V, the whole pool), gather every
+    slot's pages by its page table, then one scaled_dot_product_attention
+    call with a length mask.  Returns the call to time."""
+    import torch.nn.functional as F
+
+    k_rem = torch.empty_like(pools["k_remote"], device="cuda")
+    v_rem = torch.empty_like(pools["v_remote"], device="cuda")
+    b, mp = table.shape
+    ps, kh, hd = pools["k_local"].shape[1:]
+    h = q.shape[1]
+    idx = table.long()
+    sel = (tier > 0)[..., None, None, None]
+    mask = (torch.arange(mp * ps, device="cuda")[None, :] < lens[:, None].long())[:, None, None]
+
+    def gather(local, remote):
+        pages = torch.where(sel, remote[idx.clamp(max=remote.shape[0] - 1)],
+                            local[idx.clamp(max=local.shape[0] - 1)])
+        kv = pages.reshape(b, mp * ps, kh, hd).transpose(1, 2)
+        return kv.repeat(1, h // kh, 1, 1)         # group-major: q head h reads h % Kh
+
+    def run():
+        k_rem.copy_(pools["k_remote"], non_blocking=True)
+        v_rem.copy_(pools["v_remote"], non_blocking=True)
+        return F.scaled_dot_product_attention(
+            q[:, :, None], gather(pools["k_local"], k_rem), gather(pools["v_local"], v_rem),
+            attn_mask=mask)[:, :, 0]
+
+    return run
 
 
 def time_splitk_attention(link, flush, gen, window, n_layers) -> dict:
@@ -630,6 +780,19 @@ def time_splitk_attention(link, flush, gen, window, n_layers) -> dict:
                 t_ops=n_layers * flops / BF16_PEAK)
 
 
+def fma_prefill(q, k, v):
+    """The FMA design of flash_prefill (the port's fp32 path) on bf16 inputs,
+    causal: what the tensor-core path replaced, timed beside it."""
+    from repro_torch.kernels import _build
+
+    out = torch.empty_like(q)
+    b, h, t, hd = q.shape
+    _build.check(_build.load().libs["flash_prefill"].dak_flash_prefill_fma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, k.shape[1], t,
+        k.shape[2], hd, 1, 1, _build.stream_handle(q.device)), "flash_prefill (FMA design)")
+    return out
+
+
 def time_flash_prefill(flush, gen) -> dict:
     """flash_prefill at B = 4, H = Kh = 32, hd = 128, causal, bf16; the last
     shape timed (T = 2048) is the one the kernels line reports."""
@@ -644,6 +807,10 @@ def time_flash_prefill(flush, gen) -> dict:
         q, k, v = (torch.randn((b, h, t_len, hd), generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(3))
         args = (q, k, v)
+        rel, _ = row_rel_err(fma_prefill(*args), flash_prefill_ref(*args, True))
+        check(rel < TOL[torch.bfloat16], f"flash_prefill FMA design (bf16) T={t_len}: max rel "
+                                         f"err per query row {rel:.2e}")
+        t_fma = time_ms(lambda a=args: fma_prefill(*a), flush=flush)
         tk = time_ms(lambda a=args: flash_prefill(*a, causal=True), flush=flush)
         t_plain = time_ms(lambda a=args: flash_prefill_ref(*a, True), flush=flush)
         t_lib = time_ms(lambda a=args: F.scaled_dot_product_attention(*a, is_causal=True),
@@ -653,11 +820,12 @@ def time_flash_prefill(flush, gen) -> dict:
         t_bytes, t_ops = nbytes / HBM_BW, flops / BF16_PEAK
         b_ms = max(t_bytes, t_ops) * 1e3
         print(f"  flash_prefill B={b} H=Kh={h} T={t_len} hd={hd} causal bf16: kernel {tk:.4f} ms"
-              f" | plain {t_plain:.4f} ms | bound {b_ms:.4f} ms "
-              f"({'bytes' if t_bytes >= t_ops else 'operations'}) | SDPA(is_causal) "
-              f"{t_lib:.4f} ms | {flops / (tk * 1e-3) / 1e12:.2f} TFLOP/s")
-        out = dict(ms=tk, plain_ms=t_plain, bound_ms=b_ms, library_ms=t_lib, t_bytes=t_bytes,
-                   t_ops=t_ops)
+              f" ({flops / (tk * 1e-3) / 1e12:.2f} TFLOP/s) | FMA design {t_fma:.4f} ms "
+              f"({flops / (t_fma * 1e-3) / 1e12:.2f} TFLOP/s) | plain {t_plain:.4f} ms | bound "
+              f"{b_ms:.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}) | SDPA(is_causal) "
+              f"{t_lib:.4f} ms")
+        out = dict(ms=tk, fma_ms=t_fma, plain_ms=t_plain, bound_ms=b_ms, library_ms=t_lib,
+                   t_bytes=t_bytes, t_ops=t_ops)
         del q, k, v, args
     return out
 
@@ -832,6 +1000,121 @@ def phase_flash_prefill() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: how fast kernels read pinned host memory (printed lines only)
+# ---------------------------------------------------------------------------
+PROBE_FORMS = ("cp.async 16 B", "bulk 1-D", "TMA 2-D")
+PROBE_CTAS = (32, 66, 132, 264, 528)
+PROBE_INFLIGHT_KB = (4, 16, 64)
+PROBE_ROW_BYTES = (128, 256, 512)
+
+
+def phase_probe(card: dict) -> None:
+    """Read a 64 MiB pinned, mapped host buffer (a [16384, 4096 B] matrix:
+    the shape of a remote tier of K rows by 2048 bf16 columns) with the
+    read-only probe kernel, sweeping copy form, CTAs, bytes in flight per CTA
+    and the width of each contiguous row read; each rate beside the copy
+    engine's on the same buffer."""
+    from repro_torch.kernels import _build
+
+    lib = _build.load_measurement().libs["host_probe"]
+    rows, pitch = 16384, 4096
+    nbytes = rows * pitch
+    dev = torch.randint(0, 256, (rows, pitch), dtype=torch.uint8, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(9))
+    buf = pinned_copy(dev)
+    want = int((dev.view(torch.int32).long() & 0xFFFFFFFF).sum())
+    scratch = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    t_ce = time_ms(lambda: dev.copy_(buf, non_blocking=True), iters=5, flush=scratch.zero_)
+    ce = nbytes / (t_ce * 1e-3) / 1e9
+    print(f"host-link read probe on {card['name']} (power limit {card['power']}): 64 MiB "
+          f"pinned host buffer; copy engine (cudaMemcpyAsync to HBM) {ce:.2f} GB/s; kernel "
+          f"rates in GB/s, 4-stage ring per CTA, median of 3, L2 flushed")
+    checksum = torch.zeros(1, dtype=torch.int64, device="cuda")
+    stream = _build.stream_handle(torch.device("cuda"))
+    best = {}
+    for form, form_name in enumerate(PROBE_FORMS):
+        for row_b in PROBE_ROW_BYTES:
+            cells = []
+            for ctas in PROBE_CTAS:
+                rates = []
+                for kb in PROBE_INFLIGHT_KB:
+                    stage = kb * 1024 // 4
+
+                    def run(form=form, ctas=ctas, row_b=row_b, stage=stage):
+                        _build.check(lib.dak_host_read_probe(
+                            buf.data_ptr(), rows, pitch, form, ctas, row_b, stage, 0,
+                            checksum.data_ptr(), stream), f"host probe ({form_name})")
+
+                    checksum.zero_()
+                    run()
+                    torch.cuda.synchronize()
+                    got = int(checksum.item()) % 2**64
+                    check(got == want % 2**64, f"probe {form_name} row {row_b} B, {ctas} CTAs, "
+                                               f"{kb} KB in flight read every byte")
+                    rate = nbytes / (time_ms(run, iters=3, flush=scratch.zero_) * 1e-3) / 1e9
+                    rates.append(rate)
+                    if rate > best.get(form_name, (0.0,))[0]:
+                        best[form_name] = (rate, row_b, ctas, kb)
+                cells.append(f"{ctas} CTAs " + "/".join(f"{r:.1f}" for r in rates))
+            print(f"  {form_name:13s} row {row_b:3d} B | in flight {'/'.join(map(str, PROBE_INFLIGHT_KB))}"
+                  f" KB per CTA: " + " | ".join(cells))
+    for form_name, (rate, row_b, ctas, kb) in best.items():
+        print(f"  best {form_name}: {rate:.2f} GB/s ({rate / ce:.2f}x the copy engine) at row "
+              f"{row_b} B, {ctas} CTAs, {kb} KB in flight per CTA")
+    # do kernel reads and the copy engine share one limit? Both at once, on
+    # two streams, each over its own 64 MiB buffer
+    buf2, dev2 = pinned_copy(dev), torch.empty_like(dev)
+    side = torch.cuda.Stream()
+    rate, row_b, ctas, kb = best[PROBE_FORMS[2]]
+    form, stage = 2, kb * 1024 // 4
+
+    def both():
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            dev2.copy_(buf2, non_blocking=True)
+        _build.check(lib.dak_host_read_probe(buf.data_ptr(), rows, pitch, form, ctas, row_b, stage,
+                                             0, checksum.data_ptr(), stream), "host probe")
+        torch.cuda.current_stream().wait_stream(side)
+
+    t_both = time_ms(both, iters=5, flush=scratch.zero_)
+    print(f"  TMA kernel ({ctas} CTAs, {kb} KB in flight, row {row_b} B) and copy engine at once: "
+          f"{2 * nbytes / (t_both * 1e-3) / 1e9:.2f} GB/s together over {t_both:.3f} ms "
+          f"(alone: {rate:.2f} and {ce:.2f} GB/s)")
+    del buf, dev, buf2, dev2
+    # access order: all CTAs down the rows together (as whole-K tiles read)
+    # or one contiguous run of rows each (as the pieces of a K split read),
+    # on this buffer and on one of 1 GiB, too large for any host cache
+    for size_rows in (rows, 16 * rows):
+        dev = torch.randint(0, 256, (size_rows, pitch), dtype=torch.uint8, device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(9))
+        buf = pinned_copy(dev)
+        want = int((dev.view(torch.int32).long() & 0xFFFFFFFF).sum()) % 2**64
+        size = size_rows * pitch
+        t_ce = time_ms(lambda: dev.copy_(buf, non_blocking=True), iters=3, flush=scratch.zero_)
+        cells = []
+        for form in (0, 2):
+            for contiguous in (0, 1):
+                def run(form=form, contiguous=contiguous):
+                    _build.check(lib.dak_host_read_probe(
+                        buf.data_ptr(), size_rows, pitch, form, 264, 512, 16 * 1024 // 4,
+                        contiguous, checksum.data_ptr(), stream), "host probe")
+
+                checksum.zero_()
+                run()
+                torch.cuda.synchronize()
+                check(int(checksum.item()) % 2**64 == want,
+                      f"probe {PROBE_FORMS[form]} {'contiguous' if contiguous else 'round robin'} "
+                      f"{size >> 20} MiB read every byte")
+                r = size / (time_ms(run, iters=3, flush=scratch.zero_) * 1e-3) / 1e9
+                cells.append(f"{PROBE_FORMS[form]} {'runs per CTA' if contiguous else 'rows together'}"
+                             f" {r:.2f}")
+        print(f"  {size >> 20} MiB, 264 CTAs, 16 KB in flight, row 512 B: " + " | ".join(cells)
+              + f" | copy engine {size / (t_ce * 1e-3) / 1e9:.2f} GB/s")
+        del dev, buf
+    del scratch
+
+
+# ---------------------------------------------------------------------------
 def add_launches(launches: dict, path: dict) -> None:
     """Keep each kernel's count from the first path run that launched it: the
     paged served run (phase 4) for the kernels of the main path."""
@@ -842,7 +1125,8 @@ def add_launches(launches: dict, path: dict) -> None:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
-                    help="comma-separated subset of phases 1-8 (default: all)")
+                    help="comma-separated subset of phases 1-9 (default: 1-8; 9 is the "
+                         "host-link read probe)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -886,6 +1170,9 @@ def main(argv: list[str] | None = None) -> int:
     if 8 in phases:
         print("phase 8: flash_prefill at llama2-7b prefill shape (off the serving path)")
         add_launches(launches, phase_flash_prefill()["launches"])
+    if 9 in phases:
+        print("phase 9: host-link read probe (copy form x CTAs x bytes in flight x row width)")
+        phase_probe(card)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

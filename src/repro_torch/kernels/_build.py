@@ -28,6 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("splitk_gemm", "paged_flashattn", "splitk_flashattn", "flash_prefill",
            "host_mem")
+MEASUREMENT_SOURCES = ("host_probe",)   # kernels on no path, built only when asked
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -35,12 +36,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _DAK_ERRORS = {
     -1: "remote-tier pointer is not pinned host memory mapped into the device",
     -2: "shape or launch parameter the kernel does not take",
+    -3: "the driver refused to encode a tensor map",
 }
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "splitk_gemm": {
-        "dak_splitk_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "dak_splitk_gemm": [_P] * 4 + [_I] * 6 + [_P, _P, _I, _P],
     },
     "paged_flashattn": {
         "dak_paged_attention": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _I, _I, _P],
@@ -51,11 +53,15 @@ _SIGNATURES = {
     },
     "flash_prefill": {
         "dak_flash_prefill": [_P] * 4 + [_I] * 8 + [_P],
+        "dak_flash_prefill_fma": [_P] * 4 + [_I] * 8 + [_P],
     },
     "host_mem": {
         "dak_host_alloc": [ctypes.c_size_t, ctypes.POINTER(ctypes.c_void_p)],
         "dak_host_free": [_P],
         "dak_check_mapped": [_P],
+    },
+    "host_probe": {
+        "dak_host_read_probe": [_P] + [_I] * 7 + [_P, _P],
     },
 }
 
@@ -91,10 +97,10 @@ def _digest(name: str) -> str:
     return h.hexdigest()[:16]
 
 
-def _build_all() -> KernelLibs:
+def _build_all(names: tuple[str, ...]) -> KernelLibs:
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
-    targets = {name: out / f"{name}-{_digest(name)}.so" for name in SOURCES}
+    targets = {name: out / f"{name}-{_digest(name)}.so" for name in names}
     procs = {}
     for name, so in targets.items():
         if so.exists():
@@ -121,17 +127,26 @@ def _build_all() -> KernelLibs:
     return KernelLibs(libs, ptxas)
 
 
-_LOADED: KernelLibs | None = None
+_LOADED: dict[tuple[str, ...], KernelLibs] = {}
+
+
+def _load(names: tuple[str, ...]) -> KernelLibs:
+    if names not in _LOADED:
+        if not torch.cuda.is_available():
+            raise RuntimeError("the CUDA kernels need a CUDA device")
+        _LOADED[names] = _build_all(names)
+    return _LOADED[names]
 
 
 def load() -> KernelLibs:
-    """Build (if needed) and load every kernel library, once per process."""
-    global _LOADED
-    if _LOADED is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("the CUDA kernels need a CUDA device")
-        _LOADED = _build_all()
-    return _LOADED
+    """Build (if needed) and load the port's kernel libraries, once per process."""
+    return _load(SOURCES)
+
+
+def load_measurement() -> KernelLibs:
+    """Build (if needed) and load the measurement kernels (``MEASUREMENT_SOURCES``),
+    once per process; no path of the port runs them."""
+    return _load(MEASUREMENT_SOURCES)
 
 
 def check(rc: int, what: str) -> None:

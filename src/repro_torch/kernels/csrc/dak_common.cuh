@@ -12,6 +12,7 @@
 // which are all positive).
 #define DAK_ERR_NOT_MAPPED_HOST (-1)   // remote pointer is not mapped host memory
 #define DAK_ERR_BAD_ARGUMENT (-2)      // shape or launch parameter out of range
+#define DAK_ERR_TENSOR_MAP (-3)        // the driver refused to encode a tensor map
 
 __device__ __forceinline__ void cp_async_16(void* smem_dst, const void* gmem_src,
                                             int src_bytes) {

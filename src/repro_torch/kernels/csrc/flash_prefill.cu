@@ -7,41 +7,71 @@
 //
 // q [B, H, Tq, hd], k/v [B, Kh, Tk, hd] -> out [B, H, Tq, hd].  Group-major
 // GQA: query head h reads kv head h % Kh (not h // G).  Causal masks key
-// positions above the query position (both counted from 0).
+// positions above the query position (both counted from 0), with the
+// reference's finite mask value -1e30.
 //
 // Bound on this card: operations for any prompt longer than a few dozen
-// tokens.  Attention does ~2*T*hd multiply-adds per query row (half that,
-// causal) on q/k/v bytes that are each read once, so at T = 2048 it needs
-// ~1000 FLOP per byte, far above the ~295 at which the H100's bf16 tensor
-// cores (989 TFLOP/s) rather than HBM become the limit.
+// tokens.  Causal attention does 2 * hd multiply-adds per (query, key) pair
+// with key <= query on q/k/v bytes that are each read once, so at T = 2048
+// it needs ~1000 FLOP per byte, far above the ~295 at which the H100's bf16
+// tensor cores (989 TFLOP/s) rather than HBM become the limit.  So the
+// products must run on the tensor cores, and the loads must hide behind
+// them.  Two paths, chosen by dtype:
 //
-// What this first version does (it is right and simple; wgmma/mma.sync
-// with TMA-fed tiles is the later, fast version):
-//  * One CTA (256 threads) per (q tile, head, batch); blockIdx.x runs the
-//    q tiles last to first, so the causal tiles with the most keys start
-//    first and the short ones fill in behind them.
-//  * The CTA's q tile (pre-scaled by hd**-0.5) and each k/v tile live in
-//    shared memory as fp32, rows padded by one float against bank conflicts.
-//    Every tile is 64 rows (TILE): a q tile and two k/v tiles in fp32 at
-//    hd 128 take 114 KiB, at hd 256 210 KiB, within the 227 KiB a block may
-//    use.
-//  * Key tiles wholly above the diagonal are never loaded (the loop stops
-//    at the tile's last query row); ragged Tq/Tk edges are masked, so any
-//    T is taken (the reference demands T % block == 0).
-//  * fp32 online softmax (one warp per query row), scores and P·V by plain
-//    FMA in fp32 registers: each thread owns 4x4 scores and 4 rows of the
-//    output at 16-column stride.
+// bfloat16: tensor cores (FlashAttention-2's layout on mma.sync).
+//  * One CTA of 8 warps per (head, batch, q tile of 128 rows); each warp
+//    owns 16 query rows.  The grid runs the q tiles last to first across
+//    all heads and batches (blockIdx.z is the slowest axis), so the causal
+//    tiles with the most keys start first and the short ones fill in
+//    behind them.
+//  * Q (128 rows) and a 2-stage ring of K/V tiles (64 keys each) stay bf16
+//    in shared memory, rows padded by 16 bytes so that the 8 row addresses
+//    of every ldmatrix fall in distinct banks.  K/V tile j+1 arrives by
+//    cp.async while tile j is computed, with one CTA barrier per tile.
+//  * S = Q K^T and O += P V run through mma.sync m16n8k16 (bf16 in, fp32
+//    accumulate), fragments fed by ldmatrix (V by ldmatrix.trans).  Q's
+//    fragments are loaded once into registers (hd <= 128).
+//  * Online softmax on the fp32 accumulator fragments in registers: row max
+//    and sum by quad shuffles, exp2f with the softmax scale folded into
+//    log2(e).  P is rounded to bf16 in registers and is the A operand of
+//    P V; no score tile goes through shared memory.
+//  * Causal: key tiles above the CTA's last query row are never loaded;
+//    a warp skips a key tile that lies wholly above its 16 rows, and only
+//    tiles that cross the diagonal (or the ragged Tk edge) are masked.
+//  * What bounds it then: with 16 query rows per warp each K or V fragment
+//    feeds two products, so every warp reads 32 KB of shared memory per
+//    K/V tile by ldmatrix, as many cycles of shared-memory bandwidth as the
+//    tile's products take on the tensor cores.  Two m-tiles per warp, or
+//    wgmma reading B once per warpgroup, is the next step.
+//  * Ragged Tq, Tk and any hd <= 256 are taken: rows and columns past the
+//    edge are zero-filled in shared memory (hd is padded to 32, 64, 128 or
+//    256).  Rows whose length is not a multiple of 16 bytes, or pointers
+//    that are not 16-byte aligned, load with plain loads instead of
+//    cp.async.
+//
+// float32: plain FMA (the reference's fp32 bound, 2e-4, rules out TF32).
+//  * One CTA (256 threads) per (q tile of 64 rows, head, batch), q tiles
+//    last to first; fp32 tiles in shared memory, rows padded by one float;
+//    each thread owns 4 x 4 scores and 4 output rows at 16-column stride;
+//    one warp per query row for the online softmax.
+// `dak_flash_prefill_fma` exposes the fp32 path's kernel for bf16 inputs
+// too; nothing in the port calls it (the chip smoke test times it beside the
+// tensor-core path).
 #include <cmath>
 
 #include "dak_common.cuh"
 
 namespace {
 
+constexpr float NEG_INF = -1e30f;     // the reference's mask value, finite
+
+// ---------------------------------------------------------------------------
+// The FMA path (float32).
+// ---------------------------------------------------------------------------
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int TILE = 64;              // rows of a q tile and of a k tile
 static_assert(TILE * TILE == 16 * THREADS, "each thread owns 4 x 4 scores of a tile");
-constexpr float NEG_INF = -1e30f;     // the reference's mask value, finite
 
 // DJ: output columns per thread (hd <= 16 * DJ).
 template <typename T, int DJ>
@@ -214,16 +244,293 @@ int dispatch_prefill(const void* q, const void* k, const void* v, void* out, int
   return launch_prefill<T, 16>(q, k, v, out, B, H, Kh, Tq, Tk, hd, causal, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core path (bfloat16).
+// ---------------------------------------------------------------------------
+constexpr int TC_WARPS = 8;
+constexpr int TC_THREADS = 32 * TC_WARPS;
+constexpr int TC_BQ = 16 * TC_WARPS;  // query rows of a CTA, 16 per warp
+constexpr int TC_BK = 64;             // keys of a K/V tile
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d[16x8] += a[16x16] (row) * b[16x8] (col), bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// HD: hd padded to a multiple of 16 (32, 64, 128 or 256).  VEC: hd % 8 == 0
+// and 16-byte aligned operands, so tiles load by cp.async.
+template <int HD, bool VEC>
+__global__ void __launch_bounds__(TC_THREADS, 1) flash_prefill_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ out, int H, int Kh, int Tq, int Tk, int hd, int causal,
+    float scale_log2) {
+  constexpr int LD = HD + 8;          // padded row: 8 rows' 16 B pieces hit 8 distinct banks
+  constexpr int KV_TILE = TC_BK * LD;
+  constexpr bool Q_IN_REGS = HD <= 128;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // [TC_BQ][LD]
+  bf16* kv_s = q_s + TC_BQ * LD;                    // [2 stages][K, V][TC_BK][LD]
+
+  const int h = blockIdx.x, b = blockIdx.y, kvh = h % Kh;
+  const int n_qt = (Tq + TC_BQ - 1) / TC_BQ;
+  const int q0 = (n_qt - 1 - (int)blockIdx.z) * TC_BQ;
+  const int qrows = Tq - q0 < TC_BQ ? Tq - q0 : TC_BQ;
+  const bf16* qg = q + (((size_t)b * H + h) * Tq + q0) * hd;
+  const bf16* kg = k + ((size_t)b * Kh + kvh) * Tk * hd;
+  const bf16* vg = v + ((size_t)b * Kh + kvh) * Tk * hd;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t4 = lane % 4;   // fragment row (and row + 8), column pair 2 * t4
+
+  // rows [0, R) of `src` ([*, hd] row-major) into dst [R][LD]; rows from
+  // `valid` on and columns from hd on are zeros
+  auto load_tile = [&](bf16* dst, const bf16* src, int valid, int R) {
+    constexpr int CPR = HD / 8;          // 16-byte pieces per row
+    for (int c = tid; c < R * CPR; c += TC_THREADS) {
+      const int r = c / CPR, col = (c % CPR) * 8;
+      bf16* d = dst + r * LD + col;
+      if constexpr (VEC) {
+        const bool ok = r < valid && col < hd;
+        cp_async_16(d, ok ? src + (size_t)r * hd + col : src, ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          d[e] = r < valid && col + e < hd ? src[(size_t)r * hd + col + e] : __float2bfloat16(0.f);
+      }
+    }
+  };
+  auto load_kv = [&](int j) {
+    const int k0 = j * TC_BK;
+    bf16* ks = kv_s + (j & 1) * 2 * KV_TILE;
+    load_tile(ks, kg + (size_t)k0 * hd, Tk - k0, TC_BK);
+    load_tile(ks + KV_TILE, vg + (size_t)k0 * hd, Tk - k0, TC_BK);
+  };
+
+  // keys up to the tile's last query row (causal) or all of them
+  const int k_end = causal ? (q0 + qrows < Tk ? q0 + qrows : Tk) : Tk;
+  const int n_kt = (k_end + TC_BK - 1) / TC_BK;
+  load_tile(q_s, qg, qrows, TC_BQ);
+  load_kv(0);
+  cp_async_commit();
+
+  const int wr0 = q0 + warp * 16;          // the warp's first query row
+  float o[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF};       // running max (log2 units), rows g and g + 8
+  float l_r[2] = {0.f, 0.f};               // this thread's part of the running sum
+  uint32_t qf[Q_IN_REGS ? HD / 16 : 1][4];
+  const bf16* q_row = q_s + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
+
+  for (int j = 0; j < n_kt; ++j) {
+    cp_async_wait(0);                      // tile j (and Q) have landed
+    __syncthreads();                       // ... for every thread, and tile j - 1 is consumed
+    if (j + 1 < n_kt) load_kv(j + 1);      // into the stage tile j - 1 left; lands during j
+    cp_async_commit();
+    if constexpr (Q_IN_REGS) {
+      if (j == 0) {
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) ldmatrix_x4(qf[kk], q_row + kk * 16);
+      }
+    }
+    const int k0 = j * TC_BK;
+    // skip a tile wholly above the warp's rows, and warps past Tq
+    if (wr0 < Tq && (!causal || k0 <= wr0 + 15)) {
+      const bf16* ks = kv_s + (j & 1) * 2 * KV_TILE;
+      const bf16* vs = ks + KV_TILE;
+      float s[TC_BK / 8][4];
+#pragma unroll
+      for (int n = 0; n < TC_BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t a[4];
+        if constexpr (Q_IN_REGS) {
+          a[0] = qf[kk][0]; a[1] = qf[kk][1]; a[2] = qf[kk][2]; a[3] = qf[kk][3];
+        } else {
+          ldmatrix_x4(a, q_row + kk * 16);
+        }
+#pragma unroll
+        for (int np = 0; np < TC_BK / 16; ++np) {
+          uint32_t bb[4];   // keys np*16 + [0, 8) and [8, 16), hd kk*16 + [0, 16)
+          ldmatrix_x4(bb, ks + (np * 16 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 +
+                              ((lane / 8) % 2) * 8);
+          mma_bf16(s[2 * np], a, bb[0], bb[1]);
+          mma_bf16(s[2 * np + 1], a, bb[2], bb[3]);
+        }
+      }
+      // scale into log2 units; mask only tiles that cross the diagonal or Tk
+      const bool masked = k0 + TC_BK > Tk || (causal && k0 + TC_BK - 1 > wr0);
+      float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+      for (int n = 0; n < TC_BK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[n][e] * scale_log2;
+          if (masked) {
+            const int col = k0 + n * 8 + 2 * t4 + (e & 1);
+            const int row = wr0 + g + (e >= 2 ? 8 : 0);
+            if (col >= Tk || (causal && col > row)) x = NEG_INF;
+          }
+          s[n][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        corr[i] = exp2f(m_r[i] - mx[i]);
+        m_r[i] = mx[i];
+      }
+#pragma unroll
+      for (int n = 0; n < TC_BK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = exp2f(s[n][e] - mx[e >> 1]);
+          rs[e >> 1] += s[n][e];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l_r[i] = l_r[i] * corr[i] + rs[i];
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        o[n][0] *= corr[0];
+        o[n][1] *= corr[0];
+        o[n][2] *= corr[1];
+        o[n][3] *= corr[1];
+      }
+      // O += P V, P from the score fragments (bf16), V by ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < TC_BK / 16; ++kk) {
+        const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int np = 0; np < HD / 16; ++np) {
+          uint32_t bb[4];   // keys kk*16 + [0, 16), hd np*16 + [0, 8) and [8, 16)
+          ldmatrix_x4_trans(bb, vs + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD +
+                                    np * 16 + (lane / 16) * 8);
+          mma_bf16(o[2 * np], a, bb[0], bb[1]);
+          mma_bf16(o[2 * np + 1], a, bb[2], bb[3]);
+        }
+      }
+    }
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_r[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[i] = 1.f / fmaxf(l, 1e-30f);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = wr0 + g + 8 * i;
+    if (row >= Tq) continue;
+    bf16* og = out + (((size_t)b * H + h) * Tq + row) * hd;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      const int col = n * 8 + 2 * t4;
+      const float x0 = o[n][2 * i] * inv[i], x1 = o[n][2 * i + 1] * inv[i];
+      if constexpr (VEC) {
+        if (col < hd) *reinterpret_cast<__nv_bfloat162*>(og + col) = __floats2bfloat162_rn(x0, x1);
+      } else {
+        if (col < hd) og[col] = __float2bfloat16(x0);
+        if (col + 1 < hd) og[col + 1] = __float2bfloat16(x1);
+      }
+    }
+  }
+}
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+template <int HD, bool VEC>
+int launch_tc(const void* q, const void* k, const void* v, void* out, int B, int H, int Kh,
+              int Tq, int Tk, int hd, int causal, cudaStream_t stream) {
+  constexpr size_t smem = (size_t)(TC_BQ + 4 * TC_BK) * (HD + 8) * sizeof(bf16);
+  static_assert(smem <= 227 * 1024, "Q and two K/V stages must fit in shared memory");
+  auto kern = flash_prefill_tc_kernel<HD, VEC>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(H, B, (Tq + TC_BQ - 1) / TC_BQ);
+  kern<<<grid, TC_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), H, Kh, Tq, Tk, hd, causal,
+      1.4426950408889634f / sqrtf((float)hd));
+  return cudaGetLastError();
+}
+
+template <int HD>
+int dispatch_tc_vec(const void* q, const void* k, const void* v, void* out, int B, int H, int Kh,
+                    int Tq, int Tk, int hd, int causal, cudaStream_t stream) {
+  const bool vec = hd % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out);
+  return vec ? launch_tc<HD, true>(q, k, v, out, B, H, Kh, Tq, Tk, hd, causal, stream)
+             : launch_tc<HD, false>(q, k, v, out, B, H, Kh, Tq, Tk, hd, causal, stream);
+}
+
+int dispatch_tc(const void* q, const void* k, const void* v, void* out, int B, int H, int Kh,
+                int Tq, int Tk, int hd, int causal, cudaStream_t stream) {
+  if ((Tq + TC_BQ - 1) / TC_BQ > 65535) return DAK_ERR_BAD_ARGUMENT;
+  if (hd <= 32) return dispatch_tc_vec<32>(q, k, v, out, B, H, Kh, Tq, Tk, hd, causal, stream);
+  if (hd <= 64) return dispatch_tc_vec<64>(q, k, v, out, B, H, Kh, Tq, Tk, hd, causal, stream);
+  if (hd <= 128) return dispatch_tc_vec<128>(q, k, v, out, B, H, Kh, Tq, Tk, hd, causal, stream);
+  return dispatch_tc_vec<256>(q, k, v, out, B, H, Kh, Tq, Tk, hd, causal, stream);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hd <= 256.  Returns 0, a cudaError_t, or
-// a DAK_ERR_* code.
+static inline bool prefill_args_ok(int B, int H, int Kh, int Tq, int Tk, int hd, int dtype) {
+  return B > 0 && H > 0 && Kh > 0 && H % Kh == 0 && Tq > 0 && Tk > 0 && hd > 0 && hd <= 256 &&
+         (dtype == 0 || dtype == 1) && H <= 65535 && B <= 65535;
+}
+
+// dtype: 0 = float32 (the FMA path), 1 = bfloat16 (the tensor-core path);
+// hd <= 256.  Returns 0, a cudaError_t, or a DAK_ERR_* code.
 extern "C" int dak_flash_prefill(const void* q, const void* k, const void* v, void* out, int B,
                                  int H, int Kh, int Tq, int Tk, int hd, int causal, int dtype,
                                  void* stream) {
-  if (B <= 0 || H <= 0 || Kh <= 0 || H % Kh || Tq <= 0 || Tk <= 0 || hd <= 0 || hd > 256 ||
-      (dtype != 0 && dtype != 1) || H > 65535 || B > 65535)
-    return DAK_ERR_BAD_ARGUMENT;
+  if (!prefill_args_ok(B, H, Kh, Tq, Tk, hd, dtype)) return DAK_ERR_BAD_ARGUMENT;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? dispatch_prefill<float>(q, k, v, out, B, H, Kh, Tq, Tk, hd, causal != 0, s)
+                    : dispatch_tc(q, k, v, out, B, H, Kh, Tq, Tk, hd, causal != 0, s);
+}
+
+// The FMA path's kernel for either dtype (for timing it beside the tensor
+// cores in bf16).  Same arguments and codes as dak_flash_prefill.
+extern "C" int dak_flash_prefill_fma(const void* q, const void* k, const void* v, void* out,
+                                     int B, int H, int Kh, int Tq, int Tk, int hd, int causal,
+                                     int dtype, void* stream) {
+  if (!prefill_args_ok(B, H, Kh, Tq, Tk, hd, dtype)) return DAK_ERR_BAD_ARGUMENT;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0
              ? dispatch_prefill<float>(q, k, v, out, B, H, Kh, Tq, Tk, hd, causal != 0, s)

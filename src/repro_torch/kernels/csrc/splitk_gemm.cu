@@ -9,29 +9,57 @@
 // math units are the limit.  Local tiles stream from HBM (3.35 TB/s);
 // remote tiles stream from pinned host memory over the PCIe host link
 // (64 GB/s nominal for Gen5 x16), so the remote tier's bytes over the link
-// rate is the floor, and the local tier finishes long before it.
+// rate is the floor, and the local tier finishes long before it.  On the
+// H100 machines measured, kernels read pinned host memory at 30-33 GB/s at
+// most, whatever the copy form, CTA count, bytes in flight or row width
+// (chip_smoke.py --phases 1,9), 0.58-0.70x the copy engine's 45-54 GB/s on
+// the same buffer; both designs below run at that cap.
 //
-// What the design does about it:
-//  * Direct access: a remote tile reads its K-chunks straight from the
-//    mapped host pointer into shared memory (cp.async), never staging the
-//    remote tier into HBM.  Each output tile reads only its home tier.
-//  * Host-first order: blockIdx.x < n_rem_tiles are the remote tiles, so
-//    the hardware issues the long-latency host reads first and the local
-//    tiles fill the SMs behind them (`host_first_order` in the reference).
-//  * `window` is the depth of the shared-memory ring: up to `window`
-//    K-chunks of a tile are in flight at once (cp.async commit/wait groups),
-//    the congestion window of the paper mapped onto one CTA.
-//  * Each weight byte is read once per m-tile: BM = 16 covers a decode
-//    batch in one m-tile, BM = 64 or 128 a whole-prompt prefill of up to
-//    that many tokens; longer prompts re-read the weight ceil(M/128) times.
-//  * Plain FMA into fp32 registers: at these intensities the math is not
-//    the limit, so wgmma/TMA wait for a later change.
-// Ragged M, N and K edges are masked here (zero-filled cp.async); a tier
+// Split-K decode (M <= 16; `k_split` > 0).
+//  * Direct access: every remote tile reads its weight straight from the
+//    mapped host pointer into shared memory, never staging the remote tier
+//    in HBM.  Each output tile reads only its home tier.
+//  * Split along K: a tile of DBN = 64 columns is cut into
+//    ceil(K / k_split) pieces of `k_split` rows (a multiple of DBK), one
+//    CTA each, both tiers alike, so a remote tier of a few tiles still
+//    puts a CTA per SM and its bytes in flight on the card; the wrapper's
+//    `decode_k_split` aims at one remote CTA per SM, and a remote tier of
+//    that many tiles takes one split.  Against the whole-K design: level
+//    at llama2-7b's offload-0.5 tiers (32-250 remote tiles, within 3%
+//    either way), 4-8x faster at a remote tier of 2 tiles (chip_smoke.py
+//    phase 5, H100 80GB HBM3, 700 W).
+//  * Bulk copies: each load is one TMA box of DBK x DBN weights (128 B
+//    contiguous per row in bf16, 4 KB a box) plus the DBK columns of x,
+//    through tensor maps encoded on the device pointers (the remote one on
+//    the mapped host pointer), completing on one mbarrier per stage.  One
+//    thread issues a whole load, so a CTA of 64 threads keeps its loads in
+//    flight; issuing the same loads as 16-byte cp.async from every thread
+//    of these small CTAs read host memory several times slower in a trial.
+//  * `window` is the number of loads in flight per CTA (the paper's
+//    congestion window): a ring of `window` stages, each refilled as soon
+//    as it is consumed.  It never changes the result.
+//  * Host-first order: blockIdx.x below the remote CTA count are remote, so
+//    the long-latency host reads are issued first.
+//  * Partial sums go to an fp32 workspace [splits][M][N]; the last CTA to
+//    arrive on a tile (a ticket counter per tile, reset by that CTA) adds
+//    the partials in split order 0, 1, ... and writes y, so the result
+//    does not depend on scheduling and the GEMM stays one launch.
+//  * Plain FMA into fp32 registers, one output column per thread.
+// Whole K (`k_split` == 0: prefill, and decode operands a tensor map cannot
+// describe): one CTA per (m-tile, 64 columns), remote tiles first, each
+// walking all of K through a `window`-deep cp.async ring of 32-row chunks.
+// BM = 64 or 128 covers a whole-prompt prefill of up to that many tokens in
+// one m-tile; longer prompts re-read the weight ceil(M/128) times.  Plain
+// FMA into fp32 registers.
+// Ragged M, N and K edges are masked (TMA and cp.async zero-fill); a tier
 // may be empty.
-#include "dak_common.cuh"
+#include "tma.cuh"
 
 namespace {
 
+// ---------------------------------------------------------------------------
+// Whole-K tiles (prefill, and decode operands a tensor map cannot describe).
+// ---------------------------------------------------------------------------
 constexpr int BN = 64;
 constexpr int BK = 32;
 constexpr int THREADS = 256;
@@ -184,15 +212,191 @@ int dispatch(const void* x, const void* wl, const void* wr, void* y, int M, int 
              : launch<T, 128, false>(xt, wlt, wrt, yt, M, K, n_loc, n_rem, stages, stream);
 }
 
+
+// ---------------------------------------------------------------------------
+// Split-K decode tiles.
+// ---------------------------------------------------------------------------
+constexpr int DBN = 64;               // columns of a decode tile, one per thread
+constexpr int DBK = 32;               // rows of a load
+constexpr int DTHREADS = DBN;
+constexpr size_t DSMEM_MAX = 200 * 1024;
+
+// One load: DBK x DBN weights, then MB x DBK of x.  A stage holds one load,
+// rounded up to the 128-byte alignment a TMA destination needs.
+template <typename T, int MB>
+__host__ __device__ constexpr uint32_t load_bytes() {
+  return (uint32_t)((DBK * DBN + MB * DBK) * sizeof(T));
+}
+template <typename T, int MB>
+__host__ __device__ constexpr uint32_t stage_bytes() {
+  return (load_bytes<T, MB>() + 127) / 128 * 128;
+}
+
+template <typename T, int MB>
+__global__ void __launch_bounds__(DTHREADS) splitk_gemm_decode_kernel(
+    __grid_constant__ const CUtensorMap x_map,    // x [M, K], box DBK x MB
+    __grid_constant__ const CUtensorMap wl_map,   // w_local [K, n_loc], box DBN x DBK
+    __grid_constant__ const CUtensorMap wr_map,   // w_remote [K, n_rem] (mapped host)
+    T* __restrict__ y, float* __restrict__ ws, int* __restrict__ tickets, int M, int K,
+    int n_loc, int n_rem, int n_loc_tiles, int n_rem_tiles, int splits, int k_split,
+    int stages) {
+  extern __shared__ __align__(128) unsigned char smem[];   // [stages][stage], bars
+  constexpr uint32_t STAGE = stage_bytes<T, MB>();
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + stages * STAGE);
+  __shared__ bool last;
+
+  // remote CTAs first; within a tier, the tiles of one split are neighbours
+  const int n_rem_ctas = n_rem_tiles * splits;
+  const bool remote = (int)blockIdx.x < n_rem_ctas;
+  const int idx = remote ? (int)blockIdx.x : (int)blockIdx.x - n_rem_ctas;
+  const int n_tiles = remote ? n_rem_tiles : n_loc_tiles;
+  const int tile = idx % n_tiles, split = idx / n_tiles;
+  const CUtensorMap* w_map = remote ? &wr_map : &wl_map;
+  const int n_w = remote ? n_rem : n_loc;
+  const int col0 = tile * DBN;                    // within the tier
+  const int k_begin = split * k_split;
+  const int k_end = k_begin + k_split < K ? k_begin + k_split : K;
+  const int n_ld = (k_end - k_begin + DBK - 1) / DBK;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&bars[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  auto issue = [&](int i) {       // load i of this CTA into stage i % stages
+    if (tid != 0) return;
+    unsigned char* st = smem + (i % stages) * STAGE;
+    uint64_t* bar = &bars[i % stages];
+    const int k0 = k_begin + i * DBK;
+    mbar_expect_tx(bar, load_bytes<T, MB>());
+    tma_load_2d(st, w_map, col0, k0, bar);
+    tma_load_2d(st + DBK * DBN * sizeof(T), &x_map, k0, 0, bar);
+  };
+  for (int i = 0; i < stages && i < n_ld; ++i) issue(i);
+
+  float acc[MB];
+#pragma unroll
+  for (int m = 0; m < MB; ++m) acc[m] = 0.f;
+  for (int i = 0; i < n_ld; ++i) {
+    mbar_wait(&bars[i % stages], (i / stages) & 1);
+    const T* w_s = reinterpret_cast<const T*>(smem + (i % stages) * STAGE);
+    const T* x_s = w_s + DBK * DBN;             // [MB][DBK]
+#pragma unroll 8
+    for (int k = 0; k < DBK; ++k) {
+      const float w = to_f32(w_s[k * DBN + tid]);
+#pragma unroll
+      for (int m = 0; m < MB; ++m) acc[m] = fmaf(to_f32(x_s[m * DBK + k]), w, acc[m]);
+    }
+    __syncthreads();                            // every thread is done with the stage
+    if (i + stages < n_ld) issue(i + stages);
+  }
+
+  const int col = col0 + tid;
+  const int ldy = n_loc + n_rem;
+  const int out_col = (remote ? n_loc : 0) + col;
+  T* yc = y + out_col;
+  if (splits == 1) {
+    if (col < n_w) {
+#pragma unroll
+      for (int m = 0; m < MB; ++m)
+        if (m < M) yc[(size_t)m * ldy] = from_f32<T>(acc[m]);
+    }
+    return;
+  }
+  // one split of a tile: publish the partial, the last to arrive reduces
+  if (col < n_w) {
+#pragma unroll
+    for (int m = 0; m < MB; ++m)
+      if (m < M) ws[((size_t)split * M + m) * ldy + out_col] = acc[m];
+  }
+  int* ticket = tickets + (remote ? tile : n_rem_tiles + tile);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(ticket, 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (col < n_w) {
+    for (int m = 0; m < M; ++m) {
+      float sum = 0.f;
+      for (int s = 0; s < splits; ++s) sum += __ldcg(ws + ((size_t)s * M + m) * ldy + out_col);
+      yc[(size_t)m * ldy] = from_f32<T>(sum);
+    }
+  }
+  if (tid == 0) *ticket = 0;                    // ready for the next launch
+}
+
+template <typename T, int MB>
+int launch_decode(const T* x, const T* wl, const T* wr, T* y, float* ws, int* tickets, int M,
+                  int K, int n_loc, int n_rem, int window, int k_split, cudaStream_t stream) {
+  constexpr int ELEM = sizeof(T);
+  CUtensorMap x_map{}, wl_map{}, wr_map{};
+  // a tier that is empty gets a map of one box of x (never read)
+  if (int e = dak_encode_2d(&x_map, x, ELEM, K, M, (uint64_t)K * ELEM, DBK, MB)) return e;
+  if (int e = n_loc ? dak_encode_2d(&wl_map, wl, ELEM, n_loc, K, (uint64_t)n_loc * ELEM, DBN, DBK)
+                    : dak_encode_2d(&wl_map, x, ELEM, K, M, (uint64_t)K * ELEM, DBK, MB))
+    return e;
+  if (int e = n_rem ? dak_encode_2d(&wr_map, wr, ELEM, n_rem, K, (uint64_t)n_rem * ELEM, DBN, DBK)
+                    : dak_encode_2d(&wr_map, x, ELEM, K, M, (uint64_t)K * ELEM, DBK, MB))
+    return e;
+  const int n_loc_tiles = (n_loc + DBN - 1) / DBN, n_rem_tiles = (n_rem + DBN - 1) / DBN;
+  const int splits = (K + k_split - 1) / k_split;
+  const int max_ld = ((k_split < K ? k_split : K) + DBK - 1) / DBK;
+  constexpr size_t STAGE = stage_bytes<T, MB>();
+  int stages = window < max_ld ? window : max_ld;
+  if (stages < 1) stages = 1;
+  if ((size_t)stages * STAGE > DSMEM_MAX) stages = (int)(DSMEM_MAX / STAGE);
+  const size_t smem = (size_t)stages * (STAGE + sizeof(uint64_t));
+  auto kern = splitk_gemm_decode_kernel<T, MB>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kern<<<(n_rem_tiles + n_loc_tiles) * splits, DTHREADS, smem, stream>>>(
+      x_map, wl_map, wr_map, y, ws, tickets, M, K, n_loc, n_rem, n_loc_tiles, n_rem_tiles, splits,
+      k_split, stages);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_decode(const void* x, const void* wl, const void* wr, void* y, float* ws,
+                    int* tickets, int M, int K, int n_loc, int n_rem, int window, int k_split,
+                    cudaStream_t stream) {
+  constexpr int EPC = 16 / sizeof(T);
+  // tensor maps need 16-byte aligned bases and row pitches
+  if (M > 16 || k_split % DBK || K % EPC || n_loc % EPC || n_rem % EPC || !aligned16(x) ||
+      (n_loc && !aligned16(wl)) || (n_rem && !aligned16(wr)) ||
+      (k_split < K && (ws == nullptr || tickets == nullptr)))
+    return DAK_ERR_BAD_ARGUMENT;
+  const T* xt = static_cast<const T*>(x);
+  const T* wlt = static_cast<const T*>(wl);
+  const T* wrt = static_cast<const T*>(wr);
+  T* yt = static_cast<T*>(y);
+#define DAK_DECODE(MB) \
+  launch_decode<T, MB>(xt, wlt, wrt, yt, ws, tickets, M, K, n_loc, n_rem, window, k_split, stream)
+  if (M <= 1) return DAK_DECODE(1);
+  if (M <= 2) return DAK_DECODE(2);
+  if (M <= 4) return DAK_DECODE(4);
+  if (M <= 8) return DAK_DECODE(8);
+  return DAK_DECODE(16);
+#undef DAK_DECODE
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  w_remote must be mapped host memory
-// when n_rem > 0.  Returns 0, a cudaError_t, or a DAK_ERR_* code.
+// when n_rem > 0.  k_split > 0 takes the split-K decode design (M <= 16,
+// k_split a multiple of 32 rows; K, n_loc and n_rem multiples of 16 bytes and
+// 16-byte aligned operands; when k_split < K, `workspace` holds
+// ceil(K / k_split) * M * (n_loc + n_rem) floats and `tickets`
+// ceil(n_loc / 64) + ceil(n_rem / 64) zeroed ints); k_split == 0 the
+// whole-K design.  Returns 0, a cudaError_t, or a
+// DAK_ERR_* code.
 extern "C" int dak_splitk_gemm(const void* x, const void* w_local, const void* w_remote,
                                void* y, int M, int K, int n_loc, int n_rem, int window,
-                               int dtype, void* stream) {
+                               int k_split, void* workspace, void* tickets, int dtype,
+                               void* stream) {
   if (M <= 0 || K <= 0 || n_loc < 0 || n_rem < 0 || n_loc + n_rem <= 0 || window < 1 ||
-      (dtype != 0 && dtype != 1))
+      k_split < 0 || (dtype != 0 && dtype != 1))
     return DAK_ERR_BAD_ARGUMENT;
   const void* wr = nullptr;
   if (n_rem > 0) {
@@ -200,10 +404,18 @@ extern "C" int dak_splitk_gemm(const void* x, const void* w_local, const void* w
     if (e) return e;
   }
   const void* wl = n_loc > 0 ? w_local : nullptr;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k_split > 0) {
+    float* ws = static_cast<float*>(workspace);
+    int* tk = static_cast<int*>(tickets);
+    return dtype == 0 ? dispatch_decode<float>(x, wl, wr, y, ws, tk, M, K, n_loc, n_rem, window,
+                                               k_split, s)
+                      : dispatch_decode<__nv_bfloat16>(x, wl, wr, y, ws, tk, M, K, n_loc, n_rem,
+                                                       window, k_split, s);
+  }
   const int n_k = (K + BK - 1) / BK;
   int stages = window < n_k ? window : n_k;
   if (stages > DAK_MAX_WINDOW) stages = DAK_MAX_WINDOW;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? dispatch<float>(x, wl, wr, y, M, K, n_loc, n_rem, stages, s)
                     : dispatch<__nv_bfloat16>(x, wl, wr, y, M, K, n_loc, n_rem, stages, s);
 }

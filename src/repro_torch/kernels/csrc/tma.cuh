@@ -1,0 +1,121 @@
+// Hopper bulk-copy helpers shared by the direct-access kernels: mbarriers
+// that count bytes, 1-D bulk copies (cp.async.bulk) and 2-D tensor copies
+// (TMA, cp.async.bulk.tensor) from global memory into shared memory, and
+// the host-side encoding of a 2-D tensor map.  Global memory here includes
+// pinned host memory mapped into the device: under unified addressing a
+// bulk or tensor copy reads it over the host link like any other address.
+//
+// `cuTensorMapEncodeTiled` is a driver function; it is fetched through the
+// runtime's driver entry point, so no library needs `-lcuda`.
+#pragma once
+
+#include <cuda.h>
+
+#include "dak_common.cuh"
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One arrival (the thread that also posts the byte count) per phase.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Arrive and announce `bytes` of copies that will complete on `bar`.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase with parity `parity` of `bar` has completed.  A copy
+// that never completes (a byte count that does not match what was issued)
+// traps after some seconds instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == (1u << 26)) __trap();
+  }
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_copy_g2s(void* smem_dst, const void* gmem_src,
+                                              uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(smem_dst)),
+      "l"(gmem_src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The box of `tmap` at (column c0, row c1) into shared memory, completing on
+// `bar`; rows past the tensor's edge arrive as zeros.
+__device__ __forceinline__ void tma_load_2d(void* smem_dst, const CUtensorMap* tmap, int c0,
+                                            int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(smem_dst)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+typedef CUresult (*dak_encode_tiled_fn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                        const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                        const cuuint32_t*, CUtensorMapInterleave,
+                                        CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                        CUtensorMapFloatOOBfill);
+
+// A row-major [rows, cols] matrix of 2- or 4-byte elements whose rows
+// are `pitch_bytes` apart, read in boxes of box_rows x box_cols with no
+// swizzle.  Returns 0 or DAK_ERR_TENSOR_MAP.
+static inline int dak_encode_2d(CUtensorMap* map, const void* base, int elem_bytes,
+                                uint64_t cols, uint64_t rows, uint64_t pitch_bytes,
+                                uint32_t box_cols, uint32_t box_rows) {
+  static dak_encode_tiled_fn encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+    cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess || fn == nullptr) {
+      cudaGetLastError();
+      return DAK_ERR_TENSOR_MAP;
+    }
+    encode = reinterpret_cast<dak_encode_tiled_fn>(fn);
+  }
+  if (elem_bytes != 2 && elem_bytes != 4) return DAK_ERR_TENSOR_MAP;
+  const CUtensorMapDataType type =
+      elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {pitch_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
+                            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : DAK_ERR_TENSOR_MAP;
+}

@@ -2,8 +2,11 @@
 
 Tiled online-softmax attention with group-major GQA (q head h reads kv head
 h % Kh) and key tiles above the causal diagonal skipped.  The CUDA kernel
-is ``csrc/flash_prefill.cu``; its head note says what bounds it and what
-the design does about that.
+is ``csrc/flash_prefill.cu``; its head note says what bounds it (the
+tensor cores' operations, at any real prompt length) and what the design
+does about that.  Two paths, by dtype: bfloat16 runs on the tensor cores
+(mma.sync, bf16 tiles fed by cp.async, softmax in registers); float32 runs
+by plain FMA, since TF32 would miss the reference's fp32 bound of 2e-4.
 
 Counterpart of ``src/repro/kernels/flash_prefill.py``.  As in the
 reference it is off the serving path: prefill attends through
@@ -32,8 +35,8 @@ def flash_prefill(
 
     Unlike the reference, any Tq and Tk are taken: the kernel masks the
     ragged edge.  The reference's ``block_q``/``block_k`` are not taken:
-    the kernel's tiles are fixed at 64 rows, the most its shared memory
-    holds in fp32."""
+    the kernel's tiles are fixed, 128 query rows by 64 keys in bf16 and
+    64 by 64 in fp32."""
     if q.dim() != 4 or k.dim() != 4 or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"q must be [B, H, Tq, hd] and k, v [B, Kh, Tk, hd], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")

@@ -186,6 +186,55 @@ def test_flash_prefill_matches_plain(cuda_device, dtype, causal, b, h, kh, t, hd
     assert rel_err(got, tref.flash_prefill_ref(q, k, v, causal)) < TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype,k", [(torch.bfloat16, 4096), (torch.bfloat16, 11008),
+                                     (torch.float32, 4096)])
+@pytest.mark.parametrize("m", [1, 4, 16])
+@pytest.mark.parametrize("n_loc,n_rem", [(1000, 520), (0, 776), (264, 0), (2048, 2056)])
+def test_splitk_gemm_decode_design_matches_plain(cuda_device, dtype, m, k, n_loc, n_rem):
+    """Decode (M <= 16) at llama2-7b's K, with N that is no multiple of the
+    64-column tile, an empty tier each way, every case on the split-K design
+    (4 to 32 splits of K); windows 1 and 3; the result is the same
+    bits on a second launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n_loc)
+    x = torch.randn((m, k), generator=gen, device=cuda_device).to(dtype)
+    wl = (torch.randn((k, n_loc), generator=gen, device=cuda_device) * 0.02).to(dtype)
+    wr_dev = (torch.randn((k, n_rem), generator=gen, device=cuda_device) * 0.02).to(dtype)
+    wr = _pinned(wr_dev)
+    want = tref.splitk_gemm_ref(x, wl, wr_dev)
+    for window in (1, 3):
+        before = splitk_gemm.launches
+        got = splitk_gemm(x, wl, wr, window=window)
+        again = splitk_gemm(x, wl, wr, window=window)
+        torch.cuda.synchronize()
+        assert splitk_gemm.launches == before + 2
+        assert rel_err(got, want) < TOL[dtype]
+        assert torch.equal(got, again)
+
+
+def _row_rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max over query rows of |a - b| / max |b| of that row."""
+    a, b = a.float(), b.float()
+    return float(((a - b).abs().amax(-1) / (b.abs().amax(-1) + 1e-9)).max())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("t", [1, 63, 65, 1000, 2048])
+def test_flash_prefill_tensor_cores_match_plain(cuda_device, causal, hd, t):
+    """The bf16 tensor-core path at ragged and full-tile T, GQA (8 q heads
+    over 2 kv heads), checked row by row."""
+    gen = torch.Generator(device=cuda_device).manual_seed(t * hd)
+    q = torch.randn((2, 8, t, hd), generator=gen, device=cuda_device).to(torch.bfloat16)
+    k, v = (torch.randn((2, 2, t, hd), generator=gen, device=cuda_device).to(torch.bfloat16)
+            for _ in range(2))
+    before = flash_prefill.launches
+    got = flash_prefill(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches == before + 1
+    assert torch.isfinite(got.float()).all()
+    assert _row_rel_err(got, tref.flash_prefill_ref(q, k, v, causal)) < TOL[torch.bfloat16]
+
+
 @pytest.mark.parametrize("ratio", [0.0, 0.5, 1.0])
 def test_batch_split_decode_matches_plain_decode_on_card(cuda_device, ratio):
     """Prefill, split_cache_batch (remote rows pinned) and 4 greedy

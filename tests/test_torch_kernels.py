@@ -23,7 +23,13 @@ from repro_torch.kernels.splitk_flashattn import (
     scatter_rows,
     splitk_flashattn,
 )
-from repro_torch.kernels.splitk_gemm import splitk_gemm
+from repro_torch.kernels.splitk_gemm import (
+    DECODE_BK,
+    DECODE_BN,
+    REMOTE_CTAS_PER_SM,
+    decode_k_split,
+    splitk_gemm,
+)
 from torch_helpers import FP32_TOL, rel_err
 
 
@@ -160,3 +166,37 @@ def test_batch_split_and_prefill_wrappers_raise_on_other_devices():
     with pytest.raises(ValueError, match="cpu or cuda"):
         flash_prefill(torch.empty(1, 4, 5, 8, **meta), torch.empty(1, 2, 5, 8, **meta),
                       torch.empty(1, 2, 5, 8, **meta))
+
+
+H100_SMS = 132
+# (K, N_rem) of every llama2-7b projection at offload 0.5, as the decode
+# design sees them (wq, wkv, wo, wi, wdown, lm_head)
+LLAMA2_7B_REMOTE = [(4096, 2048), (4096, 4096), (4096, 2048), (4096, 11008), (11008, 2048),
+                    (4096, 16000)]
+
+
+@pytest.mark.parametrize("k,n_loc,n_rem,sms", [(k, n, n, H100_SMS) for k, n in LLAMA2_7B_REMOTE]
+                         + [(4096, 3968, 128, H100_SMS), (11008, 3968, 128, H100_SMS),
+                            (100, 0, 520, H100_SMS), (32, 8, 256, H100_SMS),
+                            (4096, 1024, 0, H100_SMS), (4096, 0, 0, H100_SMS),
+                            (11008, 0, 300_000, H100_SMS), (4096, 64, 64, 1),
+                            # wq/wo and wdown as the planner splits them at
+                            # launch/serve.py's default offload 0.4 (align 128)
+                            (4096, 2432, 1664, H100_SMS), (11008, 2432, 1664, H100_SMS)])
+def test_decode_k_split_covers_k_and_fills_the_card(k, n_loc, n_rem, sms):
+    """The decode design's K split: non-empty splits starting at multiples
+    of DECODE_BK that cover [0, K) exactly and give one remote CTA per SM
+    (local ones when the remote tier is empty) wherever K has enough loads;
+    a remote tier of that many tiles or more is not split."""
+    split = decode_k_split(n_loc, n_rem, k, sms)
+    tiles = max(1, -(-(n_rem or n_loc) // DECODE_BN))
+    loads = -(-k // DECODE_BK)
+    assert split > 0 and split % DECODE_BK == 0
+    bounds = [(b, min(k, b + split)) for b in range(0, k, split)]
+    assert all(b % DECODE_BK == 0 and e > b for b, e in bounds)
+    assert bounds[0][0] == 0 and bounds[-1][1] == k
+    assert all(e == nb for (_, e), (nb, _) in zip(bounds, bounds[1:]))
+    ctas = tiles * len(bounds)
+    assert ctas >= min(REMOTE_CTAS_PER_SM * sms, tiles * loads)
+    if tiles >= REMOTE_CTAS_PER_SM * sms:
+        assert len(bounds) == 1
