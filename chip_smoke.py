@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # phases 1-8, needs one CUDA card
     python3 chip_smoke.py --phases 1,9 # the host-link read probe
+    python3 chip_smoke.py --phases 1,5,9,10  # timings, probe, replaced designs
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 runs, printing each result on its own line:
@@ -17,15 +18,19 @@ runs, printing each result on its own line:
 3. token parity: a 2-layer full-width llama2-7b in fp32 served by the
    engine must emit exactly the tokens of the plain per-request reference;
 4. the served run: full llama2-7b (32 layers, bf16) at offload 0.5 through
-   `ServingEngine` — requests, tokens/s, TPOT, TTFT, kernel launches, page
-   high-water marks, pinned host bytes and peak device memory;
+   `ServingEngine` — requests, tokens/s, TPOT, TTFT, kernel launches (32
+   paged-attention launches per decode step), page high-water marks, pinned
+   host bytes and peak device memory; then one torch.profiler trace of
+   three more decode steps: the device's busy share and the top kernels;
 5. each kernel's time on the card (CUDA events, L2 flushed), its plain
    version's time, its bound and a library yardstick; the decode GEMM
    (split-K, the wrapper's design at M <= 16) beside the whole-K design it
    replaced and prefetch + cuBLAS, in alternating rounds, at offload 0.5
    and at the planner's split for launch/serve.py's default offload 0.4;
-   the tensor-core `flash_prefill` beside the FMA design; each with its
-   remote GB/s or TFLOP/s;
+   both decode-attention kernels as the device time of their launch alone
+   (the wrapper call and its host time beside it), at the served runs'
+   shapes and at a long cache; the tensor-core `flash_prefill` beside the
+   FMA design; each with its remote GB/s or TFLOP/s;
 6. batch-split token parity: the same 2-layer fp32 model through prefill,
    `split_cache_batch` and greedy `tiered_decode_step`s (the paper's §5
    layout) must emit exactly the tokens of the plain `decode_step` path;
@@ -38,7 +43,11 @@ runs, printing each result on its own line:
    read-only measurement kernel (``csrc/host_probe.cu``, on no path) over
    64 MiB of pinned host memory, swept over copy form (16-byte cp.async,
    1-D bulk copy, 2-D TMA), CTAs, bytes in flight per CTA and row width,
-   beside the copy engine (printed lines only);
+   beside the copy engine; with phase 5, each attention kernel's remote
+   rate against the probe's best read;
+10. only when asked (``--phases 1,10``), both decode-attention kernels
+   beside the design they replaced (``csrc/decode_attn_cpasync.cu``, on no
+   path), each launch alone in alternating rounds, at phase 5's shapes;
 then one JSON line listing the kernels, the card's name and power limit,
 and the final JSON status line.
 
@@ -71,6 +80,9 @@ ROUNDS = 10                 # alternating rounds of the decode GEMM comparison (
 SERVE_OFFLOAD = 0.4         # launch/serve.py's default --offload-ratio
 PREFILL_LEN = 128           # prompt length of the paged served run (phase 4)
 SPLIT_PROMPT_LEN = 256      # prompt length of the batch-split served run (phase 7)
+PAGED_LENS = (150, 144, 139, 158)        # the paged served run's late-step lengths (phase 5)
+PAGED_LONG_LENS = (2000, 1937, 2048, 1985)   # a long cache: 122-128 pages per slot
+SPLIT_KV_LEN = 288          # the batch-split served run's late-step length (phase 5)
 KERNELS = ("splitk_gemm", "paged_attention", "splitk_flashattn", "flash_prefill")
 
 FAILURES: list[str] = []
@@ -330,6 +342,8 @@ def phase_kernels() -> dict:
               windows=(2,), gen=gen, alias_v=True, h=16, kh=1, hd=72, ps=4)
     attn_case("unaligned", b=3, mp=3, p_loc=4, p_rem=4, lens=(9, 0, 12), dtype=bf,
               windows=(1, 2), gen=gen, h=4, kh=2, hd=30, ps=4)
+    attn_case("long cache", b=DECODE_BATCH, mp=128, p_loc=300, p_rem=300, lens=PAGED_LONG_LENS,
+              dtype=bf, windows=(1, 2, 4), gen=gen, stats=stats["paged_attention"], **full)
     scatter_case(gen)
     f32 = torch.float32
     for dtype in (bf, f32):
@@ -341,6 +355,8 @@ def phase_kernels() -> dict:
     splitk_attn_case("ragged", 2, 2, 32, 32, 128, 300, (300, 37), bf, (1, 2), gen)
     splitk_attn_case("gqa", 2, 3, 8, 2, 64, 200, (1, 150, 200), f32, (1, 2, 4), gen)
     splitk_attn_case("unaligned", 1, 2, 8, 2, 30, 40, (17, 40), bf, (1, 3), gen)
+    splitk_attn_case("long cache", 2, 2, 32, 32, 128, 2048, (2048, 1999), bf, (1, 2, 4), gen,
+                     stats=stats["splitk_flashattn"])
     for t in (128, 256, 2048):
         for dtype in (bf, f32):
             prefill_case("full-width", DECODE_BATCH, 32, 32, t, 128, dtype, gen,
@@ -470,12 +486,62 @@ def phase_serve() -> dict:
               for r in reqs), f"every request emitted {new_tokens} tokens in [0, vocab)")
     check(launches["splitk_gemm"] > 0 and launches["paged_attention"] > 0,
           "both kernels launched on the main path")
+    check(launches["paged_attention"] == cfg.n_layers * stats.decode_steps,
+          f"paged attention launched exactly {cfg.n_layers} times per decode step")
     check(stats.local_pages_hwm >= 1 and stats.remote_pages_hwm >= 1,
           "KV pages resident in both tiers")
     check(peak < total_w, "peak device memory below the model's total weight bytes "
                           "(the remote tier never came into HBM)")
+    profile_decode_steps(eng, cfg, rng, prompt_len)
     return {"launches": launches, "tpot_ms": stats.tpot * 1e3,
             "steps": stats.decode_steps}
+
+
+def profile_decode_steps(eng, cfg, rng, prompt_len, steps=3) -> None:
+    """One torch.profiler trace of `steps` paged decode steps of the served
+    engine at batch 4 (after the served run, on fresh requests, prefill
+    outside the trace): the device's busy share of the steps' wall time and
+    the kernels that take most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.engine import Request
+
+    for i in range(DECODE_BATCH):
+        eng.submit(Request(rid=1000 + i, max_new_tokens=steps + 3,
+                           prompt=rng.integers(3, cfg.vocab, prompt_len).astype(np.int32)))
+    eng.step()                                  # admissions, prefills and one decode step
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    eng.run()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    busy, end = 0.0, -1.0
+    for a, b in spans:                          # union of the device intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    if busy == 0.0:
+        print(f"  profiler: {steps} paged decode steps traced, but torch.profiler recorded "
+              f"no device time on this machine; no breakdown")
+        return
+    self_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                                getattr(e, "self_cuda_time_total", 0.0))
+    rows = sorted((e for e in prof.key_averages() if self_us(e) > 0
+                   and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA),
+                  key=self_us, reverse=True) or sorted(
+        (e for e in prof.key_averages() if self_us(e) > 0), key=self_us, reverse=True)
+    print(f"  profiler: {steps} paged decode steps at batch 4 in {wall_us / 1e3:.2f} ms of host "
+          f"wall time ({wall_us / steps / 1e3:.2f} ms per step); device busy "
+          f"{busy / 1e3:.2f} ms ({busy / wall_us:.1%}), idle {(wall_us - busy) / 1e3:.2f} ms")
+    for e in rows[:12]:
+        print(f"    {self_us(e) / 1e3 / steps:9.3f} ms per step  {e.count // steps:5d} calls per "
+              f"step  {e.key[:100]}")
 
 
 # ---------------------------------------------------------------------------
@@ -610,7 +676,7 @@ def time_decode_gemm(shapes, window, gen, flush, link, label) -> dict:
 
 
 def phase_timing(card: dict, window: int) -> dict:
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ref
     from repro_torch.kernels.splitk_gemm import splitk_gemm
 
     link = card["link_bw"]
@@ -622,9 +688,7 @@ def phase_timing(card: dict, window: int) -> dict:
     print(f"timing on {card['name']} (power limit {card['power']}), CUDA events, "
           f"L2 flushed before each launch, median of 10; window {window} unless noted")
     step = {"splitk_gemm": time_decode_gemm(GEMM_SHAPES, window, gen, flush, link,
-                                            "offload 0.5"),
-            "paged_attention": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                                    t_bytes=0.0, t_ops=0.0)}
+                                            "offload 0.5")}
     # the planner's split at launch/serve.py's default offload (0.4), where
     # wq, wo and wdown have 26 remote tiles
     time_decode_gemm(planner_shapes(SERVE_OFFLOAD), window, gen, flush, link,
@@ -652,51 +716,134 @@ def phase_timing(card: dict, window: int) -> dict:
               f"{gbs(t[window]):.2f} GB/s | plain {t_plain:.4f} ms | bound {b_ms:.4f} ms "
               f"({b_by}) | prefetch+cuBLAS {t_lib:.4f} ms ({gbs(t_lib):.2f} GB/s)")
         del wl, wr, wr_dev
-    # decode attention at the served run's late-step shape: 4 slots, ~150
-    # tokens each, pages split across the tiers
-    from repro_torch.kernels.ref import paged_flashattn_ref
+    # decode attention at the served runs' late-step shapes, then at a long
+    # cache
+    step["paged_attention"] = per_step(time_paged_attention(
+        "served", PAGED_LENS, 10, link, flush, gen, window), n_layers)
+    time_paged_attention("long cache", PAGED_LONG_LENS, 128, link, flush, gen, window)
+    step["splitk_flashattn"] = per_step(time_splitk_attention(
+        "served", 512, SPLIT_KV_LEN, link, flush, gen, window), n_layers)
+    time_splitk_attention("long cache", 2048, 2048, link, flush, gen, window)
+    for name in ("paged_attention", "splitk_flashattn"):
+        s = step[name]
+        print(f"  per decode step ({n_layers} layers): {name} {s['ms']:.3f} ms (device; "
+              f"wrapper calls {s['wrapper_ms']:.3f}, host {s['host_ms']:.3f}) | library "
+              f"{s['library_ms']:.3f} ms | bound {s['bound_ms']:.3f} ms")
+    step["flash_prefill"] = time_flash_prefill(flush, gen)
+    return step
 
-    lens = (150, 144, 139, 158)
-    q, pools, pools_dev, table, tier, lens_t = paged_inputs(
-        DECODE_BATCH, 32, 32, 128, 16, 10, 20, 20, lens, bf, gen)
-    t = {w: time_ms(lambda w=w: ops.paged_decode_attention(q, pools, table, tier, lens_t,
-                                                           window=w), flush=flush)
-         for w in (1, 2, 4)}
+
+def per_step(t: dict, n_layers: int) -> dict:
+    """A decode-attention kernel's per-launch times as per decode step (one
+    launch per layer)."""
+    return {k: n_layers * v for k, v in t.items()}
+
+
+def host_ms(fn, iters=50) -> float:
+    """Mean host time of one call of `fn` (what a served step pays per call
+    before the card sees the launch), from the host clock around `iters`
+    calls in a row."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize()
+    return t * 1e3
+
+
+def paged_timing_inputs(lens, mp, gen):
+    """Paged operands at B = len(lens), H = Kh = 32, hd 128, page 16, bf16,
+    whose pools hold exactly the pages the slots use, each once (plus the
+    sink): every page of the byte count is read from its tier once, and the
+    library yardstick copies only the remote pages in use.  Returns q, the
+    kernel's pools, their device copies, table, tier, lens, and the local
+    and remote bytes of the pages in use."""
+    b, ps, kh, hd = len(lens), 16, 32, 128
+    rng = np.random.default_rng(b * 1000 + mp)
+    tier = rng.integers(0, 2, size=(b, mp))
+    used = np.arange(mp)[None, :] < np.asarray([-(-n // ps) for n in lens])[:, None]
+    table = np.zeros((b, mp), np.int64)
+    n_pages = {}
+    for t in (0, 1):
+        sel = used & (tier == t)
+        n_pages[t] = int(sel.sum())
+        table[sel] = rng.permutation(n_pages[t])
+
+    def pool(p):
+        return torch.randn((p + 1, ps, kh, hd), generator=gen, device="cuda").to(torch.bfloat16)
+
+    pools_dev = {f"{kv}_{name}": pool(n_pages[t]) for kv in ("k", "v")
+                 for name, t in (("local", 0), ("remote", 1))}
+    pools = {k: (pinned_copy(v) if k.endswith("remote") else v) for k, v in pools_dev.items()}
+    q = torch.randn((b, 32, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    as_dev = lambda a: torch.tensor(np.asarray(a, np.int32), device="cuda")  # noqa: E731
+    page_bytes = ps * kh * hd * 2 * 2                     # K + V of one page, all kv heads
+    return (q, pools, pools_dev, as_dev(table), as_dev(tier), as_dev(lens),
+            n_pages[0] * page_bytes, n_pages[1] * page_bytes)
+
+
+def attention_line(name, label, shape, t, t_wrap, t_host, t_plain, t_lib, b_ms, b_by, rem_b,
+                   window) -> None:
+    gbs = lambda ms: rem_b / (ms * 1e-3) / 1e9  # noqa: E731
+    print(f"  {name} {label} {shape} bf16: kernel {t[window]:.4f} ms (device, the launch "
+          f"alone; windows 1/2/4: {t[1]:.4f}/{t[2]:.4f}/{t[4]:.4f}), remote "
+          f"{gbs(t[window]):.2f} GB/s | wrapper call {t_wrap:.4f} ms (events), host "
+          f"{t_host:.4f} ms per call | plain {t_plain:.4f} ms | bound {b_ms:.4f} ms ({b_by}) | "
+          f"library {t_lib:.4f} ms ({gbs(t_lib):.2f} GB/s) | remote bytes {rem_b}")
+
+
+def paged_timing_case(lens, mp, gen):
+    """The paged kernel's operands at `lens` (paged_timing_inputs), the
+    plain version's output, and the prepared launch at windows 1, 2, 4."""
+    from repro_torch.kernels.ref import paged_flashattn_ref
+    from repro_torch.kernels.splitk_flashattn import _paged_launch
+
+    q, pools, pools_dev, table, tier, lens_t, loc_b, rem_b = paged_timing_inputs(lens, mp, gen)
+    want = paged_flashattn_ref(q, pools_dev["k_local"], pools_dev["v_local"],
+                               pools_dev["k_remote"], pools_dev["v_remote"], table, tier, lens_t)
+    prep = {w: _paged_launch(q, pools["k_local"], pools["v_local"], pools["k_remote"],
+                             pools["v_remote"], table, tier, lens_t, w, None) for w in (1, 2, 4)}
+    return q, pools, pools_dev, table, tier, lens_t, loc_b, rem_b, want, prep
+
+
+def time_paged_attention(label, lens, mp, link, flush, gen, window) -> dict:
+    """The paged kernel at B = len(lens), H = Kh = 32, hd 128, page 16,
+    `lens`: device time of its launch alone (windows 1/2/4), the wrapper
+    call, plain and library (remote pool copy + page gather + SDPA) times;
+    per launch."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import paged_flashattn_ref
+    from repro_torch.kernels.splitk_flashattn import _launch_paged
+
+    bf = torch.bfloat16
+    q, pools, pools_dev, table, tier, lens_t, loc_b, rem_b, want, prep = paged_timing_case(
+        lens, mp, gen)
+    lib = paged_prefetch_sdpa(q, pools, table, tier, lens_t)
+    for design, got in (("kernel", _launch_paged(prep[window])), ("library yardstick", lib())):
+        rel, _ = rel_err(got, want)
+        check(rel < TOL[bf], f"paged attention {design} {label}: max rel err {rel:.2e}")
+    t = {w: time_ms(lambda w=w: _launch_paged(prep[w]), flush=flush) for w in (1, 2, 4)}
+
+    def wrapper():
+        return ops.paged_decode_attention(q, pools, table, tier, lens_t, window=window)
+
+    t_wrap, t_host = time_ms(wrapper, flush=flush), host_ms(wrapper)
     t_plain = time_ms(lambda: paged_flashattn_ref(
         q, pools_dev["k_local"], pools_dev["v_local"], pools_dev["k_remote"],
         pools_dev["v_remote"], table, tier, lens_t), flush=flush)
-    tier_np, page_bytes = tier.cpu().numpy(), 16 * 128 * 2 * 2   # K+V, one kv head
-    loc_b = q.numel() * 2 * 2
-    rem_b = 0
-    for b, n in enumerate(lens):
-        for p in range(-(-n // 16)):
-            if tier_np[b, p]:
-                rem_b += 32 * page_bytes
-            else:
-                loc_b += 32 * page_bytes
+    t_lib = time_ms(lib, flush=flush)
+    loc_b += q.numel() * 2 * 2                      # q read, out written
     flops = 4 * sum(lens) * 32 * 128
     b_ms, b_by = bound(loc_b, rem_b, flops, link, BF16_PEAK)
-    lib = paged_prefetch_sdpa(q, pools, table, tier, lens_t)
-    rel, _ = rel_err(lib(), paged_flashattn_ref(
-        q, pools_dev["k_local"], pools_dev["v_local"], pools_dev["k_remote"],
-        pools_dev["v_remote"], table, tier, lens_t))
-    check(rel < TOL[bf], f"paged attention's library yardstick computes the kernel's function "
-                         f"(max rel err {rel:.2e})")
-    t_lib = time_ms(lib, flush=flush)
-    tk = t[window]
-    print(f"  paged_attention B=4 H=Kh=32 hd=128 page=16 lens={list(lens)} bf16: kernel "
-          f"{tk:.4f} ms (windows 1/2/4: {t[1]:.4f}/{t[2]:.4f}/{t[4]:.4f}) | plain "
-          f"{t_plain:.4f} ms | bound {b_ms:.4f} ms ({b_by}) | prefetch+gather+SDPA "
-          f"{t_lib:.4f} ms | remote {rem_b / (tk * 1e-3) / 1e9:.2f} GB/s")
-    s = step["paged_attention"]
-    s.update(ms=32 * tk, plain_ms=32 * t_plain, bound_ms=32 * b_ms, library_ms=32 * t_lib,
-             t_bytes=32 * max(loc_b / HBM_BW, rem_b / link), t_ops=32 * flops / BF16_PEAK)
-    print(f"  per decode step at batch 4 (32 layers): paged_attention {s['ms']:.3f} ms "
-          f"(prefetch+gather+SDPA {s['library_ms']:.3f} ms) vs bound {s['bound_ms']:.3f} ms")
-    del q, pools, pools_dev
-    step["splitk_flashattn"] = time_splitk_attention(link, flush, gen, window, n_layers)
-    step["flash_prefill"] = time_flash_prefill(flush, gen)
-    return step
+    attention_line("paged_attention", label, f"B={len(lens)} H=32 Kh=32 hd=128 page=16 "
+                   f"lens={list(lens)} MP={mp}", t, t_wrap, t_host, t_plain, t_lib, b_ms, b_by,
+                   rem_b, window)
+    del q, pools, pools_dev, prep
+    return dict(ms=t[window], wrapper_ms=t_wrap, host_ms=t_host, plain_ms=t_plain,
+                bound_ms=b_ms, library_ms=t_lib, remote_bytes=rem_b,
+                t_bytes=max(loc_b / HBM_BW, rem_b / link), t_ops=flops / BF16_PEAK)
 
 
 def paged_prefetch_sdpa(q, pools, table, tier, lens):
@@ -731,23 +878,37 @@ def paged_prefetch_sdpa(q, pools, table, tier, lens):
     return run
 
 
-def time_splitk_attention(link, flush, gen, window, n_layers) -> dict:
-    """The batch-split kernel at the batch-split served run's late-step
-    shape: 2 local + 2 remote requests, S = 512, kv_len = 288."""
+def batch_split_timing_case(s_len, kv_len, gen):
+    """The batch-split kernel's operands at 2 local + 2 remote requests,
+    H = Kh = 32, hd 128, cache S = `s_len` (batch_split_inputs), the plain
+    version's output, and the prepared launch at windows 1, 2, 4."""
+    from repro_torch.kernels.ref import splitk_flashattn_ref
+    from repro_torch.kernels.splitk_flashattn import _batch_split_launch
+
+    q, cache, dev = batch_split_inputs(2, 2, 32, 32, 128, s_len, torch.bfloat16, gen)
+    want = splitk_flashattn_ref(q, dev["k_local"], dev["v_local"], dev["k_remote"],
+                                dev["v_remote"], kv_len)
+    prep = {w: _batch_split_launch(q, cache["k_local"], cache["v_local"], cache["k_remote"],
+                                   cache["v_remote"], kv_len, w) for w in (1, 2, 4)}
+    return q, cache, dev, want, prep
+
+
+def time_splitk_attention(label, s_len, kv_len, link, flush, gen, window) -> dict:
+    """The batch-split kernel at 2 local + 2 remote requests, H = Kh = 32,
+    hd 128, cache S = `s_len`, `kv_len` positions: device time of its launch
+    alone (windows 1/2/4), the wrapper call, plain and library (prefetch +
+    SDPA) times; per launch."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import splitk_flashattn_ref
+    from repro_torch.kernels.splitk_flashattn import _launch_batch_split
 
+    bf = torch.bfloat16
     b_loc = b_rem = 2
     h = kh = 32
-    hd, s_len, kv_len = 128, 512, 288
-    q, cache, dev = batch_split_inputs(b_loc, b_rem, h, kh, hd, s_len, torch.bfloat16, gen)
-    t = {w: time_ms(lambda w=w: ops.tiered_decode_attention(q, cache, kv_len=kv_len, window=w),
-                    flush=flush) for w in (1, 2, 4)}
-    t_plain = time_ms(lambda: splitk_flashattn_ref(q, dev["k_local"], dev["v_local"],
-                                                   dev["k_remote"], dev["v_remote"], kv_len),
-                      flush=flush)
+    hd = 128
+    q, cache, dev, want, prep = batch_split_timing_case(s_len, kv_len, gen)
     # library yardstick: copy the remote requests' rows into HBM beside the
     # local ones, then one scaled_dot_product_attention call
     kbuf = torch.cat([dev["k_local"], torch.empty_like(dev["k_remote"])])
@@ -757,27 +918,35 @@ def time_splitk_attention(link, flush, gen, window, n_layers) -> dict:
         for r in range(b_rem):
             kbuf[b_loc + r, :kv_len].copy_(cache["k_remote"][r, :kv_len], non_blocking=True)
             vbuf[b_loc + r, :kv_len].copy_(cache["v_remote"][r, :kv_len], non_blocking=True)
-        return F.scaled_dot_product_attention(
-            q[:, :, None], kbuf[:, :kv_len].transpose(1, 2), vbuf[:, :kv_len].transpose(1, 2))
+        return F.scaled_dot_product_attention(q[:, :, None], kbuf[:, :kv_len].transpose(1, 2),
+                                              vbuf[:, :kv_len].transpose(1, 2))[:, :, 0]
 
+    for design, got in (("kernel", _launch_batch_split(prep[window])),
+                        ("library yardstick", prefetch_sdpa())):
+        rel, _ = rel_err(got, want)
+        check(rel < TOL[bf], f"splitk_flashattn {design} {label}: max rel err {rel:.2e}")
+    t = {w: time_ms(lambda w=w: _launch_batch_split(prep[w]), flush=flush) for w in (1, 2, 4)}
+
+    def wrapper():
+        return ops.tiered_decode_attention(q, cache, kv_len=kv_len, window=window)
+
+    t_wrap, t_host = time_ms(wrapper, flush=flush), host_ms(wrapper)
+    t_plain = time_ms(lambda: splitk_flashattn_ref(q, dev["k_local"], dev["v_local"],
+                                                   dev["k_remote"], dev["v_remote"], kv_len),
+                      flush=flush)
     t_lib = time_ms(prefetch_sdpa, flush=flush)
     row = kh * hd * 2 * 2                                   # K + V of one position, bf16
     loc_b = q.numel() * 2 * 2 + b_loc * kv_len * row
     rem_b = b_rem * kv_len * row
     flops = 4 * (b_loc + b_rem) * kv_len * h * hd
     b_ms, b_by = bound(loc_b, rem_b, flops, link, BF16_PEAK)
-    tk = t[window]
-    print(f"  splitk_flashattn B={b_loc}|{b_rem} H=Kh={h} hd={hd} S={s_len} kv_len={kv_len} "
-          f"bf16: kernel {tk:.4f} ms (windows 1/2/4: {t[1]:.4f}/{t[2]:.4f}/{t[4]:.4f}) | plain "
-          f"{t_plain:.4f} ms | bound {b_ms:.4f} ms ({b_by}) | prefetch+SDPA {t_lib:.4f} ms | "
-          f"remote {rem_b / (tk * 1e-3) / 1e9:.2f} GB/s (windows 1/2/4: "
-          f"{'/'.join(f'{rem_b / (t[w] * 1e-3) / 1e9:.2f}' for w in (1, 2, 4))})")
-    print(f"  per decode step ({n_layers} layers): splitk_flashattn {n_layers * tk:.3f} ms vs "
-          f"bound {n_layers * b_ms:.3f} ms")
-    return dict(ms=n_layers * tk, plain_ms=n_layers * t_plain, bound_ms=n_layers * b_ms,
-                library_ms=n_layers * t_lib,
-                t_bytes=n_layers * max(loc_b / HBM_BW, rem_b / link),
-                t_ops=n_layers * flops / BF16_PEAK)
+    attention_line("splitk_flashattn", label, f"B={b_loc}|{b_rem} H={h} Kh={kh} hd={hd} "
+                   f"S={s_len} kv_len={kv_len}", t, t_wrap, t_host, t_plain, t_lib, b_ms, b_by,
+                   rem_b, window)
+    del q, cache, dev, kbuf, vbuf, prep
+    return dict(ms=t[window], wrapper_ms=t_wrap, host_ms=t_host, plain_ms=t_plain,
+                bound_ms=b_ms, library_ms=t_lib, remote_bytes=rem_b,
+                t_bytes=max(loc_b / HBM_BW, rem_b / link), t_ops=flops / BF16_PEAK)
 
 
 def fma_prefill(q, k, v):
@@ -828,6 +997,89 @@ def time_flash_prefill(flush, gen) -> dict:
                    t_bytes=t_bytes, t_ops=t_ops)
         del q, k, v, args
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 10 (only when asked): the decode-attention kernels beside the design
+# they replaced
+# ---------------------------------------------------------------------------
+def cpasync_paged(q, pools, table, tier, lens):
+    """The paged kernel's replaced design (csrc/decode_attn_cpasync.cu, on no
+    path) on the same operands; returns the call, taking the window."""
+    from repro_torch.kernels import _build
+
+    lib = _build.load_measurement().libs["decode_attn_cpasync"]
+    out = torch.empty_like(q)
+    b, h, hd = q.shape
+    _, ps, kh, _ = pools["k_local"].shape
+    ptrs = [t.data_ptr() for t in (q, pools["k_local"], pools["v_local"], pools["k_remote"],
+                                   pools["v_remote"], table, tier, lens, out)]
+
+    def run(window):
+        _build.check(lib.dak_paged_attention_cpasync(
+            *ptrs, b, h, kh, hd, ps, table.shape[1], pools["k_local"].shape[0],
+            pools["k_remote"].shape[0], hd ** -0.5, window, 1,
+            _build.stream_handle(q.device)), "paged attention (cp.async design)")
+        return out
+
+    return run
+
+
+def cpasync_batch_split(q, cache, kv_len):
+    """The batch-split kernel's replaced design (csrc/decode_attn_cpasync.cu,
+    on no path) on the same operands; returns the call, taking the window."""
+    from repro_torch.kernels import _build
+
+    lib = _build.load_measurement().libs["decode_attn_cpasync"]
+    out = torch.empty_like(q)
+    b, h, hd = q.shape
+    b_loc, s, kh, _ = cache["k_local"].shape
+    ptrs = [t.data_ptr() for t in (q, cache["k_local"], cache["v_local"], cache["k_remote"],
+                                   cache["v_remote"], out)]
+
+    def run(window):
+        _build.check(lib.dak_splitk_attention_cpasync(
+            *ptrs, b_loc, b - b_loc, s, h, kh, hd, kv_len, window, 1,
+            _build.stream_handle(q.device)), "splitk_flashattn (cp.async design)")
+        return out
+
+    return run
+
+
+def phase_replaced_designs(window: int) -> None:
+    """Both decode-attention kernels beside the cp.async design they
+    replaced, each launch alone, in ROUNDS alternating rounds, at the served
+    runs' late-step shapes and at a long cache (phase 5's operands)."""
+    from repro_torch.kernels.splitk_flashattn import _launch_batch_split, _launch_paged
+
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda").zero_
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bf = torch.bfloat16
+
+    def compare(name, label, new, old, want, rem_b):
+        rel, _ = rel_err(old(), want)
+        check(rel < TOL[bf], f"{name} cp.async design {label}: max rel err {rel:.2e}")
+        rounds = alternate([new, old], flush)
+        t_new, t_old = (statistics.median(v) for v in rounds)
+        wins = sum(a < b for a, b in zip(*rounds))
+        gbs = lambda ms: rem_b / (ms * 1e-3) / 1e9  # noqa: E731
+        print(f"  {name} {label} window {window}: kernel {t_new:.4f} ms ({gbs(t_new):.2f} GB/s), "
+              f"cp.async design {t_old:.4f} ms ({gbs(t_old):.2f} GB/s), {t_old / t_new:.2f}x; "
+              f"medians of {ROUNDS} alternating rounds, kernel faster in {wins}")
+
+    for label, lens, mp in (("served", PAGED_LENS, 10), ("long cache", PAGED_LONG_LENS, 128)):
+        q, pools, _, table, tier, lens_t, _, rem_b, want, prep = paged_timing_case(lens, mp, gen)
+        old = cpasync_paged(q, pools, table, tier, lens_t)
+        compare("paged_attention", f"{label} lens={list(lens)} MP={mp}",
+                lambda: _launch_paged(prep[window]), lambda: old(window), want, rem_b)
+        del q, pools, prep
+    for label, s_len, kv_len in (("served", 512, SPLIT_KV_LEN), ("long cache", 2048, 2048)):
+        q, cache, _, want, prep = batch_split_timing_case(s_len, kv_len, gen)
+        old = cpasync_batch_split(q, cache, kv_len)
+        rem_b = 2 * kv_len * 32 * 128 * 2 * 2
+        compare("splitk_flashattn", f"{label} S={s_len} kv_len={kv_len}",
+                lambda: _launch_batch_split(prep[window]), lambda: old(window), want, rem_b)
+        del q, cache, prep
 
 
 # ---------------------------------------------------------------------------
@@ -1008,12 +1260,12 @@ PROBE_INFLIGHT_KB = (4, 16, 64)
 PROBE_ROW_BYTES = (128, 256, 512)
 
 
-def phase_probe(card: dict) -> None:
+def phase_probe(card: dict) -> float:
     """Read a 64 MiB pinned, mapped host buffer (a [16384, 4096 B] matrix:
     the shape of a remote tier of K rows by 2048 bf16 columns) with the
     read-only probe kernel, sweeping copy form, CTAs, bytes in flight per CTA
     and the width of each contiguous row read; each rate beside the copy
-    engine's on the same buffer."""
+    engine's on the same buffer.  Returns the best kernel rate, GB/s."""
     from repro_torch.kernels import _build
 
     lib = _build.load_measurement().libs["host_probe"]
@@ -1061,6 +1313,7 @@ def phase_probe(card: dict) -> None:
     for form_name, (rate, row_b, ctas, kb) in best.items():
         print(f"  best {form_name}: {rate:.2f} GB/s ({rate / ce:.2f}x the copy engine) at row "
               f"{row_b} B, {ctas} CTAs, {kb} KB in flight per CTA")
+    cap = max(rate for rate, *_ in best.values())
     # do kernel reads and the copy engine share one limit? Both at once, on
     # two streams, each over its own 64 MiB buffer
     buf2, dev2 = pinned_copy(dev), torch.empty_like(dev)
@@ -1112,6 +1365,7 @@ def phase_probe(card: dict) -> None:
               + f" | copy engine {size / (t_ce * 1e-3) / 1e9:.2f} GB/s")
         del dev, buf
     del scratch
+    return cap
 
 
 # ---------------------------------------------------------------------------
@@ -1125,8 +1379,9 @@ def add_launches(launches: dict, path: dict) -> None:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
-                    help="comma-separated subset of phases 1-9 (default: 1-8; 9 is the "
-                         "host-link read probe)")
+                    help="comma-separated subset of phases 1-10 (default: 1-8; 9 is the "
+                         "host-link read probe, 10 the decode-attention kernels beside the "
+                         "design they replaced)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -1172,7 +1427,15 @@ def main(argv: list[str] | None = None) -> int:
         add_launches(launches, phase_flash_prefill()["launches"])
     if 9 in phases:
         print("phase 9: host-link read probe (copy form x CTAs x bytes in flight x row width)")
-        phase_probe(card)
+        cap = phase_probe(card)
+        for name in ("paged_attention", "splitk_flashattn"):
+            if name in step:
+                rate = step[name]["remote_bytes"] / (step[name]["ms"] * 1e-3) / 1e9
+                print(f"  {name} at the served shape reads its remote tier at {rate:.2f} GB/s, "
+                      f"{rate / cap:.2f}x the probe's best kernel read ({cap:.2f} GB/s)")
+    if 10 in phases:
+        print("phase 10: decode-attention kernels beside the cp.async design they replaced")
+        phase_replaced_designs(window=1)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

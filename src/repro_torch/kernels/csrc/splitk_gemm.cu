@@ -9,11 +9,12 @@
 // math units are the limit.  Local tiles stream from HBM (3.35 TB/s);
 // remote tiles stream from pinned host memory over the PCIe host link
 // (64 GB/s nominal for Gen5 x16), so the remote tier's bytes over the link
-// rate is the floor, and the local tier finishes long before it.  On the
+// rate is the floor, and the local tier finishes long before it.  On some
 // H100 machines measured, kernels read pinned host memory at 30-33 GB/s at
-// most, whatever the copy form, CTA count, bytes in flight or row width
-// (chip_smoke.py --phases 1,9), 0.58-0.70x the copy engine's 45-54 GB/s on
-// the same buffer; both designs below run at that cap.
+// most, whatever the copy form, CTA count, bytes in flight or row width,
+// 0.58-0.70x the copy engine's 45-54 GB/s on the same buffer; on others at
+// ~50 GB/s, 0.95x the copy engine (chip_smoke.py --phases 1,9).  Both
+// designs below run at that cap.
 //
 // Split-K decode (M <= 16; `k_split` > 0).
 //  * Direct access: every remote tile reads its weight straight from the

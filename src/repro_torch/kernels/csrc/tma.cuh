@@ -1,7 +1,7 @@
 // Hopper bulk-copy helpers shared by the direct-access kernels: mbarriers
-// that count bytes, 1-D bulk copies (cp.async.bulk) and 2-D tensor copies
-// (TMA, cp.async.bulk.tensor) from global memory into shared memory, and
-// the host-side encoding of a 2-D tensor map.  Global memory here includes
+// that count bytes, 1-D bulk copies (cp.async.bulk) and 2- to 4-D tensor
+// copies (TMA, cp.async.bulk.tensor) from global memory into shared memory,
+// and the host-side encoding of tensor maps.  Global memory here includes
 // pinned host memory mapped into the device: under unified addressing a
 // bulk or tensor copy reads it over the host link like any other address.
 //
@@ -55,6 +55,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// A plain arrival (no byte count), for phases whose data threads store
+// themselves; it releases their earlier shared-memory stores to the waiters.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
 // `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to
 // shared memory, completing on `bar`.
 __device__ __forceinline__ void bulk_copy_g2s(void* smem_dst, const void* gmem_src,
@@ -77,18 +83,41 @@ __device__ __forceinline__ void tma_load_2d(void* smem_dst, const CUtensorMap* t
       : "memory");
 }
 
+// The box of a 3-D or 4-D map at coordinates (c0 innermost, ...): elements
+// past the map's bounds arrive as zeros and are not read, and the whole
+// box's bytes count toward `bar`'s transaction.
+__device__ __forceinline__ void tma_load_3d(void* smem_dst, const CUtensorMap* tmap, int c0,
+                                            int c1, int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(smem_dst)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* smem_dst, const CUtensorMap* tmap, int c0,
+                                            int c1, int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(smem_dst)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
 typedef CUresult (*dak_encode_tiled_fn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                         const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                         const cuuint32_t*, CUtensorMapInterleave,
                                         CUtensorMapSwizzle, CUtensorMapL2promotion,
                                         CUtensorMapFloatOOBfill);
 
-// A row-major [rows, cols] matrix of 2- or 4-byte elements whose rows
-// are `pitch_bytes` apart, read in boxes of box_rows x box_cols with no
-// swizzle.  Returns 0 or DAK_ERR_TENSOR_MAP.
-static inline int dak_encode_2d(CUtensorMap* map, const void* base, int elem_bytes,
-                                uint64_t cols, uint64_t rows, uint64_t pitch_bytes,
-                                uint32_t box_cols, uint32_t box_rows) {
+// A tensor of `rank` (2..5) dimensions of 2- or 4-byte elements, dims[0]
+// innermost and contiguous, dimension i > 0 `pitch_bytes[i - 1]` bytes
+// apart, read in boxes of box[0] x ... with no swizzle; bytes past the
+// bounds are filled with zeros.  Returns 0 or DAK_ERR_TENSOR_MAP.
+static inline int dak_encode(CUtensorMap* map, const void* base, int elem_bytes, int rank,
+                             const uint64_t* dims, const uint64_t* pitch_bytes,
+                             const uint32_t* box) {
   static dak_encode_tiled_fn encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -106,16 +135,29 @@ static inline int dak_encode_2d(CUtensorMap* map, const void* base, int elem_byt
     }
     encode = reinterpret_cast<dak_encode_tiled_fn>(fn);
   }
-  if (elem_bytes != 2 && elem_bytes != 4) return DAK_ERR_TENSOR_MAP;
+  if ((elem_bytes != 2 && elem_bytes != 4) || rank < 2 || rank > 5) return DAK_ERR_TENSOR_MAP;
   const CUtensorMapDataType type =
       elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {pitch_bytes};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
-                            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  cuuint64_t d[5], st[4];
+  cuuint32_t bx[5], es[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    bx[i] = box[i];
+    es[i] = 1;
+    if (i + 1 < rank) st[i] = pitch_bytes[i];
+  }
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base), d, st, bx, es,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : DAK_ERR_TENSOR_MAP;
+}
+
+// A row-major [rows, cols] matrix whose rows are `pitch_bytes` apart, read
+// in boxes of box_rows x box_cols.
+static inline int dak_encode_2d(CUtensorMap* map, const void* base, int elem_bytes,
+                                uint64_t cols, uint64_t rows, uint64_t pitch_bytes,
+                                uint32_t box_cols, uint32_t box_rows) {
+  const uint64_t dims[2] = {cols, rows};
+  const uint32_t box[2] = {box_cols, box_rows};
+  return dak_encode(map, base, elem_bytes, 2, dims, &pitch_bytes, box);
 }

@@ -3,25 +3,29 @@ Hopper, in both of the reference's layouts.
 
 * :func:`paged_splitk_flashattn` — ragged, paged decode attention: each
   slot's KV pages are read from the pool its page table names (local pages
-  from HBM, remote pages straight from pinned, device-mapped host memory)
-  through a ``window``-deep shared-memory ring, slots holding remote pages
-  first.  CUDA kernel ``csrc/paged_flashattn.cu``; counterpart of the
-  reference's ``_paged_kernel``.  The serving engine's decode step runs it.
+  from HBM, remote pages straight from pinned, device-mapped host memory),
+  slots holding remote pages first.  CUDA kernel ``csrc/paged_flashattn.cu``;
+  counterpart of the reference's ``_paged_kernel``.  The serving engine's
+  decode step runs it.
 * :func:`splitk_flashattn` — the paper's batch-split layout: requests
   ``[0, B_loc)`` attend a local cache in HBM and ``[B_loc, B)`` a remote
   cache in pinned host memory, every request over the same ``kv_len``
   positions, remote requests first (the reference's host-first batch
-  order, which the kernel takes from its block index).  CUDA kernel ``csrc/splitk_flashattn.cu``; counterpart of the reference's
-  ``_kernel``.  The batch-split ``serving.tiered_decode.tiered_decode_step``
-  runs it.
+  order, which the kernel takes from its block index).  CUDA kernel
+  ``csrc/splitk_flashattn.cu``; counterpart of the reference's ``_kernel``.
+  The batch-split ``serving.tiered_decode.tiered_decode_step`` runs it.
 
-Both keep an fp32 online softmax over group-major GQA heads; each kernel's
-head note says what bounds it and what the design does about that.  Also
-here: :func:`scatter_rows`, the decode steps' K/V row writer, whose CUDA
-side writes remote rows through the mapped pointer.  A CPU tensor takes
+In both kernels one CTA per (sequence, query-head group, kv head) reads its
+pages or chunks by TMA through a ``window + 1``-stage shared-memory ring and
+keeps a warp-level fp32 online softmax over group-major GQA heads.  Each
+kernel's head note says what bounds it and what the design does about that.
+Also here: :func:`scatter_rows`, the decode steps' K/V row writer, whose
+CUDA side writes remote rows through the mapped pointer.  A CPU tensor takes
 each function's plain version; a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -30,6 +34,58 @@ from repro_torch.kernels.ref import paged_flashattn_ref, splitk_flashattn_ref
 
 DEFAULT_WINDOW = 2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 1024         # the widest hd the kernels take (its q and acc live in registers)
+
+
+class Launch(NamedTuple):
+    """One kernel launch prepared by a wrapper: the output it writes and the
+    C entry point's arguments."""
+
+    out: torch.Tensor
+    args: tuple
+
+
+def _paged_launch(q, k_loc, v_loc, k_rem, v_rem, table, tier, lens, window: int,
+                  scale: float | None) -> Launch:
+    """The paged kernel's arguments for checked CUDA operands (B >= 1), with
+    the output allocated."""
+    b, h, hd = q.shape
+    _, ps, kh, _ = k_loc.shape
+    out = torch.empty_like(q)
+    sc = (hd ** -0.5) if scale is None else float(scale)
+    return Launch(out, (
+        q.data_ptr(), k_loc.data_ptr(), v_loc.data_ptr(), k_rem.data_ptr(), v_rem.data_ptr(),
+        table.data_ptr(), tier.data_ptr(), lens.data_ptr(), out.data_ptr(),
+        b, h, kh, hd, ps, table.shape[1], k_loc.shape[0], k_rem.shape[0], sc,
+        max(1, int(window)), _DTYPES[q.dtype], _build.stream_handle(q.device)))
+
+
+def _launch_paged(launch: Launch) -> torch.Tensor:
+    """The paged kernel's launch alone: one call of its C entry point on
+    prepared arguments (uncounted; the wrapper counts)."""
+    _build.check(_build.load().libs["paged_flashattn"].dak_paged_attention(*launch.args),
+                 "paged_splitk_flashattn")
+    return launch.out
+
+
+def _batch_split_launch(q, k_loc, v_loc, k_rem, v_rem, kv_len: int, window: int) -> Launch:
+    """The batch-split kernel's arguments for checked CUDA operands (B >= 1),
+    with the output allocated."""
+    b, h, hd = q.shape
+    b_loc, s, kh, _ = k_loc.shape
+    out = torch.empty_like(q)
+    return Launch(out, (
+        q.data_ptr(), k_loc.data_ptr(), v_loc.data_ptr(), k_rem.data_ptr(), v_rem.data_ptr(),
+        out.data_ptr(), b_loc, k_rem.shape[0], s, h, kh, hd, int(kv_len), max(1, int(window)),
+        _DTYPES[q.dtype], _build.stream_handle(q.device)))
+
+
+def _launch_batch_split(launch: Launch) -> torch.Tensor:
+    """The batch-split kernel's launch alone: one call of its C entry point
+    on prepared arguments (uncounted; the wrapper counts)."""
+    _build.check(_build.load().libs["splitk_flashattn"].dak_splitk_attention(*launch.args),
+                 "splitk_flashattn")
+    return launch.out
 
 
 def _check_pool(name: str, pool: torch.Tensor, like: torch.Tensor, remote: bool) -> None:
@@ -66,8 +122,9 @@ def paged_splitk_flashattn(
 ) -> torch.Tensor:
     """Paged tiered flash-decode -> [B, H, hd] in q's dtype.  lens == 0
     slots give zeros; ``scale`` overrides ``hd**-0.5``; passing the K pools
-    as the V pools reads V from them.  ``window`` (>= 1) is the page ring
-    depth and never changes the result."""
+    as the V pools reads V from them.  ``window`` (>= 1) is the number of
+    page loads each CTA keeps in flight and never changes the result.  On
+    the card hd <= 1024."""
     if q.device.type == "cpu":
         return paged_flashattn_ref(q, k_pages_local, v_pages_local, k_pages_remote,
                                    v_pages_remote, table, tier, lens, scale=scale)
@@ -97,17 +154,13 @@ def paged_splitk_flashattn(
     _check_index("table", table, (b, mp), q.device)
     _check_index("tier", tier, (b, mp), q.device)
     _check_index("lens", lens, (b,), q.device)
-    out = torch.empty_like(q)
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"paged_splitk_flashattn takes hd <= {MAX_HEAD_DIM} on the card, "
+                         f"got {hd}")
     if b == 0:
-        return out
-    sc = (hd ** -0.5) if scale is None else float(scale)
-    rc = _build.load().libs["paged_flashattn"].dak_paged_attention(
-        q.data_ptr(), k_pages_local.data_ptr(), v_pages_local.data_ptr(),
-        k_pages_remote.data_ptr(), v_pages_remote.data_ptr(),
-        table.data_ptr(), tier.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        b, h, kh, hd, ps, mp, k_pages_local.shape[0], k_pages_remote.shape[0],
-        sc, max(1, int(window)), _DTYPES[q.dtype], _build.stream_handle(q.device))
-    _build.check(rc, "paged_splitk_flashattn")
+        return torch.empty_like(q)
+    out = _launch_paged(_paged_launch(q, k_pages_local, v_pages_local, k_pages_remote,
+                                      v_pages_remote, table, tier, lens, window, scale))
     paged_splitk_flashattn.launches += 1
     return out
 
@@ -139,9 +192,9 @@ def splitk_flashattn(
     Either tier may be empty (offload 0 or 1).  On the card ``q`` and the
     local cache are device tensors and a non-empty remote cache is pinned
     host memory that the kernel reads in place.  ``window`` (>= 1) is the
-    depth of the kernel's chunk ring and never changes the result; the
-    kernel sizes its chunks from ``window`` and hd and masks the ragged
-    tail, so any ``S`` is taken."""
+    number of chunk loads each CTA keeps in flight and never changes the
+    result; the kernel masks the ragged last chunk, so any ``S`` is taken.
+    On the card hd <= 1024."""
     if q.dim() != 3:
         raise ValueError(f"q must be a [B, H, hd] tensor, got {tuple(q.shape)}")
     for name, t in (("k_local", k_local), ("v_local", v_local),
@@ -176,14 +229,12 @@ def splitk_flashattn(
     for name, t in (("k_remote", k_remote), ("v_remote", v_remote)):
         if t.numel() and (t.device.type != "cpu" or not t.is_pinned()):
             raise ValueError(f"{name} must be pinned host memory (the remote tier)")
-    out = torch.empty_like(q)
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"splitk_flashattn takes hd <= {MAX_HEAD_DIM} on the card, got {hd}")
     if b == 0:
-        return out
-    rc = _build.load().libs["splitk_flashattn"].dak_splitk_attention(
-        q.data_ptr(), k_local.data_ptr(), v_local.data_ptr(), k_remote.data_ptr(),
-        v_remote.data_ptr(), out.data_ptr(), b_loc, b_rem, s, h, kh, hd, int(kv_len),
-        max(1, int(window)), _DTYPES[q.dtype], _build.stream_handle(q.device))
-    _build.check(rc, "splitk_flashattn")
+        return torch.empty_like(q)
+    out = _launch_batch_split(_batch_split_launch(q, k_local, v_local, k_remote, v_remote,
+                                                  kv_len, window))
     splitk_flashattn.launches += 1
     return out
 

@@ -19,8 +19,9 @@ and what the design does about that.  Two designs, one launch each:
   multiples or aligned): one CTA per 64 columns walks all of K.
 
 Both designs stop at the rate at which kernels can read pinned host memory
-over PCIe, 30-33 GB/s at most on the H100 machines measured, 0.58-0.70x
-the copy engine's 45-54 GB/s (``chip_smoke.py --phases 1,9``).
+over PCIe: 30-33 GB/s at most on some H100 machines measured, 0.58-0.70x
+the copy engine's 45-54 GB/s, and ~50 GB/s, 0.95x the copy engine, on
+others (``chip_smoke.py --phases 1,9``).
 
 Counterpart of ``src/repro/kernels/splitk_gemm.py`` (``_kernel``).  A CPU
 tensor takes the plain version, :func:`splitk_gemm_ref`; a CUDA tensor

@@ -67,29 +67,72 @@ def test_splitk_gemm_matches_plain(cuda_device, dtype, m, k, n_loc, n_rem, windo
             splitk_gemm(x, wl, wr_dev, window=window)     # remote tier on the card
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("window", [1, 2, 4])
-@pytest.mark.parametrize("scale", [None, 0.11])
-def test_paged_attention_matches_plain(cuda_device, dtype, window, scale):
-    rng = np.random.default_rng(window)
-    b, h, kh, hd, ps, mp = 4, 8, 2, 32, 8, 4
-    dev = cuda_device
+# id: B, H, Kh, hd, page, MP (table width), pool pages per tier, lens, the
+# pages' tiers ("mixed" at random, "local", "remote"), scale, V read from K
+PAGED_CASES = {
+    "gqa-small": (4, 8, 2, 32, 8, 4, (6, 5), (5, 0, 17, 32), "mixed", None, False),
+    "gqa-small-scale": (4, 8, 2, 32, 8, 4, (6, 5), (5, 0, 17, 32), "mixed", 0.11, False),
+    "full-width": (4, 32, 32, 128, 16, 10, (20, 20), (150, 144, 139, 158), "mixed", None, False),
+    "full-width-edge-lens": (4, 32, 32, 128, 16, 10, (20, 20), (0, 1, 16, 17), "mixed", None,
+                             False),
+    "full-width-long": (4, 32, 32, 128, 16, 128, (300, 300), (2048, 1937, 17, 0), "mixed",
+                        None, False),
+    "full-width-all-local": (3, 32, 32, 128, 16, 40, (100, 4), (640, 300, 1), "local", None,
+                             False),
+    "full-width-all-remote": (3, 32, 32, 128, 16, 40, (4, 100), (640, 0, 33), "remote", None,
+                              False),
+    "gqa-full-width-long": (2, 32, 8, 128, 16, 64, (90, 90), (1024, 999), "mixed", None, False),
+    "k-only-16-heads": (3, 16, 1, 72, 4, 64, (80, 80), (7, 250, 3), "mixed", 0.07, True),
+    "hd30": (3, 4, 2, 30, 4, 40, (50, 50), (9, 0, 150), "mixed", None, False),
+    "hd576": (2, 8, 1, 576, 16, 12, (20, 20), (180, 33), "mixed", None, False),
+    "hd1024": (2, 2, 2, 1024, 16, 6, (10, 10), (90, 16), "mixed", None, False),
+}
+
+
+def _paged_case(case, dtype, dev):
+    b, h, kh, hd, ps, mp, (p_loc, p_rem), lens, tiers, scale, alias_v = PAGED_CASES[case]
+    rng = np.random.default_rng(len(case) * 7 + mp)
     q = torch.from_numpy(rng.normal(size=(b, h, hd))).to(dev, dtype)
     pools_dev = {n: torch.from_numpy(rng.normal(size=(p + 1, ps, kh, hd))).to(dev, dtype)
-                 for n, p in (("k_local", 6), ("v_local", 6), ("k_remote", 5), ("v_remote", 5))}
-    pools = {k: (_pinned(v) if k.endswith("remote") else v) for k, v in pools_dev.items()}
-    table = torch.from_numpy(rng.integers(0, 5, size=(b, mp)).astype(np.int32)).to(dev)
-    tier = torch.from_numpy(rng.integers(0, 2, size=(b, mp)).astype(np.int32)).to(dev)
-    lens = torch.tensor([5, 0, 17, 32], dtype=torch.int32, device=dev)
+                 for n, p in (("k_local", p_loc), ("v_local", p_loc), ("k_remote", p_rem),
+                              ("v_remote", p_rem))}
+    if alias_v:
+        pools_dev["v_local"], pools_dev["v_remote"] = pools_dev["k_local"], pools_dev["k_remote"]
+    pools = {k: v for k, v in pools_dev.items() if k.endswith("local")}
+    pools["k_remote"] = _pinned(pools_dev["k_remote"])
+    pools["v_remote"] = pools["k_remote"] if alias_v else _pinned(pools_dev["v_remote"])
+    tier = {"mixed": rng.integers(0, 2, size=(b, mp)), "local": np.zeros((b, mp), np.int64),
+            "remote": np.ones((b, mp), np.int64)}[tiers]
+    table = np.where(tier > 0, rng.integers(0, p_rem, size=(b, mp)),
+                     rng.integers(0, p_loc, size=(b, mp)))
+    as_dev = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)  # noqa: E731
+    return q, pools, pools_dev, as_dev(table), as_dev(tier), as_dev(lens), lens, scale
+
+
+@pytest.mark.parametrize("window", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(PAGED_CASES))
+def test_paged_attention_matches_plain(cuda_device, case, dtype, window):
+    """Paged attention at small and full width (H = Kh = 32, hd 128, page
+    16), lengths 0, 1, 16 and 17 and long caches (up to 2048), every page
+    local or every page remote, GQA, V read from the K pool, a `scale`
+    override, hd 30 and hd above 256 (element loads); one launch per call,
+    zeros for lens 0, and the same bits on a second launch."""
+    q, pools, pools_dev, table, tier, lens_t, lens, scale = _paged_case(case, dtype, cuda_device)
     before = paged_splitk_flashattn.launches
-    got = ops.paged_decode_attention(q, pools, table, tier, lens, window=window, scale=scale)
+    got = ops.paged_decode_attention(q, pools, table, tier, lens_t, window=window, scale=scale)
+    again = ops.paged_decode_attention(q, pools, table, tier, lens_t, window=window,
+                                       scale=scale)
     torch.cuda.synchronize()
-    assert paged_splitk_flashattn.launches == before + 1
+    assert paged_splitk_flashattn.launches == before + 2
     want = tref.paged_flashattn_ref(q, pools_dev["k_local"], pools_dev["v_local"],
                                     pools_dev["k_remote"], pools_dev["v_remote"],
-                                    table, tier, lens, scale=scale)
+                                    table, tier, lens_t, scale=scale)
     assert rel_err(got, want) < TOL[dtype]
-    assert torch.all(got[1] == 0)
+    assert torch.equal(got, again)
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert torch.all(got[i] == 0)
 
 
 @pytest.mark.parametrize("remote", [False, True])
@@ -139,28 +182,45 @@ def test_engine_matches_plain_reference_on_card(cuda_device, ratio):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b_loc,b_rem,h,kh,hd,s,kv_len", [
-    (2, 2, 8, 2, 32, 64, 64),           # GQA, whole cache
-    (2, 3, 4, 4, 64, 200, 150),         # kv_len < S, several chunks, ragged last chunk
-    (0, 3, 4, 2, 32, 40, 40),           # every request remote
-    (3, 0, 4, 2, 32, 40, 1),            # every request local, one position
-    (1, 2, 4, 2, 30, 150, 130),         # hd not a multiple of 16 B, several chunks
+@pytest.mark.parametrize("b_loc,b_rem,h,kh,hd,s,kv_len,alias_v", [
+    (2, 2, 8, 2, 32, 64, 64, False),       # GQA, whole cache
+    (2, 3, 4, 4, 64, 200, 150, False),     # kv_len < S, several chunks, ragged last chunk
+    (0, 3, 4, 2, 32, 40, 40, False),       # every request remote
+    (3, 0, 4, 2, 32, 40, 1, False),        # every request local, one position
+    (1, 2, 4, 2, 30, 150, 130, False),     # hd not a multiple of 16 B, several chunks
+    (2, 2, 32, 32, 128, 512, 288, False),  # full width, the served run's late step
+    (2, 2, 32, 32, 128, 2048, 2048, False),  # full width, a long cache
+    (1, 1, 32, 32, 128, 64, 16, False),    # one chunk of 16 rows
+    (1, 1, 32, 32, 128, 64, 17, False),    # a chunk and a row
+    (0, 2, 32, 32, 128, 1000, 999, False),  # all remote, full width
+    (2, 0, 32, 8, 128, 1000, 777, False),  # all local, GQA at full width
+    (1, 2, 16, 1, 72, 300, 300, True),     # V read from K, 16 query heads per kv head
+    (1, 1, 8, 1, 576, 100, 77, False),     # hd above 256: element loads
 ])
-@pytest.mark.parametrize("window", [1, 3])
+@pytest.mark.parametrize("window", [1, 2, 3, 4])
 def test_splitk_flashattn_matches_plain(cuda_device, dtype, b_loc, b_rem, h, kh, hd, s,
-                                        kv_len, window):
-    gen = torch.Generator(device=cuda_device).manual_seed(b_loc * 7 + b_rem)
+                                        kv_len, alias_v, window):
+    """Batch-split attention from one position to a long cache, each tier
+    empty, GQA, V read from K, hd 30 and hd 576 (element loads); one launch
+    per call, and the same bits on a second launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(b_loc * 7 + b_rem + s)
     q = torch.randn((b_loc + b_rem, h, hd), generator=gen, device=cuda_device).to(dtype)
     dev = {f"{kv}_{t}": torch.randn((n, s, kh, hd), generator=gen, device=cuda_device).to(dtype)
            for kv in ("k", "v") for t, n in (("local", b_loc), ("remote", b_rem))}
-    cache = {k: (_pinned(v) if k.endswith("remote") else v) for k, v in dev.items()}
+    if alias_v:
+        dev["v_local"], dev["v_remote"] = dev["k_local"], dev["k_remote"]
+    cache = {k: v for k, v in dev.items() if k.endswith("local")}
+    cache["k_remote"] = _pinned(dev["k_remote"])
+    cache["v_remote"] = cache["k_remote"] if alias_v else _pinned(dev["v_remote"])
     before = splitk_flashattn.launches
     got = ops.tiered_decode_attention(q, cache, kv_len=kv_len, window=window)
+    again = ops.tiered_decode_attention(q, cache, kv_len=kv_len, window=window)
     torch.cuda.synchronize()
-    assert splitk_flashattn.launches == before + 1
+    assert splitk_flashattn.launches == before + 2
     want = tref.splitk_flashattn_ref(q, dev["k_local"], dev["v_local"], dev["k_remote"],
                                      dev["v_remote"], kv_len)
     assert rel_err(got, want) < TOL[dtype]
+    assert torch.equal(got, again)
     if b_rem:
         with pytest.raises(ValueError, match="pinned host memory"):
             splitk_flashattn(q, dev["k_local"], dev["v_local"], dev["k_remote"],

@@ -17,7 +17,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import tiering as TT
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels import flash_prefill
+from repro_torch.kernels import _build, flash_prefill
 from repro_torch.kernels.splitk_flashattn import (
     paged_splitk_flashattn,
     scatter_rows,
@@ -200,3 +200,18 @@ def test_decode_k_split_covers_k_and_fills_the_card(k, n_loc, n_rem, sms):
     assert ctas >= min(REMOTE_CTAS_PER_SM * sms, tiles * loads)
     if tiles >= REMOTE_CTAS_PER_SM * sms:
         assert len(bounds) == 1
+
+
+@pytest.mark.parametrize("lib,fn", [(lib, fn) for lib, fns in _build._SIGNATURES.items()
+                                    for fn in fns])
+def test_ctypes_signature_matches_the_c_entry_point(lib, fn):
+    """Each C entry point the wrappers call through ctypes is declared with
+    as many arguments as its `extern "C"` prototype takes (a list one short
+    or long only fails on the card, at the first call)."""
+    import re
+
+    src = (_build.CSRC / f"{lib}.cu").read_text()
+    proto = re.search(r'extern "C" int ' + fn + r"\((.*?)\)\s*\{", src, re.S)
+    assert proto is not None, fn
+    assert len([a for a in proto.group(1).split(",") if a.strip()]) == \
+        len(_build._SIGNATURES[lib][fn]), fn
