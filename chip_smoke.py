@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py              # phases 1-8, needs one CUDA card
+    python3 chip_smoke.py              # phases 1-8 and 11-14, needs one CUDA card
     python3 chip_smoke.py --phases 1,9 # the host-link read probe
     python3 chip_smoke.py --phases 1,5,9,10  # timings, probe, replaced designs
 
@@ -14,7 +14,10 @@ runs, printing each result on its own line:
    remote operand in pinned host memory, at the main paths' decode and
    prefill shapes and windows {1, 2, 4}, plus edge cases; bound: 2e-4
    relative error in fp32, 5e-2 in bf16 (the reference's own tolerances),
-   taken per query row for flash_prefill;
+   taken per query row for flash_prefill; also the expert FFN at
+   Qwen3-30B-A3B's and DeepSeek-V2's widths (remote experts through
+   `splitk_gemm`, those without a valid slot skipped) and paged attention
+   at MLA's shape (128 heads over one kv head of 576, V read from K);
 3. token parity: a 2-layer full-width llama2-7b in fp32 served by the
    engine must emit exactly the tokens of the plain per-request reference;
 4. the served run: full llama2-7b (32 layers, bf16) at offload 0.5 through
@@ -48,7 +51,18 @@ runs, printing each result on its own line:
 10. only when asked (``--phases 1,10``), both decode-attention kernels
    beside the design they replaced (``csrc/decode_attn_cpasync.cu``, on no
    path), each launch alone in alternating rounds, at phase 5's shapes;
-then one JSON line listing the kernels, the card's name and power limit,
+11. MoE token parity: phase 3's check on a 2-layer full-width Qwen3-30B-A3B
+   in fp32 with dropless expert capacity;
+12. the MoE served run: Qwen3-30B-A3B at its published widths, 16 of 48
+   layers, bf16, as phase 4 (plus remote-expert launches, remote bytes per
+   decode step, and a check that the remote-expert launches are twice the
+   remote experts holding a valid slot in every decode step);
+13. MLA token parity: phase 3's check on a 1-layer full-width DeepSeek-V2
+   in fp32 with dropless expert capacity;
+14. the MLA served run: DeepSeek-V2 at its published widths, 2 of 60
+   layers, bf16, as phase 12;
+each phase starts with what earlier ones held freed and prints the pinned
+host bytes still held; then one JSON line listing the kernels, the card's name and power limit,
 and the final JSON status line.
 
 Any failed check exits non-zero; without a CUDA card, or without the port
@@ -260,6 +274,47 @@ def scatter_case(gen):
               "bit-identical to the plain index_put")
 
 
+def expert_case(label, d, ff, e_loc, e_rem, dtype, gen, stats=None):
+    """The tiered expert FFN (`layers.tiered_expert_ffn`: local experts
+    batched from HBM, each remote expert with a valid slot through two
+    `splitk_gemm` launches on its matrices in pinned host memory, the
+    others skipped) against `_expert_ffn` over both tiers on the card (the
+    remote block in HBM for the check only), at 1 and 12 rows per expert,
+    each expert holding a random prefix of its slots (none for some)."""
+    from repro_torch.core.tiering import TieredTensor
+    from repro_torch.kernels.splitk_gemm import splitk_gemm
+    from repro_torch.models import layers as L
+    from repro_torch.serving import tiered_decode as TD
+
+    e = e_loc + e_rem
+    full, split = {}, {}
+    for name, shape in (("wi", (e, d, 2 * ff)), ("wdown", (e, ff, d))):
+        full[name] = (torch.randn(shape, generator=gen, device="cuda") * 0.02).to(dtype)
+        split[name] = TieredTensor(local=full[name][:e_loc].contiguous(),
+                                   remote=pinned_copy(full[name][e_loc:]), axis=-3)
+    for rows in (1, 12):
+        buf = torch.randn((1, e, rows, d), generator=gen, device="cuda").to(dtype)
+        n_valid = torch.randint(0, rows + 1, (1, e, 1), generator=gen, device="cuda")
+        valid = torch.arange(rows, device="cuda")[None, None, :] < n_valid
+        buf = buf.masked_fill(~valid[..., None], 0)
+        active = int(valid[0, e_loc:].any(dim=-1).sum())
+        before, ran = splitk_gemm.launches, L.tiered_expert_ffn.remote_experts
+        got = L.tiered_expert_ffn(buf, valid, split["wi"], split["wdown"],
+                                  mm=lambda a, w: TD._mm(a, w, 1))
+        torch.cuda.synchronize()
+        launches, ran = splitk_gemm.launches - before, L.tiered_expert_ffn.remote_experts - ran
+        want = L._expert_ffn(buf, full["wi"], full["wdown"])
+        rel, ab = rel_err(got, want)
+        check(rel < TOL[dtype] and torch.isfinite(got.float()).all().item()
+              and launches == 2 * active and ran == active,
+              f"expert FFN {label} d={d} ff={ff} experts {e_loc}|{e_rem} rows={rows} "
+              f"{str(dtype)[6:]}: max rel err {rel:.2e} (abs {ab:.2e}, bound "
+              f"{TOL[dtype]:.0e}); {active} remote experts hold a valid slot, {ran} ran, "
+              f"{launches} splitk_gemm launches")
+        note_err(stats, rel, ab)
+    del full, split
+
+
 def batch_split_inputs(b_loc, b_rem, h, kh, hd, s, dtype, gen):
     """q [B, H, hd] and a batch-split cache: the device copy of every tier
     (for the plain version) and the kernel's operands, remote tier pinned."""
@@ -344,7 +399,20 @@ def phase_kernels() -> dict:
               windows=(1, 2), gen=gen, h=4, kh=2, hd=30, ps=4)
     attn_case("long cache", b=DECODE_BATCH, mp=128, p_loc=300, p_rem=300, lens=PAGED_LONG_LENS,
               dtype=bf, windows=(1, 2, 4), gen=gen, stats=stats["paged_attention"], **full)
+    # DeepSeek-V2's MLA decode: 128 heads over one latent kv head (hd 576 by
+    # element loads), V read from the K pool, scale (nd + rd)**-0.5
+    for dtype in (bf, torch.float32):
+        attn_case("mla", b=DECODE_BATCH, h=128, kh=1, hd=576, ps=16, mp=10, p_loc=20, p_rem=20,
+                  lens=(150, 0, 37, 160), dtype=dtype, windows=(1, 2), gen=gen,
+                  scale=192 ** -0.5, alias_v=True,
+                  stats=stats["paged_attention"] if dtype == bf else None)
     scatter_case(gen)
+    # the expert FFN at Qwen3-30B-A3B's and DeepSeek-V2's widths, offload 0.5
+    for dtype in (bf, torch.float32):
+        for label, (d, ff, e_half) in (("qwen3-moe", (2048, 768, 64)),
+                                       ("deepseek-v2", (5120, 1536, 80))):
+            expert_case(label, d, ff, e_half, e_half, dtype, gen,
+                        stats["splitk_gemm"] if dtype == bf else None)
     f32 = torch.float32
     for dtype in (bf, f32):
         splitk_attn_case("full-width", 2, 2, 32, 32, 128, 512, (1, 255, 257, 512), dtype,
@@ -386,16 +454,26 @@ def reference_tokens(cfg, params, prompt, new_tokens, max_len):
     return toks, gaps
 
 
-def phase_parity() -> None:
+def phase_parity(arch: str = "llama2_7b", n_layers: int = 2, dropless: bool = False) -> None:
+    """The engine on the card (fp32, full width, `n_layers` layers, offload
+    0.5, page 4, 3 slots, prompts that force spills) must emit exactly the
+    tokens of the plain per-request reference on the same weights unsplit in
+    HBM.  MoE runs dropless: a finite capacity couples the batched requests'
+    drops, which per-request decoding cannot see."""
     import repro_torch.configs as C
     from repro_torch.models import model as M
     from repro_torch.serving.engine import Request, ServingEngine
 
-    cfg = dataclasses.replace(C.get("llama2_7b"), n_layers=2)
+    cfg = dataclasses.replace(C.get(arch), n_layers=n_layers)
+    if dropless:
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=float(cfg.n_experts))
     gen = torch.Generator(device="cuda").manual_seed(7)
     params = M.init_params(cfg, gen, dtype=torch.float32, device="cuda")
     eng = ServingEngine(cfg, params, max_batch=3, max_len=32,
                         global_offload_ratio=0.5, page_size=4, device="cuda")
+    leaves = list(remote_leaves(eng.params))
+    check(bool(leaves) and all(leaf.remote.is_pinned() for leaf in leaves),
+          f"{len(leaves)} remote weight tiers, all pinned host memory")
     rng = np.random.default_rng(7)
     prompts = [rng.integers(3, cfg.vocab, n).astype(np.int32) for n in (10, 16, 7, 14, 9)]
     reqs = [Request(rid=i, prompt=p, max_new_tokens=8) for i, p in enumerate(prompts)]
@@ -427,15 +505,35 @@ def remote_leaves(tree):
         yield tree
 
 
-def phase_serve() -> dict:
+def remote_kv_pages(eng) -> int:
+    """Remote pages the next decode step attends: each active slot's pages
+    up to its length + 1, in the remote tier (per layer)."""
+    pc, n = eng.pcache, 0
+    for slot, req in enumerate(eng.active):
+        if req is not None:
+            used = min(-(-(int(eng.lens[slot]) + 1) // pc.page_size), int(pc.n_pages[slot]))
+            n += int((pc.tier[slot, :used] > 0).sum())
+    return n
+
+
+def phase_serve(arch: str = "llama2_7b", n_layers: int | None = None) -> dict:
+    """The served run: `arch` at its published widths (depth cut to
+    `n_layers` where given), bf16, offload 0.5, page 16, 4 slots, 8 requests
+    of 128 prompt + 32 new tokens, stepped one engine step at a time so the
+    decode steps that admitted nothing are counted on their own."""
     import repro_torch.configs as C
+    from repro_torch.core.tiering import TieredTensor
+    from repro_torch.kernels import _build
     from repro_torch.kernels.splitk_flashattn import paged_splitk_flashattn, scatter_rows
     from repro_torch.kernels.splitk_gemm import splitk_gemm
+    from repro_torch.models import layers as L
     from repro_torch.models import model as M
     from repro_torch.runtime.telemetry import weight_tier_bytes
     from repro_torch.serving.engine import Request, ServingEngine
 
-    cfg = C.get("llama2_7b")
+    cfg = C.get(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     n_req, prompt_len, new_tokens = 8, PREFILL_LEN, 32
     t0 = time.time()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -449,33 +547,83 @@ def phase_serve() -> dict:
     print(f"served run set-up (weights drawn, partitioned, remote tier pinned): "
           f"{time.time() - t0:.1f} s")
     leaves = list(remote_leaves(eng.params))
+    expected = sum(eng.plan.op_ratios.get(od.op, 0.0) > 0 for od in eng.plan.registry)
     w_local, w_remote = weight_tier_bytes(eng.params)
-    pinned = sum(leaf.remote.nbytes for leaf in leaves) + sum(
-        p.nbytes for k, p in eng.pcache.pools.items() if k.endswith("remote"))
+    pinned = _build.pinned_bytes()
     check(all(leaf.remote.is_pinned() and leaf.remote.device.type == "cpu"
-              for leaf in leaves) and len(leaves) == 6,
-          f"all {len(leaves)} remote weight tiers are pinned host memory, none on the card")
+              for leaf in leaves) and len(leaves) == expected,
+          f"all {len(leaves)} remote weight tiers (of {expected} tierable operands) are pinned "
+          f"host memory, none on the card")
+    # What one decode step reads from the host, weights by operand type: each
+    # column-split leaf once a layer (lm_head once), each remote expert that
+    # runs its two matrices once.
+    layer_cols = [w for w in eng.params["layers"].values()
+                  if isinstance(w, TieredTensor) and w.axis != -3]
+    top_cols = [w for w in eng.params.values() if isinstance(w, TieredTensor)]
+    static_launches = cfg.n_layers * len(layer_cols) + len(top_cols)
+    static_remote = sum(w.remote.nbytes for w in layer_cols + top_cols)
+    experts = [eng.params["layers"][k] for k in ("experts_wi", "experts_wdown")
+               if isinstance(eng.params["layers"].get(k), TieredTensor)]
+    expert_bytes = sum(w.remote[0, 0].nbytes for w in experts)
+    e_rem = experts[0].remote.shape[1] if experts else 0
+    page_bytes = sum(eng.pcache.pools[f"{n}_remote"][0, 0].nbytes for n in eng.pcache.kv_names)
+    if cfg.family == "moe":
+        check(len(experts) == 2 and all(w.local.is_cuda for w in experts),
+              f"both expert stacks split {experts[0].local.shape[1]}|{e_rem} experts per layer "
+              f"(local tier on the card)" if experts else "expert stacks tiered")
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab, prompt_len).astype(np.int32),
                     max_new_tokens=new_tokens) for i in range(n_req)]
-    torch.cuda.reset_peak_memory_stats()
-    splitk_gemm.launches = paged_splitk_flashattn.launches = scatter_rows.launches = 0
-    t0 = time.time()
     for r in reqs:
         eng.submit(r)
-    stats = eng.run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    splitk_gemm.launches = paged_splitk_flashattn.launches = scatter_rows.launches = 0
+    L.tiered_expert_ffn.remote_experts = 0
+    decode = []                                # the steps that admitted nothing
+    t0 = time.time()
+    while eng.scheduler.waiting or any(r is not None for r in eng.active):
+        before = (splitk_gemm.launches, paged_splitk_flashattn.launches,
+                  L.tiered_expert_ffn.remote_experts, len(eng.stats.ttfts),
+                  eng.stats.decode_steps)
+        kv_pages = remote_kv_pages(eng)
+        eng.step()
+        if eng.stats.decode_steps > before[4] and len(eng.stats.ttfts) == before[3]:
+            decode.append({"gemm": splitk_gemm.launches - before[0],
+                           "attn": paged_splitk_flashattn.launches - before[1],
+                           "experts": L.tiered_expert_ffn.remote_experts - before[2],
+                           "kv_pages": kv_pages})
     torch.cuda.synchronize()
     wall = time.time() - t0
+    stats = eng.stats
     launches = {"splitk_gemm": splitk_gemm.launches,
                 "paged_attention": paged_splitk_flashattn.launches,
                 "scatter_rows": scatter_rows.launches}
     peak = torch.cuda.max_memory_allocated()
     total_w = w_local + w_remote
+    n_dec = len(decode)
+    mean = lambda key: sum(s[key] for s in decode) / max(1, n_dec)  # noqa: E731
+    remote_step = (static_remote + mean("experts") * expert_bytes
+                   + mean("kv_pages") * page_bytes * cfg.n_layers)
     print(f"served {stats.served}/{n_req} requests ({prompt_len} prompt + {new_tokens} new "
           f"tokens each) in {wall:.2f} s | {stats.generated_tokens / wall:.2f} tokens/s | "
           f"TPOT {stats.tpot * 1e3:.1f} ms over {stats.decode_steps} decode steps | "
           f"TTFT p50 {stats.ttft_p50 * 1e3:.1f} ms | prefill total {stats.prefill_time:.2f} s")
     print(f"launches during the served run: {launches}")
+    gemm_part, bytes_part = ")", ""
+    if experts:
+        gemm_part = (f", {mean('gemm') - static_launches:.2f} for remote experts); remote "
+                     f"experts run {mean('experts'):.2f} of {e_rem * cfg.n_layers}")
+        no_skip = remote_step + (e_rem * cfg.n_layers - mean("experts")) * expert_bytes
+        bytes_part = f"; {no_skip / 1e9:.3f} GB if every remote expert were read"
+    print(f"per decode step that admitted nothing ({n_dec} steps, means): splitk_gemm "
+          f"{mean('gemm'):.2f} ({static_launches} for the column-split weights{gemm_part}; "
+          f"paged attention {mean('attn'):.2f}; remote KV pages attended "
+          f"{mean('kv_pages'):.2f} a layer")
+    print(f"remote bytes read per decode step (each byte once): {remote_step / 1e9:.3f} GB = "
+          f"{static_remote / 1e9:.3f} column-split weights + "
+          f"{mean('experts') * expert_bytes / 1e9:.3f} remote experts + "
+          f"{mean('kv_pages') * page_bytes * cfg.n_layers / 1e9:.4f} KV{bytes_part}")
     print(f"kv pages: local hwm {stats.local_pages_hwm}/{eng.pcache.n_local}, remote hwm "
           f"{stats.remote_pages_hwm}/{eng.pcache.n_remote}, spills {stats.spills}")
     print(f"weights: {w_local / 1e9:.3f} GB local + {w_remote / 1e9:.3f} GB remote | "
@@ -486,8 +634,14 @@ def phase_serve() -> dict:
               for r in reqs), f"every request emitted {new_tokens} tokens in [0, vocab)")
     check(launches["splitk_gemm"] > 0 and launches["paged_attention"] > 0,
           "both kernels launched on the main path")
-    check(launches["paged_attention"] == cfg.n_layers * stats.decode_steps,
+    check(launches["paged_attention"] == cfg.n_layers * stats.decode_steps
+          and all(s["attn"] == cfg.n_layers for s in decode),
           f"paged attention launched exactly {cfg.n_layers} times per decode step")
+    if experts:
+        bad = [s for s in decode if s["gemm"] - static_launches != 2 * s["experts"]]
+        check(n_dec > 0 and not bad and L.tiered_expert_ffn.remote_experts > 0,
+              f"remote-expert launches equal twice the remote experts with a valid slot in "
+              f"each of {n_dec} decode steps ({len(bad)} steps differ)")
     check(stats.local_pages_hwm >= 1 and stats.remote_pages_hwm >= 1,
           "KV pages resident in both tiers")
     check(peak < total_w, "peak device memory below the model's total weight bytes "
@@ -1378,10 +1532,10 @@ def add_launches(launches: dict, path: dict) -> None:
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
-                    help="comma-separated subset of phases 1-10 (default: 1-8; 9 is the "
-                         "host-link read probe, 10 the decode-attention kernels beside the "
-                         "design they replaced)")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,11,12,13,14",
+                    help="comma-separated subset of phases 1-14 (default: 1-8 and 11-14; 9 "
+                         "is the host-link read probe, 10 the decode-attention kernels beside "
+                         "the design they replaced)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -1404,38 +1558,49 @@ def main(argv: list[str] | None = None) -> int:
     stats = {n: {"max_abs_err": None, "max_rel_err": None} for n in KERNELS}
     launches: dict[str, int] = {}
     step = {}
-    if 2 in phases:
-        print("phase 2: kernels against their plain versions on the card")
+    def start(n: int, title: str) -> bool:
+        """Whether phase `n` runs; if so, free what earlier phases left and
+        print its title with the pinned host bytes still held."""
+        if n not in phases:
+            return False
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase {n}: {title} [pinned host bytes at start: {_build.pinned_bytes()}]")
+        return True
+
+    if start(2, "kernels against their plain versions on the card"):
         stats = phase_kernels()
-    if 3 in phases:
-        print("phase 3: token parity, 2-layer full-width llama2-7b, fp32, offload 0.5, page 4")
+    if start(3, "token parity, 2-layer full-width llama2-7b, fp32, offload 0.5, page 4"):
         phase_parity()
-    if 4 in phases:
-        print("phase 4: served run, llama2-7b (32 layers, bf16), offload 0.5, page 16")
+    if start(4, "served run, llama2-7b (32 layers, bf16), offload 0.5, page 16"):
         add_launches(launches, phase_serve()["launches"])
-    if 5 in phases:
-        print("phase 5: timing")
+    if start(5, "timing"):
         step = phase_timing(card, window=1)
-    if 6 in phases:
-        print("phase 6: batch-split token parity, 2-layer full-width llama2-7b, fp32, offload 0.5")
+    if start(6, "batch-split token parity, 2-layer full-width llama2-7b, fp32, offload 0.5"):
         phase_batch_split_parity()
-    if 7 in phases:
-        print("phase 7: batch-split served run, llama2-7b (32 layers, bf16), offload 0.5")
+    if start(7, "batch-split served run, llama2-7b (32 layers, bf16), offload 0.5"):
         add_launches(launches, phase_batch_split_serve()["launches"])
-    if 8 in phases:
-        print("phase 8: flash_prefill at llama2-7b prefill shape (off the serving path)")
+    if start(8, "flash_prefill at llama2-7b prefill shape (off the serving path)"):
         add_launches(launches, phase_flash_prefill()["launches"])
-    if 9 in phases:
-        print("phase 9: host-link read probe (copy form x CTAs x bytes in flight x row width)")
+    if start(9, "host-link read probe (copy form x CTAs x bytes in flight x row width)"):
         cap = phase_probe(card)
         for name in ("paged_attention", "splitk_flashattn"):
             if name in step:
                 rate = step[name]["remote_bytes"] / (step[name]["ms"] * 1e-3) / 1e9
                 print(f"  {name} at the served shape reads its remote tier at {rate:.2f} GB/s, "
                       f"{rate / cap:.2f}x the probe's best kernel read ({cap:.2f} GB/s)")
-    if 10 in phases:
-        print("phase 10: decode-attention kernels beside the cp.async design they replaced")
+    if start(10, "decode-attention kernels beside the cp.async design they replaced"):
         phase_replaced_designs(window=1)
+    if start(11, "MoE token parity, 2-layer full-width Qwen3-30B-A3B, fp32, dropless, "
+                 "offload 0.5, page 4"):
+        phase_parity("qwen3_moe_30b_a3b", n_layers=2, dropless=True)
+    if start(12, "MoE served run, Qwen3-30B-A3B (16 of 48 layers, bf16), offload 0.5, page 16"):
+        add_launches(launches, phase_serve("qwen3_moe_30b_a3b", n_layers=16)["launches"])
+    if start(13, "MLA token parity, 1-layer full-width DeepSeek-V2, fp32, dropless, "
+                 "offload 0.5, page 4"):
+        phase_parity("deepseek_v2_236b", n_layers=1, dropless=True)
+    if start(14, "MLA served run, DeepSeek-V2 (2 of 60 layers, bf16), offload 0.5, page 16"):
+        add_launches(launches, phase_serve("deepseek_v2_236b", n_layers=2)["launches"])
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:
@@ -1466,8 +1631,9 @@ def main(argv: list[str] | None = None) -> int:
     print("kernel times: splitk_gemm and paged_attention per decode step of the served run "
           "(batch 4, 32 layers + lm_head), splitk_flashattn per batch-split decode step "
           "(32 layers, kv_len 288), flash_prefill per call at B=4 T=2048 causal; launches: "
-          "splitk_gemm and paged_attention in phase 4, splitk_flashattn in phase 7, "
-          "flash_prefill in phase 8; max_abs_err is over the bf16 full-width shape checks")
+          "the first path run that launched each kernel (splitk_gemm and paged_attention in "
+          "phase 4, or 12 without it; splitk_flashattn in phase 7, flash_prefill in phase 8); "
+          "max_abs_err is over the bf16 full-width shape checks")
     print(json.dumps({"kernels": kernels}))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

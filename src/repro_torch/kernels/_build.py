@@ -9,7 +9,8 @@ from the previous build.  Nothing here runs at import time: the CPU tests
 import every module, and this machine's CPU-only PyTorch has no nvcc.
 
 Also here: :func:`pinned_empty`, the exact-size pinned, device-mapped host
-allocation that holds the remote tier.
+allocation that holds the remote tier, and :func:`pinned_bytes`, what it
+holds now.
 """
 from __future__ import annotations
 
@@ -167,6 +168,20 @@ def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+_PINNED = {"bytes": 0}      # bytes `pinned_empty` holds in this process
+
+
+def pinned_bytes() -> int:
+    """Bytes of pinned host memory that `pinned_empty` allocations hold now
+    (freed ones excluded)."""
+    return _PINNED["bytes"]
+
+
+def _free_pinned(host: ctypes.CDLL, ptr: int, nbytes: int) -> None:
+    host.dak_host_free(ptr)
+    _PINNED["bytes"] -= nbytes
+
+
 def pinned_empty(shape, dtype: torch.dtype) -> torch.Tensor:
     """An uninitialised CPU tensor in pinned host memory mapped into the
     device (cudaHostAlloc, mapped and portable), exactly as large as asked.
@@ -178,5 +193,6 @@ def pinned_empty(shape, dtype: torch.dtype) -> torch.Tensor:
     ptr = ctypes.c_void_p()
     check(host.dak_host_alloc(nbytes, ctypes.byref(ptr)), "cudaHostAlloc")
     buf = (ctypes.c_uint8 * nbytes).from_address(ptr.value)
-    weakref.finalize(buf, host.dak_host_free, ptr.value).atexit = False
+    _PINNED["bytes"] += nbytes
+    weakref.finalize(buf, _free_pinned, host, ptr.value, nbytes).atexit = False
     return torch.frombuffer(buf, dtype=torch.uint8)[:n].view(dtype).view(tuple(shape))

@@ -1,11 +1,18 @@
-"""Shared layers of the dense decoder, in PyTorch.
+"""Shared layers of the dense, MoE and MLA decoders, in PyTorch.
 
-Counterpart of the dense subset of ``src/repro/models/layers.py``: norms,
+Counterpart of the decoder subset of ``src/repro/models/layers.py``: norms,
 RoPE, GQA projection and attention, the single-token decode attention over
-a dense cache, and the MLP.  Every function mirrors the reference's
-arithmetic and cast points (the rsqrt cast in `rmsnorm`, interleaved RoPE
-pairs, fp32 attention logits) so bf16 runs round where the reference does.
-The reference's sharding hints have no counterpart here.
+a dense cache, the MLP, the sort-and-gather MoE block and DeepSeek-V2's
+MLA.  Every function mirrors the reference's arithmetic and cast points
+(the rsqrt cast in `rmsnorm`, interleaved RoPE pairs, fp32 attention
+logits, fp32 router probabilities) so bf16 runs round where the reference
+does.  The reference's sharding hints have no counterpart here.
+
+Every function that consumes a tierable weight takes ``mm``: the plain
+per-tier product by default, the direct-access kernel when the serving
+layer passes it.  Unlike the reference, the MLA prefill threads ``mm``
+through its projections and ``wo`` too: on the card a plain product cannot
+read a pinned remote tier.
 """
 from __future__ import annotations
 
@@ -15,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.tiering import matmul
+from repro_torch.core.tiering import TieredTensor, matmul
 
 Params = dict[str, Any]
 
@@ -199,3 +206,242 @@ def mlp_block(cfg: ModelConfig, x: torch.Tensor, p: Params, mm: Matmul = matmul)
     if "bdown" in p:
         out = out + p["bdown"]
     return out
+
+
+# --------------------------------------------------------------------------
+# MoE — sort+gather capacity dispatch (no [N,E,C] one-hot masks; the largest
+# intermediate is the [G, E, C, d] expert buffer).
+# --------------------------------------------------------------------------
+def _top_k(v: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k``: the k largest along the last axis, ties broken
+    toward the lower index.  `torch.topk` breaks ties otherwise, and router
+    probabilities do tie (bf16 logits), so this takes a stable descending
+    sort."""
+    vals, idx = torch.sort(v, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _expert_ffn(buf: torch.Tensor, wi: torch.Tensor, wdown: torch.Tensor) -> torch.Tensor:
+    """Per-expert SwiGLU FFN over a dispatch buffer [G,E,C,d] -> [G,E,C,d],
+    one batched product per matrix over the experts."""
+    gate_h, up_h = torch.chunk(torch.einsum("gecd,edf->gecf", buf, wi), 2, dim=-1)
+    return torch.einsum("gecf,efd->gecd", F.silu(gate_h) * up_h, wdown)
+
+
+def _remote_only(w: torch.Tensor, like: torch.Tensor) -> TieredTensor:
+    """One remote expert's matrix [K, N] as a column-split operand whose
+    local tier is empty (on `like`'s device), so `mm` reads it in place
+    from the remote stack."""
+    return TieredTensor(local=like.new_empty((w.shape[0], 0)), remote=w, axis=-1)
+
+
+def tiered_expert_ffn(buf: torch.Tensor, valid: torch.Tensor, wi: TieredTensor,
+                      wdown: TieredTensor, mm: Matmul = matmul) -> torch.Tensor:
+    """`_expert_ffn` over expert stacks split across tiers along the expert
+    axis (whole experts per tier, the registry's axis -3); ``valid`` [G,E,C]
+    marks the dispatch slots that hold a token.
+
+    The local block is one batched product per matrix from HBM, as in the
+    reference.  Each remote expert that holds at least one valid slot runs
+    its [d, 2ff] and [ff, d] matrices through ``mm`` as remote-only
+    operands: on the card the direct-access GEMM reads them in place from
+    pinned host memory, and no expert is copied into HBM.  Remote experts
+    with no valid slot are skipped, which is exact: their buffer rows are
+    zero, so their FFN output is zero, which is what the skip leaves; and
+    the combine never reads them (a dropped pair points at its own expert's
+    last slot with weight 0)."""
+    if not isinstance(wdown, TieredTensor) or wi.axis != -3 or wdown.axis != -3:
+        raise ValueError("experts_wi and experts_wdown must both be split on the expert axis")
+    e_loc = wi.local.shape[-3]
+    if wdown.local.shape[-3] != e_loc:
+        raise ValueError("experts_wi/wdown tier mismatch")
+    g, _, c, d = buf.shape
+    out = torch.zeros_like(buf)
+    if e_loc:
+        out[:, :e_loc] = _expert_ffn(buf[:, :e_loc], wi.local, wdown.local)
+    # Which remote experts hold a valid slot: one host read of an [E_rem]
+    # count per layer, the price of skipping the others (most of them at
+    # decode, where a step routes B * top_k pairs over all the experts).
+    counts = valid[:, e_loc:].sum(dim=(0, 2)).tolist()
+    active = [j for j, n in enumerate(counts) if n]
+    for j in active:
+        gate_h, up_h = torch.chunk(
+            mm(buf[:, e_loc + j].reshape(g * c, d), _remote_only(wi.remote[j], buf)), 2, dim=-1)
+        out[:, e_loc + j] = mm(F.silu(gate_h) * up_h,
+                               _remote_only(wdown.remote[j], buf)).reshape(g, c, d)
+    tiered_expert_ffn.remote_experts += len(active)
+    return out
+
+
+tiered_expert_ffn.remote_experts = 0   # remote experts run (not skipped) since the last reset
+
+
+def moe_block(
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    p: Params,
+    capacity_factor: float | None = None,
+    mm: Matmul = matmul,
+) -> torch.Tensor:
+    """x: [B,T,d].  Grouped sort+gather MoE dispatch.
+
+    Tokens are grouped per sequence (prefill) and in one global group at
+    decode (T == 1).  Within a group each (token, choice) pair is stably
+    sorted by expert id and gathered into per-expert slots of size
+    ``capacity``; pairs past an expert's capacity are dropped.  A
+    capacity_factor covering n·k slots makes the layer exactly dropless
+    (used by parity tests).  A tiered expert stack runs
+    `tiered_expert_ffn`; the shared experts go through ``mm``."""
+    b, t, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cf = cfg.moe_capacity_factor if capacity_factor is None else capacity_factor
+    g = b if t > 1 else 1                                         # groups
+    n = (b * t) // g                                              # tokens/group
+    capacity = min(n * k, max(1, int(round(n * k * cf / e))))
+    dev = x.device
+
+    xg = x.reshape(g, n, d)
+    logits = (xg @ p["router"]).float()                           # [G,N,E]
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = _top_k(probs, k)                        # [G,N,k]
+    gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
+
+    flat_e = gate_idx.reshape(g, n * k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)            # per group
+    inv_order = torch.argsort(order, dim=-1)                      # unsort map
+    e_sorted = torch.gather(flat_e, 1, order)                     # [G,N*k]
+    tok_sorted = torch.div(order, k, rounding_mode="floor")
+    first = torch.searchsorted(e_sorted, e_sorted, side="left")
+    slot = torch.arange(n * k, device=dev)[None, :] - first
+    keep = slot < capacity
+
+    # Gather-only dispatch: buf[g,e,c] = token at sorted position
+    # first_of(e) + c.
+    experts = torch.arange(e, device=dev)
+    starts = torch.searchsorted(e_sorted, experts.expand(g, e).contiguous(), side="left")
+    src = starts[:, :, None] + torch.arange(capacity, device=dev)[None, None, :]  # [G,E,C]
+    src_c = torch.clamp(src, max=n * k - 1)
+    src_e = torch.gather(e_sorted, 1, src_c.reshape(g, -1)).reshape(g, e, capacity)
+    valid = (src < n * k) & (src_e == experts[None, :, None])
+
+    def rows(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        return torch.gather(a, 1, idx[..., None].expand(-1, -1, a.shape[-1]))
+
+    xf_sorted = rows(xg, tok_sorted)
+    buf = rows(xf_sorted, src_c.reshape(g, -1)).reshape(g, e, capacity, d)
+    buf = buf.masked_fill(~valid[..., None], 0)
+
+    wi, wdown = p["experts_wi"], p["experts_wdown"]
+    if isinstance(wi, TieredTensor):
+        ye = tiered_expert_ffn(buf, valid, wi, wdown, mm)
+    else:
+        ye = _expert_ffn(buf, wi, wdown)
+
+    # combine: gather sorted-slot outputs linearly, unsort, sum over k
+    lin_idx = e_sorted * capacity + torch.clamp(slot, max=capacity - 1)   # [G,N*k]
+    y_lin = ye.reshape(g, e * capacity, d)
+    w_sorted = (torch.gather(gate_vals.reshape(g, n * k), 1, order) * keep).to(x.dtype)
+    y_sorted = rows(y_lin, lin_idx) * w_sorted[..., None]
+    y_tok = rows(y_sorted, inv_order)
+    y = y_tok.reshape(g, n, k, d).sum(dim=2)
+
+    if cfg.n_shared_experts:
+        xf = x.reshape(g, n, d)
+        g_s, u_s = torch.chunk(mm(xf, p["shared_wi"]), 2, dim=-1)
+        y = y + mm(F.silu(g_s) * u_s, p["shared_wdown"])
+    return y.reshape(b, t, d)
+
+
+# --------------------------------------------------------------------------
+# DeepSeek-V2 MLA — latent-compressed KV; absorbed matmuls at decode
+# --------------------------------------------------------------------------
+def mla_project_q(cfg: ModelConfig, x: torch.Tensor, p: Params, mm: Matmul = matmul):
+    """-> q_nope [B,T,H,nd], q_rope [B,T,H,rd]."""
+    b, t, _ = x.shape
+    h, nd, rd = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim
+    if cfg.q_lora_rank:
+        q_lat = rmsnorm(mm(x, p["wq_a"]), p["q_a_norm_w"], cfg.norm_eps)
+        q = mm(q_lat, p["wq_b"])
+    else:
+        q = mm(x, p["wq_b"])
+    q = q.reshape(b, t, h, nd + rd)
+    return q[..., :nd], q[..., nd:]
+
+
+def mla_project_kv_latent(cfg: ModelConfig, x: torch.Tensor, p: Params,
+                          mm: Matmul = matmul):
+    """-> c_kv [B,T,rank] (normed latent), k_rope [B,T,rd] (shared per head)."""
+    lat = mm(x, p["wkv_a"])
+    c_kv, k_rope = lat[..., :cfg.kv_lora_rank], lat[..., cfg.kv_lora_rank:]
+    return rmsnorm(c_kv, p["kv_a_norm_w"], cfg.norm_eps), k_rope
+
+
+def mla_attention_block(cfg: ModelConfig, x: torch.Tensor, p: Params,
+                        positions: torch.Tensor, causal: bool = True,
+                        mm: Matmul = matmul) -> torch.Tensor:
+    """Full-sequence MLA (prefill): expand K,V from the latent (``wkv_b``
+    stays resident), then run the shared `attend` with q/k = [nope | rope]."""
+    b, t, _ = x.shape
+    h, nd, rd, vd = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = mla_project_q(cfg, x, p, mm=mm)
+    c_kv, k_rope = mla_project_kv_latent(cfg, x, p, mm=mm)
+    kv = (c_kv @ p["wkv_b"]).reshape(b, t, h, nd + vd)
+    k_nope, v = kv[..., :nd], kv[..., nd:]
+    cos, sin = rope_cos_sin(positions, rd, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin, rd)
+    k_rope = apply_rope(k_rope[..., None, :], cos, sin, rd)       # [B,T,1,rd]
+    q_full = torch.cat([q_nope, q_rope], dim=-1)                  # [B,T,H,nd+rd]
+    k_full = torch.cat([k_nope, k_rope.expand(b, t, h, rd)], dim=-1)
+    out = attend(cfg, q_full, k_full, v, causal=causal)           # scale=(nd+rd)^-.5
+    return mm(out.reshape(b, t, h * vd), p["wo"])
+
+
+def mla_absorbed_weights(cfg: ModelConfig, p: Params) -> tuple[torch.Tensor, torch.Tensor]:
+    """(W_uk [rank,H,nd], W_uv [rank,H,vd]): ``wkv_b``'s columns are laid
+    out per head as [nd | vd] (the reshape in `mla_attention_block`)."""
+    w_full = p["wkv_b"].reshape(cfg.kv_lora_rank, cfg.n_heads,
+                                cfg.nope_head_dim + cfg.v_head_dim)
+    return w_full[..., :cfg.nope_head_dim], w_full[..., cfg.nope_head_dim:]
+
+
+def mla_decode(
+    cfg: ModelConfig,
+    x: torch.Tensor,               # [B,1,d]
+    p: Params,
+    ckv_cache: torch.Tensor,       # [B,S,rank]
+    krope_cache: torch.Tensor,     # [B,S,rd]
+    pos,                           # int (aligned batch) or [B] tensor (ragged)
+    mm: Matmul = matmul,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Absorbed-form MLA decode over a dense cache: scores and outputs are
+    computed in latent space.  Returns (y, ckv_cache, krope_cache); the
+    caches are new tensors (the inputs are left untouched)."""
+    b = x.shape[0]
+    h, nd, rd, vd = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    pos = torch.as_tensor(pos, device=x.device)
+    ragged = pos.dim() == 1                                       # [B] per-slot
+    q_nope, q_rope = mla_project_q(cfg, x, p, mm=mm)              # [B,1,H,*]
+    c_kv, k_rope = mla_project_kv_latent(cfg, x, p, mm=mm)        # [B,1,*]
+    cos, sin = rope_cos_sin(pos[:, None] if ragged else pos[None], rd, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin, rd)
+    k_rope = apply_rope(k_rope[..., None, :], cos, sin, rd)[..., 0, :]
+    ckv_cache, krope_cache = ckv_cache.clone(), krope_cache.clone()
+    if ragged:
+        rows = torch.arange(b, device=x.device)
+        ckv_cache[rows, pos.long()] = c_kv[:, 0].to(ckv_cache.dtype)
+        krope_cache[rows, pos.long()] = k_rope[:, 0].to(krope_cache.dtype)
+    else:
+        ckv_cache[:, int(pos)] = c_kv[:, 0].to(ckv_cache.dtype)
+        krope_cache[:, int(pos)] = k_rope[:, 0].to(krope_cache.dtype)
+    w_uk, w_uv = mla_absorbed_weights(cfg, p)
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], w_uk)
+    scale = (nd + rd) ** -0.5
+    logits = (torch.einsum("bhr,bsr->bhs", q_lat, ckv_cache)
+              + torch.einsum("bhr,bsr->bhs", q_rope[:, 0], krope_cache)).float() * scale
+    span = torch.arange(ckv_cache.shape[1], device=x.device)[None, None, :]
+    last = pos[:, None, None] if ragged else pos
+    logits = torch.where(span <= last, logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    o_lat = torch.einsum("bhs,bsr->bhr", probs, ckv_cache)        # [B,H,rank]
+    out = torch.einsum("bhr,rhv->bhv", o_lat, w_uv).reshape(b, 1, h * vd)
+    return mm(out, p["wo"]), ckv_cache, krope_cache

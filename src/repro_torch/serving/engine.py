@@ -1,6 +1,7 @@
 """Batched serving engine with DAK tiered offloading, static path.
 
-Counterpart of ``src/repro/serving/engine.py`` for dense decoders:
+Counterpart of ``src/repro/serving/engine.py`` for dense, MoE and MLA
+decoders:
 ragged continuous batching over ``max_batch`` slots, FCFS admission,
 whole-prompt prefill and greedy sampling.  Offloading is planned once at
 startup (`core.engine.plan`) and realized by ``TieringPlan.partition``:
@@ -8,11 +9,13 @@ on a CUDA device every remote tier goes to pinned, device-mapped host
 memory and every local tier stays on the card.
 
 * Prefill runs `models.prefill` with the kernel-backed tiered matmul as
-  ``mm``, so the remote weights are read in place over the host link and
-  never copied into HBM; prefill attention is plain PyTorch.
+  ``mm``, so the remote weights (remote MoE experts included, one at a
+  time) are read in place over the host link and never copied into HBM;
+  prefill attention is plain PyTorch.
 * Each decode step is `serving.tiered_decode.paged_tiered_decode_step`:
   the tiered GEMM for every tiered weight plus the paged tiered attention
-  kernel over `serving.paged_cache.PagedTieredCache`.
+  kernel over `serving.paged_cache.PagedTieredCache`.  MLA caches its
+  latent ``[ckv | k_rope]`` as one kv head of width rank + rd, K only.
 
 Not ported yet: chunked prefill and preemption (the scheduler's other
 policies), the adaptive runtime, elastic degradation (a ``CacheFull``
@@ -123,9 +126,7 @@ class ServingEngine:
         only the partitioned tree; a caller that drops its own reference
         lets the unsplit weights be freed."""
         self.device = resolve_device(device)
-        if cfg.family != "dense" or cfg.use_mla:
-            raise NotImplementedError(
-                f"the PyTorch port serves dense decoders so far, not {cfg.family}")
+        M.require_served(cfg)
         self.cfg = cfg
         self.hw = hw
         self.max_batch = max_batch
@@ -143,15 +144,23 @@ class ServingEngine:
             params, align=self._align, place_remote=self.device.type == "cuda")
         self._weight_bytes = weight_tier_bytes(self.params)
         self._dtype = params["embed"].dtype
+        if cfg.use_mla:
+            # MLA pages carry the latent [ckv | k_rope] as one kv head,
+            # stored once (K-only; the V read aliases the K pool): pool
+            # bytes match the planner's per-token KV accounting.
+            kv_heads, head_dim = 1, cfg.kv_lora_rank + cfg.rope_head_dim
+        else:
+            kv_heads, head_dim = cfg.n_kv_heads, cfg.resolved_head_dim
         pp = self.plan.kv_pages
         self.pcache = PagedTieredCache(
-            cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim,
+            cfg.n_layers, kv_heads, head_dim,
             page_size=page_size,
             local_pages=pp.local_pages,
             remote_pages=pp.remote_pages,
             max_slots=max_batch,
             max_pages_per_slot=-(-max_len // page_size),
             dtype=self._dtype,
+            store_v=not cfg.use_mla,
             device=self.device)
         self._t0 = self.clock.now()
         self.lens = np.zeros(max_batch, dtype=np.int32)     # per-slot kv length
@@ -234,6 +243,11 @@ class ServingEngine:
     def _write_slot_cache(self, slot: int, cache1: dict[str, torch.Tensor],
                           prompt_len: int) -> None:
         self.pcache.ensure_capacity(slot, prompt_len)
+        if self.cfg.use_mla:
+            ckv = cache1["ckv"][:, 0, :prompt_len]       # [L, T, rank]
+            krope = cache1["krope"][:, 0, :prompt_len]   # [L, T, rd]
+            self.pcache.write_prompt(slot, torch.cat([ckv, krope], dim=-1)[:, :, None, :])
+            return
         self.pcache.write_prompt(
             slot, cache1["k"][:, 0, :prompt_len], cache1["v"][:, 0, :prompt_len])
 

@@ -1,24 +1,30 @@
-"""Tiered decode path for dense decoders: the paper's system end to end.
+"""Tiered decode path for dense, MoE and MLA decoders: the paper's system
+end to end.
 
-Counterpart of the single-chip dense part of
+Counterpart of the single-chip attention-decoder part of
 ``src/repro/serving/tiered_decode.py``.  Params come from
 ``TieringPlan.partition`` (stacked leaves, tierable operands wrapped in
-`TieredTensor`); dispatch is by operand type: every tiered weight goes
-through the direct-access GEMM (`kernels.ops.tiered_matmul`), under the
+`TieredTensor`); dispatch is by operand type: every column-split weight
+goes through the direct-access GEMM (`kernels.ops.tiered_matmul`), and a
+tiered MoE expert stack runs `models.layers.tiered_expert_ffn`, whose
+remote experts go through the same GEMM one at a time, all under the
 congestion ``window`` passed per step (it paces copies, never changes
 results).  Two cache layouts:
 
 * ``paged_tiered_decode_step`` — the serving engine's ragged step over the
   paged tiered cache, attended by the paged kernel
-  (`kernels.ops.paged_decode_attention`).
+  (`kernels.ops.paged_decode_attention`): GQA, or MLA's latent
+  ``[ckv | k_rope]`` as single-head K-only pages attended in absorbed form
+  with the model's ``(nd+rd)**-0.5`` scale.
 * ``split_cache_batch`` + ``tiered_decode_step`` — the paper's §5
-  slot-aligned layout, kept for the kernel experiments: a dense cache split
-  along the batch, remote requests' rows in pinned host memory, attended by
-  the batch-split kernel (`kernels.ops.tiered_decode_attention`).
+  slot-aligned layout, kept for the kernel experiments (GQA decoders only, as
+  in the reference): a dense cache split along the batch, remote requests'
+  rows in pinned host memory, attended by the batch-split kernel
+  (`kernels.ops.tiered_decode_attention`).
 
 Not ported: the reference's deprecated ``partition_dense_params`` shim and
 its ``TIERABLE`` list (``TieringPlan.partition`` is the one partition path
-here).  Not ported yet: MLA, MoE, SSM and hybrid steps, and the mesh fetch.
+here).  Not ported yet: the SSM and hybrid steps, and the mesh fetch.
 """
 from __future__ import annotations
 
@@ -92,6 +98,37 @@ def _gqa_attend(cfg: ModelConfig, lp: dict[str, Any], hn: torch.Tensor,
     return attn.reshape(b, 1, hp * hd)
 
 
+def _mla_attend(cfg: ModelConfig, lp: dict[str, Any], hn: torch.Tensor,
+                positions: torch.Tensor, idx: int, window: int,
+                write_and_attend: WriteAndAttend) -> torch.Tensor:
+    """Absorbed-form MLA over latent-width pages: returns [B,1,H*vd] (pre-wo).
+
+    The page row is the latent ``[ckv | k_rope]`` (one kv head, width
+    rank+rd); q is the absorbed ``[q·W_uk | q_rope]``, so the kernel's
+    scores and accumulation run in latent space (`layers.mla_decode`'s
+    arithmetic).  V aliases the K page (``v_new=None``): probs @
+    ``[ckv | k_rope]`` sliced to ``:rank`` is probs @ ckv, so the latent is
+    stored once.  ``wkv_b`` is HBM-resident (not in the registry)."""
+    h, rd, vd = cfg.n_heads, cfg.rope_head_dim, cfg.v_head_dim
+    rank = cfg.kv_lora_rank
+    b = hn.shape[0]
+
+    def kmm(a, w):
+        return _mm(a, w, window)
+
+    q_nope, q_rope = L.mla_project_q(cfg, hn, lp, mm=kmm)         # [B,1,H,*]
+    c_kv, k_rope = L.mla_project_kv_latent(cfg, hn, lp, mm=kmm)   # [B,1,*]
+    cos, sin = L.rope_cos_sin(positions[:, None], rd, cfg.rope_theta)
+    q_rope = L.apply_rope(q_rope, cos, sin, rd)
+    k_rope = L.apply_rope(k_rope[..., None, :], cos, sin, rd)[..., 0, :]
+    w_uk, w_uv = L.mla_absorbed_weights(cfg, lp)
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], w_uk)      # [B,H,rank]
+    q_cat = torch.cat([q_lat, q_rope[:, 0]], dim=-1)              # [B,H,rank+rd]
+    k_new = torch.cat([c_kv, k_rope], dim=-1)[:, :, None, :]      # [B,1,1,rank+rd]
+    o = write_and_attend(idx, q_cat, k_new, None, scale=(cfg.nope_head_dim + rd) ** -0.5)
+    return torch.einsum("bhr,rhv->bhv", o[..., :rank], w_uv).reshape(b, 1, h * vd)
+
+
 def _head(cfg: ModelConfig, params: dict[str, Any], x: torch.Tensor,
           window: int) -> torch.Tensor:
     return M.lm_head(cfg, params, x, mm=lambda a, w: _mm(a, w, window))
@@ -105,19 +142,25 @@ def _decode_transformer(
     window: int,
     write_and_attend: WriteAndAttend,
 ) -> torch.Tensor:
-    """Decode body of the dense decoder: tiered weights run the
-    direct-access GEMM, attention runs through `write_and_attend`."""
+    """Shared decode body of the dense, MoE and MLA decoders: the
+    attention flavour and the FFN are picked per family; tiered weights run
+    the direct-access GEMM, attention runs through `write_and_attend`."""
     x = params["embed"][tokens.long()]                # [B,1,d]
 
     def kmm(a, w):
         return _mm(a, w, window)
 
+    attend = _mla_attend if cfg.use_mla else _gqa_attend
     for i in range(cfg.n_layers):
         lp = layer_slice(params["layers"], i)
         hn = L.norm(cfg, x, lp, "ln1")
-        attn = _gqa_attend(cfg, lp, hn, positions, i, window, write_and_attend)
+        attn = attend(cfg, lp, hn, positions, i, window, write_and_attend)
         x = x + _mm(attn, lp["wo"], window)
-        x = x + L.mlp_block(cfg, L.norm(cfg, x, lp, "ln2"), lp, mm=kmm)
+        hn2 = L.norm(cfg, x, lp, "ln2")
+        if cfg.family == "moe":
+            x = x + L.moe_block(cfg, hn2, lp, mm=kmm)
+        else:
+            x = x + L.mlp_block(cfg, hn2, lp, mm=kmm)
     return _head(cfg, params, x, window)
 
 
@@ -131,9 +174,12 @@ def tiered_decode_step(
     window: int = 2,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """One slot-aligned decode step over tiered weights + batch-split KV
-    (the paper's §5 layout; dense decoders).  Every request writes its new
-    K/V row at ``pos`` in its own tier, in place, and attends positions
-    [0, pos]; returns (logits [B,1,vocab], the cache)."""
+    (the paper's §5 layout; GQA decoders, dense or MoE, as in the
+    reference).  Every request writes its new K/V row at ``pos`` in its own
+    tier, in place, and attends positions [0, pos]; returns (logits
+    [B,1,vocab], the cache)."""
+    if cfg.use_mla:
+        raise NotImplementedError("the batch-split layout takes GQA caches, not MLA's latent")
     b = tokens.shape[0]
     b_loc = cache["k_local"].shape[1]
     b_rem = b - b_loc
@@ -145,7 +191,7 @@ def tiered_decode_step(
     wr_idx = torch.arange(b_rem, dtype=torch.int32, device=dev)
     wr_off = torch.full((b_rem,), pos, dtype=torch.int32, device=dev)
 
-    def write_and_attend(i, q, k_new, v_new, scale=None):   # dense GQA: no scale override
+    def write_and_attend(i, q, k_new, v_new, scale=None):   # GQA: no scale override
         for name, new in (("k", k_new), ("v", v_new)):
             local, remote = cache[f"{name}_local"][i], cache[f"{name}_remote"][i]
             if b_loc:

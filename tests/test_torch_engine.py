@@ -27,11 +27,19 @@ from repro_torch.models import model as TM
 from repro_torch.serving import tiered_decode as TTD
 from repro_torch.serving.engine import Request as TRequest
 from repro_torch.serving.engine import ServingEngine as TEngine
-from torch_helpers import FP32_TOL, as_np, rel_err
+from torch_helpers import (
+    FP32_TOL,
+    PAGED_SINKS,
+    PAGED_STEP_ORDER,
+    SERVE_PROMPT_LENS,
+    assert_pools_match,
+    paged_step_inputs,
+    rel_err,
+    serve,
+)
 
 JCFG, TCFG = JC.get_smoke("llama2_7b"), TC.get_smoke("llama2_7b")
-PROMPT_LENS = (10, 16, 7, 14, 9)      # tests/test_serving.py: forces tier spills
-NEW_TOKENS, MAX_LEN, MAX_BATCH, PAGE = 8, 32, 3, 4
+NEW_TOKENS, MAX_LEN, PAGE = 8, 32, 4
 
 
 @pytest.fixture(scope="module")
@@ -47,43 +55,16 @@ def test_paged_tiered_decode_step_matches_reference(weights):
     jplan = JE.plan(JCFG, JWorkload(**wl), J_TPU, global_ratio=0.5, kv_page_size=PAGE)
     tplan = TE.plan(TCFG, TWorkload(**wl), T_TPU, global_ratio=0.5, kv_page_size=PAGE)
     jp, tp = jplan.partition(jparams, align=32), tplan.partition(tparams, align=32)
-    rng = np.random.default_rng(5)
-    n_loc, n_rem = 4, 5
-    pools = {f"{kv}_{t}": rng.normal(size=(JCFG.n_layers, n + 1, PAGE, 4, 16)).astype(np.float32)
-             for kv in ("k", "v") for t, n in (("local", n_loc), ("remote", n_rem))}
-    table = np.asarray([[0, 1, 2, 0], [3, 0, 1, 0], [0, 0, 0, 0]], np.int32)
-    tier = np.asarray([[0, 1, 0, 0], [0, 0, 1, 0], [0, 0, 0, 0]], np.int32)
-    lens = np.asarray([10, 9, 0], np.int32)                    # slot 2 idle
-    args = dict(tokens=np.asarray([[3], [7], [0]], np.int32), positions=lens,
-                attn_lens=np.where(lens > 0, lens + 1, 0).astype(np.int32),
-                table=table, tier=tier,
-                wr_tier=np.asarray([0, 1, 0], np.int32),      # page 2 of slot 0 / 1
-                wr_idx=np.asarray([2, 1, n_loc], np.int32),   # idle slot -> local sink
-                wr_off=np.asarray([2, 1, 0], np.int32))
-    order = ("tokens", "positions", "attn_lens", "table", "tier", "wr_tier", "wr_idx", "wr_off")
+    pools, args = paged_step_inputs(JCFG.n_layers, ("k", "v"), 4, 16, page=PAGE)
+    sinks = dict(zip(("sink_local", "sink_remote"), PAGED_SINKS))
     jl, jpools = JTD.paged_tiered_decode_step(
         JCFG, jp, {k: jnp.asarray(v) for k, v in pools.items()},
-        *[jnp.asarray(args[k]) for k in order],
-        sink_local=n_loc, sink_remote=n_rem, window=2, use_kernel=True)
+        *[jnp.asarray(args[k]) for k in PAGED_STEP_ORDER], window=2, use_kernel=True, **sinks)
     tl, tpools = TTD.paged_tiered_decode_step(
         TCFG, tp, {k: torch.from_numpy(v.copy()) for k, v in pools.items()},
-        *[torch.from_numpy(args[k]) for k in order],
-        sink_local=n_loc, sink_remote=n_rem, window=2)
+        *[torch.from_numpy(args[k]) for k in PAGED_STEP_ORDER], window=2, **sinks)
     assert rel_err(tl, jl) < FP32_TOL
-    for key in pools:
-        sink = n_loc if key.endswith("local") else n_rem
-        assert rel_err(as_np(tpools[key])[:, :sink], as_np(jpools[key])[:, :sink]) < FP32_TOL
-
-
-def _serve(engine_cls, request_cls, cfg, params, ratio, hw, **kw):
-    eng = engine_cls(cfg, params, max_batch=MAX_BATCH, max_len=MAX_LEN, hw=hw,
-                     global_offload_ratio=ratio, page_size=PAGE, **kw)
-    rng = np.random.default_rng(7)
-    reqs = [request_cls(rid=i, prompt=rng.integers(3, cfg.vocab, n).astype(np.int32),
-                        max_new_tokens=NEW_TOKENS) for i, n in enumerate(PROMPT_LENS)]
-    for r in reqs:
-        eng.submit(r)
-    return eng.run(), reqs
+    assert_pools_match(tpools, jpools)
 
 
 def _top2_gaps(tparams, prompt) -> list[float]:
@@ -103,9 +84,11 @@ def _top2_gaps(tparams, prompt) -> list[float]:
 @pytest.mark.parametrize("ratio", [0.0, 0.5, 1.0])
 def test_engine_tokens_match_reference_engine(weights, ratio):
     jparams, tparams = weights
-    jstats, jreqs = _serve(JEngine, JRequest, JCFG, jparams, ratio, J_TPU)
-    tstats, treqs = _serve(TEngine, TRequest, TCFG, tparams, ratio, T_TPU, device="cpu")
-    assert tstats.served == jstats.served == len(PROMPT_LENS)
+    jstats, jreqs = serve(JEngine, JRequest, JCFG, jparams, J_TPU, ratio, seed=7,
+                          new_tokens=NEW_TOKENS)
+    tstats, treqs = serve(TEngine, TRequest, TCFG, tparams, T_TPU, ratio, seed=7,
+                          new_tokens=NEW_TOKENS, device="cpu")
+    assert tstats.served == jstats.served == len(SERVE_PROMPT_LENS)
     for jr, tr in zip(jreqs, treqs):
         assert tr.out_tokens == jr.out_tokens, (
             f"request {tr.rid} at offload {ratio}: port {tr.out_tokens} vs reference "

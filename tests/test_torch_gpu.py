@@ -8,6 +8,7 @@ This file imports no JAX: the machine with the card has none.  Bounds are
 the reference's kernel tolerances: 2e-4 relative in fp32, 5e-2 in bf16."""
 from __future__ import annotations
 
+import dataclasses
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ import repro_torch.configs as TC
 from repro_torch.core import engine as TE
 from repro_torch.core.ebmodel import WorkloadSpec
 from repro_torch.core.hardware import H100_SXM
+from repro_torch.core.tiering import TieredTensor
 from repro_torch.kernels import _build, flash_prefill, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.splitk_flashattn import (
@@ -26,10 +28,12 @@ from repro_torch.kernels.splitk_flashattn import (
     splitk_flashattn,
 )
 from repro_torch.kernels.splitk_gemm import splitk_gemm
+from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.serving import tiered_decode as TD
 from repro_torch.serving.engine import Request, ServingEngine
-from torch_helpers import cuda_device, rel_err  # noqa: F401  (fixture)
+from repro_torch.serving.paged_cache import PagedTieredCache
+from torch_helpers import SERVE_PROMPT_LENS, cuda_device, rel_err  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.gpu
 TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
@@ -86,6 +90,10 @@ PAGED_CASES = {
     "hd30": (3, 4, 2, 30, 4, 40, (50, 50), (9, 0, 150), "mixed", None, False),
     "hd576": (2, 8, 1, 576, 16, 12, (20, 20), (180, 33), "mixed", None, False),
     "hd1024": (2, 2, 2, 1024, 16, 6, (10, 10), (90, 16), "mixed", None, False),
+    # DeepSeek-V2's MLA decode: 128 heads over one latent kv head of width
+    # kv_lora 512 + rope 64, V read from the K pool, scale (nd + rd)**-0.5
+    "mla-full-width": (4, 128, 1, 576, 16, 10, (20, 20), (150, 0, 37, 160), "mixed",
+                       192 ** -0.5, True),
 }
 
 
@@ -152,33 +160,102 @@ def test_scatter_rows_matches_plain(cuda_device, remote):
     assert torch.equal(pool.to(cuda_device), pool_dev)
 
 
-@pytest.mark.parametrize("ratio", [0.5, 1.0])
-def test_engine_matches_plain_reference_on_card(cuda_device, ratio):
-    """The engine on the card (kernels, pinned remote tiers) emits exactly
-    the tokens of the plain per-request reference on the card (fp32,
-    llama2-7b smoke, page 4, prompts that force spills)."""
-    cfg = TC.get_smoke("llama2_7b")
-    params = TM.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
-                            device=cuda_device)
+def _engine_matches_plain_reference(cfg, ratio, dev, new_tokens=8):
+    """Serve 5 prompts that force spills (3 slots, page 4) on the card and
+    hold every request's tokens to the plain per-request reference on the
+    card, with the same weights unsplit in HBM."""
+    params = TM.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     eng = ServingEngine(cfg, params, max_batch=3, max_len=32, global_offload_ratio=ratio,
-                        page_size=4, device=cuda_device)
+                        page_size=4, device=dev)
     rng = np.random.default_rng(7)
     reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab, n).astype(np.int32),
-                    max_new_tokens=8) for i, n in enumerate((10, 16, 7, 14, 9))]
+                    max_new_tokens=new_tokens) for i, n in enumerate(SERVE_PROMPT_LENS)]
     for r in reqs:
         eng.submit(r)
     assert eng.run().served == len(reqs)
     for r in reqs:
         logits, cache = TM.prefill(cfg, params, {"tokens": torch.tensor(r.prompt,
-                                                                         device=cuda_device)[None]},
+                                                                         device=dev)[None]},
                                    max_len=32)
         want, pos = [int(torch.argmax(logits.reshape(-1)))], len(r.prompt)
-        while len(want) < 8:
+        while len(want) < new_tokens:
             logits, cache = TM.decode_step(
-                cfg, params, cache, torch.tensor([[want[-1]]], device=cuda_device), pos)
+                cfg, params, cache, torch.tensor([[want[-1]]], device=dev), pos)
             want.append(int(torch.argmax(logits.reshape(-1))))
             pos += 1
         assert r.out_tokens == want, f"request {r.rid}"
+    return eng
+
+
+@pytest.mark.parametrize("ratio", [0.5, 1.0])
+def test_engine_matches_plain_reference_on_card(cuda_device, ratio):
+    """The engine on the card (kernels, pinned remote tiers) emits exactly
+    the tokens of the plain per-request reference on the card (fp32,
+    llama2-7b smoke, page 4, prompts that force spills)."""
+    _engine_matches_plain_reference(TC.get_smoke("llama2_7b"), ratio, cuda_device)
+
+
+@pytest.mark.parametrize("ratio", [0.5, 1.0])
+@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "deepseek_v2_236b"])
+def test_moe_mla_engine_matches_plain_reference_on_card(cuda_device, arch, ratio):
+    """MoE (GQA) and MLA + MoE smoke on the card, dropless capacity (a
+    finite one couples the batched requests' drops): the engine's tokens
+    equal the plain reference's, and every remote weight tier is pinned."""
+    cfg = TC.get_smoke(arch)
+    cfg = dataclasses.replace(cfg, moe_capacity_factor=float(cfg.n_experts))
+    eng = _engine_matches_plain_reference(cfg, ratio, cuda_device)
+    tiered = [w for w in eng.params["layers"].values() if isinstance(w, TieredTensor)]
+    assert any(w.axis == -3 for w in tiered)
+    assert all(w.remote.is_pinned() and w.local.device.type == "cuda" for w in tiered)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 12])
+def test_tiered_expert_ffn_matches_plain(cuda_device, dtype, rows):
+    """The expert FFN over a 4|4 split stack: local experts batched from
+    HBM, each remote expert with a valid slot through two direct-access
+    GEMM launches on its pinned matrices, the others skipped; held against
+    the einsum over both tiers on the card."""
+    gen = torch.Generator(device=cuda_device).manual_seed(rows)
+    g, e, d, ff = 1, 8, 256, 96
+    buf = torch.randn((g, e, rows, d), generator=gen, device=cuda_device).to(dtype)
+    valid = torch.zeros((g, e, rows), dtype=torch.bool, device=cuda_device)
+    valid[0, [0, 2, 5, 6], 0] = True                   # remote experts 5 and 6 run
+    valid[0, 5, :] = True
+    buf = buf.masked_fill(~valid[..., None], 0)
+    wi = (torch.randn((e, d, 2 * ff), generator=gen, device=cuda_device) * 0.05).to(dtype)
+    wdown = (torch.randn((e, ff, d), generator=gen, device=cuda_device) * 0.05).to(dtype)
+    split = {}
+    for name, w in (("wi", wi), ("wdown", wdown)):
+        split[name] = TieredTensor(local=w[:4].contiguous(), remote=_pinned(w[4:]), axis=-3)
+    before, ran = splitk_gemm.launches, TL.tiered_expert_ffn.remote_experts
+    got = TL.tiered_expert_ffn(buf, valid, split["wi"], split["wdown"],
+                               mm=lambda a, w: TD._mm(a, w, 2))
+    torch.cuda.synchronize()
+    assert splitk_gemm.launches - before == 4
+    assert TL.tiered_expert_ffn.remote_experts - ran == 2
+    assert rel_err(got, TL._expert_ffn(buf, wi, wdown)) < TOL[dtype]
+
+
+def test_k_only_pinned_paged_cache(cuda_device):
+    """A K-only cache (MLA latent pages) on the card: the remote pool is
+    pinned host memory, prompts write into both tiers, a full local pool
+    spills its coldest page to the host, and every page reads back."""
+    ps, width = 4, 576
+    cache = PagedTieredCache(2, 1, width, page_size=ps, local_pages=3, remote_pages=6,
+                             max_slots=2, max_pages_per_slot=4, dtype=torch.bfloat16,
+                             store_v=False, device=cuda_device)
+    assert set(cache.pools) == {"k_local", "k_remote"}
+    assert cache.pools["k_remote"].is_pinned() and cache.pools["k_local"].is_cuda
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    prompts = [torch.randn((2, n, 1, width), generator=gen, device=cuda_device)
+               .to(torch.bfloat16) for n in (10, 7)]
+    for slot, k in enumerate(prompts):
+        cache.write_prompt(slot, k)
+    assert cache.spills >= 1 and cache.remote_in_use >= 1
+    for slot, k in enumerate(prompts):
+        got_k, got_v = cache.gather(slot, k.shape[1])
+        assert torch.equal(got_k, k) and torch.equal(got_v, k)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -61,3 +61,11 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                       "--new-tokens", "3", "--max-len", "16", "--offload-ratio", "0.5",
                       "--page-size", "4"])
     assert out["served"] == 2 and out["generated_tokens"] == 6
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "deepseek_v2_236b"])
+def test_serve_entry_point_serves_moe_and_mla(arch):
+    out = serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "3",
+                      "--max-batch", "2", "--prompt-len", "6", "--new-tokens", "3",
+                      "--max-len", "16", "--offload-ratio", "0.5", "--page-size", "4"])
+    assert out["served"] == 3 and out["generated_tokens"] == 9

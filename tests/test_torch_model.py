@@ -3,6 +3,8 @@ on llama2-7b smoke, with weights bridged from the reference's
 `init_params` (fp32, within 2e-4 relative)."""
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,7 @@ from repro.models import model as JM
 from repro_torch import bridge
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
+from repro_torch.serving.engine import ServingEngine
 from torch_helpers import FP32_TOL, rel_err
 
 JCFG, TCFG = JC.get_smoke("llama2_7b"), TC.get_smoke("llama2_7b")
@@ -104,3 +107,16 @@ def test_prefill_and_decode_step_match_reference(weights):
         tl2, tc2 = TM.decode_step(TCFG, tparams, dict(tcache), torch.from_numpy(nxt), pos_t)
         assert rel_err(tl2, jl2) < FP32_TOL
         assert rel_err(tc2["k"], jc2["k"]) < FP32_TOL
+
+
+@pytest.mark.parametrize("family", ["ssm", "hybrid", "encoder", "vlm"])
+def test_unported_families_raise(family):
+    """The port serves dense and MoE decoders (MLA included); the families
+    still to be ported are refused by name, by the model and the engine."""
+    cfg = dataclasses.replace(TCFG, family=family)
+    with pytest.raises(NotImplementedError, match="ssm, hybrid, encoder and vlm"):
+        TM.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(NotImplementedError, match=family):
+        TM.init_cache(cfg, 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match=family):
+        ServingEngine(cfg, {}, device="cpu")

@@ -34,3 +34,52 @@ def cuda_device() -> torch.device:
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run `pytest -m gpu` on the card)")
     return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# The paged decode step's inputs and the engines' traffic, shared by the
+# engine tests of each family (test_torch_engine.py, _moe.py, _mla.py)
+# ---------------------------------------------------------------------------
+PAGED_SINKS = (4, 5)                  # (local, remote) pool pages before each sink
+PAGED_STEP_ORDER = ("tokens", "positions", "attn_lens", "table", "tier", "wr_tier",
+                    "wr_idx", "wr_off")
+SERVE_PROMPT_LENS = (10, 16, 7, 14, 9)  # tests/test_serving.py: forces tier spills
+
+
+def paged_step_inputs(n_layers: int, kv_names, kh: int, hd: int, page: int = 4):
+    """Pools {name_tier: [L, P+1, page, Kh, hd]} and the paged decode step's
+    arguments for 3 slots (slot 2 idle, pointed at the local sink), numpy
+    from a seed; pass the arguments in `PAGED_STEP_ORDER`."""
+    rng = np.random.default_rng(5)
+    n_loc, n_rem = PAGED_SINKS
+    pools = {f"{kv}_{t}": rng.normal(size=(n_layers, n + 1, page, kh, hd)).astype(np.float32)
+             for kv in kv_names for t, n in (("local", n_loc), ("remote", n_rem))}
+    lens = np.asarray([10, 9, 0], np.int32)
+    args = dict(tokens=np.asarray([[3], [7], [5]], np.int32), positions=lens,
+                attn_lens=np.where(lens > 0, lens + 1, 0).astype(np.int32),
+                table=np.asarray([[0, 1, 2, 0], [3, 0, 1, 0], [0, 0, 0, 0]], np.int32),
+                tier=np.asarray([[0, 1, 0, 0], [0, 0, 1, 0], [0, 0, 0, 0]], np.int32),
+                wr_tier=np.asarray([0, 1, 0], np.int32),
+                wr_idx=np.asarray([2, 1, n_loc], np.int32),
+                wr_off=np.asarray([2, 1, 0], np.int32))
+    return pools, args
+
+
+def assert_pools_match(got: dict, want: dict) -> None:
+    """Every written pool agrees below its sink page (sinks are never read)."""
+    for key in want:
+        sink = PAGED_SINKS[0] if key.endswith("local") else PAGED_SINKS[1]
+        assert rel_err(as_np(got[key])[:, :sink], as_np(want[key])[:, :sink]) < FP32_TOL, key
+
+
+def serve(engine_cls, request_cls, cfg, params, hw, ratio, seed, new_tokens=6, **kw):
+    """Serve `SERVE_PROMPT_LENS` prompts (3 slots, max_len 32, page 4)
+    through one engine; returns (stats, requests)."""
+    eng = engine_cls(cfg, params, max_batch=3, max_len=32, hw=hw,
+                     global_offload_ratio=ratio, page_size=4, **kw)
+    rng = np.random.default_rng(seed)
+    reqs = [request_cls(rid=i, prompt=rng.integers(3, cfg.vocab, n).astype(np.int32),
+                        max_new_tokens=new_tokens) for i, n in enumerate(SERVE_PROMPT_LENS)]
+    for r in reqs:
+        eng.submit(r)
+    return eng.run(), reqs
