@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py              # phases 1-8 and 11-14, needs one CUDA card
+    python3 chip_smoke.py              # phases 1-8 and 11-17, needs one CUDA card
     python3 chip_smoke.py --phases 1,9 # the host-link read probe
     python3 chip_smoke.py --phases 1,5,9,10  # timings, probe, replaced designs
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 runs, printing each result on its own line:
 
-1. the card (name, power limit, PCIe link) and what ptxas reports for each
-   kernel (registers, shared memory, spills);
+1. the card (name, power limit, PCIe link), the host's RAM (MemTotal and
+   MemAvailable) and what ptxas reports for each kernel (registers, shared
+   memory, spills);
 2. every kernel against its plain PyTorch version on the card, with the
    remote operand in pinned host memory, at the main paths' decode and
    prefill shapes and windows {1, 2, 4}, plus edge cases; bound: 2e-4
    relative error in fp32, 5e-2 in bf16 (the reference's own tolerances),
    taken per query row for flash_prefill; also the expert FFN at
    Qwen3-30B-A3B's and DeepSeek-V2's widths (remote experts through
-   `splitk_gemm`, those without a valid slot skipped) and paged attention
-   at MLA's shape (128 heads over one kv head of 576, V read from K);
+   `splitk_gemm`, those without a valid slot skipped), paged attention
+   at MLA's shape (128 heads over one kv head of 576, V read from K) and at
+   the dense variants' (112 heads over 56, 48 over 8, 32 over 2), the GEMM
+   at OPT-30B's lm_head split (N 25184 | 25088), and the layer-by-layer
+   build of a 2-layer OPT-30B against the partition of the whole tree, bit
+   for bit;
 3. token parity: a 2-layer full-width llama2-7b in fp32 served by the
    engine must emit exactly the tokens of the plain per-request reference;
 4. the served run: full llama2-7b (32 layers, bf16) at offload 0.5 through
@@ -53,14 +58,29 @@ runs, printing each result on its own line:
    path), each launch alone in alternating rounds, at phase 5's shapes;
 11. MoE token parity: phase 3's check on a 2-layer full-width Qwen3-30B-A3B
    in fp32 with dropless expert capacity;
-12. the MoE served run: Qwen3-30B-A3B at its published widths, 16 of 48
-   layers, bf16, as phase 4 (plus remote-expert launches, remote bytes per
-   decode step, and a check that the remote-expert launches are twice the
-   remote experts holding a valid slot in every decode step);
+12. the MoE served run: Qwen3-30B-A3B at its published widths and depth
+   (48 layers), bf16, as phase 4 (plus remote-expert launches, remote bytes
+   per decode step, and a check that the remote-expert launches are twice
+   the remote experts holding a valid slot in every decode step);
 13. MLA token parity: phase 3's check on a 1-layer full-width DeepSeek-V2
    in fp32 with dropless expert capacity;
 14. the MLA served run: DeepSeek-V2 at its published widths, 2 of 60
-   layers, bf16, as phase 12;
+   layers, bf16, as phase 12 (60 layers would pin about 236 GB);
+15. OPT token parity: phase 3's check on a 2-layer full-width OPT-30B in
+   fp32 (LayerNorm and GELU with biases, 56 kv heads, padded query heads,
+   the ragged lm_head split);
+16. the served run of OPT-6.7B at its published widths and depth (32
+   layers, bf16), as phase 4;
+17. the served run of OPT-30B, the paper's primary model, at its published
+   widths and depth (48 layers, bf16, 70.5 GB of weights, 34.9 GB of them
+   pinned), 4 requests of 128 prompt + 16 new tokens, as phase 4, with the
+   peak device memory of set-up and of serving each below 40 GB;
+every served run (4, 12, 14, 16, 17) builds its engine one layer at a time,
+checks that set-up held no more device memory beyond the weights it keeps
+than building one layer holds (`setup_transient_bound`), that the pinned
+host bytes are its remote weights and remote KV pool and nothing else, and
+that splitk_gemm runs once per column-split weight a layer plus lm_head in
+each decode step (dense);
 each phase starts with what earlier ones held freed and prints the pinned
 host bytes still held; then one JSON line listing the kernels, the card's name and power limit,
 and the final JSON status line.
@@ -75,6 +95,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -98,6 +119,7 @@ PAGED_LENS = (150, 144, 139, 158)        # the paged served run's late-step leng
 PAGED_LONG_LENS = (2000, 1937, 2048, 1985)   # a long cache: 122-128 pages per slot
 SPLIT_KV_LEN = 288          # the batch-split served run's late-step length (phase 5)
 KERNELS = ("splitk_gemm", "paged_attention", "splitk_flashattn", "flash_prefill")
+OPT30B_PEAK_LIMIT = 40e9    # device bytes OPT-30B may peak at (70.5 GB of bf16 weights)
 
 FAILURES: list[str] = []
 
@@ -151,6 +173,14 @@ def phase_card(libs) -> dict:
           f"-> host-link peak {link / 1e9:.1f} GB/s per direction ({how})")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} | "
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    mem = {}
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        key, _, value = line.partition(":")
+        if key in ("MemTotal", "MemAvailable"):
+            mem[key] = int(value.split()[0]) * 1024
+    print(f"host RAM: MemTotal {mem.get('MemTotal', 0) / 2**30:.2f} GiB, MemAvailable "
+          f"{mem.get('MemAvailable', 0) / 2**30:.2f} GiB (/proc/meminfo); phase 17 pins "
+          f"about 34.9 GB, phase 12 about 30 GB")
     for src, log in libs.ptxas.items():
         for line in log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
@@ -315,6 +345,54 @@ def expert_case(label, d, ff, e_loc, e_rem, dtype, gen, stats=None):
     del full, split
 
 
+def layer_source_case() -> None:
+    """The layer-by-layer build (`TieringPlan.partition_source` over
+    `models.layer_source`) of a 2-layer full-width OPT-30B in bf16 at offload
+    0.5, remote stacks in pinned host memory, against `partition` of the
+    whole tree with its remote tiers placed in pinned memory: bit for bit."""
+    import repro_torch.configs as C
+    from repro_torch.core import engine as offload_engine
+    from repro_torch.core.ebmodel import WorkloadSpec
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.tiering import TieredTensor
+    from repro_torch.kernels import _build
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(C.get("opt_30b"), n_layers=2)
+    plan = offload_engine.plan(cfg, WorkloadSpec(batch=4, seq_len=144, phase="decode"),
+                               H100_SXM, global_ratio=0.5, kv_page_size=16)
+    bf = torch.bfloat16
+    whole = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(3), dtype=bf,
+                          device="cuda")
+    want = plan.partition(whole, align=128, place_remote=True)
+    del whole
+    before = _build.pinned_bytes()
+    got = plan.partition_source(
+        M.layer_source(cfg, torch.Generator(device="cuda").manual_seed(3), dtype=bf,
+                       device="cuda"),
+        align=128)
+    pinned = _build.pinned_bytes() - before
+    flat = lambda t: [(k, v) for k, v in t["layers"].items()] + [  # noqa: E731
+        (k, v) for k, v in t.items() if k != "layers"]
+    same, tiered = True, []
+    for (key, w), (key2, g) in zip(flat(want), flat(got)):
+        same = same and key == key2
+        if isinstance(w, TieredTensor):
+            tiered.append(g)
+            same = same and isinstance(g, TieredTensor) and torch.equal(
+                g.local, w.local) and torch.equal(g.remote, w.remote)
+        else:
+            same = same and torch.equal(g, w)
+    check(same and len(flat(got)) == len(flat(want)),
+          f"layer-source build of a 2-layer OPT-30B (bf16, offload 0.5) equals partition of "
+          f"the whole tree bit for bit ({len(tiered)} tiered leaves)")
+    check(all(t.remote.is_pinned() and t.local.is_cuda for t in tiered)
+          and pinned == sum(t.remote.nbytes for t in tiered),
+          f"its {len(tiered)} remote tiers are pinned host memory, one exact-size allocation "
+          f"each ({pinned} bytes)")
+    del want, got
+
+
 def batch_split_inputs(b_loc, b_rem, h, kh, hd, s, dtype, gen):
     """q [B, H, hd] and a batch-split cache: the device copy of every tier
     (for the plain version) and the kernel's operands, remote tier pinned."""
@@ -377,6 +455,13 @@ def phase_kernels() -> dict:
             gemm_case(name, m, k, n_loc, n_rem, bf, (1, 2, 4), gen,
                       stats["splitk_gemm"], tiers)
         del tiers
+    # OPT-30B's lm_head at offload 0.5: N_loc 25184 is no multiple of the
+    # 64-column decode tile
+    tiers = make_tier_pair(7168, 25184, 25088, bf, gen)
+    for m in (DECODE_BATCH, PREFILL_LEN):
+        gemm_case("opt30b-lm_head", m, 7168, 25184, 25088, bf, (1, 2), gen,
+                  stats["splitk_gemm"], tiers)
+    del tiers
     gemm_case("fp32", 64, 512, 256, 256, torch.float32, (1, 2, 4), gen)
     gemm_case("empty-local", DECODE_BATCH, 4096, 0, 2048, bf, (1, 2), gen)
     gemm_case("empty-remote", DECODE_BATCH, 4096, 2048, 0, bf, (1, 2), gen)
@@ -406,7 +491,17 @@ def phase_kernels() -> dict:
                   lens=(150, 0, 37, 160), dtype=dtype, windows=(1, 2), gen=gen,
                   scale=192 ** -0.5, alias_v=True,
                   stats=stats["paged_attention"] if dtype == bf else None)
+    # the dense variants' decode shapes: OPT-30B (56 heads padded to 112 over
+    # 56 kv heads), Qwen2.5-14B (48 over 8), ChatGLM3-6B and StarCoder2-3B
+    # (32 over 2, a group of 16 split across CTAs)
+    for label, (h, kh) in (("opt30b", (112, 56)), ("qwen2p5-14b", (48, 8)),
+                           ("chatglm3", (32, 2))):
+        for dtype in (bf, torch.float32):
+            attn_case(label, b=DECODE_BATCH, h=h, kh=kh, hd=128, ps=16, mp=10, p_loc=20,
+                      p_rem=20, lens=(150, 0, 37, 160), dtype=dtype, windows=(1, 2), gen=gen,
+                      stats=stats["paged_attention"] if dtype == bf else None)
     scatter_case(gen)
+    layer_source_case()
     # the expert FFN at Qwen3-30B-A3B's and DeepSeek-V2's widths, offload 0.5
     for dtype in (bf, torch.float32):
         for label, (d, ff, e_half) in (("qwen3-moe", (2048, 768, 64)),
@@ -516,11 +611,16 @@ def remote_kv_pages(eng) -> int:
     return n
 
 
-def phase_serve(arch: str = "llama2_7b", n_layers: int | None = None) -> dict:
+def phase_serve(arch: str = "llama2_7b", n_layers: int | None = None, n_req: int = 8,
+                new_tokens: int = 32, peak_limit: float | None = None) -> dict:
     """The served run: `arch` at its published widths (depth cut to
-    `n_layers` where given), bf16, offload 0.5, page 16, 4 slots, 8 requests
-    of 128 prompt + 32 new tokens, stepped one engine step at a time so the
-    decode steps that admitted nothing are counted on their own."""
+    `n_layers` where given), bf16, offload 0.5, page 16, 4 slots, `n_req`
+    requests of 128 prompt + `new_tokens` new tokens, stepped one engine step
+    at a time so the decode steps that admitted nothing are counted on their
+    own.  The engine is built layer by layer (`models.layer_source`), as
+    `launch/serve.py` builds it, so the unsplit model is never whole on the
+    card; `peak_limit` bounds the peak device memory of set-up and of
+    serving."""
     import repro_torch.configs as C
     from repro_torch.core.tiering import TieredTensor
     from repro_torch.kernels import _build
@@ -534,18 +634,22 @@ def phase_serve(arch: str = "llama2_7b", n_layers: int | None = None) -> dict:
     cfg = C.get(arch)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    n_req, prompt_len, new_tokens = 8, PREFILL_LEN, 32
+    prompt_len = PREFILL_LEN
     t0 = time.time()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = M.init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
-    eng = ServingEngine(cfg, params, max_batch=DECODE_BATCH,
-                        max_len=prompt_len + new_tokens, global_offload_ratio=0.5,
-                        page_size=16, device="cuda")
-    del params
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    eng = ServingEngine(cfg, M.layer_source(cfg, gen, dtype=torch.bfloat16, device="cuda"),
+                        max_batch=DECODE_BATCH, max_len=prompt_len + new_tokens,
+                        global_offload_ratio=0.5, page_size=16, device="cuda")
+    torch.cuda.synchronize()
+    setup_peak = torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()
-    print(f"served run set-up (weights drawn, partitioned, remote tier pinned): "
-          f"{time.time() - t0:.1f} s")
+    print(f"served run set-up ({cfg.n_layers} layers built one at a time: each drawn on the "
+          f"card, split, its remote half written into pinned host memory): "
+          f"{time.time() - t0:.1f} s | peak device memory during set-up {setup_peak} "
+          f"({setup_peak / 1e9:.3f} GB)")
     leaves = list(remote_leaves(eng.params))
     expected = sum(eng.plan.op_ratios.get(od.op, 0.0) > 0 for od in eng.plan.registry)
     w_local, w_remote = weight_tier_bytes(eng.params)
@@ -567,6 +671,10 @@ def phase_serve(arch: str = "llama2_7b", n_layers: int | None = None) -> dict:
     expert_bytes = sum(w.remote[0, 0].nbytes for w in experts)
     e_rem = experts[0].remote.shape[1] if experts else 0
     page_bytes = sum(eng.pcache.pools[f"{n}_remote"][0, 0].nbytes for n in eng.pcache.kv_names)
+    kv_pinned = sum(eng.pcache.pools[f"{n}_remote"].nbytes for n in eng.pcache.kv_names)
+    check(pinned == int(w_remote) + kv_pinned,
+          f"pinned host bytes {pinned} = remote weight tiers {int(w_remote)} + remote KV pool "
+          f"{kv_pinned}: nothing else was pinned")
     if cfg.family == "moe":
         check(len(experts) == 2 and all(w.local.is_cuda for w in experts),
               f"both expert stacks split {experts[0].local.shape[1]}|{e_rem} experts per layer "
@@ -644,11 +752,68 @@ def phase_serve(arch: str = "llama2_7b", n_layers: int | None = None) -> dict:
               f"each of {n_dec} decode steps ({len(bad)} steps differ)")
     check(stats.local_pages_hwm >= 1 and stats.remote_pages_hwm >= 1,
           "KV pages resident in both tiers")
-    check(peak < total_w, "peak device memory below the model's total weight bytes "
-                          "(the remote tier never came into HBM)")
+    check(peak < total_w, "peak device memory during serving below the model's total weight "
+                          "bytes (the remote tier never came into HBM)")
+    transient = setup_peak - base - w_local
+    bound, terms = setup_transient_bound(eng.params)
+    whole = ("never the whole model" if bound < total_w else
+             f"at {cfg.n_layers} layers that bound reaches the model's {total_w / 1e9:.3f} GB, "
+             f"so this does not show the model was never whole")
+    check(transient < bound,
+          f"set-up held beyond the weights the engine keeps {transient / 1e9:.3f} GB (peak "
+          f"{setup_peak / 1e9:.3f} - before {base / 1e9:.3f} - device weights "
+          f"{w_local / 1e9:.3f}), below what building one layer at a time holds, "
+          f"{bound / 1e9:.3f} GB ({terms}): {whole}")
+    if not experts:
+        check(n_dec > 0 and all(s["gemm"] == static_launches for s in decode),
+              f"splitk_gemm launched exactly {static_launches} times per decode step "
+              f"({cfg.n_layers} layers x {len(layer_cols)} column-split weights + "
+              f"{len(top_cols)})")
+    if peak_limit is not None:
+        check(setup_peak < peak_limit and peak < peak_limit,
+              f"peak device memory during set-up {setup_peak / 1e9:.3f} GB and during serving "
+              f"{peak / 1e9:.3f} GB, each below {peak_limit / 1e9:.0f} GB against "
+              f"{total_w / 1e9:.3f} GB of weights")
     profile_decode_steps(eng, cfg, rng, prompt_len)
     return {"launches": launches, "tpot_ms": stats.tpot * 1e3,
             "steps": stats.decode_steps}
+
+
+def setup_transient_bound(params) -> tuple[float, str]:
+    """The most device memory that building `params` one layer at a time
+    (`models.layer_source` + `TieringPlan.partition_source`) holds beyond
+    the weights it keeps, and its terms.  The source holds each tiered
+    top-level leaf (lm_head) whole until the engine is built, and splitting
+    one holds its remote half on the device until that is pinned.  Each
+    layer is then drawn whole on the device, each leaf through fp32 draws of
+    at most `_DRAW_CHUNK` elements (one alive at a time), and written into
+    its slots, a column-split remote half through a contiguous device copy.
+    The caching allocator may hand a live tensor up to 1 MiB more than it
+    asked for."""
+    from repro_torch.core.tiering import TieredTensor
+    from repro_torch.models import model as M
+
+    def size(w) -> int:
+        return w.local.nbytes + w.remote.nbytes if isinstance(w, TieredTensor) else w.nbytes
+
+    def draw(shape) -> int:               # fp32 bytes of a leaf's largest draw chunk
+        row = math.prod(shape[1:])
+        return 4 * min(math.prod(shape), max(1, M._DRAW_CHUNK // max(1, row)) * row)
+
+    layers = params["layers"]
+    top = [w for k, w in params.items() if k != "layers"]
+    top_whole = sum(size(w) for w in top if isinstance(w, TieredTensor))
+    top_remote = sum(w.remote.nbytes for w in top if isinstance(w, TieredTensor))
+    layer = sum(size(w) // w.shape[0] for w in layers.values())
+    chunk = max([draw(w.shape[1:]) for w in layers.values()] + [draw(w.shape) for w in top])
+    copy = max([w.remote[0].nbytes for w in layers.values()
+                if isinstance(w, TieredTensor) and w.axis == -1] + [0])
+    slack = (len(layers) + len(top) + 2) << 20
+    bound = top_whole + max(top_remote, layer + max(chunk, copy)) + slack
+    return bound, (f"whole tiered top-level leaves {top_whole / 1e9:.3f} + max(their remote "
+                   f"halves {top_remote / 1e9:.3f}, one layer {layer / 1e9:.3f} + max(fp32 draw "
+                   f"chunk {chunk / 1e9:.3f}, remote-half copy {copy / 1e9:.3f})) + allocator "
+                   f"rounding {slack / 1e9:.3f}")
 
 
 def profile_decode_steps(eng, cfg, rng, prompt_len, steps=3) -> None:
@@ -1532,8 +1697,8 @@ def add_launches(launches: dict, path: dict) -> None:
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,11,12,13,14",
-                    help="comma-separated subset of phases 1-14 (default: 1-8 and 11-14; 9 "
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,11,12,13,14,15,16,17",
+                    help="comma-separated subset of phases 1-17 (default: 1-8 and 11-17; 9 "
                          "is the host-link read probe, 10 the decode-attention kernels beside "
                          "the design they replaced)")
     args = ap.parse_args(argv)
@@ -1594,13 +1759,21 @@ def main(argv: list[str] | None = None) -> int:
     if start(11, "MoE token parity, 2-layer full-width Qwen3-30B-A3B, fp32, dropless, "
                  "offload 0.5, page 4"):
         phase_parity("qwen3_moe_30b_a3b", n_layers=2, dropless=True)
-    if start(12, "MoE served run, Qwen3-30B-A3B (16 of 48 layers, bf16), offload 0.5, page 16"):
-        add_launches(launches, phase_serve("qwen3_moe_30b_a3b", n_layers=16)["launches"])
+    if start(12, "MoE served run, Qwen3-30B-A3B (48 layers, bf16), offload 0.5, page 16"):
+        add_launches(launches, phase_serve("qwen3_moe_30b_a3b")["launches"])
     if start(13, "MLA token parity, 1-layer full-width DeepSeek-V2, fp32, dropless, "
                  "offload 0.5, page 4"):
         phase_parity("deepseek_v2_236b", n_layers=1, dropless=True)
     if start(14, "MLA served run, DeepSeek-V2 (2 of 60 layers, bf16), offload 0.5, page 16"):
         add_launches(launches, phase_serve("deepseek_v2_236b", n_layers=2)["launches"])
+    if start(15, "OPT token parity, 2-layer full-width OPT-30B, fp32, offload 0.5, page 4"):
+        phase_parity("opt_30b", n_layers=2)
+    if start(16, "served run, OPT-6.7B (32 layers, bf16), offload 0.5, page 16"):
+        add_launches(launches, phase_serve("opt_6p7b")["launches"])
+    if start(17, "served run, OPT-30B (48 layers, bf16), offload 0.5, page 16, 4 requests of "
+                 "128 + 16 tokens"):
+        add_launches(launches, phase_serve("opt_30b", n_req=DECODE_BATCH, new_tokens=16,
+                                           peak_limit=OPT30B_PEAK_LIMIT)["launches"])
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:
@@ -1632,7 +1805,8 @@ def main(argv: list[str] | None = None) -> int:
           "(batch 4, 32 layers + lm_head), splitk_flashattn per batch-split decode step "
           "(32 layers, kv_len 288), flash_prefill per call at B=4 T=2048 causal; launches: "
           "the first path run that launched each kernel (splitk_gemm and paged_attention in "
-          "phase 4, or 12 without it; splitk_flashattn in phase 7, flash_prefill in phase 8); "
+          "phase 4, or the first other served phase that ran; splitk_flashattn in phase 7, "
+          "flash_prefill in phase 8); "
           "max_abs_err is over the bf16 full-width shape checks")
     print(json.dumps({"kernels": kernels}))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -17,13 +17,17 @@ registry declares.  This is the unified path for every model family —
 dense, VLM, MoE (expert-stack splits), MLA (latent projections), SSM and
 hybrid — replacing the former trio of ``_OP_TO_PARAM``,
 ``tiering.partition_tree`` path patterns, and the serving-side ``TIERABLE``
-list.
+list.  ``TieringPlan.partition_source`` realizes the same split one layer
+at a time from a layer source, so the unsplit model is never whole on the
+device; the serving engine builds through it.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from typing import Any
+
+import torch
 
 from repro_torch.core import congestion, multicast, planner, tiering
 from repro_torch.core.hardware import HardwareSpec, MeshSpec, mesh_hardware
@@ -123,21 +127,104 @@ class TieringPlan:
         """
         out = _copy_tree(params)
         for od in self.registry:
-            ratio = self.op_ratios.get(od.op, 0.0)
-            if ratio <= 0.0:
+            t = self._tier(od, resolve(params, od.path), align)
+            if t is None:
                 continue
-            leaf = resolve(params, od.path)
-            align_eff = od.align if od.align is not None else align
-            if self.mesh is not None and self.mesh.n_devices > 1:
-                align_eff = math.lcm(align_eff, self.mesh.n_devices)
-            _, n_remote = tiering.split_sizes(leaf.shape[od.axis], ratio, align_eff)
-            if n_remote == 0:
-                continue
-            t = tiering.partition(leaf, ratio, axis=od.axis, align=align_eff)
-            if place_remote:
-                t = tiering.place(t)
-            _set_path(out, od.path, t)
+            _set_path(out, od.path, tiering.place(t) if place_remote else t)
         return out
+
+    def partition_source(self, source: Any, *, align: int = 1) -> dict[str, Any]:
+        """`partition` of the stacked tree that a layer source stands for
+        (`models.model.LayerSource`: the top-level leaves, one layer's
+        shapes, and ``layer(i)``), built without the unsplit model ever
+        being whole on the device.
+
+        Before any layer is asked for, every stacked leaf is allocated once
+        at its final size: a tiered leaf's local stack [L, ...] on the
+        source's device and, on a CUDA device, its remote stack [L, ...] as
+        one exact-size pinned, device-mapped host allocation; every other
+        leaf (norms, biases, router) as one stack on the device.  Layer i's
+        two halves are then written into slot i and the layer is dropped,
+        so the device holds the local tiers and one layer at a time.  A
+        tiered top-level leaf (lm_head) is split as `partition` splits it,
+        its remote tier placed with `tiering.place`.  Splits follow
+        `partition`'s rule on the same registry axis, so the result equals
+        ``partition(whole)`` bit for bit.  A pinned allocation that fails
+        raises, naming its bytes."""
+        from repro_torch.kernels import _build
+
+        device = source.device
+        out = dict(source.top)
+        layer_splits: dict[str, tuple[int, int]] = {}     # key -> (axis, local extent)
+        for od in self.registry:
+            if len(od.path) == 1:
+                t = self._tier(od, resolve(source.top, od.path), align)
+                if t is not None:
+                    out[od.path[0]] = tiering.place(t)
+                del t       # its unpinned remote copy is freed before any layer is drawn
+            elif od.path[0] != "layers":
+                raise NotImplementedError(
+                    f"a layer source carries the layer stack only, not {od.path_str}")
+            elif (split := self._split_spec(od, align)) is not None:
+                dim = resolve(source.shapes, od.path[1:]).shape[od.axis]
+                n_local, n_remote = tiering.split_sizes(dim, *split)
+                if n_remote:
+                    layer_splits[od.path[1]] = (od.axis, n_local)
+        n = source.n_layers
+        layers: dict[str, Any] = {}
+        for key, meta in source.shapes.items():
+            shape = (n, *meta.shape)
+            if key not in layer_splits:
+                layers[key] = torch.empty(shape, dtype=meta.dtype, device=device)
+                continue
+            axis, n_local = layer_splits[key]
+            local_shape, remote_shape = list(shape), list(shape)
+            local_shape[axis] = n_local
+            remote_shape[axis] -= n_local
+            remote = (_build.pinned_empty(remote_shape, meta.dtype) if device.type == "cuda"
+                      else torch.empty(remote_shape, dtype=meta.dtype, device=device))
+            layers[key] = tiering.TieredTensor(
+                local=torch.empty(local_shape, dtype=meta.dtype, device=device),
+                remote=remote, axis=axis)
+        for i in range(n):
+            _write_layer(layers, i, source.layer(i))
+        return {"layers": layers, **out}
+
+    def _tier(self, od: Operand, leaf: torch.Tensor, align: int) -> Any:
+        """`leaf` (operand `od`) split into a `TieredTensor` as the plan
+        says, or None where it stays whole: no offload ratio on its op, or
+        a remote extent that rounds to zero."""
+        split = self._split_spec(od, align)
+        if split is None or tiering.split_sizes(leaf.shape[od.axis], *split)[1] == 0:
+            return None
+        return tiering.partition(leaf, split[0], axis=od.axis, align=split[1])
+
+    def _split_spec(self, od: Operand, align: int) -> tuple[float, int] | None:
+        """(ratio, alignment) that operand `od` splits with, or None where its
+        planner op carries no offload ratio.  The registry's per-operand
+        alignment (MoE expert stacks: whole experts, align 1) overrides
+        `align`; under a mesh plan the remote extent is also a multiple of
+        the device count."""
+        ratio = self.op_ratios.get(od.op, 0.0)
+        if ratio <= 0.0:
+            return None
+        align_eff = od.align if od.align is not None else align
+        if self.mesh is not None and self.mesh.n_devices > 1:
+            align_eff = math.lcm(align_eff, self.mesh.n_devices)
+        return ratio, align_eff
+
+
+def _write_layer(layers: dict[str, Any], i: int, layer: dict[str, Any]) -> None:
+    """Write one layer's leaves into slot i of the stacks (each tiered leaf's
+    two halves into its two tiers); the layer is dropped on return."""
+    for key, leaf in layer.items():
+        dst = layers[key]
+        if isinstance(dst, tiering.TieredTensor):
+            local, remote = tiering.halves(leaf, dst.axis, dst.local.shape[dst.axis])
+            dst.local[i].copy_(local)
+            dst.remote[i].copy_(remote)
+        else:
+            dst[i].copy_(leaf)
 
 
 def _copy_tree(tree: Any) -> Any:

@@ -60,16 +60,19 @@ class TieredTensor:
         return TieredTensor(self.local[i], self.remote[i], axis=self.axis)
 
 
+def halves(x: torch.Tensor, axis: int, n_local: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Views of `x`'s local rows [0, n_local) and remote rows [n_local, dim)
+    along `axis`."""
+    return x.narrow(axis, 0, n_local), x.narrow(axis, n_local, x.shape[axis] - n_local)
+
+
 def partition(x: torch.Tensor, ratio: float, axis: int = 0,
               align: int = 1) -> TieredTensor:
     """Split `x` along `axis`: the trailing `ratio` fraction goes to the
     host tier.  Both tiers are fresh contiguous copies, so the unsplit
     tensor can be freed once the caller drops it."""
-    dim = x.shape[axis]
-    n_local, n_remote = split_sizes(dim, ratio, align)
-    local = x.narrow(axis, 0, n_local).contiguous()
-    remote = x.narrow(axis, n_local, n_remote).contiguous()
-    return TieredTensor(local=local, remote=remote, axis=axis)
+    local, remote = halves(x, axis, split_sizes(x.shape[axis], ratio, align)[0])
+    return TieredTensor(local=local.contiguous(), remote=remote.contiguous(), axis=axis)
 
 
 def matmul(x: torch.Tensor, w: Any) -> torch.Tensor:

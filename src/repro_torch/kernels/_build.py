@@ -191,7 +191,9 @@ def pinned_empty(shape, dtype: torch.dtype) -> torch.Tensor:
     n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
     nbytes = max(n, 1)
     ptr = ctypes.c_void_p()
-    check(host.dak_host_alloc(nbytes, ctypes.byref(ptr)), "cudaHostAlloc")
+    check(host.dak_host_alloc(nbytes, ctypes.byref(ptr)),
+          f"cudaHostAlloc of {nbytes} bytes ({nbytes / 1e9:.3f} GB) of pinned host memory, "
+          f"with {_PINNED['bytes']} bytes already pinned")
     buf = (ctypes.c_uint8 * nbytes).from_address(ptr.value)
     _PINNED["bytes"] += nbytes
     weakref.finalize(buf, _free_pinned, host, ptr.value, nbytes).atexit = False

@@ -5,7 +5,9 @@
       --offload-ratio 0.5 --page-size 16 --dtype bfloat16
 
 Runs on the CUDA device by default; ``--device cpu`` runs the plain
-PyTorch path (use ``--smoke`` there).  Two planning modes, as in the
+PyTorch path (use ``--smoke`` there).  The engine is built one layer at a
+time, so HBM holds only the local tier: ``--arch opt_30b --offload-ratio
+0.5 --dtype bfloat16`` serves all 48 layers of OPT-30B on one 80 GB card.  Two planning modes, as in the
 reference's serve command: ``--offload-ratio R`` pins the global offload ratio,
 ``--hbm-gb G`` derives it from an HBM budget.  Weights and prompts are
 random, drawn from seed 0.
@@ -48,13 +50,13 @@ def main(argv: list[str] | None = None) -> dict:
     device = resolve_device(args.device)
     cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
     gen = torch.Generator(device=device).manual_seed(0)
-    params = M.init_params(cfg, gen, dtype=_DTYPES[args.dtype], device=device)
+    # built layer by layer: the unsplit model is never whole on the device
     engine = ServingEngine(
-        cfg, params, max_batch=args.max_batch, max_len=args.max_len,
+        cfg, M.layer_source(cfg, gen, dtype=_DTYPES[args.dtype], device=device),
+        max_batch=args.max_batch, max_len=args.max_len,
         hbm_budget_bytes=args.hbm_gb * 1e9 if args.hbm_gb is not None else None,
         global_offload_ratio=None if args.hbm_gb is not None else args.offload_ratio,
         page_size=args.page_size, device=device)
-    del params                          # the engine holds the partitioned tree
     print(f"plan: global={engine.plan.global_ratio:.2f} "
           f"per-op={ {k: round(v, 2) for k, v in engine.plan.op_ratios.items()} } "
           f"window={engine.window} hw={engine.hw.name} device={device}")

@@ -12,7 +12,9 @@ Not ported yet: the ssm, hybrid, encoder and vlm families.
 """
 from __future__ import annotations
 
-from typing import Any
+import dataclasses
+import math
+from typing import Any, Callable
 
 import torch
 
@@ -23,6 +25,7 @@ Params = dict[str, Any]
 Cache = dict[str, torch.Tensor]
 
 _INIT_STD = 0.02
+_DRAW_CHUNK = 1 << 26       # elements of one fp32 draw (256 MB)
 
 
 SERVED_FAMILIES = ("dense", "moe")     # MoE with or without MLA
@@ -45,20 +48,18 @@ def layer_slice(layers: Any, i: int) -> Any:
 # ==========================================================================
 # Init
 # ==========================================================================
-def init_params(cfg: ModelConfig, generator: torch.Generator,
-                dtype: torch.dtype = torch.float32, device="cuda") -> Params:
-    """Random weights with the reference's layout and std: N(0, 0.02) for
-    matrices, ones for norm weights, zeros beyond `n_heads` in the padded
-    query heads and for biases.  Drawn in fp32 from `generator` (which must
-    live on `device`) and cast leaf by leaf, so the fp32 copy of only one
-    leaf is alive at a time.  The layer tree is the reference's
-    (`_attn_params` or `_mla_params`, then `_mlp_params` or `_moe_params`)."""
-    require_served(cfg)
-    device = torch.device(device)
-
+def _draws(generator: torch.Generator | None, dtype: torch.dtype, device):
+    """The leaf makers of `init_layer` and `init_top`: N(0, 0.02) drawn in
+    fp32 from `generator` in chunks of the leading axis of at most
+    `_DRAW_CHUNK` elements, each cast into the leaf (so the fp32 draw alive
+    at a time is one chunk, not a whole expert stack), ones and zeros."""
     def dense(*shape):
-        w = torch.randn(shape, generator=generator, device=device) * _INIT_STD
-        return w.to(dtype)
+        w = torch.empty(shape, dtype=dtype, device=device)
+        rows = max(1, _DRAW_CHUNK // max(1, math.prod(shape[1:])))
+        for chunk in w.split(rows):
+            chunk.copy_(torch.randn(chunk.shape, generator=generator, device=device)
+                        .mul_(_INIT_STD))
+        return w
 
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=device)
@@ -66,60 +67,145 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    nl, d, hd, hp = cfg.n_layers, cfg.d_model, cfg.resolved_head_dim, cfg.padded_heads
-    layers: Params = {"ln1_w": ones(nl, d), "ln2_w": ones(nl, d)}
+    return dense, ones, zeros
+
+
+def init_layer(cfg: ModelConfig, generator: torch.Generator | None,
+               dtype: torch.dtype = torch.float32, device="cuda") -> Params:
+    """One layer's random weights, unstacked, with the reference's layout
+    and std: N(0, 0.02) for matrices, ones for norm weights, zeros beyond
+    `n_heads` in the padded query heads and for biases.  The tree is the
+    reference's (`_attn_params` or `_mla_params`, then `_mlp_params` or
+    `_moe_params`) without the leading layer axis.  On the meta device
+    (`generator` None) it gives the leaves' shapes and dtypes only."""
+    require_served(cfg)
+    device = torch.device(device)
+    dense, ones, zeros = _draws(generator, dtype, device)
+    d, hd, hp = cfg.d_model, cfg.resolved_head_dim, cfg.padded_heads
+    layer: Params = {"ln1_w": ones(d), "ln2_w": ones(d)}
     if cfg.norm == "layernorm":
-        layers["ln1_b"], layers["ln2_b"] = zeros(nl, d), zeros(nl, d)
+        layer["ln1_b"], layer["ln2_b"] = zeros(d), zeros(d)
     if cfg.use_mla:
         h, nd, rd, vd = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
-        layers.update({
-            "wkv_a": dense(nl, d, cfg.kv_lora_rank + rd),
-            "kv_a_norm_w": ones(nl, cfg.kv_lora_rank),
-            "wkv_b": dense(nl, cfg.kv_lora_rank, h * (nd + vd)),
-            "wo": dense(nl, h * vd, d),
+        layer.update({
+            "wkv_a": dense(d, cfg.kv_lora_rank + rd),
+            "kv_a_norm_w": ones(cfg.kv_lora_rank),
+            "wkv_b": dense(cfg.kv_lora_rank, h * (nd + vd)),
+            "wo": dense(h * vd, d),
         })
         if cfg.q_lora_rank:
-            layers["wq_a"] = dense(nl, d, cfg.q_lora_rank)
-            layers["q_a_norm_w"] = ones(nl, cfg.q_lora_rank)
-            layers["wq_b"] = dense(nl, cfg.q_lora_rank, h * (nd + rd))
+            layer["wq_a"] = dense(d, cfg.q_lora_rank)
+            layer["q_a_norm_w"] = ones(cfg.q_lora_rank)
+            layer["wq_b"] = dense(cfg.q_lora_rank, h * (nd + rd))
         else:
-            layers["wq_b"] = dense(nl, d, h * (nd + rd))
+            layer["wq_b"] = dense(d, h * (nd + rd))
     else:
-        wq, wo = dense(nl, d, hp * hd), dense(nl, hp * hd, d)
+        wq, wo = dense(d, hp * hd), dense(hp * hd, d)
         if hp > cfg.n_heads:
             # padded query heads: zero weights beyond n_heads — numerically exact
             wq[..., cfg.n_heads * hd:] = 0
             wo[..., cfg.n_heads * hd:, :] = 0
-        layers.update({"wq": wq, "wkv": dense(nl, d, 2 * cfg.n_kv_heads * hd), "wo": wo})
+        layer.update({"wq": wq, "wkv": dense(d, 2 * cfg.n_kv_heads * hd), "wo": wo})
         if cfg.qkv_bias:
-            layers["bq"] = zeros(nl, hp * hd)
-            layers["bkv"] = zeros(nl, 2 * cfg.n_kv_heads * hd)
+            layer["bq"] = zeros(hp * hd)
+            layer["bkv"] = zeros(2 * cfg.n_kv_heads * hd)
         if cfg.qk_norm:
-            layers["q_norm_w"] = ones(nl, hd)
-            layers["k_norm_w"] = ones(nl, hd)
+            layer["q_norm_w"] = ones(hd)
+            layer["k_norm_w"] = ones(hd)
     if cfg.family == "moe":
         e, ff = cfg.n_experts, cfg.moe_d_ff
-        layers.update({
-            "router": dense(nl, d, e),
-            "experts_wi": dense(nl, e, d, 2 * ff),
-            "experts_wdown": dense(nl, e, ff, d),
+        layer.update({
+            "router": dense(d, e),
+            "experts_wi": dense(e, d, 2 * ff),
+            "experts_wdown": dense(e, ff, d),
         })
         if cfg.n_shared_experts:
             sf = ff * cfg.n_shared_experts
-            layers["shared_wi"] = dense(nl, d, 2 * sf)
-            layers["shared_wdown"] = dense(nl, sf, d)
+            layer["shared_wi"] = dense(d, 2 * sf)
+            layer["shared_wdown"] = dense(sf, d)
     else:
         mult = 2 if cfg.mlp == "swiglu" else 1
-        layers["wi"] = dense(nl, d, mult * cfg.d_ff)
-        layers["wdown"] = dense(nl, cfg.d_ff, d)
+        layer["wi"] = dense(d, mult * cfg.d_ff)
+        layer["wdown"] = dense(cfg.d_ff, d)
         if cfg.norm == "layernorm":       # bias-ful families
-            layers["bi"], layers["bdown"] = zeros(nl, mult * cfg.d_ff), zeros(nl, d)
-    p: Params = {"layers": layers, "embed": dense(cfg.vocab, d), "final_w": ones(d)}
+            layer["bi"], layer["bdown"] = zeros(mult * cfg.d_ff), zeros(d)
+    return layer
+
+
+def init_top(cfg: ModelConfig, generator: torch.Generator | None,
+             dtype: torch.dtype = torch.float32, device="cuda") -> Params:
+    """The leaves outside the layer stack: `embed`, `final_w` (and
+    `final_b` for LayerNorm), and `lm_head` unless the embedding is tied."""
+    require_served(cfg)
+    dense, ones, zeros = _draws(generator, dtype, torch.device(device))
+    top: Params = {"embed": dense(cfg.vocab, cfg.d_model), "final_w": ones(cfg.d_model)}
     if cfg.norm == "layernorm":
-        p["final_b"] = zeros(d)
+        top["final_b"] = zeros(cfg.d_model)
     if not cfg.tie_embeddings:
-        p["lm_head"] = dense(d, cfg.vocab)
-    return p
+        top["lm_head"] = dense(cfg.d_model, cfg.vocab)
+    return top
+
+
+@dataclasses.dataclass
+class LayerSource:
+    """A model's weights one layer at a time, so an engine can be built
+    without the unsplit model ever being whole on the device.
+
+    ``top`` holds every leaf outside the layer stack, ``shapes`` one layer's
+    leaves on the meta device (shapes and dtypes), and ``layer(i)`` returns
+    layer i's leaves; it is called for i = 0, 1, ... in that order, once
+    each."""
+
+    n_layers: int
+    top: Params
+    shapes: Params
+    layer: Callable[[int], Params]
+
+    @property
+    def device(self) -> torch.device:
+        return self.top["embed"].device
+
+    @classmethod
+    def from_tree(cls, params: Params) -> "LayerSource":
+        """The source of a whole stacked tree (`init_params`, or the bridge)."""
+        layers = params["layers"]
+        return cls(n_layers=next(iter(layers.values())).shape[0],
+                   top={k: v for k, v in params.items() if k != "layers"},
+                   shapes={k: v[0].to("meta") for k, v in layers.items()},
+                   layer=lambda i: layer_slice(layers, i))
+
+
+def layer_source(cfg: ModelConfig, generator: torch.Generator | None,
+                 dtype: torch.dtype = torch.float32, device="cuda") -> LayerSource:
+    """`init_params`' weights as a `LayerSource`: the top-level leaves are
+    drawn now, each layer when it is asked for, from the same stream in the
+    same order, so the layers equal `init_params`' bit for bit."""
+    top = init_top(cfg, generator, dtype, device)
+    drawn = [0]
+
+    def layer(i: int) -> Params:
+        if i != drawn[0]:
+            raise ValueError(f"layer {i} asked for, but the stream is at layer {drawn[0]}: "
+                             f"a drawn source gives its layers in order, once each")
+        drawn[0] += 1
+        return init_layer(cfg, generator, dtype, device)
+
+    return LayerSource(n_layers=cfg.n_layers, top=top,
+                       shapes=init_layer(cfg, None, dtype, "meta"), layer=layer)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator | None,
+                dtype: torch.dtype = torch.float32, device="cuda") -> Params:
+    """Random weights with the reference's layout: `init_top`'s leaves, then
+    the stack of `n_layers` `init_layer` draws from the same `generator`
+    (which must live on `device`), written layer by layer into the stacks."""
+    src = layer_source(cfg, generator, dtype, device)
+    layers = {k: torch.empty((src.n_layers, *v.shape), dtype=v.dtype, device=src.device)
+              for k, v in src.shapes.items()}
+    for i in range(src.n_layers):
+        for k, v in src.layer(i).items():
+            layers[k][i] = v
+    return {"layers": layers, **src.top}
 
 
 # ==========================================================================

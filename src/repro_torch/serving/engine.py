@@ -4,9 +4,10 @@ Counterpart of ``src/repro/serving/engine.py`` for dense, MoE and MLA
 decoders:
 ragged continuous batching over ``max_batch`` slots, FCFS admission,
 whole-prompt prefill and greedy sampling.  Offloading is planned once at
-startup (`core.engine.plan`) and realized by ``TieringPlan.partition``:
-on a CUDA device every remote tier goes to pinned, device-mapped host
-memory and every local tier stays on the card.
+startup (`core.engine.plan`) and realized layer by layer by
+``TieringPlan.partition_source``: on a CUDA device every remote tier goes
+to pinned, device-mapped host memory and every local tier stays on the
+card, so a model whose weights do not fit in HBM can be served.
 
 * Prefill runs `models.prefill` with the kernel-backed tiered matmul as
   ``mm``, so the remote weights (remote MoE experts included, one at a
@@ -111,7 +112,7 @@ class ServingEngine:
     def __init__(
         self,
         cfg: ModelConfig,
-        params: dict[str, Any],
+        params: dict[str, Any] | M.LayerSource,
         *,
         max_batch: int = 4,
         max_len: int = 128,
@@ -122,9 +123,14 @@ class ServingEngine:
         device="cuda",
     ):
         """``params`` is the unpartitioned stacked tree (`models.init_params`
-        or `bridge.params_from_numpy`), on ``device``.  The engine keeps
-        only the partitioned tree; a caller that drops its own reference
-        lets the unsplit weights be freed."""
+        or `bridge.params_from_numpy`) or a `models.model.LayerSource`
+        (`models.layer_source`), on ``device``.  Either is partitioned one
+        layer at a time (`TieringPlan.partition_source`): the device then
+        holds the local tiers and the untiered leaves, every remote tier
+        is pinned host memory, and a source never has the unsplit model
+        whole on the device.  The engine keeps only the partitioned tree;
+        a caller that drops its own reference lets the unsplit weights be
+        freed."""
         self.device = resolve_device(device)
         M.require_served(cfg)
         self.cfg = cfg
@@ -140,10 +146,10 @@ class ServingEngine:
             global_ratio=global_offload_ratio, kv_page_size=page_size)
         self.window = self.plan.window.n_inflight
         self._align = 32 if cfg.d_model < 1024 else 128
-        self.params = self.plan.partition(
-            params, align=self._align, place_remote=self.device.type == "cuda")
+        source = params if isinstance(params, M.LayerSource) else M.LayerSource.from_tree(params)
+        self.params = self.plan.partition_source(source, align=self._align)
         self._weight_bytes = weight_tier_bytes(self.params)
-        self._dtype = params["embed"].dtype
+        self._dtype = source.top["embed"].dtype
         if cfg.use_mla:
             # MLA pages carry the latent [ckv | k_rope] as one kv head,
             # stored once (K-only; the V read aliases the K pool): pool

@@ -94,6 +94,15 @@ PAGED_CASES = {
     # kv_lora 512 + rope 64, V read from the K pool, scale (nd + rd)**-0.5
     "mla-full-width": (4, 128, 1, 576, 16, 10, (20, 20), (150, 0, 37, 160), "mixed",
                        192 ** -0.5, True),
+    # the dense variants' decode shapes: OPT-30B (56 heads padded to 112 over
+    # 56 kv heads), Qwen2.5-14B (48 padded heads over 8), ChatGLM3-6B and
+    # StarCoder2-3B (32 over 2: a group of 16, split across CTAs)
+    "opt30b-h112-kh56": (4, 112, 56, 128, 16, 10, (20, 20), (150, 0, 37, 160), "mixed", None,
+                         False),
+    "qwen2p5-h48-kh8": (4, 48, 8, 128, 16, 10, (20, 20), (150, 0, 37, 160), "mixed", None,
+                        False),
+    "chatglm3-h32-kh2": (4, 32, 2, 128, 16, 10, (20, 20), (150, 0, 37, 160), "mixed", None,
+                         False),
 }
 
 
@@ -160,12 +169,15 @@ def test_scatter_rows_matches_plain(cuda_device, remote):
     assert torch.equal(pool.to(cuda_device), pool_dev)
 
 
-def _engine_matches_plain_reference(cfg, ratio, dev, new_tokens=8):
+def _engine_matches_plain_reference(cfg, ratio, dev, new_tokens=8, from_source=False):
     """Serve 5 prompts that force spills (3 slots, page 4) on the card and
     hold every request's tokens to the plain per-request reference on the
-    card, with the same weights unsplit in HBM."""
+    card, with the same weights unsplit in HBM; the engine is built from the
+    whole tree, or with `from_source` from a layer source of the same seed."""
     params = TM.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    eng = ServingEngine(cfg, params, max_batch=3, max_len=32, global_offload_ratio=ratio,
+    weights = (TM.layer_source(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+               if from_source else params)
+    eng = ServingEngine(cfg, weights, max_batch=3, max_len=32, global_offload_ratio=ratio,
                         page_size=4, device=dev)
     rng = np.random.default_rng(7)
     reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab, n).astype(np.int32),
@@ -400,3 +412,77 @@ def test_batch_split_decode_matches_plain_decode_on_card(cuda_device, ratio):
         plogits, pcache = TM.decode_step(cfg, params, pcache, ptok[:, None], 6 + i)
         tok, ptok = torch.argmax(logits[:, 0], -1), torch.argmax(plogits[:, 0], -1)
     assert torch.equal(tok, ptok)
+
+
+@pytest.mark.parametrize("m", [4, 128])
+def test_splitk_gemm_at_opt30b_lm_head_split(cuda_device, m):
+    """OPT-30B's lm_head at offload 0.5 (K 7168, N 25184 | 25088, bf16): the
+    local tier is no multiple of the 64-column decode tile."""
+    k, n_loc, n_rem = 7168, 25184, 25088
+    gen = torch.Generator(device=cuda_device).manual_seed(m)
+    x = torch.randn((m, k), generator=gen, device=cuda_device).to(torch.bfloat16)
+    wl = (torch.randn((k, n_loc), generator=gen, device=cuda_device) * 0.02).to(torch.bfloat16)
+    wr_dev = (torch.randn((k, n_rem), generator=gen, device=cuda_device) * 0.02
+              ).to(torch.bfloat16)
+    before = splitk_gemm.launches
+    got = splitk_gemm(x, wl, _pinned(wr_dev), window=1)
+    torch.cuda.synchronize()
+    assert splitk_gemm.launches == before + 1
+    assert rel_err(got, tref.splitk_gemm_ref(x, wl, wr_dev)) < TOL[torch.bfloat16]
+
+
+def _tiered(tree):
+    for leaf in tree.values():
+        if isinstance(leaf, dict):
+            yield from _tiered(leaf)
+        elif isinstance(leaf, TieredTensor):
+            yield leaf
+
+
+@pytest.mark.parametrize("arch,n_layers", [("opt_30b", 2), ("llama2_7b", None),
+                                           ("qwen3_moe_30b_a3b", None),
+                                           ("deepseek_v2_236b", None)])
+def test_layer_source_tree_equals_partition_of_the_whole(cuda_device, arch, n_layers):
+    """On the card, the layer-by-layer build (remote stacks in one pinned
+    allocation each) equals `partition(whole)` with remote tiers placed in
+    pinned memory, bit for bit: a 2-layer OPT-30B at full width in bf16, and
+    the smoke configs of the dense, MoE and MLA families."""
+    cfg = TC.get(arch) if n_layers else TC.get_smoke(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    align = 128 if n_layers else 32
+    plan = TE.plan(cfg, WorkloadSpec(batch=4, seq_len=64, phase="decode"), H100_SXM,
+                   global_ratio=0.5)
+    dtype = torch.bfloat16 if n_layers else torch.float32
+    whole = TM.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(3),
+                           dtype=dtype, device=cuda_device)
+    want = plan.partition(whole, align=align, place_remote=True)
+    del whole
+    src = TM.layer_source(cfg, torch.Generator(device=cuda_device).manual_seed(3),
+                          dtype=dtype, device=cuda_device)
+    pinned = _build.pinned_bytes()
+    got = plan.partition_source(src, align=align)
+    tiered = list(_tiered(got))
+    assert tiered and all(t.remote.is_pinned() and t.local.is_cuda for t in tiered)
+    assert _build.pinned_bytes() - pinned == sum(t.remote.nbytes for t in tiered)
+    for key, w in want["layers"].items():
+        g = got["layers"][key]
+        if isinstance(w, TieredTensor):
+            assert torch.equal(g.local, w.local) and torch.equal(g.remote, w.remote), key
+        else:
+            assert torch.equal(g, w), key
+    for key in ("embed", "final_w", "final_b", "lm_head"):
+        if key in want:
+            w, g = want[key], got[key]
+            pairs = [(g.local, w.local), (g.remote, w.remote)] if isinstance(w, TieredTensor) \
+                else [(g, w)]
+            assert all(torch.equal(a, b) for a, b in pairs), key
+
+
+@pytest.mark.parametrize("arch", ["opt_6p7b", "opt_30b", "qwen2p5_14b", "qwen3_32b",
+                                  "chatglm3_6b", "starcoder2_3b"])
+def test_dense_variant_engine_from_a_source_matches_plain_reference(cuda_device, arch):
+    """Each dense variant's smoke config, built layer by layer on the card
+    at offload 0.5, emits exactly the plain per-request reference's tokens
+    on the same weights unsplit in HBM."""
+    _engine_matches_plain_reference(TC.get_smoke(arch), 0.5, cuda_device, from_source=True)
