@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py              # phases 1-8 and 11-17, needs one CUDA card
+    python3 chip_smoke.py              # phases 1-8 and 11-21, needs one CUDA card
     python3 chip_smoke.py --phases 1,9 # the host-link read probe
     python3 chip_smoke.py --phases 1,5,9,10  # timings, probe, replaced designs
 
@@ -18,10 +18,14 @@ runs, printing each result on its own line:
    taken per query row for flash_prefill; also the expert FFN at
    Qwen3-30B-A3B's and DeepSeek-V2's widths (remote experts through
    `splitk_gemm`, those without a valid slot skipped), paged attention
-   at MLA's shape (128 heads over one kv head of 576, V read from K) and at
-   the dense variants' (112 heads over 56, 48 over 8, 32 over 2), the GEMM
-   at OPT-30B's lm_head split (N 25184 | 25088), and the layer-by-layer
-   build of a 2-layer OPT-30B against the partition of the whole tree, bit
+   at MLA's shape (128 heads over one kv head of 576, V read from K), at
+   the dense variants' (112 heads over 56, 48 over 8, 32 over 2) and at
+   Zamba2's shared attention (32 heads over 32 of hd 80), the GEMM at
+   OPT-30B's lm_head split (N 25184 | 25088) and at the SSM and hybrid
+   projections' splits (Mamba2's bc_proj 128 | 128 and ssm_out, Zamba2's
+   z/x_proj and shared wi and wdown; bf16 and fp32, M 4 and 128), and the
+   layer-by-layer build of a 2-layer OPT-30B and of a 12-layer Zamba2 (its
+   shared block stack tiered) against the partition of the whole tree, bit
    for bit;
 3. token parity: a 2-layer full-width llama2-7b in fp32 served by the
    engine must emit exactly the tokens of the plain per-request reference;
@@ -75,12 +79,26 @@ runs, printing each result on its own line:
    widths and depth (48 layers, bf16, 70.5 GB of weights, 34.9 GB of them
    pinned), 4 requests of 128 prompt + 16 new tokens, as phase 4, with the
    peak device memory of set-up and of serving each below 40 GB;
-every served run (4, 12, 14, 16, 17) builds its engine one layer at a time,
-checks that set-up held no more device memory beyond the weights it keeps
-than building one layer holds (`setup_transient_bound`), that the pinned
-host bytes are its remote weights and remote KV pool and nothing else, and
-that splitk_gemm runs once per column-split weight a layer plus lm_head in
-each decode step (dense);
+18. SSM token parity: phase 3's check on a 2-layer full-width Mamba2-370M
+   in fp32 (no KV pages; the conv window and SSD state per slot in HBM);
+19. the SSM served run: Mamba2-370M at its published widths and depth (48
+   layers, bf16), as phase 4, with no paged attention (193 splitk_gemm
+   launches a decode step under today's plan: z, x, bc and ssm_out a
+   layer, and lm_head; dt_proj's 32 columns stay whole);
+20. hybrid token parity: phase 3's check on a 12-layer full-width
+   Zamba2-2.7B in fp32, two groups, so both shared blocks run;
+21. the hybrid served run: Zamba2-2.7B at its published widths and depth
+   (54 layers, 9 groups, bf16), as phase 4: 208 splitk_gemm launches a
+   decode step (z, x and ssm_out a layer, the 5 shared projections a
+   group, lm_head) and 9 paged-attention launches;
+every served run (4, 12, 14, 16, 17, 19, 21) builds its engine one layer at
+a time, checks that set-up held no more device memory beyond the weights it
+keeps than building one layer holds (`setup_transient_bound`), that the
+pinned host bytes are its remote weights and remote KV pool and nothing
+else, that every operand the plan rates is tiered unless its remote extent
+rounds to nothing, and that splitk_gemm runs once per column-split weight a
+layer (a shared one a group) plus lm_head in each decode step (every family
+but MoE, whose remote experts are counted as they run);
 each phase starts with what earlier ones held freed and prints the pinned
 host bytes still held; then one JSON line listing the kernels, the card's name and power limit,
 and the final JSON status line.
@@ -120,6 +138,7 @@ PAGED_LONG_LENS = (2000, 1937, 2048, 1985)   # a long cache: 122-128 pages per s
 SPLIT_KV_LEN = 288          # the batch-split served run's late-step length (phase 5)
 KERNELS = ("splitk_gemm", "paged_attention", "splitk_flashattn", "flash_prefill")
 OPT30B_PEAK_LIMIT = 40e9    # device bytes OPT-30B may peak at (70.5 GB of bf16 weights)
+ZAMBA2_PARITY_LAYERS = 12   # two groups of 6: both shared blocks run (phases 2 and 20)
 
 FAILURES: list[str] = []
 
@@ -198,6 +217,16 @@ GEMM_SHAPES = {          # name: (K, N_loc, N_rem) at offload 0.5, llama2-7b
     "wi": (4096, 11008, 11008),
     "wdown": (11008, 2048, 2048),
     "lm_head": (4096, 16000, 16000),
+}
+
+
+# the SSM and hybrid families' new operand shapes at offload 0.5 (align 128)
+RECURRENT_GEMM_SHAPES = {
+    "mamba2-bc_proj": (1024, 128, 128),        # the narrowest split yet
+    "mamba2-ssm_out": (2048, 512, 512),
+    "zamba2-z/x_proj": (2560, 2560, 2560),
+    "zamba2-shared-wi": (2560, 10240, 10240),
+    "zamba2-shared-wdown": (10240, 1280, 1280),
 }
 
 
@@ -345,11 +374,21 @@ def expert_case(label, d, ff, e_loc, e_rem, dtype, gen, stats=None):
     del full, split
 
 
-def layer_source_case() -> None:
+def tree_leaves(tree, prefix=""):
+    """(path, leaf) pairs of a nested params tree, in its order."""
+    for key, leaf in tree.items():
+        if isinstance(leaf, dict):
+            yield from tree_leaves(leaf, f"{prefix}{key}/")
+        else:
+            yield f"{prefix}{key}", leaf
+
+
+def layer_source_case(arch: str, n_layers: int) -> None:
     """The layer-by-layer build (`TieringPlan.partition_source` over
-    `models.layer_source`) of a 2-layer full-width OPT-30B in bf16 at offload
-    0.5, remote stacks in pinned host memory, against `partition` of the
-    whole tree with its remote tiers placed in pinned memory: bit for bit."""
+    `models.layer_source`) of `arch` at full width cut to `n_layers`, in bf16
+    at offload 0.5, remote stacks in pinned host memory, against `partition`
+    of the whole tree with its remote tiers placed in pinned memory: bit for
+    bit, a hybrid's tiered ``shared`` block stack included."""
     import repro_torch.configs as C
     from repro_torch.core import engine as offload_engine
     from repro_torch.core.ebmodel import WorkloadSpec
@@ -358,7 +397,7 @@ def layer_source_case() -> None:
     from repro_torch.kernels import _build
     from repro_torch.models import model as M
 
-    cfg = dataclasses.replace(C.get("opt_30b"), n_layers=2)
+    cfg = dataclasses.replace(C.get(arch), n_layers=n_layers)
     plan = offload_engine.plan(cfg, WorkloadSpec(batch=4, seq_len=144, phase="decode"),
                                H100_SXM, global_ratio=0.5, kv_page_size=16)
     bf = torch.bfloat16
@@ -372,23 +411,24 @@ def layer_source_case() -> None:
                        device="cuda"),
         align=128)
     pinned = _build.pinned_bytes() - before
-    flat = lambda t: [(k, v) for k, v in t["layers"].items()] + [  # noqa: E731
-        (k, v) for k, v in t.items() if k != "layers"]
-    same, tiered = True, []
-    for (key, w), (key2, g) in zip(flat(want), flat(got)):
+    flat_want, flat_got = list(tree_leaves(want)), list(tree_leaves(got))
+    same, tiered = len(flat_got) == len(flat_want), []
+    for (key, w), (key2, g) in zip(flat_want, flat_got):
         same = same and key == key2
         if isinstance(w, TieredTensor):
-            tiered.append(g)
+            tiered.append(key)
             same = same and isinstance(g, TieredTensor) and torch.equal(
                 g.local, w.local) and torch.equal(g.remote, w.remote)
         else:
             same = same and torch.equal(g, w)
-    check(same and len(flat(got)) == len(flat(want)),
-          f"layer-source build of a 2-layer OPT-30B (bf16, offload 0.5) equals partition of "
-          f"the whole tree bit for bit ({len(tiered)} tiered leaves)")
-    check(all(t.remote.is_pinned() and t.local.is_cuda for t in tiered)
-          and pinned == sum(t.remote.nbytes for t in tiered),
-          f"its {len(tiered)} remote tiers are pinned host memory, one exact-size allocation "
+    shared = sum(k.startswith("shared/") for k in tiered)
+    check(same, f"layer-source build of a {n_layers}-layer {cfg.name} (bf16, offload 0.5) "
+                f"equals partition of the whole tree bit for bit ({len(tiered)} tiered leaves, "
+                f"{shared} of them in the shared block stack)")
+    leaves = [g for _, g in flat_got if isinstance(g, TieredTensor)]
+    check(all(t.remote.is_pinned() and t.local.is_cuda for t in leaves)
+          and pinned == sum(t.remote.nbytes for t in leaves),
+          f"its {len(leaves)} remote tiers are pinned host memory, one exact-size allocation "
           f"each ({pinned} bytes)")
     del want, got
 
@@ -462,6 +502,14 @@ def phase_kernels() -> dict:
         gemm_case("opt30b-lm_head", m, 7168, 25184, 25088, bf, (1, 2), gen,
                   stats["splitk_gemm"], tiers)
     del tiers
+    # the SSM and hybrid projections (phases 18-21), decode and prefill M
+    for name, (k, n_loc, n_rem) in RECURRENT_GEMM_SHAPES.items():
+        for dtype in (bf, torch.float32):
+            tiers = make_tier_pair(k, n_loc, n_rem, dtype, gen)
+            for m in (DECODE_BATCH, PREFILL_LEN):
+                gemm_case(name, m, k, n_loc, n_rem, dtype, (1, 2), gen,
+                          stats["splitk_gemm"] if dtype == bf else None, tiers)
+            del tiers
     gemm_case("fp32", 64, 512, 256, 256, torch.float32, (1, 2, 4), gen)
     gemm_case("empty-local", DECODE_BATCH, 4096, 0, 2048, bf, (1, 2), gen)
     gemm_case("empty-remote", DECODE_BATCH, 4096, 2048, 0, bf, (1, 2), gen)
@@ -500,8 +548,15 @@ def phase_kernels() -> dict:
             attn_case(label, b=DECODE_BATCH, h=h, kh=kh, hd=128, ps=16, mp=10, p_loc=20,
                       p_rem=20, lens=(150, 0, 37, 160), dtype=dtype, windows=(1, 2), gen=gen,
                       stats=stats["paged_attention"] if dtype == bf else None)
+    # Zamba2's shared attention: 32 heads over 32 kv heads of 80 (a TMA box
+    # row of 160 B in bf16, 320 B in fp32)
+    for dtype in (bf, torch.float32):
+        attn_case("zamba2-hd80", b=DECODE_BATCH, h=32, kh=32, hd=80, ps=16, mp=10, p_loc=20,
+                  p_rem=20, lens=(150, 0, 37, 160), dtype=dtype, windows=(1, 2), gen=gen,
+                  stats=stats["paged_attention"] if dtype == bf else None)
     scatter_case(gen)
-    layer_source_case()
+    layer_source_case("opt_30b", 2)
+    layer_source_case("zamba2_2p7b", ZAMBA2_PARITY_LAYERS)
     # the expert FFN at Qwen3-30B-A3B's and DeepSeek-V2's widths, offload 0.5
     for dtype in (bf, torch.float32):
         for label, (d, ff, e_half) in (("qwen3-moe", (2048, 768, 64)),
@@ -554,7 +609,8 @@ def phase_parity(arch: str = "llama2_7b", n_layers: int = 2, dropless: bool = Fa
     0.5, page 4, 3 slots, prompts that force spills) must emit exactly the
     tokens of the plain per-request reference on the same weights unsplit in
     HBM.  MoE runs dropless: a finite capacity couples the batched requests'
-    drops, which per-request decoding cannot see."""
+    drops, which per-request decoding cannot see.  A pure SSM has no pages
+    to check; its idle slots step with the batch, as in the reference."""
     import repro_torch.configs as C
     from repro_torch.models import model as M
     from repro_torch.serving.engine import Request, ServingEngine
@@ -582,9 +638,10 @@ def phase_parity(arch: str = "llama2_7b", n_layers: int = 2, dropless: bool = Fa
         check(r.out_tokens == want,
               f"request {r.rid}: engine {r.out_tokens} vs reference {want} "
               f"(smallest top-2 logit gap {min(gaps):.3e})")
-    check(stats.local_pages_hwm >= 1 and stats.remote_pages_hwm >= 1,
-          f"parity run pages in both tiers: local hwm {stats.local_pages_hwm}, "
-          f"remote hwm {stats.remote_pages_hwm}, spills {stats.spills}")
+    if eng.pcache is not None:                 # a pure SSM has no KV pages
+        check(stats.local_pages_hwm >= 1 and stats.remote_pages_hwm >= 1,
+              f"parity run pages in both tiers: local hwm {stats.local_pages_hwm}, "
+              f"remote hwm {stats.remote_pages_hwm}, spills {stats.spills}")
 
 
 # ---------------------------------------------------------------------------
@@ -602,8 +659,10 @@ def remote_leaves(tree):
 
 def remote_kv_pages(eng) -> int:
     """Remote pages the next decode step attends: each active slot's pages
-    up to its length + 1, in the remote tier (per layer)."""
+    up to its length + 1, in the remote tier (per layer); 0 without pages."""
     pc, n = eng.pcache, 0
+    if pc is None:
+        return 0
     for slot, req in enumerate(eng.active):
         if req is not None:
             used = min(-(-(int(eng.lens[slot]) + 1) // pc.page_size), int(pc.n_pages[slot]))
@@ -620,14 +679,18 @@ def phase_serve(arch: str = "llama2_7b", n_layers: int | None = None, n_req: int
     own.  The engine is built layer by layer (`models.layer_source`), as
     `launch/serve.py` builds it, so the unsplit model is never whole on the
     card; `peak_limit` bounds the peak device memory of set-up and of
-    serving."""
+    serving.  Launch and byte counts come from the partitioned tree: each
+    column-split layer leaf once a layer, a hybrid's column-split shared
+    leaves once a group (its block re-read by every group that runs it),
+    lm_head once, paged attention once per KV layer (none for a pure SSM)."""
     import repro_torch.configs as C
-    from repro_torch.core.tiering import TieredTensor
+    from repro_torch.core.tiering import TieredTensor, split_sizes
     from repro_torch.kernels import _build
     from repro_torch.kernels.splitk_flashattn import paged_splitk_flashattn, scatter_rows
     from repro_torch.kernels.splitk_gemm import splitk_gemm
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
+    from repro_torch.models.registry import resolve
     from repro_torch.runtime.telemetry import weight_tier_bytes
     from repro_torch.serving.engine import Request, ServingEngine
 
@@ -651,27 +714,42 @@ def phase_serve(arch: str = "llama2_7b", n_layers: int | None = None, n_req: int
           f"{time.time() - t0:.1f} s | peak device memory during set-up {setup_peak} "
           f"({setup_peak / 1e9:.3f} GB)")
     leaves = list(remote_leaves(eng.params))
-    expected = sum(eng.plan.op_ratios.get(od.op, 0.0) > 0 for od in eng.plan.registry)
+    # the operands the plan gives a ratio, and those whose remote extent
+    # rounds to zero at the engine's alignment (they stay whole)
+    rated = [od for od in eng.plan.registry if eng.plan.op_ratios.get(od.op, 0.0) > 0]
+    whole_ops = [od.path_str for od in rated if split_sizes(
+        resolve(eng.params, od.path).shape[od.axis], eng.plan.op_ratios[od.op],
+        od.align if od.align is not None else eng._align)[1] == 0]
     w_local, w_remote = weight_tier_bytes(eng.params)
     pinned = _build.pinned_bytes()
     check(all(leaf.remote.is_pinned() and leaf.remote.device.type == "cpu"
-              for leaf in leaves) and len(leaves) == expected,
-          f"all {len(leaves)} remote weight tiers (of {expected} tierable operands) are pinned "
-          f"host memory, none on the card")
+              for leaf in leaves) and len(leaves) == len(rated) - len(whole_ops),
+          f"all {len(leaves)} remote weight tiers (of {len(rated)} tierable operands; "
+          f"{', '.join(whole_ops) or 'none'} round to no remote columns and stay whole) are "
+          f"pinned host memory, none on the card")
     # What one decode step reads from the host, weights by operand type: each
-    # column-split leaf once a layer (lm_head once), each remote expert that
-    # runs its two matrices once.
+    # column-split layer leaf once a layer, a hybrid's shared leaves once a
+    # group, lm_head once, each remote expert that runs its two matrices once.
     layer_cols = [w for w in eng.params["layers"].values()
                   if isinstance(w, TieredTensor) and w.axis != -3]
+    shared_cols = [w for w in eng.params.get("shared", {}).values()
+                   if isinstance(w, TieredTensor)]
     top_cols = [w for w in eng.params.values() if isinstance(w, TieredTensor)]
-    static_launches = cfg.n_layers * len(layer_cols) + len(top_cols)
-    static_remote = sum(w.remote.nbytes for w in layer_cols + top_cols)
+    # the shared block each group runs (group g runs block g mod blocks)
+    groups = ([g % max(1, cfg.hybrid_shared_blocks)
+               for g in range(cfg.n_layers // cfg.hybrid_attn_every)] if shared_cols else [])
+    static_launches = (cfg.n_layers * len(layer_cols) + len(groups) * len(shared_cols)
+                       + len(top_cols))
+    shared_step = sum(w.remote[b].nbytes for w in shared_cols for b in groups)
+    static_remote = sum(w.remote.nbytes for w in layer_cols + top_cols) + shared_step
     experts = [eng.params["layers"][k] for k in ("experts_wi", "experts_wdown")
                if isinstance(eng.params["layers"].get(k), TieredTensor)]
     expert_bytes = sum(w.remote[0, 0].nbytes for w in experts)
     e_rem = experts[0].remote.shape[1] if experts else 0
-    page_bytes = sum(eng.pcache.pools[f"{n}_remote"][0, 0].nbytes for n in eng.pcache.kv_names)
-    kv_pinned = sum(eng.pcache.pools[f"{n}_remote"].nbytes for n in eng.pcache.kv_names)
+    pc = eng.pcache
+    kv_layers = pc.pools["k_remote"].shape[0] if pc is not None else 0
+    page_bytes = sum(pc.pools[f"{n}_remote"][0, 0].nbytes for n in pc.kv_names) if pc else 0
+    kv_pinned = sum(pc.pools[f"{n}_remote"].nbytes for n in pc.kv_names) if pc else 0
     check(pinned == int(w_remote) + kv_pinned,
           f"pinned host bytes {pinned} = remote weight tiers {int(w_remote)} + remote KV pool "
           f"{kv_pinned}: nothing else was pinned")
@@ -711,8 +789,8 @@ def phase_serve(arch: str = "llama2_7b", n_layers: int | None = None, n_req: int
     total_w = w_local + w_remote
     n_dec = len(decode)
     mean = lambda key: sum(s[key] for s in decode) / max(1, n_dec)  # noqa: E731
-    remote_step = (static_remote + mean("experts") * expert_bytes
-                   + mean("kv_pages") * page_bytes * cfg.n_layers)
+    kv_step = mean("kv_pages") * page_bytes * kv_layers
+    remote_step = static_remote + mean("experts") * expert_bytes + kv_step
     print(f"served {stats.served}/{n_req} requests ({prompt_len} prompt + {new_tokens} new "
           f"tokens each) in {wall:.2f} s | {stats.generated_tokens / wall:.2f} tokens/s | "
           f"TPOT {stats.tpot * 1e3:.1f} ms over {stats.decode_steps} decode steps | "
@@ -724,34 +802,41 @@ def phase_serve(arch: str = "llama2_7b", n_layers: int | None = None, n_req: int
                      f"experts run {mean('experts'):.2f} of {e_rem * cfg.n_layers}")
         no_skip = remote_step + (e_rem * cfg.n_layers - mean("experts")) * expert_bytes
         bytes_part = f"; {no_skip / 1e9:.3f} GB if every remote expert were read"
+    cols = (f"{cfg.n_layers} layers x {len(layer_cols)} + {len(groups)} groups x "
+            f"{len(shared_cols)} shared + {len(top_cols)}" if shared_cols else
+            f"{cfg.n_layers} layers x {len(layer_cols)} + {len(top_cols)}")
     print(f"per decode step that admitted nothing ({n_dec} steps, means): splitk_gemm "
-          f"{mean('gemm'):.2f} ({static_launches} for the column-split weights{gemm_part}; "
-          f"paged attention {mean('attn'):.2f}; remote KV pages attended "
-          f"{mean('kv_pages'):.2f} a layer")
-    print(f"remote bytes read per decode step (each byte once): {remote_step / 1e9:.3f} GB = "
-          f"{static_remote / 1e9:.3f} column-split weights + "
-          f"{mean('experts') * expert_bytes / 1e9:.3f} remote experts + "
-          f"{mean('kv_pages') * page_bytes * cfg.n_layers / 1e9:.4f} KV{bytes_part}")
-    print(f"kv pages: local hwm {stats.local_pages_hwm}/{eng.pcache.n_local}, remote hwm "
-          f"{stats.remote_pages_hwm}/{eng.pcache.n_remote}, spills {stats.spills}")
+          f"{mean('gemm'):.2f} ({static_launches} for the column-split weights, {cols}"
+          f"{gemm_part}; paged attention {mean('attn'):.2f} ({kv_layers} KV layers); remote KV "
+          f"pages attended {mean('kv_pages'):.2f} a layer")
+    print(f"remote bytes read per decode step (each byte once per use): "
+          f"{remote_step / 1e9:.3f} GB = {static_remote / 1e9:.3f} column-split weights (of "
+          f"them {shared_step / 1e9:.3f} the shared blocks, re-read by each of "
+          f"{len(groups)} groups) + {mean('experts') * expert_bytes / 1e9:.3f} remote experts + "
+          f"{kv_step / 1e9:.4f} KV{bytes_part}")
+    if pc is not None:
+        print(f"kv pages: local hwm {stats.local_pages_hwm}/{pc.n_local}, remote hwm "
+              f"{stats.remote_pages_hwm}/{pc.n_remote}, spills {stats.spills}")
     print(f"weights: {w_local / 1e9:.3f} GB local + {w_remote / 1e9:.3f} GB remote | "
           f"pinned host bytes {pinned} ({pinned / 1e9:.3f} GB) | peak device memory "
           f"during serving {peak} ({peak / 1e9:.3f} GB) vs total weights {total_w / 1e9:.3f} GB")
     check(stats.served == n_req, f"served every request ({stats.served}/{n_req})")
     check(all(len(r.out_tokens) == new_tokens and all(0 <= t < cfg.vocab for t in r.out_tokens)
               for r in reqs), f"every request emitted {new_tokens} tokens in [0, vocab)")
-    check(launches["splitk_gemm"] > 0 and launches["paged_attention"] > 0,
-          "both kernels launched on the main path")
-    check(launches["paged_attention"] == cfg.n_layers * stats.decode_steps
-          and all(s["attn"] == cfg.n_layers for s in decode),
-          f"paged attention launched exactly {cfg.n_layers} times per decode step")
+    check(launches["splitk_gemm"] > 0 and (launches["paged_attention"] > 0) == (kv_layers > 0),
+          "splitk_gemm launched on the main path" + (", and paged attention" if kv_layers
+                                                      else "; paged attention never (no KV)"))
+    check(launches["paged_attention"] == kv_layers * stats.decode_steps
+          and all(s["attn"] == kv_layers for s in decode),
+          f"paged attention launched exactly {kv_layers} times per decode step")
     if experts:
         bad = [s for s in decode if s["gemm"] - static_launches != 2 * s["experts"]]
         check(n_dec > 0 and not bad and L.tiered_expert_ffn.remote_experts > 0,
               f"remote-expert launches equal twice the remote experts with a valid slot in "
               f"each of {n_dec} decode steps ({len(bad)} steps differ)")
-    check(stats.local_pages_hwm >= 1 and stats.remote_pages_hwm >= 1,
-          "KV pages resident in both tiers")
+    if pc is not None:
+        check(stats.local_pages_hwm >= 1 and stats.remote_pages_hwm >= 1,
+              "KV pages resident in both tiers")
     check(peak < total_w, "peak device memory during serving below the model's total weight "
                           "bytes (the remote tier never came into HBM)")
     transient = setup_peak - base - w_local
@@ -766,9 +851,8 @@ def phase_serve(arch: str = "llama2_7b", n_layers: int | None = None, n_req: int
           f"{bound / 1e9:.3f} GB ({terms}): {whole}")
     if not experts:
         check(n_dec > 0 and all(s["gemm"] == static_launches for s in decode),
-              f"splitk_gemm launched exactly {static_launches} times per decode step "
-              f"({cfg.n_layers} layers x {len(layer_cols)} column-split weights + "
-              f"{len(top_cols)})")
+              f"splitk_gemm launched exactly {static_launches} times per decode step ({cols}"
+              f" column-split weights)")
     if peak_limit is not None:
         check(setup_peak < peak_limit and peak < peak_limit,
               f"peak device memory during set-up {setup_peak / 1e9:.3f} GB and during serving "
@@ -783,8 +867,10 @@ def setup_transient_bound(params) -> tuple[float, str]:
     """The most device memory that building `params` one layer at a time
     (`models.layer_source` + `TieringPlan.partition_source`) holds beyond
     the weights it keeps, and its terms.  The source holds each tiered
-    top-level leaf (lm_head) whole until the engine is built, and splitting
-    one holds its remote half on the device until that is pinned.  Each
+    leaf outside the layer stack (lm_head, a hybrid's shared block stacks,
+    walked as leaves of the nested ``shared`` dict) whole until the engine
+    is built, and splitting one holds its remote half on the device until
+    that is pinned.  Each
     layer is then drawn whole on the device, each leaf through fp32 draws of
     at most `_DRAW_CHUNK` elements (one alive at a time), and written into
     its slots, a column-split remote half through a contiguous device copy.
@@ -801,7 +887,7 @@ def setup_transient_bound(params) -> tuple[float, str]:
         return 4 * min(math.prod(shape), max(1, M._DRAW_CHUNK // max(1, row)) * row)
 
     layers = params["layers"]
-    top = [w for k, w in params.items() if k != "layers"]
+    top = [w for path, w in tree_leaves(params) if not path.startswith("layers/")]
     top_whole = sum(size(w) for w in top if isinstance(w, TieredTensor))
     top_remote = sum(w.remote.nbytes for w in top if isinstance(w, TieredTensor))
     layer = sum(size(w) // w.shape[0] for w in layers.values())
@@ -1697,8 +1783,8 @@ def add_launches(launches: dict, path: dict) -> None:
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,11,12,13,14,15,16,17",
-                    help="comma-separated subset of phases 1-17 (default: 1-8 and 11-17; 9 "
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,11,12,13,14,15,16,17,18,19,20,21",
+                    help="comma-separated subset of phases 1-21 (default: 1-8 and 11-21; 9 "
                          "is the host-link read probe, 10 the decode-attention kernels beside "
                          "the design they replaced)")
     args = ap.parse_args(argv)
@@ -1774,6 +1860,15 @@ def main(argv: list[str] | None = None) -> int:
                  "128 + 16 tokens"):
         add_launches(launches, phase_serve("opt_30b", n_req=DECODE_BATCH, new_tokens=16,
                                            peak_limit=OPT30B_PEAK_LIMIT)["launches"])
+    if start(18, "SSM token parity, 2-layer full-width Mamba2-370M, fp32, offload 0.5"):
+        phase_parity("mamba2_370m", n_layers=2)
+    if start(19, "SSM served run, Mamba2-370M (48 layers, bf16), offload 0.5"):
+        add_launches(launches, phase_serve("mamba2_370m")["launches"])
+    if start(20, f"hybrid token parity, {ZAMBA2_PARITY_LAYERS}-layer full-width Zamba2-2.7B "
+                 f"(both shared blocks), fp32, offload 0.5, page 4"):
+        phase_parity("zamba2_2p7b", n_layers=ZAMBA2_PARITY_LAYERS)
+    if start(21, "hybrid served run, Zamba2-2.7B (54 layers, bf16), offload 0.5, page 16"):
+        add_launches(launches, phase_serve("zamba2_2p7b")["launches"])
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

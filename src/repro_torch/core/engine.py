@@ -146,25 +146,24 @@ class TieringPlan:
         leaf (norms, biases, router) as one stack on the device.  Layer i's
         two halves are then written into slot i and the layer is dropped,
         so the device holds the local tiers and one layer at a time.  A
-        tiered top-level leaf (lm_head) is split as `partition` splits it,
-        its remote tier placed with `tiering.place`.  Splits follow
+        tiered leaf outside the layer stack (lm_head, or a hybrid's
+        ``("shared", key)`` block stack) is split as `partition` splits it,
+        its remote tier placed with `tiering.place`, in a copy of its dict:
+        the source's own tree is never changed.  Splits follow
         `partition`'s rule on the same registry axis, so the result equals
         ``partition(whole)`` bit for bit.  A pinned allocation that fails
         raises, naming its bytes."""
         from repro_torch.kernels import _build
 
         device = source.device
-        out = dict(source.top)
+        out = _copy_tree(source.top)      # nested dicts copied: the source's stay as they are
         layer_splits: dict[str, tuple[int, int]] = {}     # key -> (axis, local extent)
         for od in self.registry:
-            if len(od.path) == 1:
+            if od.path[0] != "layers":
                 t = self._tier(od, resolve(source.top, od.path), align)
                 if t is not None:
-                    out[od.path[0]] = tiering.place(t)
+                    _set_path(out, od.path, tiering.place(t))
                 del t       # its unpinned remote copy is freed before any layer is drawn
-            elif od.path[0] != "layers":
-                raise NotImplementedError(
-                    f"a layer source carries the layer stack only, not {od.path_str}")
             elif (split := self._split_spec(od, align)) is not None:
                 dim = resolve(source.shapes, od.path[1:]).shape[od.axis]
                 n_local, n_remote = tiering.split_sizes(dim, *split)

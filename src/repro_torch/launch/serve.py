@@ -10,7 +10,9 @@ time, so HBM holds only the local tier: ``--arch opt_30b --offload-ratio
 0.5 --dtype bfloat16`` serves all 48 layers of OPT-30B on one 80 GB card.  Two planning modes, as in the
 reference's serve command: ``--offload-ratio R`` pins the global offload ratio,
 ``--hbm-gb G`` derives it from an HBM budget.  Weights and prompts are
-random, drawn from seed 0.
+random, drawn from seed 0.  Every served family runs here: dense, MoE,
+MLA, SSM (``--arch mamba2_370m``, which has no KV pages) and hybrid
+(``--arch zamba2_2p7b``).
 """
 from __future__ import annotations
 
@@ -73,14 +75,15 @@ def main(argv: list[str] | None = None) -> dict:
             max_new_tokens=args.new_tokens))
     stats = engine.run()
     wall = time.time() - t0
-    pp = engine.plan.kv_pages
     print(f"served {stats.served} requests in {wall:.2f}s | "
           f"decode steps {stats.decode_steps} | TPOT {stats.tpot*1e3:.1f} ms | "
           f"TTFT p50 {stats.ttft_p50*1e3:.1f} ms p95 {stats.ttft_p95*1e3:.1f} ms | "
           f"e2e p95 {stats.e2e_p95*1e3:.1f} ms | prefill {stats.prefill_time:.2f}s")
-    print(f"kv pages: size={pp.page_size} local={pp.local_pages} "
-          f"remote={pp.remote_pages} | peak local={stats.local_pages_hwm} "
-          f"peak remote={stats.remote_pages_hwm} spills={stats.spills}")
+    if engine.pcache is not None:          # a pure SSM has no KV pages
+        pp = engine.plan.kv_pages
+        print(f"kv pages: size={pp.page_size} local={pp.local_pages} "
+              f"remote={pp.remote_pages} | peak local={stats.local_pages_hwm} "
+              f"peak remote={stats.remote_pages_hwm} spills={stats.spills}")
     return {"served": stats.served, "wall_s": wall,
             "generated_tokens": stats.generated_tokens,
             "tokens_per_s": stats.generated_tokens / wall if wall > 0 else 0.0,

@@ -1,14 +1,19 @@
-"""Dense, MoE and MLA decoders: init / prefill / decode in PyTorch.
+"""Decoders: init / prefill / decode in PyTorch.
 
-Counterpart of the attention-decoder branches of ``src/repro/models/model.py``
-(dense GQA, MoE with GQA, DeepSeek-V2's MLA with MoE).  Layer parameters
-are stacked along a leading ``n_layers`` axis (the reference's layout, so
+Counterpart of the decoder branches of ``src/repro/models/model.py``:
+dense GQA, MoE with GQA, DeepSeek-V2's MLA with MoE, Mamba-2 (ssm) and
+Zamba2-style hybrids (Mamba-2 layers with shared attention + MLP blocks,
+one every ``hybrid_attn_every`` layers).  Layer parameters are stacked
+along a leading ``n_layers`` axis, and a hybrid's shared blocks along a
+leading block axis under ``params["shared"]`` (the reference's layout, so
 bridged weights and `TieringPlan.partition` line up); where the reference
-scans over that axis, the port loops.  `prefill` and `decode_step`
+scans over those axes, the port loops.  `prefill` and `decode_step`
 together are the plain per-request reference the serving engine is
 checked against.  Every entry point takes ``mm``, the tier-aware matmul,
-so the engine can run the same code through the direct-access kernel.
-Not ported yet: the ssm, hybrid, encoder and vlm families.
+so the engine can run the same code through the direct-access kernel; a
+hybrid's ``concat_proj`` is not registered and stays a plain product, as
+in the reference.  Not ported yet: the encoder and vlm families,
+``forward`` and ``prefill_chunk``.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 Params = dict[str, Any]
 Cache = dict[str, torch.Tensor]
@@ -28,16 +34,15 @@ _INIT_STD = 0.02
 _DRAW_CHUNK = 1 << 26       # elements of one fp32 draw (256 MB)
 
 
-SERVED_FAMILIES = ("dense", "moe")     # MoE with or without MLA
+SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")     # MoE with or without MLA
 
 
 def require_served(cfg: ModelConfig) -> None:
     """Refuse the families the port does not run yet."""
     if cfg.family not in SERVED_FAMILIES:
         raise NotImplementedError(
-            f"the PyTorch port serves dense and MoE decoders (MLA included) so far, "
-            f"not {cfg.name} ({cfg.family}); ssm, hybrid, encoder and vlm are still "
-            f"to be ported")
+            f"the PyTorch port serves dense, MoE (MLA included), SSM and hybrid decoders "
+            f"so far, not {cfg.name} ({cfg.family}); encoder and vlm are still to be ported")
 
 
 def layer_slice(layers: Any, i: int) -> Any:
@@ -49,16 +54,17 @@ def layer_slice(layers: Any, i: int) -> Any:
 # Init
 # ==========================================================================
 def _draws(generator: torch.Generator | None, dtype: torch.dtype, device):
-    """The leaf makers of `init_layer` and `init_top`: N(0, 0.02) drawn in
-    fp32 from `generator` in chunks of the leading axis of at most
-    `_DRAW_CHUNK` elements, each cast into the leaf (so the fp32 draw alive
-    at a time is one chunk, not a whole expert stack), ones and zeros."""
-    def dense(*shape):
+    """The leaf makers of `init_layer` and `init_top`: N(0, std) (0.02 by
+    default) drawn in fp32 from `generator` in chunks of the leading axis of
+    at most `_DRAW_CHUNK` elements, each cast into the leaf (so the fp32
+    draw alive at a time is one chunk, not a whole expert stack), ones and
+    zeros."""
+    def dense(*shape, std=_INIT_STD):
         w = torch.empty(shape, dtype=dtype, device=device)
         rows = max(1, _DRAW_CHUNK // max(1, math.prod(shape[1:])))
         for chunk in w.split(rows):
             chunk.copy_(torch.randn(chunk.shape, generator=generator, device=device)
-                        .mul_(_INIT_STD))
+                        .mul_(std))
         return w
 
     def ones(*shape):
@@ -70,18 +76,74 @@ def _draws(generator: torch.Generator | None, dtype: torch.dtype, device):
     return dense, ones, zeros
 
 
+def _norm_leaves(cfg: ModelConfig, prefix: str, lead: tuple, ones, zeros) -> Params:
+    p = {f"{prefix}_w": ones(*lead, cfg.d_model)}
+    if cfg.norm == "layernorm":
+        p[f"{prefix}_b"] = zeros(*lead, cfg.d_model)
+    return p
+
+
+def _attn_leaves(cfg: ModelConfig, lead: tuple, dense, ones, zeros) -> Params:
+    """The GQA attention leaves (the reference's `_attn_params`)."""
+    d, hd, hp = cfg.d_model, cfg.resolved_head_dim, cfg.padded_heads
+    wq, wo = dense(*lead, d, hp * hd), dense(*lead, hp * hd, d)
+    if hp > cfg.n_heads:
+        # padded query heads: zero weights beyond n_heads — numerically exact
+        wq[..., cfg.n_heads * hd:] = 0
+        wo[..., cfg.n_heads * hd:, :] = 0
+    p: Params = {"wq": wq, "wkv": dense(*lead, d, 2 * cfg.n_kv_heads * hd), "wo": wo}
+    if cfg.qkv_bias:
+        p["bq"] = zeros(*lead, hp * hd)
+        p["bkv"] = zeros(*lead, 2 * cfg.n_kv_heads * hd)
+    if cfg.qk_norm:
+        p["q_norm_w"] = ones(*lead, hd)
+        p["k_norm_w"] = ones(*lead, hd)
+    return p
+
+
+def _mlp_leaves(cfg: ModelConfig, lead: tuple, dense, zeros) -> Params:
+    """The dense MLP's leaves (the reference's `_mlp_params`)."""
+    mult = 2 if cfg.mlp == "swiglu" else 1
+    p: Params = {"wi": dense(*lead, cfg.d_model, mult * cfg.d_ff),
+                 "wdown": dense(*lead, cfg.d_ff, cfg.d_model)}
+    if cfg.norm == "layernorm":       # bias-ful families
+        p["bi"], p["bdown"] = zeros(*lead, mult * cfg.d_ff), zeros(*lead, cfg.d_model)
+    return p
+
+
+def _ssm_leaves(cfg: ModelConfig, dense, ones, zeros) -> Params:
+    """One Mamba-2 layer's leaves (the reference's `_ssm_params`): split
+    z/x/BC/dt projections, the depthwise conv (std 0.1), dt_bias and A_log
+    zeros (A = -1), D and the gated norm's weight ones."""
+    d = cfg.d_model
+    d_inner = cfg.ssm_expand * d
+    nh = d_inner // cfg.ssm_head_dim
+    gs2 = 2 * cfg.ssm_n_groups * cfg.ssm_state
+    p: Params = {"z_proj": dense(d, d_inner), "x_proj": dense(d, d_inner),
+                 "bc_proj": dense(d, gs2), "dt_proj": dense(d, nh),
+                 "conv_w": dense(cfg.ssm_conv_width, d_inner + gs2, std=0.1),
+                 "dt_bias": zeros(nh), "A_log": zeros(nh), "D": ones(nh),
+                 "ssm_norm_w": ones(d_inner)}
+    p["ssm_out"] = dense(d_inner, d)
+    return p
+
+
 def init_layer(cfg: ModelConfig, generator: torch.Generator | None,
                dtype: torch.dtype = torch.float32, device="cuda") -> Params:
     """One layer's random weights, unstacked, with the reference's layout
     and std: N(0, 0.02) for matrices, ones for norm weights, zeros beyond
     `n_heads` in the padded query heads and for biases.  The tree is the
     reference's (`_attn_params` or `_mla_params`, then `_mlp_params` or
-    `_moe_params`) without the leading layer axis.  On the meta device
-    (`generator` None) it gives the leaves' shapes and dtypes only."""
+    `_moe_params`; ln1 and `_ssm_params` for the ssm and hybrid families)
+    without the leading layer axis.  On the meta device (`generator` None)
+    it gives the leaves' shapes and dtypes only."""
     require_served(cfg)
     device = torch.device(device)
     dense, ones, zeros = _draws(generator, dtype, device)
-    d, hd, hp = cfg.d_model, cfg.resolved_head_dim, cfg.padded_heads
+    if cfg.family in ("ssm", "hybrid"):
+        return {**_norm_leaves(cfg, "ln1", (), ones, zeros),
+                **_ssm_leaves(cfg, dense, ones, zeros)}
+    d = cfg.d_model
     layer: Params = {"ln1_w": ones(d), "ln2_w": ones(d)}
     if cfg.norm == "layernorm":
         layer["ln1_b"], layer["ln2_b"] = zeros(d), zeros(d)
@@ -100,18 +162,7 @@ def init_layer(cfg: ModelConfig, generator: torch.Generator | None,
         else:
             layer["wq_b"] = dense(d, h * (nd + rd))
     else:
-        wq, wo = dense(d, hp * hd), dense(hp * hd, d)
-        if hp > cfg.n_heads:
-            # padded query heads: zero weights beyond n_heads — numerically exact
-            wq[..., cfg.n_heads * hd:] = 0
-            wo[..., cfg.n_heads * hd:, :] = 0
-        layer.update({"wq": wq, "wkv": dense(d, 2 * cfg.n_kv_heads * hd), "wo": wo})
-        if cfg.qkv_bias:
-            layer["bq"] = zeros(hp * hd)
-            layer["bkv"] = zeros(2 * cfg.n_kv_heads * hd)
-        if cfg.qk_norm:
-            layer["q_norm_w"] = ones(hd)
-            layer["k_norm_w"] = ones(hd)
+        layer.update(_attn_leaves(cfg, (), dense, ones, zeros))
     if cfg.family == "moe":
         e, ff = cfg.n_experts, cfg.moe_d_ff
         layer.update({
@@ -124,21 +175,29 @@ def init_layer(cfg: ModelConfig, generator: torch.Generator | None,
             layer["shared_wi"] = dense(d, 2 * sf)
             layer["shared_wdown"] = dense(sf, d)
     else:
-        mult = 2 if cfg.mlp == "swiglu" else 1
-        layer["wi"] = dense(d, mult * cfg.d_ff)
-        layer["wdown"] = dense(cfg.d_ff, d)
-        if cfg.norm == "layernorm":       # bias-ful families
-            layer["bi"], layer["bdown"] = zeros(mult * cfg.d_ff), zeros(d)
+        layer.update(_mlp_leaves(cfg, (), dense, zeros))
     return layer
 
 
 def init_top(cfg: ModelConfig, generator: torch.Generator | None,
              dtype: torch.dtype = torch.float32, device="cuda") -> Params:
-    """The leaves outside the layer stack: `embed`, `final_w` (and
-    `final_b` for LayerNorm), and `lm_head` unless the embedding is tied."""
+    """The leaves outside the layer stack: `embed`, a hybrid's `shared`
+    stack of `hybrid_shared_blocks` attention + MLP blocks (the reference's
+    `_shared_block_params`: `concat_proj` [2d, d], ln1, attention, ln2 and
+    the MLP, each leaf stacked on a leading block axis, its fp32 draws
+    chunked by whole blocks), `final_w` (and `final_b` for LayerNorm), and
+    `lm_head` unless the embedding is tied."""
     require_served(cfg)
     dense, ones, zeros = _draws(generator, dtype, torch.device(device))
-    top: Params = {"embed": dense(cfg.vocab, cfg.d_model), "final_w": ones(cfg.d_model)}
+    top: Params = {"embed": dense(cfg.vocab, cfg.d_model)}
+    if cfg.family == "hybrid" and cfg.hybrid_shared_blocks:
+        lead = (cfg.hybrid_shared_blocks,)
+        top["shared"] = {"concat_proj": dense(*lead, 2 * cfg.d_model, cfg.d_model),
+                         **_norm_leaves(cfg, "ln1", lead, ones, zeros),
+                         **_attn_leaves(cfg, lead, dense, ones, zeros),
+                         **_norm_leaves(cfg, "ln2", lead, ones, zeros),
+                         **_mlp_leaves(cfg, lead, dense, zeros)}
+    top["final_w"] = ones(cfg.d_model)
     if cfg.norm == "layernorm":
         top["final_b"] = zeros(cfg.d_model)
     if not cfg.tie_embeddings:
@@ -224,28 +283,93 @@ def lm_head(cfg: ModelConfig, params: Params, x: torch.Tensor,
 
 
 # ==========================================================================
-# KV cache
+# KV / state caches
 # ==========================================================================
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.float32, device="cuda") -> Cache:
-    """Zeroed dense cache: {k, v: [L, B, S, Kh, hd]}, or MLA's latent
-    {ckv: [L, B, S, rank], krope: [L, B, S, rd]}."""
+    """Zeroed cache: dense {k, v: [L, B, S, Kh, hd]}; MLA's latent
+    {ckv: [L, B, S, rank], krope: [L, B, S, rd]}; SSM {conv: [L, B, W-1, C],
+    state: [L, B, H, P, S]}; a hybrid's SSM cache plus {k, v} over its
+    ``n_layers // hybrid_attn_every`` shared-block groups."""
     require_served(cfg)
     nl = cfg.n_layers
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if cfg.family in ("ssm", "hybrid"):
+        d_inner = cfg.ssm_expand * cfg.d_model
+        conv_dim = d_inner + 2 * cfg.ssm_n_groups * cfg.ssm_state
+        cache = {"conv": zeros(nl, batch, cfg.ssm_conv_width - 1, conv_dim),
+                 "state": zeros(nl, batch, d_inner // cfg.ssm_head_dim, cfg.ssm_head_dim,
+                                cfg.ssm_state)}
+        if cfg.family == "hybrid":
+            shape = (nl // cfg.hybrid_attn_every, batch, max_len, cfg.n_kv_heads,
+                     cfg.resolved_head_dim)
+            cache["k"], cache["v"] = zeros(*shape), zeros(*shape)
+        return cache
     if cfg.use_mla:
-        return {"ckv": torch.zeros((nl, batch, max_len, cfg.kv_lora_rank), dtype=dtype,
-                                   device=device),
-                "krope": torch.zeros((nl, batch, max_len, cfg.rope_head_dim), dtype=dtype,
-                                     device=device)}
+        return {"ckv": zeros(nl, batch, max_len, cfg.kv_lora_rank),
+                "krope": zeros(nl, batch, max_len, cfg.rope_head_dim)}
     shape = (nl, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"k": zeros(*shape), "v": zeros(*shape)}
 
 
 def _ffn(cfg: ModelConfig, x: torch.Tensor, lp: Params, mm: L.Matmul) -> torch.Tensor:
     """The layer's FFN on its normed input: MoE or the dense MLP."""
     h = L.norm(cfg, x, lp, "ln2")
     return L.moe_block(cfg, h, lp, mm=mm) if cfg.family == "moe" else L.mlp_block(cfg, h, lp, mm=mm)
+
+
+def shared_block(cfg: ModelConfig, params: Params, i: int) -> Params | None:
+    """The shared attention + MLP block a hybrid runs before layer `i`:
+    one every ``hybrid_attn_every`` layers, the ``hybrid_shared_blocks``
+    blocks in turn (group g takes block g mod blocks); None elsewhere and
+    for every other family."""
+    if cfg.family != "hybrid" or i % cfg.hybrid_attn_every:
+        return None
+    group = i // cfg.hybrid_attn_every
+    return layer_slice(params["shared"], group % max(1, cfg.hybrid_shared_blocks))
+
+
+def _gqa_prefill(cfg: ModelConfig, hn: torch.Tensor, p: Params, positions: torch.Tensor,
+                 mm: L.Matmul) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Causal GQA over the prompt: (the output after ``wo``, k, v)."""
+    bsz, t = hn.shape[:2]
+    rot = int(cfg.resolved_head_dim * cfg.rope_fraction)
+    q, k, v = L.qkv_project(cfg, hn, p, mm=mm)
+    q, k = L._maybe_qk_norm(cfg, q, k, p)
+    if rot:
+        cos, sin = L.rope_cos_sin(positions, rot, cfg.rope_theta)
+        q = L.apply_rope(q, cos, sin, rot)
+        k = L.apply_rope(k, cos, sin, rot)
+    attn = L.attend(cfg, q, k, v, causal=True)
+    return mm(attn.reshape(bsz, t, -1), p["wo"]), k, v
+
+
+def shared_in(x: torch.Tensor, h0: torch.Tensor, sp: Params) -> torch.Tensor:
+    """A hybrid shared block's input ``concat([x, h0]) @ concat_proj``: a
+    plain product, since ``concat_proj`` is not registered."""
+    return torch.cat([x, h0], dim=-1) @ sp["concat_proj"]
+
+
+def shared_out(cfg: ModelConfig, x: torch.Tensor, z: torch.Tensor, sp: Params,
+               mm: L.Matmul) -> torch.Tensor:
+    """The rest of the shared block once its attention is added to `z`:
+    the MLP on the ln2-normed stream, then the block's residual onto x."""
+    return x + (z + L.mlp_block(cfg, L.norm(cfg, z, sp, "ln2"), sp, mm=mm))
+
+
+def _pad_cache(entries: dict[str, list[torch.Tensor]], max_len: int, t: int) -> Cache:
+    """Stack each entry's layers; a [L, B, T, ...] KV entry is zero-padded
+    to max_len along T, recurrent state is stored as is."""
+    cache = {}
+    for name, cs in entries.items():
+        full = torch.stack(cs)
+        if name not in ("conv", "state"):
+            full = torch.nn.functional.pad(full, [0, 0] * (full.dim() - 3) + [0, max_len - t])
+        cache[name] = full
+    return cache
 
 
 # ==========================================================================
@@ -255,14 +379,16 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor],
             max_len: int | None = None,
             mm: L.Matmul = L.matmul) -> tuple[torch.Tensor, Cache]:
     """Whole-prompt forward.  Returns (logits [B,1,vocab] at the last
-    position, the cache of `init_cache`'s layout zero-padded past the
-    prompt).  Attention is plain PyTorch, as in the reference."""
+    position, the cache of `init_cache`'s layout, KV zero-padded past the
+    prompt).  Attention is plain PyTorch, as in the reference; SSM layers
+    run the chunked SSD form (`ssm.ssm_block_prefill`)."""
     require_served(cfg)
     x = embed_inputs(cfg, params, batch)
-    bsz, t = x.shape[:2]
+    t = x.shape[1]
     max_len = max_len or t
     positions = torch.arange(t, device=x.device)
-    rot = int(cfg.resolved_head_dim * cfg.rope_fraction)
+    if cfg.family in ("ssm", "hybrid"):
+        return _recurrent_prefill(cfg, params, x, positions, max_len, mm)
     entries: dict[str, list[torch.Tensor]] = {}
     for i in range(cfg.n_layers):
         lp = layer_slice(params["layers"], i)
@@ -275,24 +401,39 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor],
             x = x + L.mla_attention_block(cfg, hn, lp, positions, causal=True, mm=mm)
             layer_cache = {"ckv": ckv, "krope": krope}
         else:
-            q, k, v = L.qkv_project(cfg, hn, lp, mm=mm)
-            q, k = L._maybe_qk_norm(cfg, q, k, lp)
-            if rot:
-                cos, sin = L.rope_cos_sin(positions, rot, cfg.rope_theta)
-                q = L.apply_rope(q, cos, sin, rot)
-                k = L.apply_rope(k, cos, sin, rot)
-            attn = L.attend(cfg, q, k, v, causal=True)
-            x = x + mm(attn.reshape(bsz, t, -1), lp["wo"])
+            attn, k, v = _gqa_prefill(cfg, hn, lp, positions, mm)
+            x = x + attn
             layer_cache = {"k": k, "v": v}
         x = x + _ffn(cfg, x, lp, mm)
         for name, c in layer_cache.items():
             entries.setdefault(name, []).append(c)
-    cache = {}
-    for name, cs in entries.items():
-        full = torch.stack(cs)                            # [L, B, T, ...]
-        pad = [0, 0] * (full.dim() - 3) + [0, max_len - t]
-        cache[name] = torch.nn.functional.pad(full, pad)
-    return lm_head(cfg, params, x[:, -1:], mm=mm), cache
+    return lm_head(cfg, params, x[:, -1:], mm=mm), _pad_cache(entries, max_len, t)
+
+
+def _recurrent_prefill(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                       positions: torch.Tensor, max_len: int,
+                       mm: L.Matmul) -> tuple[torch.Tensor, Cache]:
+    """SSM and hybrid prefill: every Mamba-2 layer leaves its conv window
+    and final SSD state; a hybrid runs its shared block before each group
+    of ``hybrid_attn_every`` layers (on the embedding ``h0`` too) and caches
+    that block's K/V, one cache layer per group."""
+    h0 = x
+    t = x.shape[1]
+    entries: dict[str, list[torch.Tensor]] = {"conv": [], "state": []}
+    for i in range(cfg.n_layers):
+        sp = shared_block(cfg, params, i)
+        if sp is not None:
+            z = shared_in(x, h0, sp)
+            attn, k, v = _gqa_prefill(cfg, L.norm(cfg, z, sp, "ln1"), sp, positions, mm)
+            x = shared_out(cfg, x, z + attn, sp, mm)
+            entries.setdefault("k", []).append(k)
+            entries.setdefault("v", []).append(v)
+        lp = layer_slice(params["layers"], i)
+        y, conv, state = S.ssm_block_prefill(cfg, L.norm(cfg, x, lp, "ln1"), lp, mm=mm)
+        x = x + y
+        entries["conv"].append(conv)
+        entries["state"].append(state)
+    return lm_head(cfg, params, x[:, -1:], mm=mm), _pad_cache(entries, max_len, t)
 
 
 # ==========================================================================
@@ -302,10 +443,12 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
                 tokens: torch.Tensor, pos,
                 mm: L.Matmul = L.matmul) -> tuple[torch.Tensor, Cache]:
     """tokens: [B,1]; pos: the position to write — an int for a
-    slot-aligned batch, or a [B] tensor for a ragged batch.  Returns
-    (logits [B,1,vocab], the updated cache)."""
+    slot-aligned batch, or a [B] tensor for a ragged batch (SSM layers
+    ignore it).  Returns (logits [B,1,vocab], the updated cache)."""
     require_served(cfg)
     x = params["embed"][tokens.long()]
+    if cfg.family in ("ssm", "hybrid"):
+        return _recurrent_decode(cfg, params, cache, x, pos, mm)
     names = ("ckv", "krope") if cfg.use_mla else ("k", "v")
     new: dict[str, list[torch.Tensor]] = {name: [] for name in names}
     for i in range(cfg.n_layers):
@@ -317,4 +460,29 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
         x = x + _ffn(cfg, x, lp, mm)
         new[names[0]].append(c0)
         new[names[1]].append(c1)
+    return lm_head(cfg, params, x, mm=mm), {name: torch.stack(cs) for name, cs in new.items()}
+
+
+def _recurrent_decode(cfg: ModelConfig, params: Params, cache: Cache, x: torch.Tensor, pos,
+                      mm: L.Matmul) -> tuple[torch.Tensor, Cache]:
+    """One SSM or hybrid token: each Mamba-2 layer's recurrent step; a
+    hybrid's shared block attends over its group's dense K/V cache."""
+    h0 = x
+    new: dict[str, list[torch.Tensor]] = {name: [] for name in cache}
+    for i in range(cfg.n_layers):
+        sp = shared_block(cfg, params, i)
+        if sp is not None:
+            g = i // cfg.hybrid_attn_every
+            z = shared_in(x, h0, sp)
+            attn, k_c, v_c = L.attention_decode(cfg, L.norm(cfg, z, sp, "ln1"), sp,
+                                                cache["k"][g], cache["v"][g], pos, mm=mm)
+            x = shared_out(cfg, x, z + attn, sp, mm)
+            new["k"].append(k_c)
+            new["v"].append(v_c)
+        lp = layer_slice(params["layers"], i)
+        y, conv, state = S.ssm_block_decode(cfg, L.norm(cfg, x, lp, "ln1"), lp,
+                                            cache["conv"][i], cache["state"][i], mm=mm)
+        x = x + y
+        new["conv"].append(conv)
+        new["state"].append(state)
     return lm_head(cfg, params, x, mm=mm), {name: torch.stack(cs) for name, cs in new.items()}

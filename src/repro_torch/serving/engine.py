@@ -1,7 +1,7 @@
 """Batched serving engine with DAK tiered offloading, static path.
 
-Counterpart of ``src/repro/serving/engine.py`` for dense, MoE and MLA
-decoders:
+Counterpart of ``src/repro/serving/engine.py`` for dense, MoE, MLA, SSM and
+hybrid decoders:
 ragged continuous batching over ``max_batch`` slots, FCFS admission,
 whole-prompt prefill and greedy sampling.  Offloading is planned once at
 startup (`core.engine.plan`) and realized layer by layer by
@@ -17,6 +17,10 @@ card, so a model whose weights do not fit in HBM can be served.
   the tiered GEMM for every tiered weight plus the paged tiered attention
   kernel over `serving.paged_cache.PagedTieredCache`.  MLA caches its
   latent ``[ckv | k_rope]`` as one kv head of width rank + rd, K only.
+  A pure SSM has no page cache: its step is `tiered_ssm_decode_step` over
+  the per-slot conv window and SSD state in HBM.  A hybrid pages the K/V
+  of its shared blocks, one cache layer per group, and keeps the SSM state
+  beside it (`tiered_hybrid_decode_step`).
 
 Not ported yet: chunked prefill and preemption (the scheduler's other
 policies), the adaptive runtime, elastic degradation (a ``CacheFull``
@@ -150,6 +154,29 @@ class ServingEngine:
         self.params = self.plan.partition_source(source, align=self._align)
         self._weight_bytes = weight_tier_bytes(self.params)
         self._dtype = source.top["embed"].dtype
+        self.pcache: PagedTieredCache | None = None
+        self.cache: dict[str, torch.Tensor] | None = None
+        if cfg.family in ("ssm", "hybrid"):
+            # the recurrent conv window and SSD state of every layer, one row
+            # per slot, in HBM (a hybrid's K/V goes to the page cache)
+            self.cache = {k: v for k, v in M.init_cache(cfg, max_batch, max_len, self._dtype,
+                                                        self.device).items()
+                          if k in ("conv", "state")}
+        if cfg.family != "ssm":
+            self.pcache = self._make_pcache()
+        self._t0 = self.clock.now()
+        self.lens = np.zeros(max_batch, dtype=np.int32)     # per-slot kv length
+        self.active: list[Request | None] = [None] * max_batch
+        self.stats = EngineStats()
+        self._next_tok = np.zeros((max_batch, 1), dtype=np.int32)
+
+    def _make_pcache(self) -> PagedTieredCache:
+        """The paged tiered KV cache at the plan's page budget: one layer
+        per decoder layer, or per shared-block group for a hybrid."""
+        cfg = self.cfg
+        n_layers = cfg.n_layers
+        if cfg.family == "hybrid":
+            n_layers //= cfg.hybrid_attn_every
         if cfg.use_mla:
             # MLA pages carry the latent [ckv | k_rope] as one kv head,
             # stored once (K-only; the V read aliases the K pool): pool
@@ -158,21 +185,16 @@ class ServingEngine:
         else:
             kv_heads, head_dim = cfg.n_kv_heads, cfg.resolved_head_dim
         pp = self.plan.kv_pages
-        self.pcache = PagedTieredCache(
-            cfg.n_layers, kv_heads, head_dim,
-            page_size=page_size,
+        return PagedTieredCache(
+            n_layers, kv_heads, head_dim,
+            page_size=self.page_size,
             local_pages=pp.local_pages,
             remote_pages=pp.remote_pages,
-            max_slots=max_batch,
-            max_pages_per_slot=-(-max_len // page_size),
+            max_slots=self.max_batch,
+            max_pages_per_slot=-(-self.max_len // self.page_size),
             dtype=self._dtype,
             store_v=not cfg.use_mla,
             device=self.device)
-        self._t0 = self.clock.now()
-        self.lens = np.zeros(max_batch, dtype=np.int32)     # per-slot kv length
-        self.active: list[Request | None] = [None] * max_batch
-        self.stats = EngineStats()
-        self._next_tok = np.zeros((max_batch, 1), dtype=np.int32)
 
     @property
     def queue(self) -> deque[Request]:
@@ -248,6 +270,11 @@ class ServingEngine:
 
     def _write_slot_cache(self, slot: int, cache1: dict[str, torch.Tensor],
                           prompt_len: int) -> None:
+        if self.cache is not None:             # conv/state recurrent state
+            for name, c in self.cache.items():
+                c[:, slot] = cache1[name][:, 0]
+        if self.pcache is None:
+            return
         self.pcache.ensure_capacity(slot, prompt_len)
         if self.cfg.use_mla:
             ckv = cache1["ckv"][:, 0, :prompt_len]       # [L, T, rank]
@@ -258,6 +285,8 @@ class ServingEngine:
             slot, cache1["k"][:, 0, :prompt_len], cache1["v"][:, 0, :prompt_len])
 
     def _note_occupancy(self) -> None:
+        if self.pcache is None:
+            return
         self.stats.local_pages_hwm = max(
             self.stats.local_pages_hwm, self.pcache.local_in_use)
         self.stats.remote_pages_hwm = max(
@@ -272,26 +301,38 @@ class ServingEngine:
         if not any(r is not None for r in self.active):
             return
         active = np.array([r is not None for r in self.active])
-        self.pcache.touch_step(self.lens, active)
         dev = self.device
         tokens = torch.tensor(self._next_tok, device=dev)
-        positions = np.where(active, self.lens, 0).astype(np.int32)
         t0 = time.time()
-        for slot in np.nonzero(active)[0]:
-            self.pcache.ensure_capacity(int(slot), int(self.lens[slot]) + 1)
-        self._note_occupancy()
-        wr_tier, wr_idx, wr_off = self.pcache.write_targets(self.lens, active)
-        table, tier = self.pcache.device_tables()
-        attn_lens = np.where(active, self.lens + 1, 0).astype(np.int32)
-        logits, pools_out = TD.paged_tiered_decode_step(
-            self.cfg, self.params, self.pcache.pools, tokens,
-            torch.tensor(positions, device=dev), torch.tensor(attn_lens, device=dev),
-            table, tier, wr_tier, wr_idx, wr_off,
-            sink_local=self.pcache.sink_local,
-            sink_remote=self.pcache.sink_remote,
-            window=self.window)
-        nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()   # waits for the step
-        self.pcache.commit_pools(pools_out)
+        if self.pcache is None:
+            # pure SSM: the recurrent tiered step, no KV pages
+            logits, self.cache = TD.tiered_ssm_decode_step(
+                self.cfg, self.params, self.cache, tokens, window=self.window)
+            nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()   # waits for the step
+        else:
+            self.pcache.touch_step(self.lens, active)
+            positions = np.where(active, self.lens, 0).astype(np.int32)
+            for slot in np.nonzero(active)[0]:
+                self.pcache.ensure_capacity(int(slot), int(self.lens[slot]) + 1)
+            self._note_occupancy()
+            wr_tier, wr_idx, wr_off = self.pcache.write_targets(self.lens, active)
+            table, tier = self.pcache.device_tables()
+            attn_lens = np.where(active, self.lens + 1, 0).astype(np.int32)
+            paged_args = (tokens, torch.tensor(positions, device=dev),
+                          torch.tensor(attn_lens, device=dev), table, tier, wr_tier, wr_idx,
+                          wr_off)
+            sinks = dict(sink_local=self.pcache.sink_local,
+                         sink_remote=self.pcache.sink_remote)
+            if self.cfg.family == "hybrid":
+                logits, self.cache, pools_out = TD.tiered_hybrid_decode_step(
+                    self.cfg, self.params, self.cache, self.pcache.pools, *paged_args,
+                    **sinks, window=self.window)
+            else:
+                logits, pools_out = TD.paged_tiered_decode_step(
+                    self.cfg, self.params, self.pcache.pools, *paged_args, **sinks,
+                    window=self.window)
+            nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()   # waits for the step
+            self.pcache.commit_pools(pools_out)
         self.stats.decode_time += time.time() - t0
         self.stats.decode_steps += 1
         for slot, req in enumerate(self.active):
@@ -308,7 +349,8 @@ class ServingEngine:
                 self._finish_request(req)
                 self.active[slot] = None
                 self.lens[slot] = 0
-                self.pcache.free_slot(slot)
+                if self.pcache is not None:
+                    self.pcache.free_slot(slot)
             else:
                 self._next_tok[slot, 0] = tok
 

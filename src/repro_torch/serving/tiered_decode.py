@@ -1,21 +1,26 @@
-"""Tiered decode path for dense, MoE and MLA decoders: the paper's system
-end to end.
+"""Tiered decode path for every decoder family the port serves: the
+paper's system end to end.
 
-Counterpart of the single-chip attention-decoder part of
-``src/repro/serving/tiered_decode.py``.  Params come from
-``TieringPlan.partition`` (stacked leaves, tierable operands wrapped in
-`TieredTensor`); dispatch is by operand type: every column-split weight
-goes through the direct-access GEMM (`kernels.ops.tiered_matmul`), and a
-tiered MoE expert stack runs `models.layers.tiered_expert_ffn`, whose
-remote experts go through the same GEMM one at a time, all under the
-congestion ``window`` passed per step (it paces copies, never changes
-results).  Two cache layouts:
+Counterpart of the single-chip part of ``src/repro/serving/tiered_decode.py``.
+Params come from ``TieringPlan.partition`` (stacked leaves, tierable
+operands wrapped in `TieredTensor`); dispatch is by operand type: every
+column-split weight goes through the direct-access GEMM
+(`kernels.ops.tiered_matmul`), and a tiered MoE expert stack runs
+`models.layers.tiered_expert_ffn`, whose remote experts go through the same
+GEMM one at a time, all under the congestion ``window`` passed per step (it
+paces copies, never changes results).  The steps:
 
-* ``paged_tiered_decode_step`` — the serving engine's ragged step over the
-  paged tiered cache, attended by the paged kernel
-  (`kernels.ops.paged_decode_attention`): GQA, or MLA's latent
+* ``paged_tiered_decode_step`` — dense, MoE and MLA decoders: the serving
+  engine's ragged step over the paged tiered cache, attended by the paged
+  kernel (`kernels.ops.paged_decode_attention`): GQA, or MLA's latent
   ``[ckv | k_rope]`` as single-head K-only pages attended in absorbed form
   with the model's ``(nd+rd)**-0.5`` scale.
+* ``tiered_ssm_decode_step`` — pure-SSM decoders (no KV cache): recurrent
+  Mamba-2 steps whose projections run through the tiered GEMM; the conv
+  window and SSD state stay in HBM, one row per slot.
+* ``tiered_hybrid_decode_step`` — Zamba2-style hybrids: each group's shared
+  attention + MLP block (GQA over the group's layer of the paged tiered
+  cache, its projections tiered) and then its tiered SSM layers.
 * ``split_cache_batch`` + ``tiered_decode_step`` — the paper's §5
   slot-aligned layout, kept for the kernel experiments (GQA decoders only, as
   in the reference): a dense cache split along the batch, remote requests'
@@ -24,7 +29,7 @@ results).  Two cache layouts:
 
 Not ported: the reference's deprecated ``partition_dense_params`` shim and
 its ``TIERABLE`` list (``TieringPlan.partition`` is the one partition path
-here).  Not ported yet: the SSM and hybrid steps, and the mesh fetch.
+here).  Not ported yet: the mesh fetch (``fetch_remote_shards``).
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from repro_torch.kernels import _build, ops
 from repro_torch.kernels.splitk_flashattn import scatter_rows
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
+from repro_torch.models import ssm as S
 from repro_torch.models.model import layer_slice
 from repro_torch.serving.paged_cache import LOCAL, REMOTE
 
@@ -269,3 +275,83 @@ def paged_tiered_decode_step(
     logits = _decode_transformer(cfg, params, tokens, positions, window,
                                  write_and_attend)
     return logits, pools
+
+
+def tiered_ssm_decode_step(
+    cfg: ModelConfig,
+    params: dict[str, Any],          # stacked tree from TieringPlan.partition
+    cache: dict[str, torch.Tensor],  # {conv: [L,B,W-1,C], state: [L,B,H,P,S]}
+    tokens: torch.Tensor,            # [B,1] int
+    *,
+    window: int = 2,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """One recurrent decode step for pure-SSM decoders over tiered weights.
+
+    No KV cache: the conv window and SSD state are per-slot recurrent
+    state, in HBM; the offloaded operands are the projection stacks
+    (``ssm_in`` / ``ssm_out``) and lm_head, computed by the tiered GEMM.
+    Every slot steps, idle ones too (their state is overwritten when a
+    request is admitted).  The cache is updated in place, a layer at a
+    time; returns (logits [B,1,vocab], the cache)."""
+    return _recurrent_step(cfg, params, cache, tokens, window, None, None)
+
+
+def tiered_hybrid_decode_step(
+    cfg: ModelConfig,
+    params: dict[str, Any],          # stacked tree from TieringPlan.partition
+    cache: dict[str, torch.Tensor],  # SSM state {conv, state} (all layers)
+    pools: dict[str, torch.Tensor],  # paged KV pools (one layer per group)
+    tokens: torch.Tensor,            # [B,1] int
+    positions: torch.Tensor,         # [B] int32 — per-slot write position
+    attn_lens: torch.Tensor,         # [B] int32 — post-write lengths (0 = idle)
+    table: torch.Tensor,
+    tier: torch.Tensor,
+    wr_tier: torch.Tensor,
+    wr_idx: torch.Tensor,
+    wr_off: torch.Tensor,
+    *,
+    sink_local: int,
+    sink_remote: int,
+    window: int = 2,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+    """One ragged decode step for Zamba2-style hybrids: each group runs its
+    shared attention + MLP block (GQA over the group's paged tiered KV
+    layer, written through the paged writer) and then
+    ``hybrid_attn_every`` tiered SSM layers.  Returns (logits, the SSM
+    cache and the pools, both updated in place)."""
+    pools = dict(pools)
+    write_and_attend = _paged_writer(
+        pools, table, tier, attn_lens, wr_tier, wr_idx, wr_off,
+        sink_local, sink_remote, window)
+    logits, cache = _recurrent_step(cfg, params, cache, tokens, window, positions,
+                                    write_and_attend)
+    return logits, cache, pools
+
+
+def _recurrent_step(cfg: ModelConfig, params: dict[str, Any], cache: dict[str, torch.Tensor],
+                    tokens: torch.Tensor, window: int, positions: torch.Tensor | None,
+                    write_and_attend: WriteAndAttend | None
+                    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """The body of both recurrent steps: a hybrid's shared block before
+    each group (`models.model.shared_block`), then every tiered SSM layer,
+    whose new conv window and state overwrite its slice of `cache`."""
+    x = params["embed"][tokens.long()]
+    h0 = x
+
+    def kmm(a, w):
+        return _mm(a, w, window)
+
+    for i in range(cfg.n_layers):
+        sp = M.shared_block(cfg, params, i)
+        if sp is not None:
+            z = M.shared_in(x, h0, sp)
+            attn = _gqa_attend(cfg, sp, L.norm(cfg, z, sp, "ln1"), positions,
+                               i // cfg.hybrid_attn_every, window, write_and_attend)
+            x = M.shared_out(cfg, x, z + _mm(attn, sp["wo"], window), sp, kmm)
+        lp = layer_slice(params["layers"], i)
+        y, conv_i, state_i = S.ssm_block_decode(
+            cfg, L.norm(cfg, x, lp, "ln1"), lp, cache["conv"][i], cache["state"][i], mm=kmm)
+        x = x + y
+        cache["conv"][i] = conv_i
+        cache["state"][i] = state_i
+    return _head(cfg, params, x, window), cache

@@ -103,6 +103,10 @@ PAGED_CASES = {
                         False),
     "chatglm3-h32-kh2": (4, 32, 2, 128, 16, 10, (20, 20), (150, 0, 37, 160), "mixed", None,
                          False),
+    # Zamba2-2.7B's shared attention: 32 heads over 32 kv heads of 80, a TMA
+    # box row of 160 B (bf16) or 320 B (fp32)
+    "zamba2-h32-kh32-hd80": (4, 32, 32, 80, 16, 10, (20, 20), (150, 0, 37, 160), "mixed", None,
+                             False),
 }
 
 
@@ -441,12 +445,14 @@ def _tiered(tree):
 
 @pytest.mark.parametrize("arch,n_layers", [("opt_30b", 2), ("llama2_7b", None),
                                            ("qwen3_moe_30b_a3b", None),
-                                           ("deepseek_v2_236b", None)])
+                                           ("deepseek_v2_236b", None),
+                                           ("mamba2_370m", None), ("zamba2_2p7b", None)])
 def test_layer_source_tree_equals_partition_of_the_whole(cuda_device, arch, n_layers):
     """On the card, the layer-by-layer build (remote stacks in one pinned
     allocation each) equals `partition(whole)` with remote tiers placed in
     pinned memory, bit for bit: a 2-layer OPT-30B at full width in bf16, and
-    the smoke configs of the dense, MoE and MLA families."""
+    the smoke configs of the dense, MoE, MLA, SSM and hybrid families (the
+    hybrid's shared block stack included)."""
     cfg = TC.get(arch) if n_layers else TC.get_smoke(arch)
     if n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
@@ -471,12 +477,13 @@ def test_layer_source_tree_equals_partition_of_the_whole(cuda_device, arch, n_la
             assert torch.equal(g.local, w.local) and torch.equal(g.remote, w.remote), key
         else:
             assert torch.equal(g, w), key
-    for key in ("embed", "final_w", "final_b", "lm_head"):
-        if key in want:
-            w, g = want[key], got[key]
-            pairs = [(g.local, w.local), (g.remote, w.remote)] if isinstance(w, TieredTensor) \
-                else [(g, w)]
-            assert all(torch.equal(a, b) for a, b in pairs), key
+    tops = [(key, want[key], got[key]) for key in ("embed", "final_w", "final_b", "lm_head")
+            if key in want]
+    tops += [(f"shared/{key}", w, got["shared"][key]) for key, w in want.get("shared", {}).items()]
+    for key, w, g in tops:
+        pairs = [(g.local, w.local), (g.remote, w.remote)] if isinstance(w, TieredTensor) \
+            else [(g, w)]
+        assert all(torch.equal(a, b) for a, b in pairs), key
 
 
 @pytest.mark.parametrize("arch", ["opt_6p7b", "opt_30b", "qwen2p5_14b", "qwen3_32b",
@@ -486,3 +493,21 @@ def test_dense_variant_engine_from_a_source_matches_plain_reference(cuda_device,
     at offload 0.5, emits exactly the plain per-request reference's tokens
     on the same weights unsplit in HBM."""
     _engine_matches_plain_reference(TC.get_smoke(arch), 0.5, cuda_device, from_source=True)
+
+
+@pytest.mark.parametrize("ratio", [0.5, 1.0])
+@pytest.mark.parametrize("arch", ["mamba2_370m", "zamba2_2p7b"])
+def test_recurrent_engine_matches_plain_reference_on_card(cuda_device, arch, ratio):
+    """The SSM and hybrid smoke configs, built layer by layer on the card:
+    the engine's tokens equal the plain per-request reference's on the same
+    weights unsplit in HBM; every remote tier, the hybrid's shared blocks'
+    too, is pinned; the SSM engine keeps no page cache."""
+    eng = _engine_matches_plain_reference(TC.get_smoke(arch), ratio, cuda_device,
+                                          from_source=True)
+    tiered = list(_tiered(eng.params))
+    assert tiered and all(w.remote.is_pinned() and w.local.device.type == "cuda"
+                          for w in tiered)
+    assert (eng.pcache is None) == (arch == "mamba2_370m")
+    if arch == "zamba2_2p7b":
+        assert all(isinstance(w, TieredTensor) for k, w in eng.params["shared"].items()
+                   if k in ("wq", "wkv", "wo", "wi", "wdown"))

@@ -18,30 +18,9 @@ from repro_torch.core.hardware import TPU_V5E
 from repro_torch.core.tiering import TieredTensor
 from repro_torch.models import model as TM
 from repro_torch.serving.engine import Request, ServingEngine
-from torch_helpers import serve
+from torch_helpers import assert_trees_equal, flat_tree, serve
 
 ARCHS = ["llama2_7b", "opt_30b", "qwen3_moe_30b_a3b", "deepseek_v2_236b"]
-
-
-def _flat(tree, prefix=""):
-    for key, leaf in tree.items():
-        if isinstance(leaf, dict):
-            yield from _flat(leaf, f"{prefix}{key}/")
-        else:
-            yield f"{prefix}{key}", leaf
-
-
-def _assert_trees_equal(got: dict, want: dict) -> None:
-    got, want = dict(_flat(got)), dict(_flat(want))
-    assert list(got) == list(want)
-    for key, w in want.items():
-        g = got[key]
-        if isinstance(w, TieredTensor):
-            assert isinstance(g, TieredTensor) and g.axis == w.axis, key
-            assert torch.equal(g.local, w.local) and torch.equal(g.remote, w.remote), key
-            assert g.local.is_contiguous() and g.remote.is_contiguous(), key
-        else:
-            assert not isinstance(g, TieredTensor) and torch.equal(g, w), key
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -86,9 +65,9 @@ def test_partition_source_equals_partition_of_the_whole(arch, ratio):
     want = plan.partition(whole, align=32)
     src = TM.layer_source(cfg, torch.Generator().manual_seed(9), device="cpu")
     got = plan.partition_source(src, align=32)
-    _assert_trees_equal(got, want)
-    _assert_trees_equal(plan.partition_source(TM.LayerSource.from_tree(whole), align=32), want)
-    tiered = [k for k, v in _flat(got) if isinstance(v, TieredTensor)]
+    assert_trees_equal(got, want)
+    assert_trees_equal(plan.partition_source(TM.LayerSource.from_tree(whole), align=32), want)
+    tiered = [k for k, v in flat_tree(got) if isinstance(v, TieredTensor)]
     assert len(tiered) == sum(plan.op_ratios.get(od.op, 0) > 0 for od in plan.registry)
     if cfg.family == "moe":
         assert got["layers"]["experts_wi"].axis == -3
@@ -98,7 +77,7 @@ def test_partition_source_at_offload_zero_keeps_every_leaf_whole():
     cfg = TC.get_smoke("opt_30b")
     whole = TM.init_params(cfg, torch.Generator().manual_seed(2), device="cpu")
     src = TM.layer_source(cfg, torch.Generator().manual_seed(2), device="cpu")
-    _assert_trees_equal(_plan(cfg, 0.0).partition_source(src, align=32), whole)
+    assert_trees_equal(_plan(cfg, 0.0).partition_source(src, align=32), whole)
 
 
 @pytest.mark.parametrize("ratio", [0.5, 1.0])

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.tiering import TieredTensor
+
 FP32_TOL = 2e-4
 
 
@@ -83,3 +85,54 @@ def serve(engine_cls, request_cls, cfg, params, hw, ratio, seed, new_tokens=6, *
     for r in reqs:
         eng.submit(r)
     return eng.run(), reqs
+
+
+# ---------------------------------------------------------------------------
+# Trees: the layer-by-layer build against `partition(whole)`, and the
+# recurrent families' leaves redrawn away from their init values
+# ---------------------------------------------------------------------------
+def flat_tree(tree, prefix=""):
+    """(path, leaf) pairs of a nested params tree, in its order."""
+    for key, leaf in tree.items():
+        if isinstance(leaf, dict):
+            yield from flat_tree(leaf, f"{prefix}{key}/")
+        else:
+            yield f"{prefix}{key}", leaf
+
+
+def assert_trees_equal(got: dict, want: dict) -> None:
+    """Same paths in the same order, every leaf (both tiers of a tiered
+    one, each contiguous) bit for bit."""
+    got, want = dict(flat_tree(got)), dict(flat_tree(want))
+    assert list(got) == list(want)
+    for key, w in want.items():
+        g = got[key]
+        if isinstance(w, TieredTensor):
+            assert isinstance(g, TieredTensor) and g.axis == w.axis, key
+            assert torch.equal(g.local, w.local) and torch.equal(g.remote, w.remote), key
+            assert g.local.is_contiguous() and g.remote.is_contiguous(), key
+        else:
+            assert not isinstance(g, TieredTensor) and torch.equal(g, w), key
+
+
+# init_params sets these to 0 or 1, which would hide a wrong path
+RECURRENT_REDRAWN = ("dt_bias", "A_log", "D", "ssm_norm_w", "ln1_w", "ln2_w", "final_w")
+
+
+def redraw_recurrent_leaves(tree: dict, seed: int) -> list[str]:
+    """Redraw, in place in a numpy params tree, the SSM leaves and every
+    norm weight away from their init values (dt_bias and A_log around 0,
+    the others around 1), from `seed`; returns the paths redrawn."""
+    rng = np.random.default_rng(seed)
+    drawn = []
+    for path, leaf in list(flat_tree(tree)):
+        if path.rsplit("/", 1)[-1] not in RECURRENT_REDRAWN:
+            continue
+        noise = rng.normal(scale=0.3, size=leaf.shape).astype(np.float32)
+        node = tree
+        *parents, key = path.split("/")
+        for k in parents:
+            node = node[k]
+        node[key] = noise if key in ("dt_bias", "A_log") else 1.0 + noise
+        drawn.append(path)
+    return drawn
