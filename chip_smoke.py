@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py              # phases 1-8 and 11-21, needs one CUDA card
+    python3 chip_smoke.py              # phases 1-8 and 11-26, needs one CUDA card
     python3 chip_smoke.py --phases 1,9 # the host-link read probe
     python3 chip_smoke.py --phases 1,5,9,10  # timings, probe, replaced designs
 
@@ -19,11 +19,13 @@ runs, printing each result on its own line:
    Qwen3-30B-A3B's and DeepSeek-V2's widths (remote experts through
    `splitk_gemm`, those without a valid slot skipped), paged attention
    at MLA's shape (128 heads over one kv head of 576, V read from K), at
-   the dense variants' (112 heads over 56, 48 over 8, 32 over 2) and at
-   Zamba2's shared attention (32 heads over 32 of hd 80), the GEMM at
-   OPT-30B's lm_head split (N 25184 | 25088) and at the SSM and hybrid
-   projections' splits (Mamba2's bc_proj 128 | 128 and ssm_out, Zamba2's
-   z/x_proj and shared wi and wdown; bf16 and fp32, M 4 and 128), and the
+   the dense variants' and LLaVA-NeXT-34B's (112 heads over 56, 48 over 8,
+   32 over 2, 64 over 8) and at Zamba2's shared attention (32 heads over
+   32 of hd 80), the GEMM at OPT-30B's lm_head split (N 25184 | 25088), at
+   the SSM and hybrid projections' splits (Mamba2's bc_proj 128 | 128 and
+   ssm_out, Zamba2's z/x_proj and shared wi and wdown; bf16 and fp32, M 4
+   and 128) and at HuBERT-XLarge's and LLaVA-NeXT-34B's (bf16 and fp32, M
+   4, 128, 704 and 2000), and the
    layer-by-layer build of a 2-layer OPT-30B and of a 12-layer Zamba2 (its
    shared block stack tiered) against the partition of the whole tree, bit
    for bit;
@@ -91,7 +93,35 @@ runs, printing each result on its own line:
    (54 layers, 9 groups, bf16), as phase 4: 208 splitk_gemm launches a
    decode step (z, x and ssm_out a layer, the 5 shared projections a
    group, lm_head) and 9 paged-attention launches;
-every served run (4, 12, 14, 16, 17, 19, 21) builds its engine one layer at
+22. frontend token parity: phase 3's check for every decoder family (2
+   layers of llama2-7b, Qwen3-30B-A3B dropless and Mamba2-370M, 1 of
+   DeepSeek-V2 dropless, 12 of Zamba2) with the SLO scheduler, chunks of 4
+   prompt tokens (`models.prefill_chunk` through `splitk_gemm`) and mixed
+   priorities on a modeled clock; then the priority-preemption case (2
+   layers of llama2-7b, offload 0.7): a high-priority arrival demotes the
+   active requests' pages into the pinned pool, every token exact;
+23. a burst served under the frontend: llama2-7b (32 layers, bf16, offload
+   0.5, page 16, 4 slots), 8 batch requests (384-512 prompt tokens) and 4
+   interactive ones (64-128), all at t=0, 16 new tokens each, on the wall
+   clock, FCFS with whole prompts and then SLO with chunks of 128: TPOT,
+   TTFT per class, chunks, preemptions, remote weight bytes per prefill
+   token (modeled from the passes' rows), and the share of requests whose
+   bf16 tokens agree between the runs;
+24. the encoder, HuBERT-XLarge, on 4 clips of 500 frames: a 2-layer
+   full-width fp32 forward tiered at offload 0.5 against the same weights
+   unsplit in HBM (2e-4), then all 48 layers in bf16 through
+   `launch.steps.make_prefill_step`: ms a forward, launches, remote bytes
+   once and as the whole-K design reads them (modeled from its tiling),
+   peak device memory, pinned bytes, and the logits against the same 48
+   layers unsplit in HBM (bf16 bound);
+25. VLM parity: phase 3's check on a 2-layer full-width LLaVA-NeXT-34B in
+   fp32, and a prefill of 576 patches + 16 tokens tiered at offload 0.5
+   against the untiered prefill (2e-4);
+26. the VLM served run: LLaVA-NeXT-34B at its published widths and depth
+   (60 layers, bf16, 70.6 GB of weights, 34.9 GB pinned), 4 requests of
+   128 + 16 tokens as phase 17, then one prefill of 576 patches + 128
+   tokens through `launch.steps.make_prefill_step`;
+every served run (4, 12, 14, 16, 17, 19, 21, 26) builds its engine one layer at
 a time, checks that set-up held no more device memory beyond the weights it
 keeps than building one layer holds (`setup_transient_bound`), that the
 pinned host bytes are its remote weights and remote KV pool and nothing
@@ -198,8 +228,8 @@ def phase_card(libs) -> dict:
         if key in ("MemTotal", "MemAvailable"):
             mem[key] = int(value.split()[0]) * 1024
     print(f"host RAM: MemTotal {mem.get('MemTotal', 0) / 2**30:.2f} GiB, MemAvailable "
-          f"{mem.get('MemAvailable', 0) / 2**30:.2f} GiB (/proc/meminfo); phase 17 pins "
-          f"about 34.9 GB, phase 12 about 30 GB")
+          f"{mem.get('MemAvailable', 0) / 2**30:.2f} GiB (/proc/meminfo); phases 17 and 26 "
+          f"pin about 34.9 GB each, phase 12 about 30 GB")
     for src, log in libs.ptxas.items():
         for line in log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
@@ -228,6 +258,27 @@ RECURRENT_GEMM_SHAPES = {
     "zamba2-shared-wi": (2560, 10240, 10240),
     "zamba2-shared-wdown": (10240, 1280, 1280),
 }
+
+
+# the encoder's and the VLM's operand splits at offload 0.5 (align 128):
+# HuBERT-XLarge's wq and wo, wkv, wi, wdown and its 504-wide lm_head;
+# LLaVA-NeXT-34B's (56 query heads padded to 64) wq, wkv, wo, wi, wdown, lm_head
+ENCODER_VLM_GEMM_SHAPES = {
+    "hubert-wq/wo": (1280, 640, 640),
+    "hubert-wkv": (1280, 1280, 1280),
+    "hubert-wi": (1280, 2560, 2560),
+    "hubert-wdown": (5120, 640, 640),
+    "hubert-lm_head": (1280, 248, 256),
+    "llava-wq": (7168, 4096, 4096),
+    "llava-wkv": (7168, 1024, 1024),
+    "llava-wo": (8192, 3584, 3584),
+    "llava-wi": (7168, 20480, 20480),
+    "llava-wdown": (20480, 3584, 3584),
+    "llava-lm_head": (7168, 32000, 32000),
+}
+# their M: decode batch, a 128-token prompt, LLaVA's 576 patches + 128
+# tokens, HuBERT's 4 clips of 500 frames
+ENCODER_VLM_M = (DECODE_BATCH, PREFILL_LEN, 704, 2000)
 
 
 def pinned_copy(t: torch.Tensor) -> torch.Tensor:
@@ -359,7 +410,7 @@ def expert_case(label, d, ff, e_loc, e_rem, dtype, gen, stats=None):
         active = int(valid[0, e_loc:].any(dim=-1).sum())
         before, ran = splitk_gemm.launches, L.tiered_expert_ffn.remote_experts
         got = L.tiered_expert_ffn(buf, valid, split["wi"], split["wdown"],
-                                  mm=lambda a, w: TD._mm(a, w, 1))
+                                  mm=TD.kernel_mm(1))
         torch.cuda.synchronize()
         launches, ran = splitk_gemm.launches - before, L.tiered_expert_ffn.remote_experts - ran
         want = L._expert_ffn(buf, full["wi"], full["wdown"])
@@ -510,6 +561,16 @@ def phase_kernels() -> dict:
                 gemm_case(name, m, k, n_loc, n_rem, dtype, (1, 2), gen,
                           stats["splitk_gemm"] if dtype == bf else None, tiers)
             del tiers
+    # the encoder's and the VLM's projections (phases 24-26)
+    for name, (k, n_loc, n_rem) in ENCODER_VLM_GEMM_SHAPES.items():
+        for dtype in (bf, torch.float32):
+            tiers = make_tier_pair(k, n_loc, n_rem, dtype, gen)
+            for m in ENCODER_VLM_M:
+                gemm_case(name, m, k, n_loc, n_rem, dtype, (1, 2), gen,
+                          stats["splitk_gemm"] if dtype == bf else None, tiers)
+            del tiers
+            gc.collect()
+            torch.cuda.empty_cache()
     gemm_case("fp32", 64, 512, 256, 256, torch.float32, (1, 2, 4), gen)
     gemm_case("empty-local", DECODE_BATCH, 4096, 0, 2048, bf, (1, 2), gen)
     gemm_case("empty-remote", DECODE_BATCH, 4096, 2048, 0, bf, (1, 2), gen)
@@ -541,9 +602,10 @@ def phase_kernels() -> dict:
                   stats=stats["paged_attention"] if dtype == bf else None)
     # the dense variants' decode shapes: OPT-30B (56 heads padded to 112 over
     # 56 kv heads), Qwen2.5-14B (48 over 8), ChatGLM3-6B and StarCoder2-3B
-    # (32 over 2, a group of 16 split across CTAs)
+    # (32 over 2, a group of 16 split across CTAs); LLaVA-NeXT-34B (56 heads
+    # padded to 64 over 8 kv heads)
     for label, (h, kh) in (("opt30b", (112, 56)), ("qwen2p5-14b", (48, 8)),
-                           ("chatglm3", (32, 2))):
+                           ("chatglm3", (32, 2)), ("llava", (64, 8))):
         for dtype in (bf, torch.float32):
             attn_case(label, b=DECODE_BATCH, h=h, kh=kh, hd=128, ps=16, mp=10, p_loc=20,
                       p_rem=20, lens=(150, 0, 37, 160), dtype=dtype, windows=(1, 2), gen=gen,
@@ -604,14 +666,19 @@ def reference_tokens(cfg, params, prompt, new_tokens, max_len):
     return toks, gaps
 
 
-def phase_parity(arch: str = "llama2_7b", n_layers: int = 2, dropless: bool = False) -> None:
+def phase_parity(arch: str = "llama2_7b", n_layers: int = 2, dropless: bool = False,
+                 frontend: bool = False) -> None:
     """The engine on the card (fp32, full width, `n_layers` layers, offload
     0.5, page 4, 3 slots, prompts that force spills) must emit exactly the
     tokens of the plain per-request reference on the same weights unsplit in
     HBM.  MoE runs dropless: a finite capacity couples the batched requests'
     drops, which per-request decoding cannot see.  A pure SSM has no pages
-    to check; its idle slots step with the batch, as in the reference."""
+    to check; its idle slots step with the batch, as in the reference.  With
+    `frontend` the engine runs the SLO scheduler on a modeled clock with
+    chunks of 4 prompt tokens (`models.prefill_chunk` into a private cache)
+    and mixed priorities, and must have split prompts."""
     import repro_torch.configs as C
+    from repro_torch.frontend.metrics import ModeledClock
     from repro_torch.models import model as M
     from repro_torch.serving.engine import Request, ServingEngine
 
@@ -620,14 +687,17 @@ def phase_parity(arch: str = "llama2_7b", n_layers: int = 2, dropless: bool = Fa
         cfg = dataclasses.replace(cfg, moe_capacity_factor=float(cfg.n_experts))
     gen = torch.Generator(device="cuda").manual_seed(7)
     params = M.init_params(cfg, gen, dtype=torch.float32, device="cuda")
+    kw = dict(scheduler="slo", prefill_chunk=4, clock=ModeledClock()) if frontend else {}
     eng = ServingEngine(cfg, params, max_batch=3, max_len=32,
-                        global_offload_ratio=0.5, page_size=4, device="cuda")
+                        global_offload_ratio=0.5, page_size=4, device="cuda", **kw)
     leaves = list(remote_leaves(eng.params))
     check(bool(leaves) and all(leaf.remote.is_pinned() for leaf in leaves),
           f"{len(leaves)} remote weight tiers, all pinned host memory")
     rng = np.random.default_rng(7)
     prompts = [rng.integers(3, cfg.vocab, n).astype(np.int32) for n in (10, 16, 7, 14, 9)]
-    reqs = [Request(rid=i, prompt=p, max_new_tokens=8) for i, p in enumerate(prompts)]
+    priorities = (0, 2, 1, 0, 2) if frontend else (0,) * len(prompts)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=8, priority=priorities[i])
+            for i, p in enumerate(prompts)]
     for r in reqs:
         eng.submit(r)
     stats = eng.run()
@@ -642,6 +712,10 @@ def phase_parity(arch: str = "llama2_7b", n_layers: int = 2, dropless: bool = Fa
         check(stats.local_pages_hwm >= 1 and stats.remote_pages_hwm >= 1,
               f"parity run pages in both tiers: local hwm {stats.local_pages_hwm}, "
               f"remote hwm {stats.remote_pages_hwm}, spills {stats.spills}")
+    if frontend:
+        check(stats.prefill_chunks > 0,
+              f"SLO scheduler split prompts: {stats.prefill_chunks} continuation chunks, "
+              f"{stats.preemptions} preemptions")
 
 
 # ---------------------------------------------------------------------------
@@ -682,7 +756,8 @@ def phase_serve(arch: str = "llama2_7b", n_layers: int | None = None, n_req: int
     serving.  Launch and byte counts come from the partitioned tree: each
     column-split layer leaf once a layer, a hybrid's column-split shared
     leaves once a group (its block re-read by every group that runs it),
-    lm_head once, paged attention once per KV layer (none for a pure SSM)."""
+    lm_head once, paged attention once per KV layer (none for a pure SSM).
+    Returns the launches, TPOT and steps, and the served engine."""
     import repro_torch.configs as C
     from repro_torch.core.tiering import TieredTensor, split_sizes
     from repro_torch.kernels import _build
@@ -860,7 +935,7 @@ def phase_serve(arch: str = "llama2_7b", n_layers: int | None = None, n_req: int
               f"{total_w / 1e9:.3f} GB of weights")
     profile_decode_steps(eng, cfg, rng, prompt_len)
     return {"launches": launches, "tpot_ms": stats.tpot * 1e3,
-            "steps": stats.decode_steps}
+            "steps": stats.decode_steps, "engine": eng}
 
 
 def setup_transient_bound(params) -> tuple[float, str]:
@@ -1514,7 +1589,7 @@ def batch_split_generate(cfg, tparams, prompts, max_len, new_tokens, window, ste
     from repro_torch.serving import tiered_decode as TD
 
     logits, cache = M.prefill(cfg, tparams, {"tokens": prompts}, max_len=max_len,
-                              mm=lambda a, w: TD._mm(a, w, window))
+                              mm=TD.kernel_mm(window))
     kv = TD.split_cache_batch(cache, 0.5)
     del cache
     tok = torch.argmax(logits[:, -1], dim=-1)
@@ -1774,6 +1849,337 @@ def phase_probe(card: dict) -> float:
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# Phases 22-26: the serving frontend, the encoder and the VLM
+# ---------------------------------------------------------------------------
+FRONTEND_PARITY = (("llama2_7b", 2, False), ("qwen3_moe_30b_a3b", 2, True),
+                   ("deepseek_v2_236b", 1, True), ("mamba2_370m", 2, False),
+                   ("zamba2_2p7b", ZAMBA2_PARITY_LAYERS, False))
+BURST = {"batch": (8, 0, 384, 512), "interactive": (4, 2, 64, 128)}  # n, priority, prompt lens
+BURST_NEW_TOKENS = 16
+SLO_CHUNK = 128             # phase 23's prefill chunk (tokens a step)
+HUBERT_CLIPS, HUBERT_FRAMES = 4, 500     # phase 24: 10 s clips at HuBERT's 50 frames/s
+VLM_PATCHES, VLM_TEXT = 576, 128         # phase 26: one image's patches, then the text
+LLAVA_PEAK_LIMIT = 40e9     # device bytes LLaVA-NeXT-34B may peak at (70.6 GB of bf16 weights)
+
+
+def gemm_reads(m: int) -> int:
+    """How often `splitk_gemm` reads each weight tile for an M-row input:
+    the whole-K design once per M tile (16, 64 or 128 rows by M,
+    `csrc/splitk_gemm.cu` `dispatch`), the split-K decode design once."""
+    return 1 if m <= 64 else -(-m // 128)
+
+
+def column_split_remote(params) -> tuple[int, int]:
+    """Remote bytes of the column-split layer weights and of the top-level
+    ones (lm_head): one full read of each."""
+    from repro_torch.core.tiering import TieredTensor
+
+    layer = sum(w.remote.nbytes for w in params["layers"].values()
+                if isinstance(w, TieredTensor) and w.axis == -1)
+    top = sum(w.remote.nbytes for w in params.values() if isinstance(w, TieredTensor))
+    return layer, top
+
+
+def phase_frontend_parity() -> None:
+    """Phase 3's check for every decoder family with the SLO scheduler,
+    chunks of 4 prompt tokens and mixed priorities, then the
+    priority-preemption case."""
+    for arch, n_layers, dropless in FRONTEND_PARITY:
+        print(f"  {arch}, {n_layers} layers{', dropless' if dropless else ''}:")
+        phase_parity(arch, n_layers, dropless, frontend=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase_preemption_parity()
+
+
+def phase_preemption_parity() -> None:
+    """tests/test_frontend.py's priority-preemption case at full width (2
+    layers of llama2-7b, fp32, offload 0.7, page 4, 3 slots): two
+    low-priority prompts fill the local pool, a high-priority arrival after
+    one step demotes their pages into the pinned pool, and every request,
+    the victims included, emits the plain reference's tokens."""
+    import repro_torch.configs as C
+    from repro_torch.frontend.metrics import ModeledClock
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = dataclasses.replace(C.get("llama2_7b"), n_layers=2)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(7),
+                           dtype=torch.float32, device="cuda")
+    eng = ServingEngine(cfg, params, max_batch=3, max_len=32, global_offload_ratio=0.7,
+                        page_size=4, scheduler="priority", clock=ModeledClock(), device="cuda")
+    rng = np.random.default_rng(41)
+    reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab, n).astype(np.int32),
+                    max_new_tokens=10, priority=5 if i == 2 else 0)
+            for i, n in enumerate((16, 14, 12))]
+    eng.submit(reqs[0])
+    eng.submit(reqs[1])
+    eng.step()
+    eng.submit(reqs[2])                         # the high-priority arrival
+    stats = eng.run()
+    check(stats.served == 3 and stats.preemptions >= 1 and stats.preempt_demoted_pages >= 1,
+          f"priority preemption: served {stats.served}/3, {stats.preemptions} preemptions "
+          f"demoted {stats.preempt_demoted_pages} pages into the pinned pool "
+          f"(per request {[r.preemptions for r in reqs]})")
+    for r in reqs:
+        want, gaps = reference_tokens(cfg, params, torch.tensor(r.prompt, device="cuda"), 10, 32)
+        check(r.out_tokens == want,
+              f"request {r.rid} (priority {r.priority}, preempted {r.preemptions}x): engine "
+              f"{r.out_tokens} vs reference {want} (smallest top-2 gap {min(gaps):.3e})")
+
+
+def burst_requests(cfg, rng) -> tuple[list, list]:
+    """Phase 23's burst: 8 batch requests (priority 0, prompts of 384-512
+    tokens), then 4 interactive ones (priority 2, 64-128 tokens)."""
+    from repro_torch.serving.engine import Request
+
+    out, rid = {}, 0
+    for cls, (n, prio, lo, hi) in BURST.items():
+        out[cls] = []
+        for _ in range(n):
+            plen = int(rng.integers(lo, hi + 1))
+            out[cls].append(Request(rid=rid, prompt=rng.integers(3, cfg.vocab, plen)
+                                    .astype(np.int32), max_new_tokens=BURST_NEW_TOKENS,
+                                    cls=cls, priority=prio))
+            rid += 1
+    return out["batch"], out["interactive"]
+
+
+def phase_frontend_serve() -> None:
+    """llama2-7b (32 layers, bf16, offload 0.5, page 16, 4 slots) serves a
+    burst on the wall clock twice: FCFS with whole prompts, then the SLO
+    scheduler with chunks of `SLO_CHUNK` tokens.  All 12 requests arrive at
+    t=0 in both runs, the 8 batch ones first.  One engine serves both runs
+    (it is idle between them, each run with a fresh scheduler and stats).
+    The remote weight bytes of prefill are modeled from the passes' rows
+    (`EngineStats.prefill_passes`), not counted: the column-split layer
+    weights `gemm_reads(M)` times for M rows, the split lm_head once (it
+    reads the last row)."""
+    import repro_torch.configs as C
+    from repro_torch.frontend.scheduler import get_scheduler
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import EngineStats, ServingEngine
+
+    cfg = C.get("llama2_7b")
+    max_len = BURST["batch"][3] + BURST_NEW_TOKENS
+    eng = ServingEngine(cfg, M.layer_source(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                            dtype=torch.bfloat16, device="cuda"),
+                        max_batch=DECODE_BATCH, max_len=max_len, global_offload_ratio=0.5,
+                        page_size=16, device="cuda")
+    layer_rem, top_rem = column_split_remote(eng.params)
+    print(f"  kv pages {eng.plan.kv_pages.local_pages} local + {eng.plan.kv_pages.remote_pages} "
+          f"remote of {BURST_NEW_TOKENS + BURST['batch'][3]}-token slots; remote weights "
+          f"{layer_rem / 1e9:.3f} GB in the layers + {top_rem / 1e9:.3f} GB lm_head")
+    tokens = {}
+    for name, chunk in (("fcfs", None), ("slo", SLO_CHUNK)):
+        eng.scheduler = get_scheduler(name, **({"chunk_tokens": chunk} if chunk else {}))
+        eng.stats = EngineStats()
+        batch, inter = burst_requests(cfg, np.random.default_rng(0))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for r in batch + inter:
+            eng.submit(r)
+        stats = eng.run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        tokens[name] = {r.rid: r.out_tokens for r in batch + inter}
+        passes = stats.prefill_passes
+        read = sum(layer_rem * gemm_reads(n) + top_rem for n in passes)
+        rep = stats.slo_report()
+        print(f"  {name}{f' (chunk {chunk})' if chunk else ' (whole prompts)'}: served "
+              f"{stats.served}/12 in {wall:.2f} s | "
+              f"TPOT {stats.tpot * 1e3:.1f} ms over {stats.decode_steps} decode steps | prefill "
+              f"{stats.prefill_time:.2f} s in {len(passes)} passes of {sum(passes)} tokens | "
+              f"prefill_chunks {stats.prefill_chunks} | preemptions {stats.preemptions} "
+              f"({stats.preempt_demoted_pages} pages demoted) | spills {stats.spills}")
+        for cls, r in rep.items():
+            print(f"    {cls}: n={r['requests']} wall TTFT p50 {r['ttft_p50'] * 1e3:.1f} ms "
+                  f"p95 {r['ttft_p95'] * 1e3:.1f} ms | queue p95 "
+                  f"{r['queue_delay_p95'] * 1e3:.1f} ms | preemptions {r['preemptions']}")
+        print(f"    remote weight bytes of prefill, modeled from the passes' rows: "
+              f"{read / 1e9:.3f} GB, {read / max(1, sum(passes)) / 1e6:.3f} MB per prefill token "
+              f"(the layers' tiles read {sorted({gemm_reads(n) for n in passes})} times a pass)")
+        check(stats.served == 12 and all(len(t) == BURST_NEW_TOKENS
+                                         for t in tokens[name].values()),
+              f"{name}: every request served with {BURST_NEW_TOKENS} tokens")
+        if name == "slo":
+            check(stats.prefill_chunks > 0,
+                  f"slo: prompts split ({stats.prefill_chunks} chunks)")
+    same = sum(tokens["fcfs"][rid] == tokens["slo"][rid] for rid in tokens["fcfs"])
+    print(f"  requests whose tokens agree between the runs: {same}/12 ({same / 12:.0%}; bf16 "
+          f"chunked and whole-prompt attention reduce in different orders)")
+
+
+def phase_encoder() -> None:
+    """HuBERT-XLarge: a 2-layer full-width fp32 forward tiered at offload
+    0.5 (every projection through `splitk_gemm`) against the same weights
+    unsplit in HBM; then all 48 layers in bf16 at offload 0.5 through
+    `launch.steps.make_prefill_step` on 4 clips of 500 frames."""
+    import repro_torch.configs as C
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import engine as E
+    from repro_torch.core.ebmodel import WorkloadSpec
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.splitk_gemm import splitk_gemm
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.runtime.telemetry import weight_tier_bytes
+    from repro_torch.serving import tiered_decode as TD
+
+    shape = ShapeConfig("hubert_10s", HUBERT_FRAMES, HUBERT_CLIPS, "prefill")
+    wl = WorkloadSpec(batch=HUBERT_CLIPS, seq_len=HUBERT_FRAMES, phase="prefill")
+    cfg = dataclasses.replace(C.get("hubert_xlarge"), n_layers=2)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(7), device="cuda")
+    plan = E.plan(cfg, wl, H100_SXM, global_ratio=0.5)
+    tiered = plan.partition_source(M.LayerSource.from_tree(params), align=128)
+    batch = steps.input_specs(cfg, shape, torch.Generator(device="cuda").manual_seed(1),
+                              dtype=torch.float32, device="cuda")
+    n0 = splitk_gemm.launches
+    got, cache = steps.make_prefill_step(cfg, mm=TD.kernel_mm(1))(tiered, batch)
+    want = M.forward(cfg, params, batch)
+    rel, ab = rel_err(got, want)
+    check(cache == {} and rel < TOL[torch.float32] and splitk_gemm.launches - n0 == 11,
+          f"2-layer fp32 encoder forward on {HUBERT_CLIPS} x {HUBERT_FRAMES} frames tiered at 0.5 "
+          f"({splitk_gemm.launches - n0} splitk_gemm launches) vs unsplit in HBM: rel {rel:.3e} "
+          f"(abs {ab:.3e}) < 2e-4")
+    del params, tiered, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = C.get("hubert_xlarge")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.time()
+    plan = E.plan(cfg, wl, H100_SXM, global_ratio=0.5)
+    params = plan.partition_source(M.layer_source(cfg, torch.Generator(device="cuda")
+                                                  .manual_seed(0), dtype=torch.bfloat16,
+                                                  device="cuda"), align=128)
+    torch.cuda.synchronize()
+    setup_peak = torch.cuda.max_memory_allocated()
+    w_local, w_remote = weight_tier_bytes(params)
+    pinned = _build.pinned_bytes()
+    layer_rem, top_rem = column_split_remote(params)
+    print(f"  48 layers built one at a time in {time.time() - t0:.1f} s: weights "
+          f"{w_local / 1e9:.3f} GB local + {w_remote / 1e9:.3f} GB remote, pinned host bytes "
+          f"{pinned} ({pinned / 1e9:.3f} GB), set-up peak {(setup_peak - base) / 1e9:.3f} GB")
+    check(pinned == int(w_remote) and layer_rem + top_rem == int(w_remote),
+          "pinned host bytes are the remote weight tiers, every one column-split")
+    batch = steps.input_specs(cfg, shape, torch.Generator(device="cuda").manual_seed(1),
+                              dtype=torch.bfloat16, device="cuda")
+    step = steps.make_prefill_step(cfg, mm=TD.kernel_mm(1))
+    torch.cuda.reset_peak_memory_stats()
+    logits, _ = step(params, batch)             # warm-up
+    torch.cuda.synchronize()
+    times, n0 = [], splitk_gemm.launches
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, _ = step(params, batch)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    per_fwd = (splitk_gemm.launches - n0) / 3
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = statistics.median(times)
+    rows = HUBERT_CLIPS * HUBERT_FRAMES
+    whole_k = (layer_rem + top_rem) * gemm_reads(rows)
+    print(f"  forward of {HUBERT_CLIPS} x {HUBERT_FRAMES} frames: median {ms:.2f} ms over 3 "
+          f"(runs {', '.join(f'{t:.2f}' for t in times)}), "
+          f"{rows * 1e3 / ms:.0f} frames/s | splitk_gemm {per_fwd:.0f} launches a forward | "
+          f"remote bytes once {w_remote / 1e9:.3f} GB, read by the whole-K design (modeled "
+          f"from its tiling) {whole_k / 1e9:.3f} GB ({gemm_reads(rows)} M tiles of {rows} rows), "
+          f"{whole_k / (ms * 1e-3) / 1e9:.1f} GB/s if the forward were only that read | "
+          f"peak device memory {peak / 1e9:.3f} GB vs weights {(w_local + w_remote) / 1e9:.3f} "
+          f"GB")
+    check(tuple(logits.shape) == (HUBERT_CLIPS, HUBERT_FRAMES, cfg.vocab)
+          and bool(torch.isfinite(logits).all()), "encoder logits finite, [4, 500, 504]")
+    check(per_fwd == cfg.n_layers * 5 + 1,
+          f"splitk_gemm launched {per_fwd:.0f} = 48 layers x 5 + lm_head times a forward")
+    check(peak < w_local + w_remote,
+          "peak device memory below the weights (the remote tier never came into HBM)")
+    # the same weights unsplit in HBM (1.89 GB), through the plain forward
+    whole = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          dtype=torch.bfloat16, device="cuda")
+    want = M.forward(cfg, whole, batch)
+    rel, ab = rel_err(logits, want)
+    check(rel < TOL[torch.bfloat16],
+          f"48-layer bf16 forward tiered at 0.5 vs the same weights unsplit in HBM: rel "
+          f"{rel:.3e} (abs {ab:.3e}) < {TOL[torch.bfloat16]:.0e}")
+
+
+def phase_vlm_parity() -> None:
+    """LLaVA-NeXT-34B at full width, 2 layers, fp32: phase 3's token check
+    (offload 0.5, page 4), then a prefill of `VLM_PATCHES` patches and 16
+    tokens through `launch.steps.make_prefill_step` tiered at offload 0.5
+    against the prefill over the same weights unsplit in HBM."""
+    import repro_torch.configs as C
+    from repro_torch.core import engine as E
+    from repro_torch.core.ebmodel import WorkloadSpec
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.serving import tiered_decode as TD
+
+    phase_parity("llava_next_34b", n_layers=2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(C.get("llava_next_34b"), n_layers=2)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(7), device="cuda")
+    plan = E.plan(cfg, WorkloadSpec(batch=1, seq_len=VLM_PATCHES + 16, phase="prefill"),
+                  H100_SXM, global_ratio=0.5)
+    tiered = plan.partition_source(M.LayerSource.from_tree(params), align=128)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    batch = {"tokens": torch.randint(3, cfg.vocab, (1, 16), generator=gen, device="cuda"),
+             "patches": torch.randn((1, VLM_PATCHES, M.VISION_EMBED_DIM), generator=gen,
+                                    device="cuda")}
+    got, gcache = steps.make_prefill_step(cfg, mm=TD.kernel_mm(1))(tiered, batch)
+    want, wcache = steps.make_prefill_step(cfg)(params, batch)
+    rel, ab = rel_err(got, want)
+    crel = max(rel_err(gcache[k], wcache[k])[0] for k in ("k", "v"))
+    check(rel < TOL[torch.float32] and crel < TOL[torch.float32]
+          and tuple(gcache["k"].shape[2:3]) == (VLM_PATCHES + 16,),
+          f"prefill of {VLM_PATCHES} patches + 16 tokens tiered at 0.5 vs unsplit: logits rel "
+          f"{rel:.3e} (abs {ab:.3e}), cache rel {crel:.3e}, both < 2e-4")
+
+
+def vlm_patch_prefill(eng) -> None:
+    """After phase 26's served run: one prefill of `VLM_PATCHES` patches and
+    `VLM_TEXT` tokens through `launch.steps.make_prefill_step` over the
+    served engine's tiered weights."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.splitk_gemm import splitk_gemm
+    from repro_torch.launch import steps
+    from repro_torch.serving import tiered_decode as TD
+
+    cfg = eng.cfg
+    batch = steps.input_specs(cfg, ShapeConfig("llava_image", 2 * VLM_PATCHES, 1, "prefill"),
+                              torch.Generator(device="cuda").manual_seed(3),
+                              dtype=torch.bfloat16, device="cuda")
+    batch["tokens"] = batch["tokens"][:, :VLM_TEXT]
+    rows = VLM_PATCHES + VLM_TEXT
+    layer_rem, top_rem = column_split_remote(eng.params)
+    step = steps.make_prefill_step(cfg, mm=TD.kernel_mm(eng.window))
+    torch.cuda.synchronize()
+    n0, t0 = splitk_gemm.launches, time.time()
+    logits, cache = step(eng.params, batch)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3
+    read = layer_rem * gemm_reads(rows) + top_rem
+    print(f"  prefill of {VLM_PATCHES} patches + {VLM_TEXT} tokens: {ms:.1f} ms, "
+          f"{splitk_gemm.launches - n0} splitk_gemm launches, remote weight bytes (modeled "
+          f"from the tiling) {read / 1e9:.3f} GB ({layer_rem / 1e9:.3f} GB of layers read {gemm_reads(rows)} "
+          f"times + lm_head {top_rem / 1e9:.3f} once), {read / (ms * 1e-3) / 1e9:.1f} GB/s if the "
+          f"prefill were only that read; "
+          f"peak device memory since serving began {torch.cuda.max_memory_allocated() / 1e9:.3f}"
+          f" GB")
+    check(tuple(logits.shape) == (1, 1, cfg.vocab) and bool(torch.isfinite(logits).all())
+          and tuple(cache["k"].shape[:3]) == (cfg.n_layers, 1, rows),
+          f"patch prefill logits finite and the cache holds {rows} positions")
+
+
 def add_launches(launches: dict, path: dict) -> None:
     """Keep each kernel's count from the first path run that launched it: the
     paged served run (phase 4) for the kernels of the main path."""
@@ -1783,8 +2189,9 @@ def add_launches(launches: dict, path: dict) -> None:
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,11,12,13,14,15,16,17,18,19,20,21",
-                    help="comma-separated subset of phases 1-21 (default: 1-8 and 11-21; 9 "
+    ap.add_argument("--phases",
+                    default="1,2,3,4,5,6,7,8,11,12,13,14,15,16,17,18,19,20,21,22,23,24,25,26",
+                    help="comma-separated subset of phases 1-26 (default: 1-8 and 11-26; 9 "
                          "is the host-link read probe, 10 the decode-attention kernels beside "
                          "the design they replaced)")
     args = ap.parse_args(argv)
@@ -1869,6 +2276,24 @@ def main(argv: list[str] | None = None) -> int:
         phase_parity("zamba2_2p7b", n_layers=ZAMBA2_PARITY_LAYERS)
     if start(21, "hybrid served run, Zamba2-2.7B (54 layers, bf16), offload 0.5, page 16"):
         add_launches(launches, phase_serve("zamba2_2p7b")["launches"])
+    if start(22, "frontend token parity: SLO scheduler, chunks of 4, every decoder family at "
+                 "full width and cut depth, fp32, offload 0.5; priority preemption"):
+        phase_frontend_parity()
+    if start(23, "served burst under the frontend, llama2-7b (32 layers, bf16), offload 0.5, "
+                 "page 16: FCFS whole prompts, then SLO with chunks of 128"):
+        phase_frontend_serve()
+    if start(24, "encoder, HuBERT-XLarge: 2-layer fp32 parity, then 48 layers bf16 on "
+                 "4 x 500 frames"):
+        phase_encoder()
+    if start(25, "VLM parity, 2-layer full-width LLaVA-NeXT-34B, fp32, offload 0.5, page 4"):
+        phase_vlm_parity()
+    if start(26, "VLM served run, LLaVA-NeXT-34B (60 layers, bf16), offload 0.5, page 16, "
+                 "4 requests of 128 + 16 tokens, then 576 patches + 128 tokens"):
+        served = phase_serve("llava_next_34b", n_req=DECODE_BATCH, new_tokens=16,
+                             peak_limit=LLAVA_PEAK_LIMIT)
+        add_launches(launches, served["launches"])
+        vlm_patch_prefill(served.pop("engine"))
+        del served
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

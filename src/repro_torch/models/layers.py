@@ -1,18 +1,21 @@
-"""Shared layers of the dense, MoE and MLA decoders, in PyTorch.
+"""Shared layers of every model family, in PyTorch.
 
-Counterpart of the decoder subset of ``src/repro/models/layers.py``: norms,
-RoPE, GQA projection and attention, the single-token decode attention over
-a dense cache, the MLP, the sort-and-gather MoE block and DeepSeek-V2's
-MLA.  Every function mirrors the reference's arithmetic and cast points
-(the rsqrt cast in `rmsnorm`, interleaved RoPE pairs, fp32 attention
-logits, fp32 router probabilities) so bf16 runs round where the reference
-does.  The reference's sharding hints have no counterpart here.
+Counterpart of ``src/repro/models/layers.py``: norms, RoPE, GQA projection
+and attention (a whole sequence, causal or not; a single decode token over
+a dense cache; a prefill chunk continuing a cache), the MLP, the
+sort-and-gather MoE block and DeepSeek-V2's MLA.  Every function mirrors
+the reference's arithmetic and cast points (the rsqrt cast in `rmsnorm`,
+interleaved RoPE pairs, fp32 attention logits, fp32 router probabilities)
+so bf16 runs round where the reference does.  The reference's sharding
+hints have no counterpart here.
 
 Every function that consumes a tierable weight takes ``mm``: the plain
 per-tier product by default, the direct-access kernel when the serving
-layer passes it.  Unlike the reference, the MLA prefill threads ``mm``
-through its projections and ``wo`` too: on the card a plain product cannot
-read a pinned remote tier.
+layer passes it.  Unlike the reference, the whole-sequence and chunk
+attention blocks and the MLA prefill thread ``mm`` through their
+projections and ``wo`` too: on the card a plain product cannot read a
+pinned remote tier.  Attention itself is plain PyTorch (`attend`), as the
+reference attends through XLA outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -154,6 +157,58 @@ def attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat([
         _attend_dense(cfg, q[:, s:s + ATTN_CHUNK_Q], k, v, causal, q_offset + s, kv_len)
         for s in range(0, tq, ATTN_CHUNK_Q)], dim=1)
+
+
+def _rope_qk(cfg: ModelConfig, q, k, positions: torch.Tensor):
+    """RoPE on q and k at `positions` ([T]), over the rotated fraction."""
+    rot = int(cfg.resolved_head_dim * cfg.rope_fraction)
+    if not rot:
+        return q, k
+    cos, sin = rope_cos_sin(positions, rot, cfg.rope_theta)
+    return apply_rope(q, cos, sin, rot), apply_rope(k, cos, sin, rot)
+
+
+def attention_block(
+    cfg: ModelConfig,
+    x: torch.Tensor,               # [B,T,d]
+    p: Params,
+    positions: torch.Tensor,       # [T] absolute positions
+    causal: bool,
+    mm: Matmul = matmul,
+) -> torch.Tensor:
+    """Whole-sequence GQA (the encoder's, non-causal, and the forward
+    pass's): projections, RoPE, `attend`, then ``wo``."""
+    q, k, v = qkv_project(cfg, x, p, mm=mm)
+    q, k = _rope_qk(cfg, *_maybe_qk_norm(cfg, q, k, p), positions)
+    out = attend(cfg, q, k, v, causal=causal)
+    return mm(out.reshape(*x.shape[:2], cfg.padded_heads * cfg.resolved_head_dim), p["wo"])
+
+
+def attention_chunk(
+    cfg: ModelConfig,
+    x: torch.Tensor,               # [B,n,d]: prompt chunk [start, start+n)
+    p: Params,
+    k_cache: torch.Tensor,         # [B,S,K,hd], filled for [0, start)
+    v_cache: torch.Tensor,
+    positions: torch.Tensor,       # [n] absolute positions start..start+n-1
+    start: int,
+    mm: Matmul = matmul,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Multi-token prefill continuation: project the chunk's Q/K/V, write
+    K/V into the caches at ``start`` (in place), and attend the chunk's
+    queries over the prefix, cached keys plus this chunk, causal within
+    the chunk.  Returns (y, k_cache, v_cache).  The reference attends over
+    the whole cache with a ``start + n`` length mask; the port slices the
+    caches to ``start + n`` first, which drops only masked positions."""
+    n = x.shape[1]
+    q, k, v = qkv_project(cfg, x, p, mm=mm)
+    q, k = _rope_qk(cfg, *_maybe_qk_norm(cfg, q, k, p), positions)
+    k_cache[:, start:start + n] = k.to(k_cache.dtype)
+    v_cache[:, start:start + n] = v.to(v_cache.dtype)
+    out = attend(cfg, q, k_cache[:, :start + n], v_cache[:, :start + n], causal=True,
+                 q_offset=start)
+    y = mm(out.reshape(*x.shape[:2], cfg.padded_heads * cfg.resolved_head_dim), p["wo"])
+    return y, k_cache, v_cache
 
 
 def attention_decode(
@@ -445,3 +500,36 @@ def mla_decode(
     o_lat = torch.einsum("bhs,bsr->bhr", probs, ckv_cache)        # [B,H,rank]
     out = torch.einsum("bhr,rhv->bhv", o_lat, w_uv).reshape(b, 1, h * vd)
     return mm(out, p["wo"]), ckv_cache, krope_cache
+
+
+def mla_attention_chunk(
+    cfg: ModelConfig,
+    x: torch.Tensor,               # [B,n,d]
+    p: Params,
+    ckv_cache: torch.Tensor,       # [B,S,rank], filled for [0, start)
+    krope_cache: torch.Tensor,     # [B,S,rd]
+    positions: torch.Tensor,       # [n]
+    start: int,
+    mm: Matmul = matmul,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """MLA prefill continuation: write the chunk's latents into the caches
+    (in place), then attend in the expanded form, K/V re-expanded from the
+    cached latents through ``wkv_b`` (prefill numerics, as
+    `mla_attention_block`).  As `attention_chunk`, the caches are sliced to
+    ``start + n`` where the reference masks the rest."""
+    b, n, _ = x.shape
+    h, nd, rd, vd = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = mla_project_q(cfg, x, p, mm=mm)
+    c_kv, k_rope = mla_project_kv_latent(cfg, x, p, mm=mm)
+    cos, sin = rope_cos_sin(positions, rd, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin, rd)
+    k_rope = apply_rope(k_rope[..., None, :], cos, sin, rd)[..., 0, :]
+    ckv_cache[:, start:start + n] = c_kv.to(ckv_cache.dtype)
+    krope_cache[:, start:start + n] = k_rope.to(krope_cache.dtype)
+    s = start + n
+    kv = (ckv_cache[:, :s] @ p["wkv_b"]).reshape(b, s, h, nd + vd)
+    k_nope, v = kv[..., :nd], kv[..., nd:]
+    k_full = torch.cat([k_nope, krope_cache[:, :s, None, :].expand(b, s, h, rd)], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    out = attend(cfg, q_full, k_full, v, causal=True, q_offset=start)
+    return mm(out.reshape(b, n, h * vd), p["wo"]), ckv_cache, krope_cache

@@ -1,19 +1,25 @@
-"""Decoders: init / prefill / decode in PyTorch.
+"""Every model family: init / forward / prefill / decode in PyTorch.
 
-Counterpart of the decoder branches of ``src/repro/models/model.py``:
-dense GQA, MoE with GQA, DeepSeek-V2's MLA with MoE, Mamba-2 (ssm) and
-Zamba2-style hybrids (Mamba-2 layers with shared attention + MLP blocks,
-one every ``hybrid_attn_every`` layers).  Layer parameters are stacked
-along a leading ``n_layers`` axis, and a hybrid's shared blocks along a
-leading block axis under ``params["shared"]`` (the reference's layout, so
-bridged weights and `TieringPlan.partition` line up); where the reference
-scans over those axes, the port loops.  `prefill` and `decode_step`
-together are the plain per-request reference the serving engine is
-checked against.  Every entry point takes ``mm``, the tier-aware matmul,
-so the engine can run the same code through the direct-access kernel; a
-hybrid's ``concat_proj`` is not registered and stays a plain product, as
-in the reference.  Not ported yet: the encoder and vlm families,
-``forward`` and ``prefill_chunk``.
+Counterpart of ``src/repro/models/model.py``: dense GQA decoders, MoE with
+GQA, DeepSeek-V2's MLA with MoE, Mamba-2 (ssm), Zamba2-style hybrids
+(Mamba-2 layers with shared attention + MLP blocks, one every
+``hybrid_attn_every`` layers), the encoder (HuBERT: frame embeddings in
+through ``in_proj``, non-causal attention, no decode step) and the VLM (a
+dense decoder whose prompt may start with patch embeddings, brought in
+through ``vision_proj``).  The audio and vision frontends are stubs, as in
+the reference: the inputs are precomputed frame and patch embeddings.
+Layer parameters are stacked along a leading ``n_layers`` axis, and a
+hybrid's shared blocks along a leading block axis under
+``params["shared"]`` (the reference's layout, so bridged weights and
+`TieringPlan.partition` line up); where the reference scans over those
+axes, the port loops.  `prefill` and `decode_step` together are the plain
+per-request reference the serving engine is checked against;
+`prefill_chunk` continues a cache by a prompt chunk (chunked prefill) and
+`forward` is the whole-sequence pass (the encoder's entry point).  Every
+entry point takes ``mm``, the tier-aware matmul, so the engine can run the
+same code through the direct-access kernel; a hybrid's ``concat_proj``,
+``in_proj`` and ``vision_proj`` are not registered and stay plain
+products, as in the reference.  Not ported: ``forward``'s remat (training).
 """
 from __future__ import annotations
 
@@ -30,19 +36,24 @@ from repro_torch.models import ssm as S
 Params = dict[str, Any]
 Cache = dict[str, torch.Tensor]
 
+VISION_EMBED_DIM = 1152      # stub anyres patch-embedding width (frontend stub)
+AUDIO_FRAME_DIM = 512        # stub audio frame-embedding width
+
 _INIT_STD = 0.02
 _DRAW_CHUNK = 1 << 26       # elements of one fp32 draw (256 MB)
 
-
-SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")     # MoE with or without MLA
+# Families with a decode step, all served by `ServingEngine` (MoE with or
+# without MLA); the encoder has only `forward`.
+SERVED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 
 
 def require_served(cfg: ModelConfig) -> None:
-    """Refuse the families the port does not run yet."""
+    """Refuse what has no decode step (the encoder) at the entry points
+    that need one: the cache, prefill, decode and serving."""
     if cfg.family not in SERVED_FAMILIES:
         raise NotImplementedError(
-            f"the PyTorch port serves dense, MoE (MLA included), SSM and hybrid decoders "
-            f"so far, not {cfg.name} ({cfg.family}); encoder and vlm are still to be ported")
+            f"{cfg.name} ({cfg.family}): encoder-only arch has no decode step; "
+            f"run it through models.model.forward (launch.steps.make_prefill_step)")
 
 
 def layer_slice(layers: Any, i: int) -> Any:
@@ -135,9 +146,9 @@ def init_layer(cfg: ModelConfig, generator: torch.Generator | None,
     `n_heads` in the padded query heads and for biases.  The tree is the
     reference's (`_attn_params` or `_mla_params`, then `_mlp_params` or
     `_moe_params`; ln1 and `_ssm_params` for the ssm and hybrid families)
-    without the leading layer axis.  On the meta device (`generator` None)
-    it gives the leaves' shapes and dtypes only."""
-    require_served(cfg)
+    without the leading layer axis; the encoder and the VLM take the dense
+    branch.  On the meta device (`generator` None) it gives the leaves'
+    shapes and dtypes only."""
     device = torch.device(device)
     dense, ones, zeros = _draws(generator, dtype, device)
     if cfg.family in ("ssm", "hybrid"):
@@ -181,15 +192,22 @@ def init_layer(cfg: ModelConfig, generator: torch.Generator | None,
 
 def init_top(cfg: ModelConfig, generator: torch.Generator | None,
              dtype: torch.dtype = torch.float32, device="cuda") -> Params:
-    """The leaves outside the layer stack: `embed`, a hybrid's `shared`
-    stack of `hybrid_shared_blocks` attention + MLP blocks (the reference's
+    """The leaves outside the layer stack, in the reference's order:
+    `embed` (the encoder's `in_proj` [AUDIO_FRAME_DIM, d] instead), a
+    VLM's `vision_proj` [VISION_EMBED_DIM, d], a hybrid's `shared` stack of
+    `hybrid_shared_blocks` attention + MLP blocks (the reference's
     `_shared_block_params`: `concat_proj` [2d, d], ln1, attention, ln2 and
     the MLP, each leaf stacked on a leading block axis, its fp32 draws
     chunked by whole blocks), `final_w` (and `final_b` for LayerNorm), and
     `lm_head` unless the embedding is tied."""
-    require_served(cfg)
     dense, ones, zeros = _draws(generator, dtype, torch.device(device))
-    top: Params = {"embed": dense(cfg.vocab, cfg.d_model)}
+    top: Params = {}
+    if cfg.family == "encoder":
+        top["in_proj"] = dense(AUDIO_FRAME_DIM, cfg.d_model)
+    else:
+        top["embed"] = dense(cfg.vocab, cfg.d_model)
+    if cfg.family == "vlm":
+        top["vision_proj"] = dense(VISION_EMBED_DIM, cfg.d_model)
     if cfg.family == "hybrid" and cfg.hybrid_shared_blocks:
         lead = (cfg.hybrid_shared_blocks,)
         top["shared"] = {"concat_proj": dense(*lead, 2 * cfg.d_model, cfg.d_model),
@@ -222,7 +240,11 @@ class LayerSource:
 
     @property
     def device(self) -> torch.device:
-        return self.top["embed"].device
+        return self.top["final_w"].device       # every family has it
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.top["final_w"].dtype
 
     @classmethod
     def from_tree(cls, params: Params) -> "LayerSource":
@@ -271,7 +293,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None,
 # Embedding / head
 # ==========================================================================
 def embed_inputs(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
-    return params["embed"][batch["tokens"].long()]
+    """The input sequence [B, T, d]: the encoder's `frames` [B, T, 512]
+    through ``in_proj``; otherwise the embedded `tokens`, after which a
+    VLM batch's `patches` [B, T_img, 1152] through ``vision_proj`` come
+    first.  Frames and patches are cast to the weights' dtype."""
+    if cfg.family == "encoder":
+        w = params["in_proj"]
+        return batch["frames"].to(w.dtype) @ w
+    tok = params["embed"][batch["tokens"].long()]
+    if cfg.family == "vlm" and "patches" in batch:
+        w = params["vision_proj"]
+        return torch.cat([batch["patches"].to(w.dtype) @ w, tok], dim=1)
+    return tok
 
 
 def lm_head(cfg: ModelConfig, params: Params, x: torch.Tensor,
@@ -280,6 +313,43 @@ def lm_head(cfg: ModelConfig, params: Params, x: torch.Tensor,
          if cfg.norm == "layernorm" else L.rmsnorm(x, params["final_w"], cfg.norm_eps))
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return mm(x, w)
+
+
+# ==========================================================================
+# Forward: the whole sequence, every family (the encoder's entry point)
+# ==========================================================================
+def _attn_mlp_layer(cfg: ModelConfig, x: torch.Tensor, lp: Params, positions: torch.Tensor,
+                    causal: bool, mm: L.Matmul) -> torch.Tensor:
+    """One attention (GQA or MLA) + FFN layer over the whole sequence."""
+    hn = L.norm(cfg, x, lp, "ln1")
+    attn = (L.mla_attention_block(cfg, hn, lp, positions, causal, mm=mm) if cfg.use_mla
+            else L.attention_block(cfg, hn, lp, positions, causal, mm=mm))
+    x = x + attn
+    return x + _ffn(cfg, x, lp, mm)
+
+
+def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor],
+            mm: L.Matmul = L.matmul) -> torch.Tensor:
+    """Logits [B, T, vocab] at every position of `embed_inputs`' sequence
+    (causal unless ``cfg.is_causal`` is false, as for the encoder).  A
+    hybrid runs its shared block before each group of ``hybrid_attn_every``
+    layers, on the embedding ``h0`` too."""
+    x = embed_inputs(cfg, params, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    h0 = x
+    for i in range(cfg.n_layers):
+        sp = shared_block(cfg, params, i)
+        if sp is not None:
+            z = shared_in(x, h0, sp)
+            z = z + L.attention_block(cfg, L.norm(cfg, z, sp, "ln1"), sp, positions,
+                                      cfg.is_causal, mm=mm)
+            x = shared_out(cfg, x, z, sp, mm)
+        lp = layer_slice(params["layers"], i)
+        if cfg.family in ("ssm", "hybrid"):
+            x = x + S.ssm_block(cfg, L.norm(cfg, x, lp, "ln1"), lp, mm=mm)[0]
+        else:
+            x = _attn_mlp_layer(cfg, x, lp, positions, cfg.is_causal, mm)
+    return lm_head(cfg, params, x, mm=mm)
 
 
 # ==========================================================================
@@ -336,13 +406,8 @@ def _gqa_prefill(cfg: ModelConfig, hn: torch.Tensor, p: Params, positions: torch
                  mm: L.Matmul) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Causal GQA over the prompt: (the output after ``wo``, k, v)."""
     bsz, t = hn.shape[:2]
-    rot = int(cfg.resolved_head_dim * cfg.rope_fraction)
     q, k, v = L.qkv_project(cfg, hn, p, mm=mm)
-    q, k = L._maybe_qk_norm(cfg, q, k, p)
-    if rot:
-        cos, sin = L.rope_cos_sin(positions, rot, cfg.rope_theta)
-        q = L.apply_rope(q, cos, sin, rot)
-        k = L.apply_rope(k, cos, sin, rot)
+    q, k = L._rope_qk(cfg, *L._maybe_qk_norm(cfg, q, k, p), positions)
     attn = L.attend(cfg, q, k, v, causal=True)
     return mm(attn.reshape(bsz, t, -1), p["wo"]), k, v
 
@@ -380,7 +445,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor],
             mm: L.Matmul = L.matmul) -> tuple[torch.Tensor, Cache]:
     """Whole-prompt forward.  Returns (logits [B,1,vocab] at the last
     position, the cache of `init_cache`'s layout, KV zero-padded past the
-    prompt).  Attention is plain PyTorch, as in the reference; SSM layers
+    prompt).  A VLM batch's `patches` come before its tokens and fill the
+    cache too.  Attention is plain PyTorch, as in the reference; SSM layers
     run the chunked SSD form (`ssm.ssm_block_prefill`)."""
     require_served(cfg)
     x = embed_inputs(cfg, params, batch)
@@ -434,6 +500,48 @@ def _recurrent_prefill(cfg: ModelConfig, params: Params, x: torch.Tensor,
         entries["conv"].append(conv)
         entries["state"].append(state)
     return lm_head(cfg, params, x[:, -1:], mm=mm), _pad_cache(entries, max_len, t)
+
+
+# ==========================================================================
+# Chunked prefill: continue a partially filled cache by n tokens
+# ==========================================================================
+def prefill_chunk(cfg: ModelConfig, params: Params, cache: Cache, tokens: torch.Tensor,
+                  start: int, mm: L.Matmul = L.matmul) -> tuple[torch.Tensor, Cache]:
+    """Prompt tokens [start, start+n) against a cache filled for [0, start):
+    the compute behind the serving frontend's chunked prefill.
+
+    tokens: [B, n]; cache: the full-size cache of `init_cache` (KV or
+    latent entries at max_len, conv/state carries, or both), updated in
+    place and returned.  ``start == 0`` against a fresh zero cache is a
+    whole-prefix pass, so a prompt fed in chunks of any size leaves the
+    cache and next-token logits of one `prefill` call.  Returns (logits
+    [B,1,vocab] at the chunk's last position, cache)."""
+    require_served(cfg)
+    x = params["embed"][tokens.long()]
+    positions = torch.arange(start, start + x.shape[1], device=x.device)
+    h0 = x
+    names = ("ckv", "krope") if cfg.use_mla else ("k", "v")
+    for i in range(cfg.n_layers):
+        sp = shared_block(cfg, params, i)
+        if sp is not None:
+            g = i // cfg.hybrid_attn_every
+            z = shared_in(x, h0, sp)
+            attn, _, _ = L.attention_chunk(cfg, L.norm(cfg, z, sp, "ln1"), sp, cache["k"][g],
+                                           cache["v"][g], positions, start, mm=mm)
+            x = shared_out(cfg, x, z + attn, sp, mm)
+        lp = layer_slice(params["layers"], i)
+        hn = L.norm(cfg, x, lp, "ln1")
+        if cfg.family in ("ssm", "hybrid"):
+            y, cache["conv"][i], cache["state"][i] = S.ssm_block_chunk(
+                cfg, hn, lp, cache["conv"][i], cache["state"][i], mm=mm)
+            x = x + y
+            continue
+        chunk = L.mla_attention_chunk if cfg.use_mla else L.attention_chunk
+        attn, _, _ = chunk(cfg, hn, lp, cache[names[0]][i], cache[names[1]][i], positions,
+                           start, mm=mm)
+        x = x + attn
+        x = x + _ffn(cfg, x, lp, mm)
+    return lm_head(cfg, params, x[:, -1:], mm=mm), cache
 
 
 # ==========================================================================

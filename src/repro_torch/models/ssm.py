@@ -14,7 +14,8 @@ direct-access GEMM.  Unlike the reference, `ssm_block_prefill` returns the
 conv cache (the last W-1 pre-conv inputs ``[x | B | C]``) from the block's
 own projections instead of projecting ``x_proj`` and ``bc_proj`` a second
 time, so prefill reads their remote halves once; the cache is the same.
-Not ported yet: ``ssm_block_chunk`` (chunked prefill).
+`ssm_block_chunk` continues both carries over a prompt chunk (chunked
+prefill).
 """
 from __future__ import annotations
 
@@ -184,6 +185,36 @@ def ssm_block_prefill(cfg: ModelConfig, x: torch.Tensor, p: dict, mm=matmul):
     width = cfg.ssm_conv_width
     conv = F.pad(xbc, (0, 0, width - 1, 0))[:, -(width - 1):]
     return y, conv, final
+
+
+def ssm_block_chunk(cfg: ModelConfig, x: torch.Tensor, p: dict, conv_cache: torch.Tensor,
+                    state: torch.Tensor, mm=matmul):
+    """Multi-token Mamba-2 continuation (chunked prefill).
+
+    x: [B,n,d], a chunk of hidden states; conv_cache: [B,W-1,C], the last
+    pre-conv inputs of everything before the chunk (zeros at the sequence
+    start, where this is `_causal_conv`'s zero padding); state: [B,H,P,S],
+    the SSD state entering the chunk.  Returns (y [B,n,d], conv_cache,
+    state), both carries advanced past the chunk, so a prompt fed in
+    chunks of any size leaves the carries of one whole-sequence pass."""
+    bsz, t, _ = x.shape
+    d_inner = cfg.ssm_expand * cfg.d_model
+    nh = d_inner // cfg.ssm_head_dim
+    g, s = cfg.ssm_n_groups, cfg.ssm_state
+    width = cfg.ssm_conv_width
+    z, xs, bc, dt = _project_in(cfg, x, p, mm)
+    window = torch.cat([conv_cache, torch.cat([xs, bc], dim=-1).to(conv_cache.dtype)],
+                       dim=1)                                      # [B,W-1+n,C]
+    # depthwise conv with history: out[j] = sum_i w[i]·window[j+i] (w[W-1]
+    # multiplies the current token, the decode step's stencil)
+    xbc = F.silu(sum(window[:, i: i + t] * p["conv_w"][i] for i in range(width)))
+    x_ssm, b_mat, c_mat = torch.split(xbc, [d_inner, g * s, g * s], dim=-1)
+    x_ssm = x_ssm.reshape(bsz, t, nh, cfg.ssm_head_dim)
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    a = -torch.exp(p["A_log"].float())
+    y, state = ssd_chunked(x_ssm, dt, a, b_mat.reshape(bsz, t, g, s),
+                           c_mat.reshape(bsz, t, g, s), h0=state, chunk=cfg.ssm_chunk)
+    return _gated_out(cfg, y, x_ssm, z, p, mm), window[:, -(width - 1):], state
 
 
 def ssm_block_decode(cfg: ModelConfig, x: torch.Tensor, p: dict, conv_cache: torch.Tensor,

@@ -15,9 +15,13 @@ both are ordinary tensors.  Pools are updated in place (the reference's
 functional ``.at[].set`` copies each pool); host-side reads and writes of a
 pool first wait for the work already queued on the device.
 
-Not ported yet: the elastic budget (``set_local_limit``, ``grow_remote``,
-``demote_coldest``), tier-demotion preemption (``demote_slot_pages``) and
-the sharded mesh mode.
+Tier-demotion preemption (`demote_slot_pages`) moves a slot's coldest
+local pages into the remote pool through `move_pages`: on the card their
+bytes land in pinned host memory, where the paged kernel reads them in
+place.  Not ported yet: the elastic budget (``set_local_limit``,
+``local_deficit``, ``grow_remote``, ``demote_coldest``; `local_free` is the
+free-list depth, the reference's value at its full default limit) and the
+sharded mesh mode.
 """
 from __future__ import annotations
 
@@ -137,6 +141,12 @@ class PagedTieredCache:
         return self.n_remote - len(self.free[REMOTE])
 
     @property
+    def local_free(self) -> int:
+        """Allocatable local pages: the free-list depth (the reference's
+        value at its full, default elastic limit)."""
+        return len(self.free[LOCAL])
+
+    @property
     def sink_local(self) -> int:
         return self.n_local
 
@@ -243,6 +253,46 @@ class PagedTieredCache:
             self.promotions += len(ids)
         return len(ids)
 
+    def slot_pages(self, slot: int, tier: int) -> list[int]:
+        """Pool indices of `slot`'s pages currently resident in `tier`,
+        in sequence order (head of the sequence first)."""
+        n = int(self.n_pages[slot])
+        return [int(self.table[slot, p]) for p in range(n)
+                if int(self.tier[slot, p]) == tier]
+
+    def slot_residency(self, slot: int, length: int | None = None) -> dict:
+        """How much of `slot`'s cache lives in each tier.  With `length`
+        only the pages covering the first `length` tokens are counted (the
+        portion a decode step at that kv length attends)."""
+        n = int(self.n_pages[slot])
+        if length is not None:
+            n = min(n, -(-int(length) // self.page_size))
+        tiers = self.tier[slot, :n]
+        return {
+            "pages": n,
+            "local_pages": int((tiers == LOCAL).sum()),
+            "remote_pages": int((tiers == REMOTE).sum()),
+            "local_tokens": int((tiers == LOCAL).sum()) * self.page_size,
+        }
+
+    def demote_slot_pages(self, slot: int, max_pages: int | None = None) -> int:
+        """Tier-demotion preemption: move up to `max_pages` of `slot`'s
+        local pages to the remote pool, coldest first (the sequence tail,
+        rewritten every step, goes last), freeing local pages for an
+        incoming request while `slot` keeps decoding through the paged
+        kernel.  Returns the pages moved (0 when the slot holds no local
+        page or the remote pool is full); counted as demotions, not
+        spills."""
+        owned = self.slot_pages(slot, LOCAL)
+        if not owned:
+            return 0
+        budget = len(owned) if max_pages is None else max(0, int(max_pages))
+        budget = min(budget, len(self.free[REMOTE]))
+        if budget <= 0:
+            return 0
+        victims = self.heat.ranked(LOCAL, owned, hottest_first=False)[:budget]
+        return self.move_pages(LOCAL, REMOTE, victims)
+
     # -- per-step temperature bookkeeping ---------------------------------
     def touch_step(self, lens: np.ndarray, active: np.ndarray) -> None:
         """Record one decode step's page accesses in the heat histogram.
@@ -260,6 +310,22 @@ class PagedTieredCache:
                 self.heat.touch(int(self.tier[slot, p]),
                                 int(self.table[slot, p]),
                                 2.0 if p == wr_p else 1.0)
+
+    def attended_bytes(self, lens: np.ndarray, active: np.ndarray
+                       ) -> tuple[float, float]:
+        """(local_bytes, remote_bytes) one decode step reads from the KV
+        pools, per the page-table tiers (a K-only pool counts K once)."""
+        pool = self.pools["k_local"]
+        page_bytes = (pool.shape[0] * self.page_size * pool.shape[3]
+                      * pool.shape[4] * pool.element_size() * len(self.kv_names))
+        local = remote = 0
+        for slot in np.nonzero(np.asarray(active))[0]:
+            n = min(-(-(int(lens[slot]) + 1) // self.page_size),
+                    int(self.n_pages[slot]))
+            tiers = self.tier[slot, :n]
+            remote += int((tiers == REMOTE).sum())
+            local += int((tiers == LOCAL).sum())
+        return local * page_bytes, remote * page_bytes
 
     # -- data movement -----------------------------------------------------
     def write_prompt(self, slot: int, k: torch.Tensor,

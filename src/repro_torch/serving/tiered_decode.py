@@ -81,6 +81,13 @@ def _mm(x: torch.Tensor, w: Any, window: int) -> torch.Tensor:
     return x @ w
 
 
+def kernel_mm(window: int) -> Callable[[torch.Tensor, Any], torch.Tensor]:
+    """The tier-aware matmul every tiered path runs, as an ``mm`` for the
+    model's layers: the direct-access GEMM for a tiered weight, a plain
+    product otherwise."""
+    return lambda a, w: _mm(a, w, window)
+
+
 # A `write_and_attend(layer, q, k_new, v_new, scale=None)` callback writes the
 # new K/V row of every slot into the cache and attends (q [B,Hq,w];
 # k_new/v_new [B,1,Kh,w]; returns attn [B,Hq,w]).
@@ -93,7 +100,7 @@ def _gqa_attend(cfg: ModelConfig, lp: dict[str, Any], hn: torch.Tensor,
     """GQA attention over the injected cache: returns [B,1,Hp*hd] (pre-wo)."""
     hd, hp = cfg.resolved_head_dim, cfg.padded_heads
     b = hn.shape[0]
-    q, k_new, v_new = L.qkv_project(cfg, hn, lp, mm=lambda a, w: _mm(a, w, window))
+    q, k_new, v_new = L.qkv_project(cfg, hn, lp, mm=kernel_mm(window))
     q, k_new = L._maybe_qk_norm(cfg, q, k_new, lp)
     rot = int(hd * cfg.rope_fraction)
     if rot:
@@ -118,10 +125,7 @@ def _mla_attend(cfg: ModelConfig, lp: dict[str, Any], hn: torch.Tensor,
     h, rd, vd = cfg.n_heads, cfg.rope_head_dim, cfg.v_head_dim
     rank = cfg.kv_lora_rank
     b = hn.shape[0]
-
-    def kmm(a, w):
-        return _mm(a, w, window)
-
+    kmm = kernel_mm(window)
     q_nope, q_rope = L.mla_project_q(cfg, hn, lp, mm=kmm)         # [B,1,H,*]
     c_kv, k_rope = L.mla_project_kv_latent(cfg, hn, lp, mm=kmm)   # [B,1,*]
     cos, sin = L.rope_cos_sin(positions[:, None], rd, cfg.rope_theta)
@@ -137,7 +141,7 @@ def _mla_attend(cfg: ModelConfig, lp: dict[str, Any], hn: torch.Tensor,
 
 def _head(cfg: ModelConfig, params: dict[str, Any], x: torch.Tensor,
           window: int) -> torch.Tensor:
-    return M.lm_head(cfg, params, x, mm=lambda a, w: _mm(a, w, window))
+    return M.lm_head(cfg, params, x, mm=kernel_mm(window))
 
 
 def _decode_transformer(
@@ -152,10 +156,7 @@ def _decode_transformer(
     attention flavour and the FFN are picked per family; tiered weights run
     the direct-access GEMM, attention runs through `write_and_attend`."""
     x = params["embed"][tokens.long()]                # [B,1,d]
-
-    def kmm(a, w):
-        return _mm(a, w, window)
-
+    kmm = kernel_mm(window)
     attend = _mla_attend if cfg.use_mla else _gqa_attend
     for i in range(cfg.n_layers):
         lp = layer_slice(params["layers"], i)
@@ -337,10 +338,7 @@ def _recurrent_step(cfg: ModelConfig, params: dict[str, Any], cache: dict[str, t
     whose new conv window and state overwrite its slice of `cache`."""
     x = params["embed"][tokens.long()]
     h0 = x
-
-    def kmm(a, w):
-        return _mm(a, w, window)
-
+    kmm = kernel_mm(window)
     for i in range(cfg.n_layers):
         sp = M.shared_block(cfg, params, i)
         if sp is not None:

@@ -44,12 +44,13 @@ def test_every_id_resolves_to_the_reference_config(arch):
 @pytest.mark.parametrize("arch", ["mamba2_370m", "zamba2_2p7b", "hubert_xlarge",
                                   "llava_next_34b"])
 def test_unported_families_resolve_but_are_refused(arch):
-    """The encoder and VLM configs resolve but are refused; the SSM and
-    hybrid configs, ported since, are accepted, and their full-width
-    caches have the reference's layout."""
+    """Every family's config resolves.  The encoder, which has no decode
+    step, is refused by the serving entry points with the reference's
+    reason; the SSM, hybrid and VLM configs are accepted, and their
+    full-width caches have the reference's layout."""
     cfg = TC.get(arch)
-    if cfg.family in ("encoder", "vlm"):
-        with pytest.raises(NotImplementedError, match="still to be ported"):
+    if cfg.family == "encoder":
+        with pytest.raises(NotImplementedError, match="encoder-only arch has no decode step"):
             TM.require_served(cfg)
         return
     TM.require_served(cfg)

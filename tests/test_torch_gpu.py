@@ -173,19 +173,22 @@ def test_scatter_rows_matches_plain(cuda_device, remote):
     assert torch.equal(pool.to(cuda_device), pool_dev)
 
 
-def _engine_matches_plain_reference(cfg, ratio, dev, new_tokens=8, from_source=False):
+def _engine_matches_plain_reference(cfg, ratio, dev, new_tokens=8, from_source=False,
+                                    priorities=(0, 0, 0, 0, 0), **engine_kw):
     """Serve 5 prompts that force spills (3 slots, page 4) on the card and
     hold every request's tokens to the plain per-request reference on the
     card, with the same weights unsplit in HBM; the engine is built from the
-    whole tree, or with `from_source` from a layer source of the same seed."""
+    whole tree, or with `from_source` from a layer source of the same seed,
+    and takes `engine_kw` (a scheduler, a prefill chunk)."""
     params = TM.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     weights = (TM.layer_source(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
                if from_source else params)
     eng = ServingEngine(cfg, weights, max_batch=3, max_len=32, global_offload_ratio=ratio,
-                        page_size=4, device=dev)
+                        page_size=4, device=dev, **engine_kw)
     rng = np.random.default_rng(7)
     reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab, n).astype(np.int32),
-                    max_new_tokens=new_tokens) for i, n in enumerate(SERVE_PROMPT_LENS)]
+                    max_new_tokens=new_tokens, priority=priorities[i])
+            for i, n in enumerate(SERVE_PROMPT_LENS)]
     for r in reqs:
         eng.submit(r)
     assert eng.run().served == len(reqs)
@@ -246,7 +249,7 @@ def test_tiered_expert_ffn_matches_plain(cuda_device, dtype, rows):
         split[name] = TieredTensor(local=w[:4].contiguous(), remote=_pinned(w[4:]), axis=-3)
     before, ran = splitk_gemm.launches, TL.tiered_expert_ffn.remote_experts
     got = TL.tiered_expert_ffn(buf, valid, split["wi"], split["wdown"],
-                               mm=lambda a, w: TD._mm(a, w, 2))
+                               mm=TD.kernel_mm(2))
     torch.cuda.synchronize()
     assert splitk_gemm.launches - before == 4
     assert TL.tiered_expert_ffn.remote_experts - ran == 2
@@ -402,7 +405,7 @@ def test_batch_split_decode_matches_plain_decode_on_card(cuda_device, ratio):
     prompts = torch.tensor(np.random.default_rng(1).integers(3, cfg.vocab, (4, 6)),
                            dtype=torch.int32, device=cuda_device)
     logits, cache = TM.prefill(cfg, tparams, {"tokens": prompts}, max_len=32,
-                               mm=lambda a, w: TD._mm(a, w, 2))
+                               mm=TD.kernel_mm(2))
     kv = TD.split_cache_batch(cache, ratio)
     assert kv["k_remote"].shape[1] == round(4 * ratio)
     assert kv["k_remote"].is_pinned()
@@ -511,3 +514,110 @@ def test_recurrent_engine_matches_plain_reference_on_card(cuda_device, arch, rat
     if arch == "zamba2_2p7b":
         assert all(isinstance(w, TieredTensor) for k, w in eng.params["shared"].items()
                    if k in ("wq", "wkv", "wo", "wi", "wdown"))
+
+
+@pytest.mark.parametrize("arch", ["llama2_7b", "qwen3_moe_30b_a3b", "deepseek_v2_236b",
+                                  "mamba2_370m", "zamba2_2p7b", "llava_next_34b"])
+def test_chunked_prefill_engine_matches_plain_reference_on_card(cuda_device, arch):
+    """The SLO scheduler with chunks of 4 tokens (`models.prefill_chunk`
+    through the kernel into a private cache) on the card: every request's
+    tokens equal the plain whole-prompt reference's (fp32, MoE dropless)."""
+    from repro_torch.frontend.metrics import ModeledClock
+
+    cfg = TC.get_smoke(arch)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=float(cfg.n_experts))
+    eng = _engine_matches_plain_reference(cfg, 0.5, cuda_device, priorities=(0, 2, 1, 0, 2),
+                                          scheduler="slo", prefill_chunk=4,
+                                          clock=ModeledClock())
+    assert eng.stats.prefill_chunks > 0
+
+
+def test_priority_preemption_on_card(cuda_device):
+    """Two low-priority prompts fill the local pool, then a high-priority
+    arrival demotes their pages to the pinned pool: the victims decode on
+    through the paged kernel reading the demoted pages, every request's
+    tokens equal to the plain reference's."""
+    from repro_torch.frontend.metrics import ModeledClock
+
+    cfg, dev = TC.get_smoke("llama2_7b"), cuda_device
+    params = TM.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    eng = ServingEngine(cfg, params, max_batch=3, max_len=32, global_offload_ratio=0.7,
+                        page_size=4, scheduler="priority", clock=ModeledClock(), device=dev)
+    rng = np.random.default_rng(41)
+    reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab, n).astype(np.int32),
+                    max_new_tokens=10, priority=5 if i == 2 else 0)
+            for i, n in enumerate((16, 14, 12))]
+    eng.submit(reqs[0])
+    eng.submit(reqs[1])
+    eng.step()
+    eng.submit(reqs[2])
+    stats = eng.run()
+    assert stats.served == 3 and stats.preemptions >= 1 and stats.preempt_demoted_pages >= 1
+    assert eng.pcache.pools["k_remote"].is_pinned()
+    for r in reqs:
+        logits, cache = TM.prefill(cfg, params, {"tokens": torch.tensor(r.prompt,
+                                                                         device=dev)[None]},
+                                   max_len=32)
+        want, pos = [int(torch.argmax(logits.reshape(-1)))], len(r.prompt)
+        while len(want) < 10:
+            logits, cache = TM.decode_step(cfg, params, cache,
+                                           torch.tensor([[want[-1]]], device=dev), pos)
+            want.append(int(torch.argmax(logits.reshape(-1))))
+            pos += 1
+        assert r.out_tokens == want, f"request {r.rid}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_demote_slot_pages_moves_bytes_into_the_pinned_pool(cuda_device, dtype):
+    """Preemption's demotion on the card: the slot's coldest local pages
+    land in the pinned remote pool byte for byte, the sequence tail stays
+    in HBM, and the slot reads back unchanged."""
+    from repro_torch.serving.paged_cache import LOCAL, REMOTE
+
+    cache = PagedTieredCache(2, 2, 64, page_size=4, local_pages=6, remote_pages=6,
+                             max_slots=2, max_pages_per_slot=5, dtype=dtype,
+                             device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    k, v = (torch.randn((2, 17, 2, 64), generator=gen, device=cuda_device).to(dtype)
+            for _ in range(2))
+    cache.write_prompt(0, k, v)
+    before = [cache.pools["k_local"][:, i].clone() for i in cache.slot_pages(0, LOCAL)]
+    assert cache.demote_slot_pages(0, max_pages=3) == 3 and cache.demotions == 3
+    assert cache.slot_residency(0) == {"pages": 5, "local_pages": 2, "remote_pages": 3,
+                                       "local_tokens": 8}
+    assert [int(t) for t in cache.tier[0, :5]] == [REMOTE] * 3 + [LOCAL] * 2
+    remote = cache.pools["k_remote"]
+    assert remote.is_pinned() and remote.device.type == "cpu"
+    for p, old in zip(range(3), before):
+        assert torch.equal(remote[:, int(cache.table[0, p])].to(cuda_device), old)
+    got_k, got_v = cache.gather(0, 17)
+    assert torch.equal(got_k, k) and torch.equal(got_v, v)
+
+
+def test_encoder_forward_tiered_matches_untiered_on_card(cuda_device):
+    """HuBERT-XLarge at full width, 2 layers, fp32: the prefill step of
+    `launch.steps` over weights tiered at offload 0.5 (every projection
+    through `splitk_gemm`, remote halves pinned) equals the forward over
+    the same weights unsplit in HBM."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps as TS
+
+    dev = cuda_device
+    cfg = dataclasses.replace(TC.get("hubert_xlarge"), n_layers=2)
+    params = TM.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    plan = TE.plan(cfg, WorkloadSpec(batch=2, seq_len=100, phase="prefill"), H100_SXM,
+                   global_ratio=0.5)
+    tiered = plan.partition_source(
+        TM.layer_source(cfg, torch.Generator(device=dev).manual_seed(0), device=dev),
+        align=128)
+    assert all(w.remote.is_pinned() for w in _tiered(tiered))
+    batch = TS.input_specs(cfg, ShapeConfig("enc", 100, 2, "prefill"),
+                           torch.Generator(device=dev).manual_seed(1), dtype=torch.float32,
+                           device=dev)
+    launches = splitk_gemm.launches
+    got, cache = TS.make_prefill_step(cfg, mm=TD.kernel_mm(1))(tiered, batch)
+    assert cache == {} and splitk_gemm.launches - launches == 2 * 5 + 1
+    want = TM.forward(cfg, params, batch)
+    assert got.shape == (2, 100, cfg.vocab)
+    assert rel_err(got, want) < TOL[torch.float32]

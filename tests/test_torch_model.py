@@ -111,26 +111,24 @@ def test_prefill_and_decode_step_match_reference(weights):
 
 @pytest.mark.parametrize("family", ["ssm", "hybrid", "encoder", "vlm"])
 def test_unported_families_raise(family):
-    """The port serves dense, MoE (MLA included), SSM and hybrid decoders;
-    the families still to be ported (encoder, vlm) are refused by name, by
-    the model and the engine.  The SSM and hybrid families are accepted:
-    their smoke configs' params and caches have the reference's layout."""
-    if family in ("ssm", "hybrid"):
-        arch = "mamba2_370m" if family == "ssm" else "zamba2_2p7b"
-        jcfg, tcfg = JC.get_smoke(arch), TC.get_smoke(arch)
-        shapes = lambda tree: jax.tree.map(lambda a: tuple(a.shape), tree)  # noqa: E731
-        params = TM.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
-        assert shapes(params) == shapes(jax.eval_shape(
-            lambda: JM.init_params(jcfg, jax.random.PRNGKey(0))))
-        assert shapes(TM.init_cache(tcfg, 2, 8, device="cpu")) == \
-            shapes(JM.init_cache(jcfg, 2, 8))
-        assert ServingEngine(tcfg, params, max_batch=2, max_len=8, page_size=4,
-                             device="cpu").cfg.family == family
+    """Every family's params have the reference's layout.  The decoder
+    families (SSM, hybrid, VLM) are accepted by the cache and the engine;
+    the encoder, which has no decode step, is refused by both with the
+    reference's reason."""
+    arch = {"ssm": "mamba2_370m", "hybrid": "zamba2_2p7b", "encoder": "hubert_xlarge",
+            "vlm": "llava_next_34b"}[family]
+    jcfg, tcfg = JC.get_smoke(arch), TC.get_smoke(arch)
+    shapes = lambda tree: jax.tree.map(lambda a: tuple(a.shape), tree)  # noqa: E731
+    params = TM.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    assert shapes(params) == shapes(jax.eval_shape(
+        lambda: JM.init_params(jcfg, jax.random.PRNGKey(0))))
+    if family == "encoder":
+        with pytest.raises(NotImplementedError, match="encoder-only arch has no decode step"):
+            TM.init_cache(tcfg, 1, 8, device="cpu")
+        with pytest.raises(NotImplementedError, match="encoder-only arch has no decode step"):
+            ServingEngine(tcfg, params, device="cpu")
         return
-    cfg = dataclasses.replace(TCFG, family=family)
-    with pytest.raises(NotImplementedError, match="encoder and vlm"):
-        TM.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match=family):
-        TM.init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match=family):
-        ServingEngine(cfg, {}, device="cpu")
+    assert shapes(TM.init_cache(tcfg, 2, 8, device="cpu")) == \
+        shapes(JM.init_cache(jcfg, 2, 8))
+    assert ServingEngine(tcfg, params, max_batch=2, max_len=8, page_size=4,
+                         device="cpu").cfg.family == family
