@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py              # phases 1-8 and 11-26, needs one CUDA card
+    python3 chip_smoke.py              # phases 1-8 and 11-28, needs one CUDA card
     python3 chip_smoke.py --phases 1,9 # the host-link read probe
     python3 chip_smoke.py --phases 1,5,9,10  # timings, probe, replaced designs
 
@@ -121,6 +121,21 @@ runs, printing each result on its own line:
    (60 layers, bf16, 70.6 GB of weights, 34.9 GB pinned), 4 requests of
    128 + 16 tokens as phase 17, then one prefill of 576 patches + 128
    tokens through `launch.steps.make_prefill_step`;
+27. elastic parity: a 2-layer full-width llama2-7b in fp32 (offload 0.5,
+   page 4, 3 slots, phase 3's prompts) served static, with the adaptive
+   runtime, with a shrink of the local page budget to 20% at decode step 2,
+   and with the zero-budget runtime and the same shrink, each on the card
+   and on the CPU: on the card every run's tokens equal the static run's,
+   and every run's counters, health ladder and final ratio equal the CPU
+   run's;
+28. the adaptive runtime at full width: phase 4's llama2-7b traffic (a)
+   static, (b) with the AIMD loop closed over each decode step's bandwidth,
+   timed by CUDA events (window trajectory, the kernels' ring stages at each
+   window, remote GB/s by window, TPOT, migration), (c) the same with the
+   shrink at step 2, whose forced re-plan moves weight columns from HBM into
+   new pinned tiers: 8/8 served, healthy at the end, device memory falls and
+   pinned bytes rise, the re-plan's transient below one operand layer, its
+   pause and TPOT and remote bytes a step before and after;
 every served run (4, 12, 14, 16, 17, 19, 21, 26) builds its engine one layer at
 a time, checks that set-up held no more device memory beyond the weights it
 keeps than building one layer holds (`setup_transient_bound`), that the
@@ -2180,6 +2195,345 @@ def vlm_patch_prefill(eng) -> None:
           f"patch prefill logits finite and the cache holds {rows} positions")
 
 
+# ---------------------------------------------------------------------------
+# Phases 27-28: the adaptive runtime and elastic degradation
+# ---------------------------------------------------------------------------
+ELASTIC_SHRINK = (2, 0.2)   # at decode step 2, keep 20% of the local page pool
+ATTN_MAX_WINDOW = 8         # csrc/dak_common.cuh DAK_MAX_WINDOW: the attention ring's cap
+ATTN_RING_MAX = 96 * 1024   # csrc/decode_attn.cuh RING_MAX: ring bytes a CTA
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def elastic_view(eng) -> dict:
+    """The counters, health ladder and ratio a run must reproduce."""
+    s = eng.stats
+    view = {k: getattr(s, k) for k in (
+        "served", "failed_requests", "health", "cache_full_caught", "elastic_demoted_pages",
+        "remote_grown_pages", "shed_steps", "elastic_replans", "replans", "promoted_pages",
+        "demoted_pages", "final_window", "decode_steps")}
+    view["shrink_events"] = eng.health.counters.shrink_events
+    view["transitions"] = [tuple(t) for t in eng.health.transitions]
+    view["global_ratio"] = (eng.runtime.plan.global_ratio if eng.runtime is not None
+                            else eng.plan.global_ratio)
+    return view
+
+
+def elastic_parity_runs(cfg, params, device: str) -> dict:
+    """Phase 27's four runs on `device`: {name: (tokens, view)}; the
+    zero-budget runtime is tests/test_elastic.py's, at the engine's
+    alignment (the card's TMA boxes need 16-byte rows)."""
+    from repro_torch.core import engine as offload_engine
+    from repro_torch.core.ebmodel import WorkloadSpec
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.runtime.controller import RuntimeController
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    plan = offload_engine.plan(cfg, WorkloadSpec(batch=3, seq_len=32, phase="decode"), H100_SXM,
+                               global_ratio=0.5, kv_page_size=4)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(3, cfg.vocab, n).astype(np.int32) for n in (10, 16, 7, 14, 9)]
+    out = {}
+    for name in ("static", "adaptive", "shrink", "adaptive+shrink"):
+        runtime = (RuntimeController(cfg, plan, H100_SXM, window_budget=0, migration_budget=0,
+                                     drift_threshold=float("inf"), align=128)
+                   if name == "adaptive+shrink" else None)
+        eng = ServingEngine(cfg, params, max_batch=3, max_len=32, global_offload_ratio=0.5,
+                            page_size=4, adaptive=name == "adaptive", runtime=runtime,
+                            device=device)
+        check(eng._align == 128, f"engine alignment {eng._align} is the runtime's 128")
+        if name.endswith("shrink"):
+            eng.schedule_hbm_shrink(*ELASTIC_SHRINK)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=8) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        out[name] = ([r.out_tokens for r in reqs], elastic_view(eng))
+        del eng
+        gc.collect()
+    return out
+
+
+def phase_elastic_parity() -> None:
+    """llama2-7b at full width, 2 layers, fp32, offload 0.5, page 4, 3
+    slots, phase 3's five prompts: a static run, `adaptive=True`, a static
+    run with `schedule_hbm_shrink(2, 0.2)` and the zero-budget runtime with
+    the same shrink, each on the card and on the CPU from the same weights.
+    On the card every run's tokens equal the static run's; each run's
+    counters, health ladder and final ratio equal the CPU run's."""
+    import repro_torch.configs as C
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(C.get("llama2_7b"), n_layers=2)
+    cpu_params = M.init_params(cfg, torch.Generator().manual_seed(7), dtype=torch.float32,
+                               device="cpu")
+    params = tree_to(cpu_params, "cuda")
+    t0 = time.time()
+    card = elastic_parity_runs(cfg, params, "cuda")
+    t_card = time.time() - t0
+    cpu = elastic_parity_runs(cfg, cpu_params, "cpu")
+    print(f"  4 runs on the card in {t_card:.1f} s, on the CPU in {time.time() - t0 - t_card:.1f} s")
+    gaps = []
+    rng = np.random.default_rng(7)
+    for n in (10, 16, 7, 14, 9):
+        prompt = torch.tensor(rng.integers(3, cfg.vocab, n).astype(np.int32), device="cuda")
+        gaps += reference_tokens(cfg, params, prompt, 8, 32)[1]
+    want = card["static"][0]
+    for name, (tokens, view) in card.items():
+        cpu_tokens, cpu_view = cpu[name]
+        print(f"  {name}: {json.dumps(view)}")
+        check(tokens == want,
+              f"{name}: the card's tokens equal the static run's (smallest top-2 logit gap "
+              f"{min(gaps):.3e}; the CPU run's tokens agree with the card's for "
+              f"{sum(a == b for a, b in zip(tokens, cpu_tokens))}/5 requests)")
+        check(view == cpu_view, f"{name}: counters, health ladder and final ratio equal the CPU "
+                                f"run's" + ("" if view == cpu_view else f" (CPU {cpu_view})"))
+        check(view["served"] == 5 and view["failed_requests"] == 0
+              and view["health"] == "healthy",
+              f"{name}: served {view['served']}/5, {view['failed_requests']} failed, ends "
+              f"{view['health']}")
+        if name.endswith("shrink"):
+            check(view["shrink_events"] == 1
+                  and view["elastic_demoted_pages"] + view["remote_grown_pages"] > 0,
+                  f"{name}: the shrink bit ({view['elastic_demoted_pages']} pages demoted, "
+                  f"{view['remote_grown_pages']} grown)")
+    view = card["adaptive+shrink"][1]
+    check(view["elastic_replans"] >= 1 and view["global_ratio"] > 0.5,
+          f"adaptive+shrink re-planned {view['elastic_replans']}x to ratio "
+          f"{view['global_ratio']:.4f}")
+
+
+def kernel_stages(eng, window: int) -> dict:
+    """The ring depths the kernels run at `window` on the served shapes
+    (the clamps of the CUDA launchers): paged attention keeps min(window, 8)
+    + 1 stages within RING_MAX and the pages a slot holds; the split-K
+    decode GEMM min(window, its loads a CTA) for each column-split weight
+    (its shared-memory cap, 40 stages, is never reached here)."""
+    from repro_torch.core.tiering import TieredTensor
+    from repro_torch.kernels.splitk_gemm import DECODE_BK, decode_k_split
+
+    pc = eng.pcache
+    k_pool = pc.pools["k_local"]
+    box = -(-pc.page_size * k_pool.shape[-1] * k_pool.element_size() // 128) * 128
+    out = {"paged_attention": max(1, min(min(window, ATTN_MAX_WINDOW) + 1,
+                                         ATTN_RING_MAX // (2 * box), pc.max_pages))}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for key, w in list(eng.params["layers"].items()) + [("lm_head", eng.params.get("lm_head"))]:
+        if isinstance(w, TieredTensor) and w.axis == -1:
+            k = w.local.shape[-2]
+            k_split = decode_k_split(w.local.shape[-1], w.remote.shape[-1], k, sms)
+            out[f"splitk_gemm[{key}]"] = min(window, -(-min(k_split, k) // DECODE_BK))
+    return out
+
+
+def replan_probe(eng, probes: list) -> None:
+    """Wrap the runtime's forced re-plan to record, for each call, its device
+    memory (before, peak), pinned bytes, the bytes of the operands it
+    rewrites and how long it paused the step."""
+    from repro_torch.core.tiering import TieredTensor
+    from repro_torch.kernels import _build
+    from repro_torch.models.registry import resolve
+
+    inner = eng.runtime.elastic_replan
+
+    def local(w) -> int:
+        return w.local.nbytes if isinstance(w, TieredTensor) else w.nbytes
+
+    def total(w) -> int:
+        return w.local.nbytes + w.remote.nbytes if isinstance(w, TieredTensor) else w.nbytes
+
+    def probed(frac, params):
+        torch.cuda.synchronize()
+        before, pinned = torch.cuda.memory_allocated(), _build.pinned_bytes()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        out = inner(frac, params)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        changed = [od for od in eng.plan.registry
+                   if resolve(out, od.path) is not resolve(params, od.path)]
+        old = [resolve(params, od.path) for od in changed]
+        new = [resolve(out, od.path) for od in changed]
+        probes.append(dict(
+            ratio=eng.runtime.plan.global_ratio, seconds=seconds, before=before, peak=torch.cuda.max_memory_allocated(),
+            pinned_before=pinned, pinned_during=_build.pinned_bytes(),
+            changed=[od.path_str for od in changed],
+            old_local=sum(local(w) for w in old), new_local=sum(local(w) for w in new),
+            # one slice of a layer stack, or a whole top-level leaf (lm_head)
+            largest_layer=max([total(w) // (w.shape[0] if len(od.path) > 1 else 1)
+                               for od, w in zip(changed, old)] + [0])))
+        return out
+
+    eng.runtime.elastic_replan = probed
+
+
+def phase_elastic_serve() -> None:
+    """Phase 4's traffic (llama2-7b, 32 layers, bf16, offload 0.5, FCFS, 4
+    slots, page 16, 8 requests of 128 + 32 tokens) three times: (a) static;
+    (b) the adaptive runtime closed over each decode step's bandwidth, timed
+    by CUDA events (`runtime.telemetry.CudaEventSource`); (c) the same
+    runtime with `schedule_hbm_shrink(2, 0.2)`, whose forced re-plan moves
+    weight columns out of HBM into new pinned tiers.  Each engine is built
+    layer by layer from the same seed."""
+    import repro_torch.configs as C
+    from repro_torch.core import congestion
+    from repro_torch.core import engine as offload_engine
+    from repro_torch.core.ebmodel import WorkloadSpec
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.kernels import _build
+    from repro_torch.models import model as M
+    from repro_torch.runtime.controller import RuntimeController
+    from repro_torch.runtime.telemetry import CudaEventSource, weight_tier_bytes
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg, new_tokens, n_req = C.get("llama2_7b"), 32, 8
+    max_len = PREFILL_LEN + new_tokens
+    plan = offload_engine.plan(cfg, WorkloadSpec(batch=DECODE_BATCH, seq_len=max_len,
+                                                 phase="decode"),
+                               H100_SXM, global_ratio=0.5, kv_page_size=16)
+    tokens, tpot = {}, {}
+    for case in ("static", "adaptive", "shrink"):
+        runtime = None
+        if case != "static":
+            prior = congestion.ModelSource(congestion.CongestionModel(H100_SXM),
+                                           plan.window.n_streams, plan.window.chunk_bytes)
+            runtime = RuntimeController(cfg, plan, H100_SXM, align=128,
+                                        source=CudaEventSource(prior, "cuda"))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        eng = ServingEngine(cfg, M.layer_source(cfg, gen, dtype=torch.bfloat16, device="cuda"),
+                            max_batch=DECODE_BATCH, max_len=max_len, global_offload_ratio=0.5,
+                            page_size=16, runtime=runtime, device="cuda")
+        check(eng._align == 128, f"engine alignment {eng._align} is the runtime's 128")
+        probes: list[dict] = []
+        if case == "shrink":
+            eng.schedule_hbm_shrink(*ELASTIC_SHRINK)
+            replan_probe(eng, probes)
+        rng = np.random.default_rng(0)
+        reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab, PREFILL_LEN).astype(np.int32),
+                        max_new_tokens=new_tokens) for i in range(n_req)]
+        for r in reqs:
+            eng.submit(r)
+        src = runtime.source if runtime is not None else None
+        steps = []
+        torch.cuda.synchronize()
+        around = []                            # (device bytes before, after, pinned after) a re-plan step
+        t0 = time.time()
+        while eng.scheduler.waiting or any(r is not None for r in eng.active):
+            rec = {"window": runtime.window if runtime is not None else eng.window,
+                   "decode_s": eng.stats.decode_time, "admitted": len(eng.stats.ttfts),
+                   "replans": eng.stats.elastic_replans}
+            timed = src.timed_steps if src is not None else 0
+            mem = torch.cuda.memory_allocated()
+            eng.step()
+            rec["decode_ms"] = (eng.stats.decode_time - rec.pop("decode_s")) * 1e3
+            rec["admitted"] = len(eng.stats.ttfts) > rec["admitted"]
+            rec["replanned"] = eng.stats.elastic_replans > rec.pop("replans")
+            if rec["replanned"]:
+                torch.cuda.synchronize()
+                around.append((mem, torch.cuda.memory_allocated(), _build.pinned_bytes()))
+            if src is not None and src.timed_steps > timed:
+                rec.update(device_ms=src.last_seconds * 1e3, host_gbs=src.last.host_bw / 1e9,
+                           hbm_gbs=src.last.hbm_bw / 1e9, remote_gb=src.last_bytes[1] / 1e9)
+            steps.append(rec)
+        wall = time.time() - t0
+        stats = eng.stats
+        tokens[case], tpot[case] = [r.out_tokens for r in reqs], stats.tpot * 1e3
+        agree = sum(a == b for a, b in zip(tokens[case], tokens["static"]))
+        print(f"  ({case}) served {stats.served}/{n_req} in {wall:.2f} s | TPOT {tpot[case]:.1f} ms "
+              f"over {stats.decode_steps} decode steps (static {tpot['static']:.1f}) | tokens of "
+              f"{agree}/{n_req} requests equal the static run's (bf16)")
+        check(stats.served == n_req and stats.failed_requests == 0
+              and all(len(r.out_tokens) == new_tokens for r in reqs),
+              f"({case}) served {stats.served}/{n_req}, {stats.failed_requests} failed, every "
+              f"request emitted {new_tokens} tokens")
+        if runtime is not None:
+            rep = runtime.report()
+            timed_steps = [s for s in steps if "host_gbs" in s]
+            by_window: dict[int, list] = {}
+            for s in timed_steps:
+                by_window.setdefault(s["window"], []).append(s)
+            print(f"  ({case}) window: static seed {rep['window']['static']}, min "
+                  f"{rep['window']['min']}, max {rep['window']['max']}, final "
+                  f"{rep['window']['final']}, converged {rep['window']['converged']}; trajectory "
+                  f"{[s['window'] for s in steps]}; {src.timed_steps} steps timed, "
+                  f"{src.prior_answers} measurements answered by the model before the first")
+            for w, ss in sorted(by_window.items()):
+                print(f"    window {w}: {len(ss)} steps, remote "
+                      f"{statistics.mean(s['host_gbs'] for s in ss):.2f} GB/s, local "
+                      f"{statistics.mean(s['hbm_gbs'] for s in ss):.2f} GB/s, device "
+                      f"{statistics.mean(s['device_ms'] for s in ss):.1f} ms a step; kernel "
+                      f"stages {kernel_stages(eng, w)}")
+            print(f"  ({case}) re-plans {stats.replans} (forced {stats.elastic_replans}); "
+                  f"migration: {stats.promoted_pages} pages promoted, {stats.demoted_pages} "
+                  f"demoted (each move waits for the stream); final ratio "
+                  f"{runtime.plan.global_ratio:.4f}")
+            check(bool(timed_steps) and all(s["host_gbs"] > 0 and s["hbm_gbs"] > 0
+                                            for s in timed_steps),
+                  f"({case}) the CUDA-event source timed {len(timed_steps)} decode steps, each "
+                  f"with a positive bandwidth per tier")
+        if case == "shrink":
+            h = eng.health
+            print(f"  (shrink) health: {json.dumps(elastic_view(eng))}")
+            check(h.counters.shrink_events == 1
+                  and stats.elastic_demoted_pages + stats.remote_grown_pages > 0
+                  and stats.elastic_replans >= 1 and runtime.plan.global_ratio > 0.5
+                  and stats.health == "healthy",
+                  f"(shrink) 1 shrink, {stats.elastic_demoted_pages} pages demoted + "
+                  f"{stats.remote_grown_pages} grown, {stats.elastic_replans} forced re-plans to "
+                  f"ratio {runtime.plan.global_ratio:.4f}, ends {stats.health}")
+            check(len(around) == len(probes),
+                  f"(shrink) one forced re-plan a step ({len(probes)} re-plans in "
+                  f"{len(around)} steps)")
+            pure = [(i, s) for i, s in enumerate(steps) if not s["admitted"] and s["decode_ms"] > 0]
+            marks = [i for i, s in enumerate(steps) if s["replanned"]] + [len(steps)]
+            mean = lambda ss, key: statistics.mean(s[key] for s in ss) if ss else float("nan")  # noqa: E731
+            first = [s for i, s in pure if i < marks[0]]
+            print(f"  (shrink) decode steps that admitted nothing before the first re-plan: "
+                  f"{len(first)} at TPOT {mean(first, 'decode_ms'):.1f} ms, "
+                  f"{mean(first, 'remote_gb'):.3f} GB remote a step")
+            for n, (probe, (mem0, mem1, pinned1)) in enumerate(zip(probes, around)):
+                span = [s for i, s in pure if marks[n] < i < marks[n + 1]]
+                moved = probe["old_local"] - probe["new_local"]
+                transient = probe["peak"] - probe["before"] - probe["new_local"]
+                slack = (len(probe["changed"]) * 2 + 2) << 20
+                print(f"  (shrink) forced re-plan {n + 1} at engine step {marks[n] + 1}, to ratio "
+                      f"{probe['ratio']:.4f}: rewrote {len(probe['changed'])} operands "
+                      f"{probe['changed']} in {probe['seconds'] * 1e3:.1f} ms (the step's pause); "
+                      f"then {len(span)} decode steps that admitted nothing at TPOT "
+                      f"{mean(span, 'decode_ms'):.1f} ms, {mean(span, 'remote_gb'):.3f} GB remote "
+                      f"a step")
+                print(f"  (shrink)   device memory {mem0} before the step, {mem1} after "
+                      f"({(mem1 - mem0) / 1e9:+.3f} GB; local bytes moved to the host "
+                      f"{moved / 1e9:.3f} GB); pinned bytes {probe['pinned_before']} before, "
+                      f"{probe['pinned_during']} while both trees lived, {pinned1} after "
+                      f"({(pinned1 - probe['pinned_before']) / 1e9:+.3f} GB)")
+                if probe["changed"]:
+                    check(mem1 < mem0 and pinned1 > probe["pinned_before"],
+                          f"(shrink) re-plan {n + 1}: device memory fell by "
+                          f"{(mem0 - mem1) / 1e9:.3f} GB and pinned bytes rose by "
+                          f"{(pinned1 - probe['pinned_before']) / 1e9:.3f} GB")
+                check(transient < probe["largest_layer"] + slack,
+                      f"(shrink) re-plan {n + 1} held beyond the new local tiers it keeps "
+                      f"{transient / 1e6:.1f} MB (peak {probe['peak'] / 1e9:.3f} - before "
+                      f"{probe['before'] / 1e9:.3f} - new local {probe['new_local'] / 1e9:.3f} GB), "
+                      f"below the largest operand layer it rewrites, "
+                      f"{probe['largest_layer'] / 1e6:.1f} MB (+ {slack >> 20} MiB allocator "
+                      f"rounding)")
+            check(bool(probes) and bool(probes[0]["changed"]),
+                  f"(shrink) the first forced re-plan rewrote operands "
+                  f"({probes[0]['changed'] if probes else 'none ran'})")
+            w_local, w_remote = weight_tier_bytes(eng.params)
+            print(f"  (shrink) weights now {w_local / 1e9:.3f} GB local + {w_remote / 1e9:.3f} GB "
+                  f"remote")
+        del eng, runtime, src
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def add_launches(launches: dict, path: dict) -> None:
     """Keep each kernel's count from the first path run that launched it: the
     paged served run (phase 4) for the kernels of the main path."""
@@ -2190,8 +2544,9 @@ def add_launches(launches: dict, path: dict) -> None:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,11,12,13,14,15,16,17,18,19,20,21,22,23,24,25,26",
-                    help="comma-separated subset of phases 1-26 (default: 1-8 and 11-26; 9 "
+                    default="1,2,3,4,5,6,7,8,11,12,13,14,15,16,17,18,19,20,21,22,23,24,25,26,"
+                            "27,28",
+                    help="comma-separated subset of phases 1-28 (default: 1-8 and 11-28; 9 "
                          "is the host-link read probe, 10 the decode-attention kernels beside "
                          "the design they replaced)")
     args = ap.parse_args(argv)
@@ -2294,6 +2649,12 @@ def main(argv: list[str] | None = None) -> int:
         add_launches(launches, served["launches"])
         vlm_patch_prefill(served.pop("engine"))
         del served
+    if start(27, "elastic parity, 2-layer full-width llama2-7b, fp32, offload 0.5, page 4: "
+                 "static, adaptive, shrink, zero-budget runtime + shrink, on the card and the CPU"):
+        phase_elastic_parity()
+    if start(28, "adaptive runtime, llama2-7b (32 layers, bf16), offload 0.5, page 16: static, "
+                 "AIMD on CUDA-event bandwidth, and a shrink to 20% at decode step 2"):
+        phase_elastic_serve()
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

@@ -26,6 +26,13 @@ overrides the interactive class's SLO).  Both trace modes run on the
 modeled clock, so TTFT, queue delay and SLO figures are functions of the
 schedule, not of host time.  ``--tokens-out PATH`` writes every request's
 tokens as JSON.
+
+``--adaptive`` attaches the adaptive runtime (AIMD window control on the
+analytical source, phase-aware re-planning, live page migration) and
+prints its ``runtime:`` summary; ``--hbm-shrink STEP:FRAC`` shrinks the
+local page budget to FRAC of the pool at decode step STEP, which the
+engine must absorb (demote, grow the host pool, re-plan with
+``--adaptive``) with no failed request.
 """
 from __future__ import annotations
 
@@ -83,7 +90,23 @@ def main(argv: list[str] | None = None) -> dict:
                          "(ms, modeled clock)")
     ap.add_argument("--tokens-out", default=None, metavar="PATH",
                     help="write every request's emitted tokens as JSON {rid: [tokens]}")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="attach the adaptive runtime (AIMD window control, phase-aware "
+                         "re-planning, live page migration)")
+    ap.add_argument("--hbm-shrink", default=None, metavar="STEP:FRAC",
+                    help="chaos event: at decode step STEP, shrink the modeled HBM page budget "
+                         "to FRAC of the local pool (e.g. 6:0.3).  The engine must degrade "
+                         "(demote, re-plan to a higher offload ratio, shed admissions) and "
+                         "finish with zero failed requests")
     args = ap.parse_args(argv)
+    shrink = None
+    if args.hbm_shrink:
+        try:
+            step_s, frac_s = args.hbm_shrink.split(":")
+            shrink = (int(step_s), float(frac_s))
+        except ValueError:
+            raise SystemExit(f"--hbm-shrink expects STEP:FRAC (e.g. 6:0.3), "
+                             f"got {args.hbm_shrink!r}") from None
 
     cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
     try:
@@ -111,11 +134,16 @@ def main(argv: list[str] | None = None) -> dict:
         hbm_budget_bytes=args.hbm_gb * 1e9 if args.hbm_gb is not None else None,
         global_offload_ratio=None if args.hbm_gb is not None else args.offload_ratio,
         page_size=args.page_size, scheduler=args.scheduler,
-        prefill_chunk=args.prefill_chunk,
+        prefill_chunk=args.prefill_chunk, adaptive=args.adaptive,
         clock=ModeledClock() if trace is not None else None, device=device)
+    if shrink is not None:
+        engine.schedule_hbm_shrink(*shrink)
+        print(f"chaos: HBM shrink to {shrink[1]:.0%} of the local pool "
+              f"at decode step {shrink[0]}")
     print(f"plan: global={engine.plan.global_ratio:.2f} "
           f"per-op={ {k: round(v, 2) for k, v in engine.plan.op_ratios.items()} } "
-          f"window={engine.window} hw={engine.hw.name} device={device}")
+          f"window={engine.window} hw={engine.hw.name} device={device} "
+          f"adaptive={args.adaptive}")
     if args.hbm_gb is not None:
         print(f"budget: {args.hbm_gb:.1f} GB HBM vs "
               f"{engine.plan.footprint_bytes / 1e9:.1f} GB footprint")
@@ -144,6 +172,12 @@ def main(argv: list[str] | None = None) -> dict:
         print(f"frontend: prefill chunks {stats.prefill_chunks} | "
               f"preemptions {stats.preemptions} "
               f"({stats.preempt_demoted_pages} pages demoted)")
+    if engine.health.counters.events:
+        print(f"elastic: health {stats.health} | failed requests {stats.failed_requests} | "
+              f"CacheFull caught {stats.cache_full_caught} | demoted "
+              f"{stats.elastic_demoted_pages} pages | remote grown {stats.remote_grown_pages} "
+              f"pages | shed steps {stats.shed_steps} | elastic replans "
+              f"{stats.elastic_replans}")
     slo = stats.slo_report()
     if trace is not None and slo:
         for cls, rep in slo.items():
@@ -157,6 +191,15 @@ def main(argv: list[str] | None = None) -> dict:
         print(f"kv pages: size={pp.page_size} local={pp.local_pages} "
               f"remote={pp.remote_pages} | peak local={stats.local_pages_hwm} "
               f"peak remote={stats.remote_pages_hwm} spills={stats.spills}")
+    if engine.runtime is not None:
+        rt = engine.runtime.report()
+        w, mig, mod = rt["window"], rt["migration"], rt["modeled"]
+        print(f"runtime: window {w['static']}->{w['final']} "
+              f"(converged={w['converged']}) | replans {rt['replans']} | "
+              f"pages promoted {mig['promoted']} demoted {mig['demoted']} | "
+              f"modeled tokens/s static {mod['static_tokens_per_s']:.3g} "
+              f"adaptive {mod['adaptive_tokens_per_s']:.3g} "
+              f"(gain {mod['gain']:.3f})")
     if args.tokens_out:
         with open(args.tokens_out, "w") as fh:
             json.dump({str(r.rid): list(r.out_tokens) for r in submitted}, fh, sort_keys=True)
@@ -167,7 +210,8 @@ def main(argv: list[str] | None = None) -> dict:
             "tokens_per_s": stats.generated_tokens / wall if wall > 0 else 0.0,
             "tpot_ms": stats.tpot * 1e3, "ttft_p50_ms": stats.ttft_p50 * 1e3,
             "prefill_chunks": stats.prefill_chunks, "preemptions": stats.preemptions,
-            "slo": slo}
+            "slo": slo, "health": stats.health, "failed_requests": stats.failed_requests,
+            "elastic_replans": stats.elastic_replans, "replans": stats.replans}
 
 
 if __name__ == "__main__":

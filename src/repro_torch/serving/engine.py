@@ -35,10 +35,27 @@ deterministic.
   of its shared blocks, one cache layer per group, and keeps the SSM state
   beside it (`tiered_hybrid_decode_step`).
 
+With ``adaptive=True`` (or a ``runtime``) the engine closes the loop
+through the adaptive runtime (`repro_torch.runtime`): every step it reports
+a telemetry sample (bytes per tier, queue depth, prefill/decode token mix)
+to a `RuntimeController`, reads back the AIMD-controlled in-flight window
+(threaded into the next step's kernels, prefill's GEMMs included), lets the
+budgeted migrator move KV pages between tiers and, when the observed
+workload mix drifts, swaps in incrementally repartitioned params.  The
+default measurement source is the analytical model, as in the reference; a
+`runtime.telemetry.CudaEventSource` closes the loop over each decode step's
+bandwidth, timed on the card.  With every runtime budget at zero the
+adaptive engine emits the static engine's tokens.
+
+Elastic degradation (never-OOM) is the reference's: a ``CacheFull`` grows
+the remote pool, demotes the coldest pages and asks the runtime for a
+re-plan at a higher offload ratio; a local-budget shrink
+(`schedule_hbm_shrink`) is drained the same way, under the health ladder
+``healthy -> spilling -> recovering`` that gates the scheduler's admission
+quota.
+
 The encoder has no decode step and is refused (`models.require_served`);
-it runs through `models.forward`.  Not ported yet: the adaptive runtime,
-elastic degradation (a ``CacheFull`` surfaces; the scheduler's admission
-quota always sees the health state ``healthy``), the mesh, the compiled
+it runs through `models.forward`.  Not ported yet: the mesh, the compiled
 step and observability.
 """
 from __future__ import annotations
@@ -66,9 +83,11 @@ from repro_torch.frontend.metrics import (
 )
 from repro_torch.frontend.scheduler import Scheduler, get_scheduler
 from repro_torch.models import model as M
-from repro_torch.runtime.telemetry import weight_tier_bytes
+from repro_torch.runtime.controller import RuntimeController
+from repro_torch.runtime.health import HEALTHY, HealthMonitor
+from repro_torch.runtime.telemetry import CudaEventSource, StepSample, weight_tier_bytes
 from repro_torch.serving import tiered_decode as TD
-from repro_torch.serving.paged_cache import PagedTieredCache
+from repro_torch.serving.paged_cache import REMOTE, CacheFull, PagedTieredCache
 
 
 def resolve_device(device) -> torch.device:
@@ -101,6 +120,7 @@ class Request:
     slo_ttft_s: float | None = None        # TTFT SLO (None = best effort)
     t_admit: float = 0.0                   # first prefill chunk scheduled
     preemptions: int = 0                   # tier-demotion preemptions suffered
+    admitted_degraded: bool = False        # admitted while health != healthy
 
 
 @dataclasses.dataclass
@@ -124,11 +144,25 @@ class EngineStats:
     local_pages_hwm: int = 0               # peak pages resident per tier
     remote_pages_hwm: int = 0
     spills: int = 0                        # pressure-driven local->remote moves
+    promoted_pages: int = 0                # migration: remote->local
+    demoted_pages: int = 0                 # migration: local->remote
+    replans: int = 0                       # re-plans fired (drift and forced)
+    final_window: int = 0                  # in-flight window after the run
     prefill_chunks: int = 0                # continuation chunks (beyond the first)
     prefill_passes: list[int] = dataclasses.field(default_factory=list)
     # prompt rows of each prefill pass (a whole prompt or one chunk)
     preemptions: int = 0                   # tier-demotion preemption events
     preempt_demoted_pages: int = 0         # pages demoted by preemptions
+    # -- elastic degradation (never-OOM): the engine catches CacheFull and
+    # degrades, so failed_requests stays 0 by construction; the counter
+    # exists so chaos runs can assert the guarantee.
+    failed_requests: int = 0
+    health: str = "healthy"                # final health state
+    cache_full_caught: int = 0             # CacheFull converted to demotion
+    elastic_demoted_pages: int = 0         # deficit-drain demotions
+    remote_grown_pages: int = 0            # emergency host-pool growth
+    shed_steps: int = 0                    # steps admissions were shed
+    elastic_replans: int = 0               # forced higher-ratio re-plans
     ttfts: list[float] = dataclasses.field(default_factory=list)
     queue_delays: list[float] = dataclasses.field(default_factory=list)
     e2e_latencies: list[float] = dataclasses.field(default_factory=list)
@@ -180,6 +214,8 @@ class ServingEngine:
         hbm_budget_bytes: float | None = None,
         global_offload_ratio: float | None = None,
         page_size: int = 8,
+        adaptive: bool = False,
+        runtime: RuntimeController | None = None,
         scheduler: str | Scheduler | None = None,
         prefill_chunk: int | None = None,
         clock: Clock | None = None,
@@ -191,7 +227,10 @@ class ServingEngine:
         per step when a name is given (an instance carries its own budget).
         ``clock`` stamps the request lifecycle: wall time by default, or a
         `frontend.metrics.ModeledClock` that the engine advances by each
-        step's analytical cost.
+        step's analytical cost.  ``adaptive`` attaches the adaptive runtime
+        with its default budgets and the analytical measurement source;
+        ``runtime`` attaches a given `RuntimeController` (its own budgets and
+        source, e.g. a `runtime.telemetry.CudaEventSource`).
 
         ``params`` is the unpartitioned stacked tree (`models.init_params`
         or `bridge.params_from_numpy`) or a `models.model.LayerSource`
@@ -220,10 +259,14 @@ class ServingEngine:
             cfg, wl, hw, hbm_budget_bytes=hbm_budget_bytes,
             global_ratio=global_offload_ratio, kv_page_size=page_size)
         self.window = self.plan.window.n_inflight
-        self._mm = TD.kernel_mm(self.window)   # prefill's GEMMs, as decode's
         self._align = 32 if cfg.d_model < 1024 else 128
         source = params if isinstance(params, M.LayerSource) else M.LayerSource.from_tree(params)
         self.params = self.plan.partition_source(source, align=self._align)
+        # Adaptive runtime: seeded from the static plan; pass `runtime` to
+        # choose the budgets and the measurement source.
+        self.runtime: RuntimeController | None = runtime
+        if adaptive and self.runtime is None:
+            self.runtime = RuntimeController(cfg, self.plan, hw, align=self._align)
         self._weight_bytes = weight_tier_bytes(self.params)
         self._dtype = source.dtype
         self.pcache: PagedTieredCache | None = None
@@ -241,7 +284,15 @@ class ServingEngine:
         self.active: list[Request | None] = [None] * max_batch
         self.prefilling: dict[int, PrefillState] = {}   # slot -> in-flight prefill
         self.stats = EngineStats()
+        self.stats.final_window = self.window
         self._next_tok = np.zeros((max_batch, 1), dtype=np.int32)
+        self._prefill_calls_step = 0       # prefill passes in the last _admit
+        self._preempt_moved_step = 0       # preemption and elastic demotions this step
+        # Elastic degradation: the engine always owns a health monitor
+        # (runtime attached or not); with no pressure it never leaves
+        # `healthy` and every counter stays zero.
+        self.health = HealthMonitor()
+        self._pending_shrink: tuple[int, float] | None = None
 
     def _make_pcache(self) -> PagedTieredCache:
         """The paged tiered KV cache at the plan's page budget: one layer
@@ -296,11 +347,13 @@ class ServingEngine:
         first token is EOS (or whose budget is one token) finishes at its
         last chunk without occupying a slot."""
         prefill_tokens = 0
+        self._prefill_calls_step = 0
         sched = self.scheduler
         now = self.clock.now()
         sched.release(now)
-        # the queue-depth estimate with no runtime attached, as in the reference
-        left = sched.chunk_budget(float(len(sched.ready)))
+        qd_ema = (self.runtime.telemetry.queue_depth
+                  if self.runtime is not None else float(len(sched.ready)))
+        left = sched.chunk_budget(qd_ema)
         for slot in sched.order_prefilling([(s, ps.req) for s, ps in self.prefilling.items()]):
             if left is not None and left <= 0:
                 break
@@ -311,14 +364,17 @@ class ServingEngine:
                 left -= n
             prefill_tokens += n
             self._run_prefill_chunk(slot, ps, n)
-        # The elastic health ladder is not ported: the quota sees "healthy".
-        # An idle engine always admits.
-        quota = sched.admission_quota("healthy")
+        # Admit within the health quota (elastic backoff: shed while
+        # spilling, trickle while recovering).  An idle engine always
+        # admits: nothing active means no pressure a prompt could worsen.
+        quota = sched.admission_quota(self.health.state)
         if (quota == 0 and not self.prefilling
                 and not any(r is not None for r in self.active)):
             quota = 1
+        shed = False
         while sched.ready and (left is None or left > 0):
             if quota is not None and quota <= 0:
+                shed = True
                 break
             free = self._free_slots()
             if not free:
@@ -326,6 +382,7 @@ class ServingEngine:
             req = sched.select(now)
             slot = free[0]
             req.t_admit = now
+            req.admitted_degraded = self.health.state != HEALTHY
             self.stats.queue_delays.append(req.t_admit - req.t_submit)
             if quota is not None:
                 quota -= 1
@@ -339,6 +396,8 @@ class ServingEngine:
                 left -= n
             prefill_tokens += n
             self._run_prefill_chunk(slot, ps, n)
+        if shed and sched.ready:
+            self.health.shed()
         return prefill_tokens
 
     def _run_prefill_chunk(self, slot: int, ps: PrefillState, n: int) -> None:
@@ -349,17 +408,19 @@ class ServingEngine:
         logits, the cache written to the slot, and the request joins the
         decode batch."""
         req = ps.req
+        self._prefill_calls_step += 1
+        mm = TD.kernel_mm(self.window)     # prefill's GEMMs at the live window, as decode's
         t0 = time.time()
         chunk = torch.as_tensor(req.prompt[ps.pos:ps.pos + n], dtype=torch.int32,
                                 device=self.device)[None, :]
         if ps.pos == 0 and n == len(req.prompt):
             ps.logits, ps.cache = M.prefill(self.cfg, self.params, {"tokens": chunk},
-                                            max_len=self.max_len, mm=self._mm)
+                                            max_len=self.max_len, mm=mm)
         else:
             if ps.cache is None:           # first chunk of a split prompt
                 ps.cache = M.init_cache(self.cfg, 1, self.max_len, self._dtype, self.device)
             ps.logits, ps.cache = M.prefill_chunk(self.cfg, self.params, ps.cache, chunk,
-                                                  ps.pos, mm=self._mm)
+                                                  ps.pos, mm=mm)
             self.stats.prefill_chunks += 1
         ps.pos += n
         if self.clock.kind == "wall" and self.device.type == "cuda":
@@ -400,13 +461,17 @@ class ServingEngine:
             queue_delay=req.t_admit - req.t_submit,
             ttft=req.t_first - req.t_submit,
             e2e=req.t_done - req.t_submit,
-            preemptions=req.preemptions, slo_ttft_s=req.slo_ttft_s))
+            preemptions=req.preemptions, slo_ttft_s=req.slo_ttft_s,
+            admitted_degraded=req.admitted_degraded))
 
     def _preempt_shortfall(self, incoming: Request) -> int:
-        """Local pages the incoming prompt (and its next decode token)
-        still lacks beyond the local free pages.  The reference adds the
-        live migrator's headroom when it runs; the port has no migrator."""
+        """Local pages the incoming prompt still lacks: its pages (and its
+        next decode token's) beyond the elastic free count, plus the live
+        migrator's allocation headroom when the migrator runs (budget > 0),
+        or its very next demote-for-headroom pass would fire again."""
         need = -(-(len(incoming.prompt) + 1) // self.page_size)
+        if self.runtime is not None and self.runtime.migrator.pages_per_step > 0:
+            need += self.runtime.migrator.headroom
         return need - self.pcache.local_free
 
     def _maybe_preempt(self, incoming: Request) -> None:
@@ -432,6 +497,120 @@ class ServingEngine:
             self.active[victim].preemptions += 1
             self.stats.preemptions += 1
             self.stats.preempt_demoted_pages += moved
+            self._preempt_moved_step += moved
+
+    # -- elastic degradation (never-OOM) ------------------------------------
+    def schedule_hbm_shrink(self, step: int, fraction: float) -> None:
+        """Chaos hook (`--hbm-shrink STEP:FRAC`): at decode step `step`,
+        shrink the modeled HBM page budget to `fraction` of the local
+        pool.  The engine degrades (demotes the deficit, re-plans to a
+        higher offload ratio, sheds admissions while spilling) instead of
+        failing a request."""
+        if not 0.0 <= fraction <= 1.0:
+            raise ValueError(f"shrink fraction must be in [0, 1], got {fraction}")
+        self._pending_shrink = (int(step), float(fraction))
+
+    def shrink_local_budget(self, fraction: float) -> int:
+        """Apply an elastic local-budget shrink now: cap the cache's local
+        limit at ``fraction`` of the pool, mark the engine spilling, and
+        ask the runtime (when attached) for a higher-offload re-plan.
+        Returns the resulting page deficit (drained by `_elastic_step`)."""
+        if self.pcache is None:
+            return 0
+        deficit = self.pcache.set_local_limit(int(self.pcache.n_local * fraction))
+        self.health.pressure("shrink", pages=deficit)
+        self._elastic_replan()
+        return deficit
+
+    def _elastic_replan(self) -> None:
+        """Ask the re-planner for a higher offload ratio matching the
+        shrunken local budget (`runtime.replan.repartition` realizes it);
+        no-op without the adaptive runtime."""
+        if self.runtime is None or self.pcache is None:
+            return
+        frac = self.pcache.local_limit / max(1, self.pcache.n_local)
+        new_params = self.runtime.elastic_replan(frac, self.params)
+        if new_params is not None and new_params is not self.params:
+            self.health.pressure("replan")
+            self._install_params(new_params)
+
+    def _install_params(self, new_params: dict[str, Any]) -> None:
+        """Swap in a repartitioned params tree (re-plan paths) and refresh
+        the traffic accounting.  The stream is synchronised first: a kernel
+        may still read the old tiers, and a pinned tier's memory is freed
+        as soon as its last tensor is dropped."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self.params = new_params
+        self._weight_bytes = weight_tier_bytes(self.params)
+
+    def _elastic_recover(self, need_pages: int = 1) -> None:
+        """Convert a ``CacheFull`` into degradation: grow the elastic
+        remote (host) pool so the blocked allocation can land (capacity
+        pressure becomes host-bandwidth pressure, the trade the
+        direct-access path exists to make), then drain any local deficit
+        and re-plan toward a higher offload ratio."""
+        self.health.pressure("cache_full")
+        # Grow by at least one full sequence's pages so a long-context
+        # burst recovers in one growth, not one page at a time.
+        grow = max(need_pages, self.pcache.max_pages)
+        self.pcache.grow_remote(grow)
+        self.health.pressure("grow", pages=grow)
+        deficit = self.pcache.local_deficit
+        if deficit > 0:
+            moved = self.pcache.demote_coldest(deficit)
+            if moved:
+                self.health.pressure("demote", pages=moved)
+                self._preempt_moved_step += moved
+        self._elastic_replan()
+
+    def _ensure_capacity_elastic(self, slot: int, length: int) -> None:
+        """`ensure_capacity` with the never-OOM guarantee: a CacheFull is
+        caught, converted into remote growth and demotion, and the
+        allocation retried.  A second failure is a real bug (max_pages
+        overflow) and surfaces."""
+        try:
+            self.pcache.ensure_capacity(slot, length)
+        except CacheFull:
+            need = -(-length // self.page_size) - int(self.pcache.n_pages[slot])
+            self._elastic_recover(max(1, need))
+            self.pcache.ensure_capacity(slot, length)
+
+    def _elastic_step(self) -> None:
+        """Per-step elastic drain: demote the deficit a shrunken local
+        budget left behind (globally coldest pages first), growing the
+        remote pool when it cannot absorb them.  Movement draws down the
+        shared per-step migration budget via `_preempt_moved_step`."""
+        if self.pcache is None:
+            return
+        deficit = self.pcache.local_deficit
+        if deficit <= 0:
+            return
+        short = deficit - len(self.pcache.free[REMOTE])
+        if short > 0:
+            self.pcache.grow_remote(short)
+            self.health.pressure("grow", pages=short)
+        moved = self.pcache.demote_coldest(deficit)
+        if moved:
+            self.health.pressure("demote", pages=moved)
+            self._preempt_moved_step += moved
+
+    def _finish_step_health(self) -> None:
+        """End-of-step health update: walk the recovery ladder against the
+        cache's current deficit and sync the counters into EngineStats."""
+        deficit = self.pcache.local_deficit if self.pcache is not None else 0
+        self.health.observe(deficit)
+        self._note_health()
+
+    def _note_health(self) -> None:
+        """Fold the health monitor's state and counters into EngineStats."""
+        c = self.health.counters
+        self.stats.health = self.health.state
+        self.stats.cache_full_caught = c.cache_full_caught
+        self.stats.elastic_demoted_pages = c.elastic_demoted_pages
+        self.stats.remote_grown_pages = c.remote_grown_pages
+        self.stats.shed_steps = c.shed_steps
+        self.stats.elastic_replans = c.elastic_replans
 
     # -- modeled clock ------------------------------------------------------
     def _clock_tick_prefill(self, n_tokens: int) -> None:
@@ -466,7 +645,9 @@ class ServingEngine:
                 c[:, slot] = cache1[name][:, 0]
         if self.pcache is None:
             return
-        self.pcache.ensure_capacity(slot, prompt_len)
+        # write_prompt's own ensure_capacity is the allocation edge: allocate
+        # through the elastic guard first, so a full pool degrades instead.
+        self._ensure_capacity_elastic(slot, prompt_len)
         if self.cfg.use_mla:
             ckv = cache1["ckv"][:, 0, :prompt_len]       # [L, T, rank]
             krope = cache1["krope"][:, 0, :prompt_len]   # [L, T, rd]
@@ -486,31 +667,53 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def step(self) -> None:
-        """One engine step: the scheduler's prefill round (chunks and
-        admissions), then one ragged decode step for all active slots."""
+        """One engine step: the elastic drain, the scheduler's prefill round
+        (chunks and admissions), then one ragged decode step for all active
+        slots.  With the adaptive runtime attached, the in-flight window is
+        re-read from the controller every step and a telemetry sample is
+        reported after the compute."""
+        t_step_clock = self.clock.now()    # engine-clock step origin (wall or modeled)
+        self._preempt_moved_step = 0
+        if self.runtime is not None:
+            self.window = self.runtime.window
+        if (self._pending_shrink is not None
+                and self.stats.decode_steps >= self._pending_shrink[0]):
+            _, frac = self._pending_shrink
+            self._pending_shrink = None
+            self.shrink_local_budget(frac)
+        self._elastic_step()               # drain any local-budget deficit
         prefill_tokens = self._admit()
         if not any(r is not None for r in self.active):
-            if not prefill_tokens and not self.prefilling and self.scheduler.waiting:
+            if prefill_tokens:
+                self._runtime_step(t_step_clock, prefill_tokens,
+                                   np.zeros(self.max_batch, dtype=bool))
+            elif not self.prefilling and self.scheduler.waiting:
                 # Idle with an arrival pending: fast-forward the modeled clock
                 # to it (a no-op on the wall clock, which polls until then).
                 nxt = self.scheduler.next_arrival()
                 if nxt is not None:
                     self.clock.advance(max(0.0, nxt - self.clock.now()))
+            self._finish_step_health()
             return
         active = np.array([r is not None for r in self.active])
         dev = self.device
         tokens = torch.tensor(self._next_tok, device=dev)
+        timer = self._step_timer()
         t0 = time.time()
         if self.pcache is None:
             # pure SSM: the recurrent tiered step, no KV pages
+            if timer is not None:
+                timer.begin()
             logits, self.cache = TD.tiered_ssm_decode_step(
                 self.cfg, self.params, self.cache, tokens, window=self.window)
+            if timer is not None:
+                timer.end()
             nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()   # waits for the step
         else:
             self.pcache.touch_step(self.lens, active)
             positions = np.where(active, self.lens, 0).astype(np.int32)
             for slot in np.nonzero(active)[0]:
-                self.pcache.ensure_capacity(int(slot), int(self.lens[slot]) + 1)
+                self._ensure_capacity_elastic(int(slot), int(self.lens[slot]) + 1)
             self._note_occupancy()
             wr_tier, wr_idx, wr_off = self.pcache.write_targets(self.lens, active)
             table, tier = self.pcache.device_tables()
@@ -520,6 +723,8 @@ class ServingEngine:
                           wr_off)
             sinks = dict(sink_local=self.pcache.sink_local,
                          sink_remote=self.pcache.sink_remote)
+            if timer is not None:
+                timer.begin()
             if self.cfg.family == "hybrid":
                 logits, self.cache, pools_out = TD.tiered_hybrid_decode_step(
                     self.cfg, self.params, self.cache, self.pcache.pools, *paged_args,
@@ -528,11 +733,15 @@ class ServingEngine:
                 logits, pools_out = TD.paged_tiered_decode_step(
                     self.cfg, self.params, self.pcache.pools, *paged_args, **sinks,
                     window=self.window)
+            if timer is not None:
+                timer.end()
             nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()   # waits for the step
             self.pcache.commit_pools(pools_out)
         self.stats.decode_time += time.time() - t0
         self.stats.decode_steps += 1
         self._clock_tick_decode(active)
+        self._runtime_step(t_step_clock, prefill_tokens, active)
+        self._finish_step_health()
         for slot, req in enumerate(self.active):
             if req is None:
                 continue
@@ -551,6 +760,59 @@ class ServingEngine:
                     self.pcache.free_slot(slot)
             else:
                 self._next_tok[slot, 0] = tok
+
+    def _step_timer(self) -> CudaEventSource | None:
+        """The runtime's measurement source when it times decode steps on
+        the card, else None."""
+        src = self.runtime.source if self.runtime is not None else None
+        return src if isinstance(src, CudaEventSource) else None
+
+    def _runtime_step(self, t_step_clock: float, prefill_tokens: int,
+                      active: np.ndarray) -> None:
+        """Report one step to the adaptive runtime and apply its actions:
+        window update (read back at the top of the next step), bounded page
+        migration, and, on a re-plan, the repartitioned params tree.
+
+        Traffic accounting: decode reads every weight once per step, each
+        prefill pass reads them once more; KV traffic follows the page
+        table's tier map.  A `CudaEventSource` gets the decode pass's bytes
+        to divide by its device time.  ``duration_s`` is engine-clock time
+        (wall seconds, or modeled seconds on a ModeledClock replay)."""
+        if self.runtime is None:
+            return
+        n_active = int(active.sum())
+        w_local, w_remote = self._weight_bytes
+        kv_local = kv_remote = 0.0
+        if self.pcache is not None and n_active:
+            kv_local, kv_remote = self.pcache.attended_bytes(self.lens, active)
+        timer = self._step_timer()
+        if timer is not None and n_active:
+            timer.observe(w_local + kv_local, w_remote + kv_remote)
+        passes = (1 if n_active else 0) + self._prefill_calls_step
+        sample = StepSample(
+            step=self.stats.decode_steps,
+            duration_s=max(self.clock.now() - t_step_clock, 1e-9),
+            prefill_tokens=prefill_tokens,
+            decode_tokens=n_active,
+            queue_depth=len(self.queue),
+            active_slots=n_active,
+            mean_kv_len=float(self.lens[active].mean()) if n_active else 0.0,
+            local_bytes=w_local * passes + kv_local,
+            remote_bytes=w_remote * passes + kv_remote,
+            window=self.window,
+            health=self.health.state,
+            local_deficit=self.pcache.local_deficit if self.pcache is not None else 0)
+        new_params = self.runtime.on_step(
+            sample, cache=self.pcache, params=self.params,
+            migration_used=self._preempt_moved_step)
+        if new_params is not None and new_params is not self.params:
+            self._install_params(new_params)
+        rs = self.runtime.stats
+        self.stats.replans = rs.replans
+        self.stats.promoted_pages = rs.promoted_pages
+        self.stats.demoted_pages = rs.demoted_pages
+        self.stats.final_window = self.runtime.window
+        self._note_occupancy()
 
     def run(self, max_steps: int = 10_000) -> EngineStats:
         """Drive the engine until every submitted request is served."""

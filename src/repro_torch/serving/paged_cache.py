@@ -18,10 +18,11 @@ pool first wait for the work already queued on the device.
 Tier-demotion preemption (`demote_slot_pages`) moves a slot's coldest
 local pages into the remote pool through `move_pages`: on the card their
 bytes land in pinned host memory, where the paged kernel reads them in
-place.  Not ported yet: the elastic budget (``set_local_limit``,
-``local_deficit``, ``grow_remote``, ``demote_coldest``; `local_free` is the
-free-list depth, the reference's value at its full default limit) and the
-sharded mesh mode.
+place.  The elastic budget is the reference's: ``local_limit`` caps the
+local pages the allocator places (`set_local_limit` shrinks it mid-run,
+`demote_coldest` drains the deficit), and `grow_remote` enlarges the host
+pool, on the card by a new pinned allocation that the old pages are copied
+into.  Not ported yet: the sharded mesh mode.
 """
 from __future__ import annotations
 
@@ -89,6 +90,12 @@ class PagedTieredCache:
             LOCAL: list(range(local_pages)),
             REMOTE: list(range(remote_pages)),
         }
+        # Elastic HBM budget: the allocator never places more than
+        # `local_limit` pages in the local pool.  Defaults to the full pool
+        # (a strict no-op); `set_local_limit` shrinks it mid-run without
+        # resizing the pool: pages above the limit are a *deficit* the
+        # engine drains by demotion.
+        self.local_limit = local_pages
         # table[slot, p] = pool index of the slot's p-th page; tier picks pool
         self.table = np.zeros((max_slots, max_pages_per_slot), dtype=np.int32)
         self.tier = np.zeros((max_slots, max_pages_per_slot), dtype=np.int32)
@@ -142,9 +149,27 @@ class PagedTieredCache:
 
     @property
     def local_free(self) -> int:
-        """Allocatable local pages: the free-list depth (the reference's
-        value at its full, default elastic limit)."""
-        return len(self.free[LOCAL])
+        """Allocatable local pages under the elastic limit: the free-list
+        depth, clipped by what the (possibly shrunken) budget still covers.
+        Equal to ``len(free[LOCAL])`` at the default (full) limit."""
+        return max(0, min(len(self.free[LOCAL]),
+                          self.local_limit - self.local_in_use))
+
+    @property
+    def local_deficit(self) -> int:
+        """Local pages in use beyond the elastic limit — resident pages a
+        shrunken HBM budget no longer covers, to be drained by demotion."""
+        return max(0, self.local_in_use - self.local_limit)
+
+    def set_local_limit(self, n: int) -> int:
+        """Elastically shrink (or restore) the modeled HBM page budget.
+
+        The pool allocation is untouched — only the allocator's ceiling
+        moves, so restoring the limit is free.  Returns the resulting
+        deficit (pages in use above the new limit) for the caller to
+        drain via :meth:`demote_coldest`."""
+        self.local_limit = max(0, min(int(n), self.n_local))
+        return self.local_deficit
 
     @property
     def sink_local(self) -> int:
@@ -176,12 +201,15 @@ class PagedTieredCache:
         p = int(self.n_pages[slot])
         if p >= self.max_pages:
             raise CacheFull(f"slot {slot} already at max_pages={self.max_pages}")
-        if self.free[LOCAL]:
+        if self.local_free > 0:
             idx = self.free[LOCAL].pop()
             tier = LOCAL
-        elif self.n_local > 0:
-            # Local pool full: hottest-first spills the coldest local page
-            # to make room.
+        elif (self.n_local > 0 and not self.free[LOCAL]
+              and self.local_in_use <= self.local_limit):
+            # Local pool physically full but within the elastic budget:
+            # hottest-first spills the coldest local page to make room.
+            # Under a shrunken limit the free list is non-empty, so this
+            # branch is skipped and new pages go remote instead.
             idx = self._spill_coldest_local()
             tier = LOCAL
         elif self.free[REMOTE]:
@@ -292,6 +320,45 @@ class PagedTieredCache:
             return 0
         victims = self.heat.ranked(LOCAL, owned, hottest_first=False)[:budget]
         return self.move_pages(LOCAL, REMOTE, victims)
+
+    # -- elastic degradation ----------------------------------------------
+    def demote_coldest(self, n: int) -> int:
+        """Demote up to `n` of the globally coldest owned local pages to
+        the remote pool — the elastic drain for a shrunken local budget
+        (no victim slot: pressure comes from the budget, not a request).
+        Capped by the remote free list; returns pages moved (counted as
+        demotions, like the migrator's)."""
+        owned = self.owned_pages(LOCAL)
+        budget = min(max(0, int(n)), len(owned), len(self.free[REMOTE]))
+        if budget <= 0:
+            return 0
+        victims = self.heat.ranked(LOCAL, owned, hottest_first=False)[:budget]
+        return self.move_pages(LOCAL, REMOTE, victims)
+
+    def grow_remote(self, extra: int) -> int:
+        """Grow the remote (host) pool by `extra` pages — host RAM is the
+        elastic tier, so this is how a ``CacheFull`` becomes degradation
+        instead of failure.  Each remote pool is reallocated at its new
+        size (on the card a new pinned allocation, whose failure raises)
+        and the old pages copied in once the work queued on the device is
+        done; existing pages keep their indices, the sink page moves to the
+        new last index (readers take it per step via :meth:`sink_remote`)
+        and the new pages join the free list.  Returns the new remote page
+        count."""
+        if extra <= 0:
+            return self.n_remote
+        n = self.n_remote
+        self._sync_host()               # no kernel still reads or writes the old pools
+        for name in self.kv_names:
+            key = f"{name}_remote"
+            pool = self.pools[key]
+            grown = self._host_pool((pool.shape[0], n + extra + 1, *pool.shape[2:]), pool.dtype)
+            grown[:, :n] = pool[:, :n]
+            grown[:, n + extra] = pool[:, n]      # old pages, new pages, then the sink
+            self.pools[key] = grown
+        self.free[REMOTE].extend(range(n, n + extra))
+        self.n_remote += extra
+        return self.n_remote
 
     # -- per-step temperature bookkeeping ---------------------------------
     def touch_step(self, lens: np.ndarray, active: np.ndarray) -> None:

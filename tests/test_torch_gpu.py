@@ -33,7 +33,12 @@ from repro_torch.models import model as TM
 from repro_torch.serving import tiered_decode as TD
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.paged_cache import PagedTieredCache
-from torch_helpers import SERVE_PROMPT_LENS, cuda_device, rel_err  # noqa: F401  (fixture)
+from torch_helpers import (  # noqa: F401  (cuda_device is a fixture)
+    SERVE_PROMPT_LENS,
+    assert_trees_equal,
+    cuda_device,
+    rel_err,
+)
 
 pytestmark = pytest.mark.gpu
 TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
@@ -621,3 +626,90 @@ def test_encoder_forward_tiered_matches_untiered_on_card(cuda_device):
     want = TM.forward(cfg, params, batch)
     assert got.shape == (2, 100, cfg.vocab)
     assert rel_err(got, want) < TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grow_remote_keeps_every_page_in_a_new_pinned_pool(cuda_device, dtype):
+    """`grow_remote` on the card: each remote pool becomes a new pinned
+    allocation of the grown size, every owned page keeps its bytes and
+    index, the sink moves to the new last page, and the slots read back
+    unchanged."""
+    from repro_torch.serving.paged_cache import REMOTE
+
+    cache = PagedTieredCache(2, 2, 64, page_size=4, local_pages=2, remote_pages=3,
+                             max_slots=2, max_pages_per_slot=4, dtype=dtype, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    kv = [tuple(torch.randn((2, n, 2, 64), generator=gen, device=cuda_device).to(dtype)
+                for _ in range(2)) for n in (9, 7)]
+    for slot, (k, v) in enumerate(kv):
+        cache.write_prompt(slot, k, v)          # 5 pages over 2 local: 3 in the host pool
+    owned = {i: cache.pools["k_remote"][:, i].clone() for i in cache.owned_pages(REMOTE)}
+    sink = cache.pools["v_remote"][:, cache.sink_remote].clone()
+    old, pinned = cache.pools["k_remote"], _build.pinned_bytes()
+    assert len(owned) == 3 and not cache.free[REMOTE]
+    assert cache.grow_remote(4) == 7 and cache.sink_remote == 7
+    new = cache.pools["k_remote"]
+    assert new.is_pinned() and new.data_ptr() != old.data_ptr() and new.shape[1] == 8
+    del old
+    assert _build.pinned_bytes() - pinned == 2 * 4 * new[:, 0].nbytes
+    for i, page in owned.items():
+        assert torch.equal(new[:, i], page)
+    assert torch.equal(cache.pools["v_remote"][:, 7], sink)
+    assert sorted(cache.free[REMOTE]) == [3, 4, 5, 6]
+    for slot, (k, v) in enumerate(kv):
+        got_k, got_v = cache.gather(slot, k.shape[1])
+        assert torch.equal(got_k, k) and torch.equal(got_v, v)
+
+
+def test_repartition_on_card_equals_a_fresh_partition(cuda_device):
+    """A forced re-plan's repartition on the card: the new tree equals
+    `partition_source` at the new plan bit for bit, every new remote tier
+    is pinned, and the pinned bytes grow by exactly the new remote tiers
+    (the old ones are alive until the caller drops them)."""
+    from repro_torch.runtime.replan import repartition
+
+    cfg, dev = TC.get_smoke("llama2_7b"), cuda_device
+
+    def source():
+        return TM.layer_source(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+
+    plans = [TE.plan(cfg, WorkloadSpec(batch=2, seq_len=32, phase="decode"), H100_SXM,
+                     global_ratio=r) for r in (0.5, 0.9)]
+    tree = plans[0].partition_source(source(), align=32)
+    torch.cuda.synchronize()
+    pinned = _build.pinned_bytes()
+    new, changed = repartition(tree, plans[1], align=32)
+    torch.cuda.synchronize()
+    assert changed
+    grown = sum(w.remote.nbytes for w in _tiered(new) if all(w is not o for o in _tiered(tree)))
+    assert _build.pinned_bytes() - pinned == grown > 0
+    assert all(w.remote.is_pinned() and w.local.is_cuda for w in _tiered(new))
+    assert_trees_equal(new, plans[1].partition_source(source(), align=32))
+
+
+def test_cuda_event_source_measures_a_decode_step(cuda_device):
+    """The runtime closed over the measured source: after one decode step
+    the CUDA events report a positive bandwidth for each tier, which the
+    AIMD loop then reads; before it, the analytical prior answered."""
+    from repro_torch.core import congestion
+    from repro_torch.runtime.controller import RuntimeController
+    from repro_torch.runtime.telemetry import CudaEventSource
+
+    cfg, dev = TC.get_smoke("llama2_7b"), cuda_device
+    plan = TE.plan(cfg, WorkloadSpec(batch=2, seq_len=32, phase="decode"), H100_SXM,
+                   global_ratio=0.5, kv_page_size=4)
+    prior = congestion.ModelSource(congestion.CongestionModel(H100_SXM), plan.window.n_streams,
+                                   plan.window.chunk_bytes)
+    src = CudaEventSource(prior, dev)
+    rt = RuntimeController(cfg, plan, H100_SXM, source=src, align=32)
+    eng = ServingEngine(cfg, TM.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                            device=dev),
+                        max_batch=2, max_len=32, global_offload_ratio=0.5, page_size=4,
+                        runtime=rt, device=dev)
+    eng.submit(Request(rid=0, prompt=np.arange(3, 12, dtype=np.int32), max_new_tokens=4))
+    eng.step()
+    assert src.timed_steps == 1 and src.prior_answers == 0
+    assert src.last_seconds > 0 and src.last.host_bw > 0 and src.last.hbm_bw > 0
+    assert src.last_bytes[1] == pytest.approx(src.last.host_bw * src.last_seconds)
+    assert src.measure(7) is src.last
+    assert eng.run().served == 1 and src.timed_steps == eng.stats.decode_steps

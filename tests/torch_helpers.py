@@ -87,6 +87,25 @@ def serve(engine_cls, request_cls, cfg, params, hw, ratio, seed, new_tokens=6, *
     return eng.run(), reqs
 
 
+def assert_caches_match(jc, tc) -> None:
+    """A JAX and a port `PagedTieredCache` hold the same page tables, tiers,
+    free lists, owners, counters and elastic budget, pools of the same
+    shapes, and equal pool contents below each sink page."""
+    np.testing.assert_array_equal(tc.table, jc.table)
+    np.testing.assert_array_equal(tc.tier, jc.tier)
+    np.testing.assert_array_equal(tc.n_pages, jc.n_pages)
+    assert tc.free == jc.free
+    assert tc._owner == jc._owner
+    assert (tc.spills, tc.promotions, tc.demotions) == (jc.spills, jc.promotions, jc.demotions)
+    assert (tc.local_in_use, tc.remote_in_use) == (jc.local_in_use, jc.remote_in_use)
+    assert (tc.n_remote, tc.local_limit, tc.local_free, tc.local_deficit) == \
+        (jc.n_remote, jc.local_limit, jc.local_free, jc.local_deficit)
+    for key, pool in tc.pools.items():
+        assert tuple(pool.shape) == tuple(jc.pools[key].shape), key
+        sink = tc.sink_local if key.endswith("local") else tc.sink_remote
+        np.testing.assert_array_equal(as_np(pool)[:, :sink], as_np(jc.pools[key])[:, :sink])
+
+
 # ---------------------------------------------------------------------------
 # Trees: the layer-by-layer build against `partition(whole)`, and the
 # recurrent families' leaves redrawn away from their init values
