@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py              # phases 1-8 and 11-28, needs one CUDA card
+    python3 chip_smoke.py              # phases 1-8 and 11-29, needs one CUDA card
     python3 chip_smoke.py --phases 1,9 # the host-link read probe
     python3 chip_smoke.py --phases 1,5,9,10  # timings, probe, replaced designs
 
@@ -136,6 +136,15 @@ runs, printing each result on its own line:
    new pinned tiers: 8/8 served, healthy at the end, device memory falls and
    pinned bytes rise, the re-plan's transient below one operand layer, its
    pause and TPOT and remote bytes a step before and after;
+29. the compiled decode step (one CUDA graph per window bucket and pool
+   shape, the default of every family but MoE): fp32 at full width and cut
+   depth (2 layers of llama2-7b, Mamba2-370M and LLaVA-NeXT-34B, 12 of
+   Zamba2-2.7B), graphed tokens equal to the eager engine's and the plain
+   reference's, launches per engine step equal to eager's; then llama2-7b
+   (32 layers) and Mamba2-370M (48 layers) in bf16 with phase 4's traffic,
+   served eagerly and then graphed on the same weights: tokens exactly
+   equal, TPOT, device-busy share and host time a step of each, capture
+   time per bucket and the graph pool's bytes;
 every served run (4, 12, 14, 16, 17, 19, 21, 26) builds its engine one layer at
 a time, checks that set-up held no more device memory beyond the weights it
 keeps than building one layer holds (`setup_transient_bound`), that the
@@ -143,7 +152,9 @@ pinned host bytes are its remote weights and remote KV pool and nothing
 else, that every operand the plan rates is tiered unless its remote extent
 rounds to nothing, and that splitk_gemm runs once per column-split weight a
 layer (a shared one a group) plus lm_head in each decode step (every family
-but MoE, whose remote experts are counted as they run);
+but MoE, whose remote experts are counted as they run); the decode steps run
+graphed (MoE eagerly, and the phase says why), the launch counts of a replay
+added by the graph as its capture recorded them;
 each phase starts with what earlier ones held freed and prints the pinned
 host bytes still held; then one JSON line listing the kernels, the card's name and power limit,
 and the final JSON status line.
@@ -886,6 +897,10 @@ def phase_serve(arch: str = "llama2_7b", n_layers: int | None = None, n_req: int
           f"TPOT {stats.tpot * 1e3:.1f} ms over {stats.decode_steps} decode steps | "
           f"TTFT p50 {stats.ttft_p50 * 1e3:.1f} ms | prefill total {stats.prefill_time:.2f} s")
     print(f"launches during the served run: {launches}")
+    print(f"decode step: graphed={eng.graphed}"
+          + (f" (eager: {eng.eager_reason})" if eng.eager_reason else "")
+          + f" | compile_count {eng.compile_count} | cache hits {eng.compile_cache_hits} | "
+            f"recaptures {eng.recaptures}")
     gemm_part, bytes_part = ")", ""
     if experts:
         gemm_part = (f", {mean('gemm') - static_launches:.2f} for remote experts); remote "
@@ -948,6 +963,9 @@ def phase_serve(arch: str = "llama2_7b", n_layers: int | None = None, n_req: int
               f"peak device memory during set-up {setup_peak / 1e9:.3f} GB and during serving "
               f"{peak / 1e9:.3f} GB, each below {peak_limit / 1e9:.0f} GB against "
               f"{total_w / 1e9:.3f} GB of weights")
+    check(eng.graphed == (cfg.family != "moe") and (eng.compile_count > 0) == eng.graphed,
+          f"decode steps graphed by default ({eng.compile_count} buckets) unless MoE, which "
+          f"stays eager")
     profile_decode_steps(eng, cfg, rng, prompt_len)
     return {"launches": launches, "tpot_ms": stats.tpot * 1e3,
             "steps": stats.decode_steps, "engine": eng}
@@ -992,11 +1010,12 @@ def setup_transient_bound(params) -> tuple[float, str]:
                    f"rounding {slack / 1e9:.3f}")
 
 
-def profile_decode_steps(eng, cfg, rng, prompt_len, steps=3) -> None:
-    """One torch.profiler trace of `steps` paged decode steps of the served
-    engine at batch 4 (after the served run, on fresh requests, prefill
-    outside the trace): the device's busy share of the steps' wall time and
-    the kernels that take most device time."""
+def profile_decode_steps(eng, cfg, rng, prompt_len, steps=3) -> dict:
+    """One torch.profiler trace of `steps` decode steps of the served engine
+    at batch 4 (after the served run, on fresh requests, prefill outside the
+    trace): the device's busy share of the steps' wall time and the kernels
+    that take most device time.  Returns the traced and device-busy ms per
+    step (empty when the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.engine import Request
@@ -1022,21 +1041,24 @@ def profile_decode_steps(eng, cfg, rng, prompt_len, steps=3) -> None:
             busy += b - max(a, end)
             end = b
     if busy == 0.0:
-        print(f"  profiler: {steps} paged decode steps traced, but torch.profiler recorded "
+        print(f"  profiler: {steps} decode steps traced, but torch.profiler recorded "
               f"no device time on this machine; no breakdown")
-        return
+        return {}
     self_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
                                 getattr(e, "self_cuda_time_total", 0.0))
     rows = sorted((e for e in prof.key_averages() if self_us(e) > 0
                    and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA),
                   key=self_us, reverse=True) or sorted(
         (e for e in prof.key_averages() if self_us(e) > 0), key=self_us, reverse=True)
-    print(f"  profiler: {steps} paged decode steps at batch 4 in {wall_us / 1e3:.2f} ms of host "
-          f"wall time ({wall_us / steps / 1e3:.2f} ms per step); device busy "
-          f"{busy / 1e3:.2f} ms ({busy / wall_us:.1%}), idle {(wall_us - busy) / 1e3:.2f} ms")
+    print(f"  profiler: {steps} decode steps at batch 4 ({'graphed' if eng.graphed else 'eager'})"
+          f" in {wall_us / 1e3:.2f} ms of host wall time ({wall_us / steps / 1e3:.2f} ms per step);"
+          f" device busy {busy / 1e3:.2f} ms ({busy / wall_us:.1%}), idle "
+          f"{(wall_us - busy) / 1e3:.2f} ms ({(wall_us - busy) / steps / 1e3:.2f} ms per step)")
     for e in rows[:12]:
         print(f"    {self_us(e) / 1e3 / steps:9.3f} ms per step  {e.count // steps:5d} calls per "
               f"step  {e.key[:100]}")
+    return {"traced_ms": wall_us / steps / 1e3, "busy_ms": busy / steps / 1e3,
+            "busy_share": busy / wall_us}
 
 
 # ---------------------------------------------------------------------------
@@ -2534,6 +2556,172 @@ def phase_elastic_serve() -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: the compiled decode step (one CUDA graph per bucket)
+# ---------------------------------------------------------------------------
+COMPILED_PARITY = (("llama2_7b", 2), ("mamba2_370m", 2),
+                   ("zamba2_2p7b", ZAMBA2_PARITY_LAYERS), ("llava_next_34b", 2))
+COMPILED_SERVED = ("llama2_7b", "mamba2_370m")
+
+
+def launch_counts() -> dict:
+    from repro_torch.serving.compiled_step import LAUNCH_COUNTERS
+
+    return {c.__name__: c.launches for c in LAUNCH_COUNTERS}
+
+
+def reset_launch_counts() -> None:
+    from repro_torch.serving.compiled_step import LAUNCH_COUNTERS
+
+    for c in LAUNCH_COUNTERS:
+        c.launches = 0
+
+
+def serve_counting(eng, reqs) -> list[dict]:
+    """Serve `reqs` one engine step at a time; returns each step's launches
+    per kernel wrapper."""
+    for r in reqs:
+        eng.submit(r)
+    steps = []
+    while eng.scheduler.waiting or eng.prefilling or any(r is not None for r in eng.active):
+        before = launch_counts()
+        eng.step()
+        steps.append({k: v - before[k] for k, v in launch_counts().items()})
+    return steps
+
+
+def phase_compiled_parity() -> None:
+    """Fp32 at full width and cut depth (offload 0.5, page 4, 3 slots, phase
+    3's prompts): every family's graphed engine emits exactly its eager
+    engine's tokens and the plain per-request reference's, and launches each
+    kernel exactly as often, step by step (replays add what the capture
+    recorded)."""
+    import repro_torch.configs as C
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    for arch, n_layers in COMPILED_PARITY:
+        cfg = dataclasses.replace(C.get(arch), n_layers=n_layers)
+        params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(7),
+                               dtype=torch.float32, device="cuda")
+        rng = np.random.default_rng(7)
+        prompts = [rng.integers(3, cfg.vocab, n).astype(np.int32) for n in (10, 16, 7, 14, 9)]
+        runs = {}
+        for jit in (False, True):
+            reset_launch_counts()
+            eng = ServingEngine(cfg, params, max_batch=3, max_len=32, global_offload_ratio=0.5,
+                                page_size=4, jit_step=jit, device="cuda")
+            reqs = [Request(rid=i, prompt=p, max_new_tokens=8) for i, p in enumerate(prompts)]
+            per_step = serve_counting(eng, reqs)
+            runs[jit] = ([r.out_tokens for r in reqs], per_step, eng.compile_count,
+                         eng.compile_cache_hits, eng.recaptures, eng.stats.decode_steps)
+            del eng
+            gc.collect()
+        (eager, eager_steps, *_), (graphed, graph_steps, count, hits, recap, steps) = \
+            runs[False], runs[True]
+        want = [reference_tokens(cfg, params, torch.tensor(p, device="cuda"), 8, 32)[0]
+                for p in prompts]
+        check(graphed == eager == want,
+              f"{arch} ({n_layers} layers, fp32): graphed tokens equal eager and the plain "
+              f"reference's for {len(want)} requests ({sum(map(len, want))} tokens)")
+        check(graph_steps == eager_steps and count >= 1 and count + hits == steps
+              and recap == 0 and runs[False][2] == 0,
+              f"{arch}: launches per engine step equal eager's in all {len(graph_steps)} steps "
+              f"({sum(s['splitk_gemm'] for s in graph_steps)} splitk_gemm, "
+              f"{sum(s['paged_splitk_flashattn'] for s in graph_steps)} paged attention, "
+              f"{sum(s['scatter_rows'] for s in graph_steps)} row scatters); {count} bucket(s), "
+              f"{hits} cache hits over {steps} decode steps, no recapture; the eager engine "
+              f"compiled nothing")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def fresh_serving_state(eng) -> None:
+    """Give a served engine back the cache state of a fresh one (empty
+    pools and tables, zeroed recurrent state, new stats), keeping its
+    partitioned weights."""
+    from repro_torch.serving.engine import EngineStats
+
+    if eng.pcache is not None:
+        eng.pcache = None
+        gc.collect()
+        eng.pcache = eng._make_pcache()
+    if eng.cache is not None:
+        for c in eng.cache.values():
+            c.zero_()
+    eng._next_tok[:] = 0
+    eng.stats = EngineStats()
+    eng.stats.final_window = eng.window
+
+
+def phase_compiled_serve() -> None:
+    """Phase 4's traffic (bf16, full width and depth, offload 0.5, page 16, 4
+    slots, 8 requests of 128 + 32 tokens) served eagerly and then graphed on
+    the same weights (one engine, its cache state reset in between): tokens
+    equal exactly (the same kernels run in the same order), TPOT, the
+    profiler's device-busy share and host time a step of each, the capture
+    time of each bucket and the graph pool's bytes."""
+    import repro_torch.configs as C
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    new_tokens = 32
+    for arch in COMPILED_SERVED:
+        cfg = C.get(arch)
+        t0 = time.time()
+        eng = ServingEngine(
+            cfg, M.layer_source(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                dtype=torch.bfloat16, device="cuda"),
+            max_batch=DECODE_BATCH, max_len=PREFILL_LEN + new_tokens, global_offload_ratio=0.5,
+            page_size=16, jit_step=False, device="cuda")
+        print(f"{arch} ({cfg.n_layers} layers, bf16): engine built in {time.time() - t0:.1f} s")
+        out = {}
+        for mode in ("eager", "graphed"):
+            if mode == "graphed":
+                fresh_serving_state(eng)
+                eng._jit = True
+            rng = np.random.default_rng(0)
+            reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab, PREFILL_LEN).astype(np.int32),
+                            max_new_tokens=new_tokens) for i in range(8)]
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            per_step = serve_counting(eng, reqs)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            st = eng.stats
+            served, steps, tpot, tps = (st.served, st.decode_steps, st.tpot * 1e3,
+                                        st.generated_tokens / wall)
+            peak = torch.cuda.max_memory_allocated()
+            prof = profile_decode_steps(eng, cfg, rng, PREFILL_LEN)
+            out[mode] = {"tokens": [r.out_tokens for r in reqs], "steps": per_step,
+                         "tpot": tpot, "prof": prof}
+            host = (f"host time a step {prof['traced_ms'] - prof['busy_ms']:.2f} ms"
+                    if prof else "host time not measured")
+            print(f"  {mode}: served {served}/8 in {wall:.2f} s | TPOT {tpot:.2f} ms over {steps} "
+                  f"decode steps | {tps:.2f} tokens/s | peak device memory {peak / 1e9:.3f} GB | "
+                  f"profiler: " + (f"traced step {prof['traced_ms']:.2f} ms, device busy "
+                                   f"{prof['busy_ms']:.2f} ms ({prof['busy_share']:.1%}), "
+                                   if prof else "") + host)
+        for key, g in eng._compiled.items():
+            print(f"  bucket {key[:2]}: captured {g.captures}x, last capture (warm-up "
+                  f"included) {g.capture_s * 1e3:.1f} ms, graph pool grew {g.pool_bytes} bytes")
+        e, g = out["eager"], out["graphed"]
+        check(g["tokens"] == e["tokens"] and all(len(t) == new_tokens for t in g["tokens"]),
+              f"{arch} bf16: graphed tokens equal eager tokens exactly for all 8 requests")
+        check(g["steps"] == e["steps"] and eng.compile_count >= 1,
+              f"{arch} bf16: launches per engine step under replay equal eager's "
+              f"({len(g['steps'])} steps, {eng.compile_count} bucket(s), "
+              f"{eng.compile_cache_hits} hits, {eng.recaptures} recaptures)")
+        print(f"  {arch}: TPOT eager {e['tpot']:.2f} ms -> graphed {g['tpot']:.2f} ms "
+              f"({e['tpot'] / g['tpot']:.2f}x)")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def add_launches(launches: dict, path: dict) -> None:
     """Keep each kernel's count from the first path run that launched it: the
     paged served run (phase 4) for the kernels of the main path."""
@@ -2545,8 +2733,8 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,11,12,13,14,15,16,17,18,19,20,21,22,23,24,25,26,"
-                            "27,28",
-                    help="comma-separated subset of phases 1-28 (default: 1-8 and 11-28; 9 "
+                            "27,28,29",
+                    help="comma-separated subset of phases 1-29 (default: 1-8 and 11-29; 9 "
                          "is the host-link read probe, 10 the decode-attention kernels beside "
                          "the design they replaced)")
     args = ap.parse_args(argv)
@@ -2655,6 +2843,10 @@ def main(argv: list[str] | None = None) -> int:
     if start(28, "adaptive runtime, llama2-7b (32 layers, bf16), offload 0.5, page 16: static, "
                  "AIMD on CUDA-event bandwidth, and a shrink to 20% at decode step 2"):
         phase_elastic_serve()
+    if start(29, "compiled decode step: graphed vs eager, fp32 parity at cut depth, then "
+                 "llama2-7b and Mamba2-370M at full width and depth, bf16"):
+        phase_compiled_parity()
+        phase_compiled_serve()
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

@@ -66,14 +66,25 @@ def _sm_count(device_index: int) -> int:
 
 
 _TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+_RETIRED_TICKETS: list[torch.Tensor] = []
 
 
 def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
     """Zeroed int32 ticket counters for `n` tiles on (device, stream); the
-    kernel sets each back to 0 after use, so they are reused."""
+    kernel sets each back to 0 after use, so they are reused.
+
+    A captured CUDA graph keeps the address it was captured with, so
+    counters outgrown by a larger launch stay allocated, and none is
+    allocated during a capture (it would come from the graph's pool): the
+    eager warm-up before a capture allocates them."""
     key = (device.index, stream)
     t = _TICKETS.get(key)
     if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("splitk_gemm: ticket counters must be allocated before a CUDA "
+                               "graph capture; warm the step up on the capturing stream first")
+        if t is not None:
+            _RETIRED_TICKETS.append(t)
         t = _TICKETS[key] = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
     return t
 

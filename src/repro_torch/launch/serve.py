@@ -33,12 +33,22 @@ prints its ``runtime:`` summary; ``--hbm-shrink STEP:FRAC`` shrinks the
 local page budget to FRAC of the pool at decode step STEP, which the
 engine must absorb (demote, grow the host pool, re-plan with
 ``--adaptive``) with no failed request.
+
+Every decode step runs as a captured CUDA graph (one per window bucket and
+pool shape) unless ``--no-jit`` asks for the eager step; MoE stays eager,
+and the plan line says why.  Observability as in the reference:
+``--trace-out PATH`` writes a Chrome trace of the run, ``--metrics-out
+PATH`` the Prometheus text of its metrics registry (``--metrics-interval
+N`` rewrites it every N steps), ``--attribution`` attaches the bandwidth
+attribution profiler, and ``--flight-dir DIR`` the flight recorder
+(``--flight-slo-breach-ms`` dumps a bundle at the first TTFT over it).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 import numpy as np
@@ -49,9 +59,30 @@ from repro_torch.frontend.metrics import ModeledClock
 from repro_torch.frontend.scheduler import scheduler_names
 from repro_torch.frontend.workload import DEFAULT_CLASSES, Trace, poisson_trace
 from repro_torch.models import model as M
+from repro_torch.obs.attribution import AttributionProfiler
+from repro_torch.obs.flight import FlightRecorder
+from repro_torch.obs.metrics import serving_registry
+from repro_torch.obs.trace import ChromeTraceRecorder
 from repro_torch.serving.engine import Request, ServingEngine, resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _write_atomic(path: str, text: str) -> None:
+    """Write ``text`` to ``path`` through a same-directory temporary file
+    and ``os.replace``, so a reader never sees a torn file."""
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as fh:
+        fh.write(text)
+    os.replace(tmp, path)
+
+
+def _registry(args, engine: ServingEngine, stats, wall: float, trace):
+    """The run's metrics registry (the reference's serving registry)."""
+    return serving_registry(engine, stats, wall, meta={
+        "arch": args.arch, "smoke": bool(args.smoke), "adaptive": bool(args.adaptive),
+        "trace": args.trace or ("poisson" if trace is not None else None),
+        "requests": args.requests})
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -98,6 +129,26 @@ def main(argv: list[str] | None = None) -> dict:
                          "to FRAC of the local pool (e.g. 6:0.3).  The engine must degrade "
                          "(demote, re-plan to a higher offload ratio, shed admissions) and "
                          "finish with zero failed requests")
+    ap.add_argument("--no-jit", action="store_true",
+                    help="run every decode step eagerly instead of replaying one captured "
+                         "CUDA graph per window bucket and pool shape")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome trace-event JSON of the run (per-step phase spans, "
+                         "per-request lifecycle tracks, per-link counter tracks)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the Prometheus text exposition of the run's metrics registry")
+    ap.add_argument("--metrics-interval", type=int, default=0, metavar="N",
+                    help="with --metrics-out: also rewrite the file every N engine steps "
+                         "(atomic rename); 0 = end of run only")
+    ap.add_argument("--attribution", action="store_true",
+                    help="attach the bandwidth-attribution profiler: per-step time ledger, "
+                         "bottleneck labels, achieved-vs-optimal aggregate bandwidth")
+    ap.add_argument("--flight-dir", default=None, metavar="DIR",
+                    help="attach the flight recorder: a ring of per-step state snapshots, "
+                         "dumped as a post-mortem bundle here on an error or an SLO breach")
+    ap.add_argument("--flight-slo-breach-ms", type=float, default=None,
+                    help="with --flight-dir: dump a bundle the first time a request's TTFT "
+                         "exceeds this (engine-clock ms)")
     args = ap.parse_args(argv)
     shrink = None
     if args.hbm_shrink:
@@ -126,6 +177,18 @@ def main(argv: list[str] | None = None) -> dict:
             args.requests, rate_rps=args.arrival_rate, classes=classes,
             prompt_max=max(4, args.max_len - args.new_tokens - 2),
             out_max=args.new_tokens, seed=0)
+    recorder = None
+    if args.trace_out:
+        recorder = ChromeTraceRecorder(metadata={
+            "arch": args.arch, "scheduler": args.scheduler,
+            "clock": "modeled" if trace is not None else "wall"})
+    flight = None
+    if args.flight_dir:
+        flight = FlightRecorder(
+            args.flight_dir,
+            slo_breach_s=(args.flight_slo_breach_ms / 1e3
+                          if args.flight_slo_breach_ms is not None else None))
+    profiler = AttributionProfiler() if args.attribution else None
     gen = torch.Generator(device=device).manual_seed(0)
     # built layer by layer: the unsplit model is never whole on the device
     engine = ServingEngine(
@@ -135,15 +198,18 @@ def main(argv: list[str] | None = None) -> dict:
         global_offload_ratio=None if args.hbm_gb is not None else args.offload_ratio,
         page_size=args.page_size, scheduler=args.scheduler,
         prefill_chunk=args.prefill_chunk, adaptive=args.adaptive,
-        clock=ModeledClock() if trace is not None else None, device=device)
+        clock=ModeledClock() if trace is not None else None, recorder=recorder,
+        flight=flight, profiler=profiler, jit_step=False if args.no_jit else None,
+        device=device)
     if shrink is not None:
         engine.schedule_hbm_shrink(*shrink)
         print(f"chaos: HBM shrink to {shrink[1]:.0%} of the local pool "
               f"at decode step {shrink[0]}")
+    why = f" ({engine.eager_reason})" if engine.eager_reason and not args.no_jit else ""
     print(f"plan: global={engine.plan.global_ratio:.2f} "
           f"per-op={ {k: round(v, 2) for k, v in engine.plan.op_ratios.items()} } "
           f"window={engine.window} hw={engine.hw.name} device={device} "
-          f"adaptive={args.adaptive}")
+          f"jit={engine.graphed}{why} adaptive={args.adaptive}")
     if args.hbm_gb is not None:
         print(f"budget: {args.hbm_gb:.1f} GB HBM vs "
               f"{engine.plan.footprint_bytes / 1e9:.1f} GB footprint")
@@ -161,7 +227,14 @@ def main(argv: list[str] | None = None) -> dict:
                      for rid in range(args.requests)]
     for req in submitted:
         engine.submit(req)
-    stats = engine.run()
+    step_hook = None
+    if args.metrics_out and args.metrics_interval > 0:
+        def step_hook(steps: int) -> None:
+            if steps % args.metrics_interval == 0:
+                _write_atomic(args.metrics_out, _registry(
+                    args, engine, engine.stats, time.time() - t0, trace).to_prometheus())
+
+    stats = engine.run(step_hook=step_hook)
     wall = time.time() - t0
     print(f"served {stats.served} requests in {wall:.2f}s | "
           f"decode steps {stats.decode_steps} | TPOT {stats.tpot*1e3:.1f} ms | "
@@ -200,18 +273,42 @@ def main(argv: list[str] | None = None) -> dict:
               f"modeled tokens/s static {mod['static_tokens_per_s']:.3g} "
               f"adaptive {mod['adaptive_tokens_per_s']:.3g} "
               f"(gain {mod['gain']:.3f})")
+    if engine.graphed:
+        print(f"compiled step: {engine.compile_count} buckets | cache hits "
+              f"{engine.compile_cache_hits} | recaptures {engine.recaptures}")
+    if profiler is not None:
+        prep = profiler.report()
+        btl = prep["bottleneck"]
+        fr = btl["optimal_fraction"]
+        labels = ", ".join(f"{k} {v}" for k, v in btl["labels"].items() if v)
+        print(f"attribution: {prep['steps']} steps | labels: {labels or 'none'}"
+              f" | transitions {btl['transitions']} | bw optimality "
+              f"mean {fr['mean']:.3f} max {fr['max']:.3f}")
+    if args.trace_out:
+        recorder.save(args.trace_out)
+        print(f"wrote {args.trace_out} ({len(recorder.events)} trace events)")
+    if args.metrics_out:
+        _write_atomic(args.metrics_out,
+                      _registry(args, engine, stats, wall, trace).to_prometheus())
+        print(f"wrote {args.metrics_out}")
     if args.tokens_out:
         with open(args.tokens_out, "w") as fh:
             json.dump({str(r.rid): list(r.out_tokens) for r in submitted}, fh, sort_keys=True)
             fh.write("\n")
         print(f"wrote {args.tokens_out}")
+    if flight is not None and flight.dumped:
+        print(f"flight bundles: {', '.join(flight.dumped)}")
     return {"served": stats.served, "wall_s": wall,
             "generated_tokens": stats.generated_tokens,
             "tokens_per_s": stats.generated_tokens / wall if wall > 0 else 0.0,
             "tpot_ms": stats.tpot * 1e3, "ttft_p50_ms": stats.ttft_p50 * 1e3,
             "prefill_chunks": stats.prefill_chunks, "preemptions": stats.preemptions,
             "slo": slo, "health": stats.health, "failed_requests": stats.failed_requests,
-            "elastic_replans": stats.elastic_replans, "replans": stats.replans}
+            "elastic_replans": stats.elastic_replans, "replans": stats.replans,
+            "jit": engine.graphed, "compile_count": engine.compile_count,
+            "compile_cache_hits": engine.compile_cache_hits,
+            "recaptures": engine.recaptures,
+            "flight_bundles": list(flight.dumped) if flight is not None else []}
 
 
 if __name__ == "__main__":

@@ -66,8 +66,9 @@ def rope_cos_sin(positions: torch.Tensor, rot_dim: int,
                  theta: float) -> tuple[torch.Tensor, torch.Tensor]:
     exps = torch.arange(0, rot_dim, 2, dtype=torch.float32,
                         device=positions.device) / rot_dim
-    inv = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                       device=positions.device), exps)
+    # a fill, not a host-to-device copy, so a captured decode step can hold it
+    inv = 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                     device=positions.device), exps)
     ang = positions.float()[..., None] * inv                   # [..., rot/2]
     return torch.cos(ang), torch.sin(ang)
 

@@ -404,3 +404,30 @@ class RuntimeController:
             },
             "telemetry": self.telemetry.report(),
         }
+
+    def register_metrics(self, reg, prefix: str = "runtime") -> None:
+        """Register the runtime summary into a
+        `repro_torch.obs.metrics.MetricsRegistry` — field order mirrors
+        :meth:`report` so the registry's JSON view is byte-identical to
+        the hand-built ``runtime`` block it replaces."""
+        reg.gauge(f"{prefix}.window.static",
+                  help="static congestion-window seed").set(self._static_window)
+        reg.gauge(f"{prefix}.window.final",
+                  help="final congestion window").set(self.window)
+        reg.gauge(f"{prefix}.window.min").set(self.stats.window_min)
+        reg.gauge(f"{prefix}.window.max").set(self.stats.window_max)
+        reg.const(f"{prefix}.window.converged",
+                  all(c.converged for c in self.link_controllers))
+        reg.const(f"{prefix}.window.per_link", list(self.windows))
+        reg.counter(f"{prefix}.replans",
+                    help="adaptive re-plans fired").set_total(self.stats.replans)
+        reg.counter(f"{prefix}.migration.promoted").set_total(
+            self.stats.promoted_pages)
+        reg.counter(f"{prefix}.migration.demoted").set_total(
+            self.stats.demoted_pages)
+        reg.gauge(f"{prefix}.modeled.static_tokens_per_s").set(
+            self.stats.modeled_static_tps)
+        reg.gauge(f"{prefix}.modeled.adaptive_tokens_per_s").set(
+            self.stats.modeled_adaptive_tps)
+        reg.gauge(f"{prefix}.modeled.gain").set(self.stats.modeled_gain)
+        self.telemetry.register_metrics(reg, prefix=f"{prefix}.telemetry")

@@ -154,3 +154,21 @@ class HealthMonitor:
             "elastic_replans": c.elastic_replans,
             "transitions": [list(t) for t in self.transitions],
         }
+
+    def register_metrics(self, reg, prefix: str = "elastic") -> None:
+        """Register the elastic counters into a
+        `repro_torch.obs.metrics.MetricsRegistry` — field order mirrors
+        :meth:`report` so the registry's JSON view is byte-identical to
+        the hand-built ``elastic`` block it replaces."""
+        c = self.counters
+        reg.const(f"{prefix}.state", self.state, "final health state")
+        for name, total in (
+                ("cache_full_caught", c.cache_full_caught),
+                ("elastic_demoted_pages", c.elastic_demoted_pages),
+                ("remote_grown_pages", c.remote_grown_pages),
+                ("shrink_events", c.shrink_events),
+                ("shed_steps", c.shed_steps),
+                ("elastic_replans", c.elastic_replans)):
+            reg.counter(f"{prefix}.{name}").set_total(total)
+        reg.const(f"{prefix}.transitions",
+                  [list(t) for t in self.transitions])

@@ -196,6 +196,31 @@ class Telemetry:
                       "remote": self.total_remote_bytes},
         }
 
+    def register_metrics(self, reg, prefix: str = "telemetry") -> None:
+        """Register the aggregates into a
+        `repro_torch.obs.metrics.MetricsRegistry` — same field order as
+        :meth:`report`, so the registry's JSON view reproduces the
+        ``telemetry`` block byte-for-byte."""
+        reg.counter(f"{prefix}.steps").set_total(self.total_steps)
+        reg.counter(f"{prefix}.degraded_steps").set_total(self.degraded_steps)
+        reg.counter(f"{prefix}.prefill_tokens").set_total(
+            self.total_prefill_tokens)
+        reg.counter(f"{prefix}.decode_tokens").set_total(
+            self.total_decode_tokens)
+        reg.gauge(f"{prefix}.prefill_fraction_ema").set(self.prefill_fraction)
+        reg.gauge(f"{prefix}.queue_depth_ema").set(self.queue_depth)
+        reg.gauge(f"{prefix}.bandwidth.local.achieved").set(
+            self.achieved_local_bw)
+        reg.gauge(f"{prefix}.bandwidth.local.predicted").set(
+            self.predicted_local_bw)
+        reg.gauge(f"{prefix}.bandwidth.remote.achieved").set(
+            self.achieved_remote_bw)
+        reg.gauge(f"{prefix}.bandwidth.remote.predicted").set(
+            self.predicted_remote_bw)
+        reg.const(f"{prefix}.bandwidth.per_link", self.achieved_link_bw)
+        reg.gauge(f"{prefix}.bytes.local").set(self.total_local_bytes)
+        reg.gauge(f"{prefix}.bytes.remote").set(self.total_remote_bytes)
+
 
 class TelemetrySource:
     """The telemetry EMAs as a `congestion.MeasurementSource`.

@@ -54,13 +54,30 @@ re-plan at a higher offload ratio; a local-budget shrink
 ``healthy -> spilling -> recovering`` that gates the scheduler's admission
 quota.
 
+The decode step is compiled by default (``jit_step``): one CUDA graph per
+(kind, window bucket, pool shape) bucket, the reference's jit key
+(`serving.compiled_step`).  Its int32 inputs reach fixed device buffers by
+one staged copy and its greedy tokens come back by one, on the graphed and
+the eager path alike.  A graph holds the addresses it was captured with,
+so a re-plan that moves weights or a grown remote pool drops the graphs,
+and the next step of a bucket captures again (``recaptures``).  The MoE
+families stay eager: their remote-expert dispatch reads the expert counts
+back to the host once a layer, which no graph can hold.
+
+Observability is the reference's (`repro_torch.obs`): a trace recorder
+(request lifecycle, admission, prefill, decode and compile spans, counter
+tracks, health, elastic and runtime instants), a flight recorder that dumps
+the last steps' state on an error or an SLO breach, and an attribution
+profiler over the modeled step cost.  All default off, and off they leave
+tokens and stats bit-identical.
+
 The encoder has no decode step and is refused (`models.require_served`);
-it runs through `models.forward`.  Not ported yet: the mesh, the compiled
-step and observability.
+it runs through `models.forward`.  Not ported yet: the mesh.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from collections import deque
 from typing import Any
@@ -83,11 +100,51 @@ from repro_torch.frontend.metrics import (
 )
 from repro_torch.frontend.scheduler import Scheduler, get_scheduler
 from repro_torch.models import model as M
+from repro_torch.obs.attribution import NULL_PROFILER
+from repro_torch.obs.trace import (
+    ENGINE,
+    HEALTH_LEVEL,
+    LINKS,
+    NULL_RECORDER,
+    REQUESTS,
+    TraceRecorder,
+)
 from repro_torch.runtime.controller import RuntimeController
 from repro_torch.runtime.health import HEALTHY, HealthMonitor
 from repro_torch.runtime.telemetry import CudaEventSource, StepSample, weight_tier_bytes
 from repro_torch.serving import tiered_decode as TD
+from repro_torch.serving.compiled_step import (
+    PAGED_INPUTS,
+    StepGraph,
+    StepInputs,
+    pointer_fingerprint,
+)
 from repro_torch.serving.paged_cache import REMOTE, CacheFull, PagedTieredCache
+
+# Why a family's decode step cannot be captured as a CUDA graph.
+EAGER_REASONS = {"moe": "moe: host read of remote-expert counts"}
+
+
+def _decode_step(cfg: ModelConfig, inputs: dict[str, torch.Tensor], kind: str, window: int,
+                 sink_local: int, sink_remote: int, params: dict[str, Any],
+                 pools: dict[str, torch.Tensor] | None,
+                 cache: dict[str, torch.Tensor] | None) -> torch.Tensor:
+    """One decode step of `kind` ("paged", "hybrid" or "ssm") over the fixed
+    input buffers at ``window``: the pools and the recurrent state are
+    updated in place; returns the greedy tokens [B] int32 on the device."""
+    if kind == "ssm":
+        logits, _ = TD.tiered_ssm_decode_step(cfg, params, cache, inputs["tokens"],
+                                              window=window)
+    else:
+        args = tuple(inputs[name] for name in PAGED_INPUTS)
+        sinks = dict(sink_local=sink_local, sink_remote=sink_remote)
+        if kind == "hybrid":
+            logits, _, _ = TD.tiered_hybrid_decode_step(cfg, params, cache, pools, *args,
+                                                        **sinks, window=window)
+        else:
+            logits, _ = TD.paged_tiered_decode_step(cfg, params, pools, *args, **sinks,
+                                                    window=window)
+    return torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
 
 
 def resolve_device(device) -> torch.device:
@@ -201,6 +258,37 @@ class EngineStats:
         (`frontend.metrics.slo_report` over the request records)."""
         return slo_report(self.requests)
 
+    def register_metrics(self, reg, *, global_ratio: float,
+                         wall_s: float) -> None:
+        """Register the serving counters into a
+        `repro_torch.obs.metrics.MetricsRegistry`, in the reference's order
+        (its JSON view is the reference's stats block)."""
+        reg.counter("served", "requests finished").set_total(self.served)
+        reg.gauge("global_ratio",
+                  "planned global offload ratio").set(global_ratio)
+        reg.gauge("wall_s", "run wall time").set(wall_s)
+        reg.counter("generated_tokens",
+                    "tokens actually emitted").set_total(self.generated_tokens)
+        reg.gauge("tokens_per_s").set(
+            self.generated_tokens / wall_s if wall_s > 0 else 0.0)
+        reg.gauge("tpot_ms", "mean time per output token").set(self.tpot * 1e3)
+        reg.gauge("ttft_p50_ms").set(self.ttft_p50 * 1e3)
+        reg.gauge("ttft_p95_ms").set(self.ttft_p95 * 1e3)
+        reg.gauge("queue_delay_p50_ms").set(self.queue_delay_p50 * 1e3)
+        reg.gauge("queue_delay_p95_ms").set(self.queue_delay_p95 * 1e3)
+        reg.gauge("e2e_p50_ms").set(self.e2e_p50 * 1e3)
+        reg.gauge("e2e_p95_ms").set(self.e2e_p95 * 1e3)
+        reg.counter("decode_steps").set_total(self.decode_steps)
+        reg.counter("scheduling.prefill_chunks").set_total(self.prefill_chunks)
+        reg.counter("scheduling.preemptions").set_total(self.preemptions)
+        reg.counter("scheduling.preempt_demoted_pages").set_total(
+            self.preempt_demoted_pages)
+        reg.const("scheduling.slo", self.slo_report())
+        reg.counter("kv.spills").set_total(self.spills)
+        reg.gauge("kv.local_pages_hwm").set(self.local_pages_hwm)
+        reg.gauge("kv.remote_pages_hwm").set(self.remote_pages_hwm)
+        reg.counter("failed_requests").set_total(self.failed_requests)
+
 
 class ServingEngine:
     def __init__(
@@ -219,6 +307,10 @@ class ServingEngine:
         scheduler: str | Scheduler | None = None,
         prefill_chunk: int | None = None,
         clock: Clock | None = None,
+        recorder: TraceRecorder | None = None,
+        flight=None,
+        jit_step: bool | None = None,
+        profiler=None,
         device="cuda",
     ):
         """``scheduler`` is the frontend policy: a name ('fcfs' | 'priority'
@@ -231,6 +323,19 @@ class ServingEngine:
         with its default budgets and the analytical measurement source;
         ``runtime`` attaches a given `RuntimeController` (its own budgets and
         source, e.g. a `runtime.telemetry.CudaEventSource`).
+
+        ``jit_step`` compiles the decode step, one CUDA graph per bucket
+        (`serving.compiled_step`; on the CPU the same fixed-buffer step runs
+        eagerly).  None, the default, compiles wherever the step can be
+        captured: every family but MoE, whose step reads the remote-expert
+        counts back to the host once a layer; ``True`` on MoE raises, and
+        ``False`` runs every step eagerly.  ``recorder`` is an
+        `obs.trace.TraceRecorder` (default: the no-op null recorder),
+        ``flight`` an `obs.flight.FlightRecorder` (a ring of per-step state
+        snapshots dumped on an error or the first SLO breach) and
+        ``profiler`` an `obs.attribution.AttributionProfiler` fed the modeled
+        cost of every step (default: the no-op null profiler); off, each
+        leaves tokens and stats bit-identical.
 
         ``params`` is the unpartitioned stacked tree (`models.init_params`
         or `bridge.params_from_numpy`) or a `models.model.LayerSource`
@@ -293,6 +398,73 @@ class ServingEngine:
         # `healthy` and every counter stays zero.
         self.health = HealthMonitor()
         self._pending_shrink: tuple[int, float] | None = None
+        self.mesh = None                   # one card: the serving mesh is not ported
+        # Compiled decode step: one CUDA graph per (kind, window bucket, pool
+        # shape) bucket, on fixed input buffers filled by one staged copy.
+        self.eager_reason = EAGER_REASONS.get(cfg.family)
+        if jit_step and self.eager_reason is not None:
+            raise ValueError(f"jit_step=True: the {cfg.family} decode step cannot be captured "
+                             f"as a CUDA graph ({self.eager_reason})")
+        self._jit = (self.eager_reason is None) if jit_step is None else bool(jit_step)
+        self._compiled: dict[tuple, StepGraph] = {}
+        self.compile_count = 0             # fresh buckets (one graph each)
+        self.compile_cache_hits = 0        # steps served by an existing bucket
+        self._params_fp = pointer_fingerprint(self.params)
+        self._inputs = StepInputs(max_batch, -(-max_len // page_size), self.device,
+                                  paged=self.pcache is not None)
+        self._graph_pool = None            # the memory pool every bucket's graph shares
+        self._capture_stream = None        # the side stream captures run on
+        # Observability: all off by default, every emission site guarded.
+        self.recorder = recorder if recorder is not None else NULL_RECORDER
+        self.flight = flight
+        self.profiler = profiler if profiler is not None else NULL_PROFILER
+        if self.profiler.enabled:
+            # the optimality-fraction denominator: the plan's converged AIMD aggregate
+            self.profiler.attach(clock_kind=self.clock.kind,
+                                 optimal_bw=float(self.plan.window.aggregate_bw))
+        self._slo_dumped = False
+        if self.recorder.enabled:
+            self._wire_observability()
+
+    @property
+    def graphed(self) -> bool:
+        """Whether decode steps run as captured graphs (``jit_step``)."""
+        return self._jit
+
+    @property
+    def recaptures(self) -> int:
+        """Captures of a bucket after its first: graphs dropped because the
+        addresses they hold moved (no counterpart in the reference)."""
+        return sum(max(0, g.captures - 1) for g in self._compiled.values())
+
+    @property
+    def mesh_shape(self) -> list[int]:
+        """Device-axis shape of the serving mesh (one card: ``[1]``)."""
+        return [1]
+
+    def _wire_observability(self) -> None:
+        """Point the health monitor's and runtime controller's event hooks
+        at the trace recorder.  The hooks default to None, so with tracing
+        off neither component ever makes a call."""
+        rec = self.recorder
+        rec.name_thread(ENGINE, 0, "step")
+
+        def on_health(event: str, **info) -> None:
+            t = self.clock.now()
+            if event == "transition":
+                rec.instant(ENGINE, 0, f"health:{info['src']}->{info['dst']}",
+                            t, cat="health")
+            else:
+                rec.instant(ENGINE, 0, f"pressure:{info['kind']}", t,
+                            cat="elastic", pages=info.get("pages", 0))
+
+        self.health.listener = on_health
+        if self.runtime is not None:
+            def on_runtime(name: str, **args) -> None:
+                rec.instant(ENGINE, 0, name, self.clock.now(),
+                            cat="runtime", **args)
+
+            self.runtime.on_event = on_runtime
 
     def _make_pcache(self) -> PagedTieredCache:
         """The paged tiered KV cache at the plan's page budget: one layer
@@ -333,6 +505,12 @@ class ServingEngine:
         if req.arrival_s is not None:
             req.arrival_s = self._t0 + req.arrival_s
         req.t_submit = now
+        if self.recorder.enabled:
+            self.recorder.name_thread(REQUESTS, req.rid, f"req{req.rid}")
+            self.recorder.instant(
+                REQUESTS, req.rid, "submit",
+                req.arrival_s if req.arrival_s is not None else now,
+                cat="lifecycle", cls=req.cls, prompt=len(req.prompt))
         self.scheduler.submit(req, now)
 
     def _free_slots(self) -> list[int]:
@@ -384,6 +562,13 @@ class ServingEngine:
             req.t_admit = now
             req.admitted_degraded = self.health.state != HEALTHY
             self.stats.queue_delays.append(req.t_admit - req.t_submit)
+            if self.recorder.enabled:
+                self.recorder.span(REQUESTS, req.rid, "queued",
+                                   req.t_submit, now, cat="lifecycle")
+                if req.admitted_degraded:
+                    self.recorder.instant(
+                        REQUESTS, req.rid, "admitted_degraded", now,
+                        cat="lifecycle", health=self.health.state)
             if quota is not None:
                 quota -= 1
             if self.pcache is not None and sched.preemptive:
@@ -411,6 +596,7 @@ class ServingEngine:
         self._prefill_calls_step += 1
         mm = TD.kernel_mm(self.window)     # prefill's GEMMs at the live window, as decode's
         t0 = time.time()
+        tc0 = self.clock.now() if self.recorder.enabled else 0.0
         chunk = torch.as_tensor(req.prompt[ps.pos:ps.pos + n], dtype=torch.int32,
                                 device=self.device)[None, :]
         if ps.pos == 0 and n == len(req.prompt):
@@ -428,6 +614,10 @@ class ServingEngine:
         self.stats.prefill_time += time.time() - t0
         self.stats.prefill_passes.append(n)
         self._clock_tick_prefill(n)
+        if self.recorder.enabled:
+            self.recorder.span(ENGINE, 0, f"prefill[{req.rid}]", tc0,
+                               self.clock.now(), cat="prefill", slot=slot,
+                               tokens=n, pos=ps.pos)
         if ps.pos < len(req.prompt):
             return
         del self.prefilling[slot]
@@ -436,6 +626,17 @@ class ServingEngine:
         self.stats.generated_tokens += 1
         req.t_first = self.clock.now()
         self.stats.ttfts.append(req.t_first - req.t_submit)
+        if self.recorder.enabled:
+            self.recorder.instant(REQUESTS, req.rid, "first_token",
+                                  req.t_first, cat="lifecycle",
+                                  ttft_s=req.t_first - req.t_submit)
+        if (self.flight is not None and not self._slo_dumped
+                and self.flight.breached(req.t_first - req.t_submit)):
+            # one post-mortem a run: the first breach captures its window
+            self._slo_dumped = True
+            self.flight.dump("slo_breach",
+                             final_snapshot=self._flight_snapshot(),
+                             recorder=self.recorder)
         if nxt == req.eos_id or req.max_new_tokens <= 1:
             self._finish_request(req)      # slot stays free for the next
             return
@@ -453,6 +654,11 @@ class ServingEngine:
 
     def _finish_request(self, req: Request) -> None:
         req.t_done = self.clock.now()
+        if self.recorder.enabled:
+            self.recorder.span(REQUESTS, req.rid, "active", req.t_admit,
+                               req.t_done, cat="lifecycle",
+                               tokens=len(req.out_tokens),
+                               preemptions=req.preemptions)
         self.stats.served += 1
         self.stats.e2e_latencies.append(req.t_done - req.t_submit)
         self.stats.requests.append(RequestRecord(
@@ -498,6 +704,11 @@ class ServingEngine:
             self.stats.preemptions += 1
             self.stats.preempt_demoted_pages += moved
             self._preempt_moved_step += moved
+            if self.recorder.enabled:
+                self.recorder.instant(
+                    REQUESTS, self.active[victim].rid, "preempted",
+                    self.clock.now(), cat="lifecycle", pages=moved,
+                    by=incoming.rid)
 
     # -- elastic degradation (never-OOM) ------------------------------------
     def schedule_hbm_shrink(self, step: int, fraction: float) -> None:
@@ -538,11 +749,28 @@ class ServingEngine:
         """Swap in a repartitioned params tree (re-plan paths) and refresh
         the traffic accounting.  The stream is synchronised first: a kernel
         may still read the old tiers, and a pinned tier's memory is freed
-        as soon as its last tensor is dropped."""
+        as soon as its last tensor is dropped.  Captured steps hold the old
+        tiers' addresses, so when any leaf moved they are dropped before
+        the old tiers can go (a re-plan that moves nothing keeps them)."""
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
+        fingerprint = pointer_fingerprint(new_params)
+        if fingerprint != self._params_fp:
+            self._drop_graphs()
+            self._params_fp = fingerprint
         self.params = new_params
         self._weight_bytes = weight_tier_bytes(self.params)
+
+    def _grow_remote(self, pages: int) -> None:
+        """`PagedTieredCache.grow_remote`, which replaces the remote pools:
+        the captured steps that read the old ones are dropped (their bucket
+        keys name the old pool shape and do not come back)."""
+        self.pcache.grow_remote(pages)
+        self._drop_graphs()
+
+    def _drop_graphs(self) -> None:
+        for graph in self._compiled.values():
+            graph.drop()
 
     def _elastic_recover(self, need_pages: int = 1) -> None:
         """Convert a ``CacheFull`` into degradation: grow the elastic
@@ -554,7 +782,7 @@ class ServingEngine:
         # Grow by at least one full sequence's pages so a long-context
         # burst recovers in one growth, not one page at a time.
         grow = max(need_pages, self.pcache.max_pages)
-        self.pcache.grow_remote(grow)
+        self._grow_remote(grow)
         self.health.pressure("grow", pages=grow)
         deficit = self.pcache.local_deficit
         if deficit > 0:
@@ -588,7 +816,7 @@ class ServingEngine:
             return
         short = deficit - len(self.pcache.free[REMOTE])
         if short > 0:
-            self.pcache.grow_remote(short)
+            self._grow_remote(short)
             self.health.pressure("grow", pages=short)
         moved = self.pcache.demote_coldest(deficit)
         if moved:
@@ -615,28 +843,46 @@ class ServingEngine:
     # -- modeled clock ------------------------------------------------------
     def _clock_tick_prefill(self, n_tokens: int) -> None:
         """Advance a modeled clock by the analytical cost of one prefill
-        chunk, before TTFT is stamped (a no-op on the wall clock)."""
-        if n_tokens and isinstance(self.clock, ModeledClock):
-            self.clock.advance(modeled_step_cost(self.cfg, self.hw, self.plan.op_ratios,
-                                                 prefill_tokens=n_tokens).total)
+        chunk, before TTFT is stamped (a no-op on the wall clock).  The
+        attribution profiler records the same decomposition (on the wall
+        clock as a modeled estimate)."""
+        if not n_tokens:
+            return
+        modeled = isinstance(self.clock, ModeledClock)
+        if not modeled and not self.profiler.enabled:
+            return
+        cost = modeled_step_cost(self.cfg, self.hw, self.plan.op_ratios,
+                                 prefill_tokens=n_tokens)
+        if modeled:
+            self.clock.advance(cost.total)
+        if self.profiler.enabled:
+            self.profiler.on_tick(cost)
 
     def _clock_tick_decode(self, active: np.ndarray) -> None:
         """Advance a modeled clock by the analytical cost of one decode step
         over the active slots, the KV read priced from the live page
         residency, so spills and preemption's demotions show in the modeled
-        latencies.  No copy traffic is priced (``hbm_copy_bytes`` 0): the
-        port's decode step writes each new K/V row into the pools in place,
-        as the reference's default compiled step does."""
+        latencies; the profiler records it as `_clock_tick_prefill` does.
+        No copy traffic is priced (``hbm_copy_bytes`` 0), eager or graphed:
+        the port's decode step writes each new K/V row into the pools in
+        place, as the reference's compiled step does."""
         n_active = int(active.sum())
-        if not n_active or not isinstance(self.clock, ModeledClock):
+        if not n_active:
+            return
+        modeled = isinstance(self.clock, ModeledClock)
+        if not modeled and not self.profiler.enabled:
             return
         kv_local = kv_remote = 0.0
         if self.pcache is not None:
             kv_local, kv_remote = self.pcache.attended_bytes(self.lens, active)
-        self.clock.advance(modeled_step_cost(
+        cost = modeled_step_cost(
             self.cfg, self.hw, self.plan.op_ratios, decode_slots=n_active,
             mean_kv_len=float(self.lens[active].mean()),
-            kv_local_bytes=kv_local, kv_remote_bytes=kv_remote, hbm_copy_bytes=0.0).total)
+            kv_local_bytes=kv_local, kv_remote_bytes=kv_remote, hbm_copy_bytes=0.0)
+        if modeled:
+            self.clock.advance(cost.total)
+        if self.profiler.enabled:
+            self.profiler.on_tick(cost)
 
     def _write_slot_cache(self, slot: int, cache1: dict[str, torch.Tensor],
                           prompt_len: int) -> None:
@@ -666,12 +912,67 @@ class ServingEngine:
         self.stats.spills = self.pcache.spills
 
     # ------------------------------------------------------------------
+    @staticmethod
+    def _bucket_window(w: int) -> int:
+        """Round the AIMD window up to the next power of two.  The compiled
+        step closes over the window (a static kernel parameter), so
+        bucketing keeps the number of distinct compilations at O(log W)
+        while the controller sweeps — safe because outputs are
+        bitwise-independent of the window (it only paces DMA issue)."""
+        return 1 << max(0, int(w) - 1).bit_length()
+
+    def _compiled_step(self, kind: str) -> tuple[StepGraph, str | None]:
+        """The captured decode step of the current (kind, window bucket,
+        pool shape) bucket, the reference's key: made on the bucket's first
+        step (captured as it runs), reused after.  Pool growth changes the
+        remote pool's shape and so the key.  Returns ``(graph, bucket)``,
+        ``bucket`` a label on a fresh bucket and None on a hit."""
+        wb = self._bucket_window(self.window)
+        if self.pcache is not None:
+            sl, sr = self.pcache.sink_local, self.pcache.sink_remote
+            key = (kind, wb, sl, sr,
+                   tuple(self.pcache.pools["k_local"].shape),
+                   tuple(self.pcache.pools["k_remote"].shape))
+        else:
+            sl = sr = 0
+            key = (kind, wb)
+        graph = self._compiled.get(key)
+        if graph is not None:
+            self.compile_cache_hits += 1
+            return graph, None
+        self.compile_count += 1
+        if self.device.type == "cuda" and self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(self.device)
+        graph = StepGraph(self._decode_fn(kind, wb, sl, sr), self.device,
+                          pool=self._graph_pool, stream=self._capture_stream)
+        self._compiled[key] = graph
+        return graph, f"{kind}/w{wb}"
+
+    def _decode_fn(self, kind: str, window: int, sink_local: int, sink_remote: int):
+        """The decode step of one bucket, ``fn(params, pools, cache)``:
+        bound to the fixed input buffers, not to the engine (so a cached
+        graph keeps no reference back to it)."""
+        return functools.partial(_decode_step, self.cfg, self._inputs.buffers, kind, window,
+                                 sink_local, sink_remote)
+
+    def _decode_state(self) -> tuple:
+        """What a decode step reads besides its inputs: params, pools and
+        recurrent state, updated in place (a capture bakes in their
+        addresses)."""
+        return self.params, self.pcache.pools if self.pcache is not None else None, self.cache
+
+    def _decode_kind(self) -> str:
+        if self.pcache is None:
+            return "ssm"                   # pure SSM: the recurrent step, no KV pages
+        return "hybrid" if self.cfg.family == "hybrid" else "paged"
+
     def step(self) -> None:
         """One engine step: the elastic drain, the scheduler's prefill round
         (chunks and admissions), then one ragged decode step for all active
-        slots.  With the adaptive runtime attached, the in-flight window is
-        re-read from the controller every step and a telemetry sample is
-        reported after the compute."""
+        slots, graphed or eager.  With the adaptive runtime attached, the
+        in-flight window is re-read from the controller every step and a
+        telemetry sample is reported after the compute."""
         t_step_clock = self.clock.now()    # engine-clock step origin (wall or modeled)
         self._preempt_moved_step = 0
         if self.runtime is not None:
@@ -682,7 +983,12 @@ class ServingEngine:
             self._pending_shrink = None
             self.shrink_local_budget(frac)
         self._elastic_step()               # drain any local-budget deficit
+        t_admit0 = self.clock.now() if self.recorder.enabled else 0.0
         prefill_tokens = self._admit()
+        if self.recorder.enabled:
+            self.recorder.span(ENGINE, 0, "admission", t_admit0,
+                               self.clock.now(), cat="sched",
+                               prefill_tokens=prefill_tokens)
         if not any(r is not None for r in self.active):
             if prefill_tokens:
                 self._runtime_step(t_step_clock, prefill_tokens,
@@ -694,52 +1000,50 @@ class ServingEngine:
                 if nxt is not None:
                     self.clock.advance(max(0.0, nxt - self.clock.now()))
             self._finish_step_health()
+            if self.flight is not None:
+                self.flight.record(self._flight_snapshot())
             return
         active = np.array([r is not None for r in self.active])
-        dev = self.device
-        tokens = torch.tensor(self._next_tok, device=dev)
-        timer = self._step_timer()
-        t0 = time.time()
         if self.pcache is None:
-            # pure SSM: the recurrent tiered step, no KV pages
-            if timer is not None:
-                timer.begin()
-            logits, self.cache = TD.tiered_ssm_decode_step(
-                self.cfg, self.params, self.cache, tokens, window=self.window)
-            if timer is not None:
-                timer.end()
-            nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()   # waits for the step
+            self._inputs.load(tokens=self._next_tok)
         else:
             self.pcache.touch_step(self.lens, active)
-            positions = np.where(active, self.lens, 0).astype(np.int32)
             for slot in np.nonzero(active)[0]:
                 self._ensure_capacity_elastic(int(slot), int(self.lens[slot]) + 1)
             self._note_occupancy()
-            wr_tier, wr_idx, wr_off = self.pcache.write_targets(self.lens, active)
-            table, tier = self.pcache.device_tables()
-            attn_lens = np.where(active, self.lens + 1, 0).astype(np.int32)
-            paged_args = (tokens, torch.tensor(positions, device=dev),
-                          torch.tensor(attn_lens, device=dev), table, tier, wr_tier, wr_idx,
-                          wr_off)
-            sinks = dict(sink_local=self.pcache.sink_local,
-                         sink_remote=self.pcache.sink_remote)
-            if timer is not None:
-                timer.begin()
-            if self.cfg.family == "hybrid":
-                logits, self.cache, pools_out = TD.tiered_hybrid_decode_step(
-                    self.cfg, self.params, self.cache, self.pcache.pools, *paged_args,
-                    **sinks, window=self.window)
-            else:
-                logits, pools_out = TD.paged_tiered_decode_step(
-                    self.cfg, self.params, self.pcache.pools, *paged_args, **sinks,
-                    window=self.window)
-            if timer is not None:
-                timer.end()
-            nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()   # waits for the step
-            self.pcache.commit_pools(pools_out)
+            wr_tier, wr_idx, wr_off = self.pcache.write_target_arrays(self.lens, active)
+            self._inputs.load(
+                tokens=self._next_tok, positions=np.where(active, self.lens, 0),
+                attn_lens=np.where(active, self.lens + 1, 0), table=self.pcache.table,
+                tier=self.pcache.tier, wr_tier=wr_tier, wr_idx=wr_idx, wr_off=wr_off)
+        timer = self._step_timer()
+        tc0 = self.clock.now() if self.recorder.enabled else 0.0
+        t0 = time.time()
+        bucket = None                      # compile-span label on a fresh bucket
+        if timer is not None:
+            timer.begin()
+        if self._jit:
+            graph, bucket = self._compiled_step(self._decode_kind())
+            tok_dev = graph.run(*self._decode_state())
+        else:
+            sinks = ((self.pcache.sink_local, self.pcache.sink_remote)
+                     if self.pcache is not None else (0, 0))
+            tok_dev = self._decode_fn(self._decode_kind(), self.window,
+                                      *sinks)(*self._decode_state())
+        if timer is not None:
+            timer.end()
+        nxt = self._inputs.fetch(tok_dev)  # the step's only host sync
         self.stats.decode_time += time.time() - t0
         self.stats.decode_steps += 1
         self._clock_tick_decode(active)
+        if self.recorder.enabled:
+            if bucket is not None:
+                self.recorder.span(ENGINE, 0, f"compile[{bucket}]", tc0,
+                                   self.clock.now(), cat="compile",
+                                   wall_ms=(time.time() - t0) * 1e3)
+            self.recorder.span(ENGINE, 0, "decode", tc0, self.clock.now(),
+                               cat="decode", slots=int(active.sum()),
+                               step=self.stats.decode_steps)
         self._runtime_step(t_step_clock, prefill_tokens, active)
         self._finish_step_health()
         for slot, req in enumerate(self.active):
@@ -760,6 +1064,8 @@ class ServingEngine:
                     self.pcache.free_slot(slot)
             else:
                 self._next_tok[slot, 0] = tok
+        if self.flight is not None:
+            self.flight.record(self._flight_snapshot())
 
     def _step_timer(self) -> CudaEventSource | None:
         """The runtime's measurement source when it times decode steps on
@@ -771,14 +1077,18 @@ class ServingEngine:
                       active: np.ndarray) -> None:
         """Report one step to the adaptive runtime and apply its actions:
         window update (read back at the top of the next step), bounded page
-        migration, and, on a re-plan, the repartitioned params tree.
+        migration, and, on a re-plan, the repartitioned params tree.  With
+        tracing on, the same accounting feeds the counter tracks (link
+        bytes, window, queue depth, deficit, health), runtime attached or
+        not; with the profiler on, it closes the step's ledger.
 
         Traffic accounting: decode reads every weight once per step, each
         prefill pass reads them once more; KV traffic follows the page
         table's tier map.  A `CudaEventSource` gets the decode pass's bytes
         to divide by its device time.  ``duration_s`` is engine-clock time
         (wall seconds, or modeled seconds on a ModeledClock replay)."""
-        if self.runtime is None:
+        if (self.runtime is None and not self.recorder.enabled
+                and not self.profiler.enabled):
             return
         n_active = int(active.sum())
         w_local, w_remote = self._weight_bytes
@@ -789,6 +1099,7 @@ class ServingEngine:
         if timer is not None and n_active:
             timer.observe(w_local + kv_local, w_remote + kv_remote)
         passes = (1 if n_active else 0) + self._prefill_calls_step
+        link_b = [w_remote * passes + kv_remote]      # one host link
         sample = StepSample(
             step=self.stats.decode_steps,
             duration_s=max(self.clock.now() - t_step_clock, 1e-9),
@@ -798,10 +1109,37 @@ class ServingEngine:
             active_slots=n_active,
             mean_kv_len=float(self.lens[active].mean()) if n_active else 0.0,
             local_bytes=w_local * passes + kv_local,
-            remote_bytes=w_remote * passes + kv_remote,
+            remote_bytes=sum(link_b),
             window=self.window,
             health=self.health.state,
             local_deficit=self.pcache.local_deficit if self.pcache is not None else 0)
+        if self.recorder.enabled:
+            rec, t = self.recorder, self.clock.now()
+            rec.counter(LINKS, "link_bytes", t,
+                        {f"link{i}": b for i, b in enumerate(link_b)})
+            rec.counter(LINKS, "window", t, {"slots": self.window})
+            rec.counter(LINKS, "queue_depth", t,
+                        {"requests": sample.queue_depth})
+            rec.counter(LINKS, "local_deficit", t,
+                        {"pages": sample.local_deficit})
+            rec.counter(LINKS, "health", t,
+                        {"level": HEALTH_LEVEL.get(self.health.state, -1)})
+        if self.profiler.enabled:
+            # close this step's ledger and put it on the trace: seconds per
+            # component and bandwidth optimality as counters, label changes
+            # as instants
+            ledger = self.profiler.close_step(sample, t_start=t_step_clock)
+            if self.recorder.enabled:
+                rec, t = self.recorder, self.clock.now()
+                rec.counter(LINKS, "attribution", t, ledger.components())
+                rec.counter(LINKS, "bw.optimal_fraction", t,
+                            {"fraction": ledger.optimal_fraction})
+                tr = self.profiler.last_transition
+                if tr is not None:
+                    rec.instant(ENGINE, 0, f"bottleneck:{tr[1]}->{tr[2]}", t,
+                                cat="bottleneck", step=tr[0])
+        if self.runtime is None:
+            return
         new_params = self.runtime.on_step(
             sample, cache=self.pcache, params=self.params,
             migration_used=self._preempt_moved_step)
@@ -814,11 +1152,59 @@ class ServingEngine:
         self.stats.final_window = self.runtime.window
         self._note_occupancy()
 
-    def run(self, max_steps: int = 10_000) -> EngineStats:
-        """Drive the engine until every submitted request is served."""
+    def _flight_snapshot(self) -> dict:
+        """One step's engine state for the flight-recorder ring (plain
+        JSON-serializable host values, no tensors)."""
+        snap: dict[str, Any] = {
+            "step": self.stats.decode_steps,
+            "clock_s": self.clock.now(),
+            "health": self.health.state,
+            "window": self.window,
+            "waiting": self.scheduler.waiting,
+            "prefilling": sorted(self.prefilling),
+            "active": [r.rid if r is not None else None for r in self.active],
+            "lens": self.lens.tolist(),
+            "served": self.stats.served,
+            "generated_tokens": self.stats.generated_tokens,
+        }
+        if self.pcache is not None:
+            snap["pages"] = {
+                "local_in_use": self.pcache.local_in_use,
+                "remote_in_use": self.pcache.remote_in_use,
+                "local_free": self.pcache.local_free,
+                "remote_free": len(self.pcache.free[REMOTE]),
+                "local_deficit": self.pcache.local_deficit,
+                "spills": self.pcache.spills,
+            }
+        led = self.profiler.last_ledger if self.profiler.enabled else None
+        if led is not None:
+            # where the dying run's time was going: the last closed ledger
+            snap["attribution"] = {
+                "step": led.step,
+                "label": led.label,
+                "components": led.components(),
+                "unattributed_s": led.unattributed(),
+                "optimal_fraction": led.optimal_fraction,
+            }
+        return snap
+
+    def run(self, max_steps: int = 10_000, *, step_hook=None) -> EngineStats:
+        """Drive the engine until every submitted request is served.
+        ``step_hook(steps)``, when given, runs after every engine step (the
+        serve command's periodic metrics flush), inside the guard that dumps the
+        flight ring when a step raises."""
         steps = 0
-        while (self.scheduler.waiting or self.prefilling
-               or any(r is not None for r in self.active)) and steps < max_steps:
-            self.step()
-            steps += 1
+        try:
+            while (self.scheduler.waiting or self.prefilling
+                   or any(r is not None for r in self.active)) and steps < max_steps:
+                self.step()
+                steps += 1
+                if step_hook is not None:
+                    step_hook(steps)
+        except Exception as e:
+            if self.flight is not None:
+                self.flight.dump(type(e).__name__, error=str(e),
+                                 final_snapshot=self._flight_snapshot(),
+                                 recorder=self.recorder)
+            raise
         return self.stats

@@ -445,16 +445,23 @@ class PagedTieredCache:
         return (torch.tensor(self.table, device=self.device),
                 torch.tensor(self.tier, device=self.device))
 
-    def write_targets(
+    def write_target_arrays(
         self, lens: np.ndarray, active: np.ndarray
-    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Per-slot (tier, pool index, in-page offset) for writing token
-        ``lens[slot]``; inactive slots are redirected to the local sink page.
-        Callers must have run :meth:`ensure_capacity` for active slots."""
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Per-slot (tier, pool index, in-page offset) int32 arrays for
+        writing token ``lens[slot]``; inactive slots are redirected to the
+        local sink page.  Callers must have run :meth:`ensure_capacity` for
+        active slots."""
         slots = np.arange(self.max_slots)
         p_c = np.minimum(lens // self.page_size, self.max_pages - 1)
         tier = np.where(active, self.tier[slots, p_c], LOCAL)
         idx = np.where(active, self.table[slots, p_c], self.sink_local)
         off = np.where(active, lens % self.page_size, 0)
-        return tuple(torch.tensor(a.astype(np.int32), device=self.device)
-                     for a in (tier, idx, off))
+        return tuple(a.astype(np.int32) for a in (tier, idx, off))
+
+    def write_targets(
+        self, lens: np.ndarray, active: np.ndarray
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """:meth:`write_target_arrays` as tensors on the pools' device."""
+        return tuple(torch.tensor(a, device=self.device)
+                     for a in self.write_target_arrays(lens, active))

@@ -713,3 +713,109 @@ def test_cuda_event_source_measures_a_decode_step(cuda_device):
     assert src.last_bytes[1] == pytest.approx(src.last.host_bw * src.last_seconds)
     assert src.measure(7) is src.last
     assert eng.run().served == 1 and src.timed_steps == eng.stats.decode_steps
+
+
+# ---------------------------------------------------------------------------
+# The compiled decode step: one CUDA graph per (window bucket, pool shape)
+# ---------------------------------------------------------------------------
+def _launch_counts() -> dict:
+    from repro_torch.serving.compiled_step import LAUNCH_COUNTERS
+
+    return {c.__name__: c.launches for c in LAUNCH_COUNTERS}
+
+
+def _graph_engine_run(cfg, params, dev, jit_step, *, shrink=None, runtime=None):
+    """Serve 5 prompts that force spills (3 slots, page 4, offload 0.5) one
+    engine step at a time; returns (engine, tokens, launches per step)."""
+    eng = ServingEngine(cfg, params, max_batch=3, max_len=32, global_offload_ratio=0.5,
+                        page_size=4, jit_step=jit_step, runtime=runtime, device=dev)
+    if shrink is not None:
+        eng.schedule_hbm_shrink(*shrink)
+    rng = np.random.default_rng(7)
+    reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab, n).astype(np.int32),
+                    max_new_tokens=8) for i, n in enumerate(SERVE_PROMPT_LENS)]
+    for r in reqs:
+        eng.submit(r)
+    per_step = []
+    while eng.scheduler.waiting or eng.prefilling or any(r is not None for r in eng.active):
+        before = _launch_counts()
+        eng.step()
+        per_step.append({k: v - before[k] for k, v in _launch_counts().items()})
+    assert eng.stats.served == len(reqs)
+    return eng, [r.out_tokens for r in reqs], per_step
+
+
+def _full_width(arch: str, dev):
+    cfg = dataclasses.replace(TC.get(arch), n_layers=2)
+    return cfg, TM.init_params(cfg, torch.Generator(device=dev).manual_seed(7), device=dev)
+
+
+@pytest.mark.parametrize("arch", ["llama2_7b", "mamba2_370m"])
+def test_graphed_step_matches_eager_on_card(cuda_device, arch):
+    """A 2-layer full-width fp32 model: the graphed engine's tokens equal
+    the eager engine's bit for bit, and every engine step launches each
+    kernel exactly as often (a replay adds the launches its capture
+    recorded); one bucket, every later decode step a hit."""
+    cfg, params = _full_width(arch, cuda_device)
+    eager_eng, eager, eager_steps = _graph_engine_run(cfg, params, cuda_device, False)
+    assert eager_eng.compile_count == 0 and not eager_eng.graphed
+    del eager_eng
+    eng, graphed, steps = _graph_engine_run(cfg, params, cuda_device, True)
+    assert graphed == eager
+    assert steps == eager_steps and sum(s["splitk_gemm"] for s in steps) > 0
+    assert eng.compile_count == 1 and eng.recaptures == 0
+    assert eng.compile_count + eng.compile_cache_hits == eng.stats.decode_steps
+    assert all(g.graph is not None for g in eng._compiled.values())
+
+
+def test_graphed_step_recaptures_after_grow_and_replan_on_card(cuda_device):
+    """The zero-budget runtime with a shrink to 20% of the local pages at
+    decode step 2 grows the remote pool (a new pool shape: a new bucket,
+    the old graph dropped) and forces re-plans that move weight columns
+    (their graphs dropped and captured again): the tokens stay those of
+    the same run eager."""
+    from repro_torch.runtime.controller import RuntimeController
+
+    cfg, params = _full_width("llama2_7b", cuda_device)
+    budgets = dict(window_budget=0, migration_budget=0, drift_threshold=float("inf"))
+
+    def runtime():
+        plan = TE.plan(cfg, WorkloadSpec(batch=3, seq_len=32, phase="decode"), H100_SXM,
+                       global_ratio=0.5, kv_page_size=4)
+        return RuntimeController(cfg, plan, H100_SXM, align=128, **budgets)
+
+    eager_eng, eager, eager_steps = _graph_engine_run(cfg, params, cuda_device, False,
+                                                      shrink=(2, 0.2), runtime=runtime())
+    del eager_eng
+    eng, graphed, steps = _graph_engine_run(cfg, params, cuda_device, True, shrink=(2, 0.2),
+                                            runtime=runtime())
+    assert graphed == eager and steps == eager_steps
+    assert eng.stats.remote_grown_pages > 0 and eng.stats.elastic_replans > 0
+    assert eng.recaptures >= 1
+    shapes = {key[5] for key in eng._compiled}
+    assert len(shapes) >= 2, "the grown remote pool gave a new bucket"
+    current = tuple(eng.pcache.pools["k_remote"].shape)
+    assert all(g.graph is None for key, g in eng._compiled.items() if key[5] != current)
+
+
+def test_failed_capture_raises_and_never_falls_back(cuda_device, monkeypatch):
+    """A step that syncs with the host cannot be captured: the engine
+    raises with the capture's error attached, stays graphed, and raises
+    again on the next step instead of running eagerly."""
+    cfg, params = _full_width("llama2_7b", cuda_device)
+    eng = ServingEngine(cfg, params, max_batch=3, max_len=32, global_offload_ratio=0.5,
+                        page_size=4, device=cuda_device)
+    real = TD.paged_tiered_decode_step
+
+    def syncing_step(*args, **kw):
+        logits, pools = real(*args, **kw)
+        float(logits.sum())                 # a host read: illegal while capturing
+        return logits, pools
+
+    monkeypatch.setattr(TD, "paged_tiered_decode_step", syncing_step)
+    eng.submit(Request(rid=0, prompt=np.arange(3, 12, dtype=np.int32), max_new_tokens=4))
+    with pytest.raises(RuntimeError, match="capturing the decode step"):
+        eng.step()
+    assert eng.graphed and not any(g.captured for g in eng._compiled.values())
+    with pytest.raises(RuntimeError, match="capturing the decode step"):
+        eng.step()
