@@ -16,8 +16,11 @@ runs, printing each result on its own line:
    prefill shapes and windows {1, 2, 4}, plus edge cases; bound: 2e-4
    relative error in fp32, 5e-2 in bf16 (the reference's own tolerances),
    taken per query row for flash_prefill; also the expert FFN at
-   Qwen3-30B-A3B's and DeepSeek-V2's widths (remote experts through
-   `splitk_gemm`, those without a valid slot skipped), paged attention
+   Qwen3-30B-A3B's and DeepSeek-V2's widths (the remote block through two
+   `splitk_gemm_grouped` launches, experts without a valid slot skipped on
+   the device, also held against the per-expert `splitk_gemm` loop it
+   replaced), `splitk_gemm_grouped` alone (K splits, M tiles past 64 rows,
+   ragged N, one and no active expert), paged attention
    at MLA's shape (128 heads over one kv head of 576, V read from K), at
    the dense variants' and LLaVA-NeXT-34B's (112 heads over 56, 48 over 8,
    32 over 2, 64 over 8) and at Zamba2's shared attention (32 heads over
@@ -65,13 +68,16 @@ runs, printing each result on its own line:
 11. MoE token parity: phase 3's check on a 2-layer full-width Qwen3-30B-A3B
    in fp32 with dropless expert capacity;
 12. the MoE served run: Qwen3-30B-A3B at its published widths and depth
-   (48 layers), bf16, as phase 4 (plus remote-expert launches, remote bytes
-   per decode step, and a check that the remote-expert launches are twice
-   the remote experts holding a valid slot in every decode step);
+   (48 layers), bf16, as phase 4, graphed (plus remote experts run and
+   remote bytes per decode step, and a check of 2 `splitk_gemm_grouped`
+   launches per MoE layer in every decode step); then the same traffic
+   eager on the same engine: tokens and remote experts run in every step
+   equal, TPOT and the profiler's step beside the graphed run's;
 13. MLA token parity: phase 3's check on a 1-layer full-width DeepSeek-V2
    in fp32 with dropless expert capacity;
 14. the MLA served run: DeepSeek-V2 at its published widths, 2 of 60
-   layers, bf16, as phase 12 (60 layers would pin about 236 GB);
+   layers, bf16, as phase 12, graphed then eager (60 layers would pin
+   about 236 GB);
 15. OPT token parity: phase 3's check on a 2-layer full-width OPT-30B in
    fp32 (LayerNorm and GELU with biases, 56 kv heads, padded query heads,
    the ragged lm_head split);
@@ -137,7 +143,7 @@ runs, printing each result on its own line:
    pinned bytes rise, the re-plan's transient below one operand layer, its
    pause and TPOT and remote bytes a step before and after;
 29. the compiled decode step (one CUDA graph per window bucket and pool
-   shape, the default of every family but MoE): fp32 at full width and cut
+   shape, the default of every family): fp32 at full width and cut
    depth (2 layers of llama2-7b, Mamba2-370M and LLaVA-NeXT-34B, 12 of
    Zamba2-2.7B), graphed tokens equal to the eager engine's and the plain
    reference's, launches per engine step equal to eager's; then llama2-7b
@@ -151,10 +157,9 @@ keeps than building one layer holds (`setup_transient_bound`), that the
 pinned host bytes are its remote weights and remote KV pool and nothing
 else, that every operand the plan rates is tiered unless its remote extent
 rounds to nothing, and that splitk_gemm runs once per column-split weight a
-layer (a shared one a group) plus lm_head in each decode step (every family
-but MoE, whose remote experts are counted as they run); the decode steps run
-graphed (MoE eagerly, and the phase says why), the launch counts of a replay
-added by the graph as its capture recorded them;
+layer (a shared one a group) plus lm_head in each decode step, and
+splitk_gemm_grouped twice per MoE layer; the decode steps run graphed, the
+launch counts of a replay added by the graph as its capture recorded them;
 each phase starts with what earlier ones held freed and prints the pinned
 host bytes still held; then one JSON line listing the kernels, the card's name and power limit,
 and the final JSON status line.
@@ -192,7 +197,8 @@ SPLIT_PROMPT_LEN = 256      # prompt length of the batch-split served run (phase
 PAGED_LENS = (150, 144, 139, 158)        # the paged served run's late-step lengths (phase 5)
 PAGED_LONG_LENS = (2000, 1937, 2048, 1985)   # a long cache: 122-128 pages per slot
 SPLIT_KV_LEN = 288          # the batch-split served run's late-step length (phase 5)
-KERNELS = ("splitk_gemm", "paged_attention", "splitk_flashattn", "flash_prefill")
+KERNELS = ("splitk_gemm", "splitk_gemm_grouped", "paged_attention", "splitk_flashattn",
+           "flash_prefill")
 OPT30B_PEAK_LIMIT = 40e9    # device bytes OPT-30B may peak at (70.5 GB of bf16 weights)
 ZAMBA2_PARITY_LAYERS = 12   # two groups of 6: both shared blocks run (phases 2 and 20)
 
@@ -410,15 +416,37 @@ def scatter_case(gen):
               "bit-identical to the plain index_put")
 
 
+def per_expert_ffn(buf, valid, wi, wdown, e_loc):
+    """The remote block as the port ran it before the grouped entry: one
+    host read of the counts, then two `splitk_gemm` launches per remote
+    expert with a valid slot (remote-only operands), the others left zero.
+    Returns the remote block [G, E_rem, C, d]."""
+    from repro_torch.kernels.splitk_gemm import splitk_gemm
+
+    g, _, c, d = buf.shape
+    out = torch.zeros_like(buf[:, e_loc:])
+    empty = lambda w: buf.new_empty((w.shape[0], 0))  # noqa: E731
+    for j, n in enumerate(valid[:, e_loc:].sum(dim=(0, 2)).tolist()):
+        if n:
+            x = buf[:, e_loc + j].reshape(g * c, d).contiguous()
+            gate, up = torch.chunk(splitk_gemm(x, empty(wi[j]), wi[j]), 2, dim=-1)
+            h = (torch.nn.functional.silu(gate) * up).contiguous()
+            out[:, j] = splitk_gemm(h, empty(wdown[j]), wdown[j]).reshape(g, c, d)
+    return out
+
+
 def expert_case(label, d, ff, e_loc, e_rem, dtype, gen, stats=None):
     """The tiered expert FFN (`layers.tiered_expert_ffn`: local experts
-    batched from HBM, each remote expert with a valid slot through two
-    `splitk_gemm` launches on its matrices in pinned host memory, the
-    others skipped) against `_expert_ffn` over both tiers on the card (the
-    remote block in HBM for the check only), at 1 and 12 rows per expert,
-    each expert holding a random prefix of its slots (none for some)."""
+    batched from HBM, the remote block through one `splitk_gemm_grouped`
+    launch per matrix over the pinned stacks, experts without a valid slot
+    skipped on the device) against `_expert_ffn` over both tiers on the
+    card (the remote block in HBM for the check only) and against the
+    per-expert `splitk_gemm` loop it replaced, at 1 and 12 rows per expert,
+    each expert holding a random prefix of its slots (none for some):
+    exactly 2 grouped launches, no `splitk_gemm` launch, and the device
+    counter of remote experts run equal to the experts holding a slot."""
     from repro_torch.core.tiering import TieredTensor
-    from repro_torch.kernels.splitk_gemm import splitk_gemm
+    from repro_torch.kernels.splitk_gemm import splitk_gemm, splitk_gemm_grouped
     from repro_torch.models import layers as L
     from repro_torch.serving import tiered_decode as TD
 
@@ -434,21 +462,54 @@ def expert_case(label, d, ff, e_loc, e_rem, dtype, gen, stats=None):
         valid = torch.arange(rows, device="cuda")[None, None, :] < n_valid
         buf = buf.masked_fill(~valid[..., None], 0)
         active = int(valid[0, e_loc:].any(dim=-1).sum())
-        before, ran = splitk_gemm.launches, L.tiered_expert_ffn.remote_experts
+        before = (splitk_gemm.launches, splitk_gemm_grouped.launches,
+                  int(L.tiered_expert_ffn.remote_experts))
         got = L.tiered_expert_ffn(buf, valid, split["wi"], split["wdown"],
                                   mm=TD.kernel_mm(1))
         torch.cuda.synchronize()
-        launches, ran = splitk_gemm.launches - before, L.tiered_expert_ffn.remote_experts - ran
+        gemm, grouped, ran = (splitk_gemm.launches - before[0],
+                              splitk_gemm_grouped.launches - before[1],
+                              int(L.tiered_expert_ffn.remote_experts) - before[2])
         want = L._expert_ffn(buf, full["wi"], full["wdown"])
+        loop = per_expert_ffn(buf, valid, split["wi"].remote, split["wdown"].remote, e_loc)
+        torch.cuda.synchronize()
         rel, ab = rel_err(got, want)
-        check(rel < TOL[dtype] and torch.isfinite(got.float()).all().item()
-              and launches == 2 * active and ran == active,
+        rel_loop, ab_loop = rel_err(got[:, e_loc:], loop)
+        check(rel < TOL[dtype] and rel_loop < TOL[dtype]
+              and torch.isfinite(got.float()).all().item()
+              and grouped == 2 and gemm == 0 and ran == active,
               f"expert FFN {label} d={d} ff={ff} experts {e_loc}|{e_rem} rows={rows} "
-              f"{str(dtype)[6:]}: max rel err {rel:.2e} (abs {ab:.2e}, bound "
-              f"{TOL[dtype]:.0e}); {active} remote experts hold a valid slot, {ran} ran, "
-              f"{launches} splitk_gemm launches")
+              f"{str(dtype)[6:]}: max rel err {rel:.2e} (abs {ab:.2e}) against the plain "
+              f"version, {rel_loop:.2e} (abs {ab_loop:.2e}) against the per-expert splitk_gemm "
+              f"loop (bound {TOL[dtype]:.0e}); {active} remote experts hold a valid slot, "
+              f"{ran} ran; {grouped} splitk_gemm_grouped and {gemm} splitk_gemm launches")
         note_err(stats, rel, ab)
     del full, split
+
+
+def grouped_case(label, e, m, k, n, dtype, windows, gen, stats=None, active=None):
+    """`splitk_gemm_grouped` alone against its plain version on the card
+    (the stack in HBM for the check only): experts `active` (default every
+    other one) hold a count, the rest must come out zero."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.splitk_gemm import splitk_gemm_grouped
+
+    w_dev = (torch.randn((e, k, n), generator=gen, device="cuda") * 0.02).to(dtype)
+    w = pinned_copy(w_dev)
+    x = torch.randn((e, m, k), generator=gen, device="cuda").to(dtype)
+    counts = torch.zeros(e, dtype=torch.int32, device="cuda")
+    counts[list(range(0, e, 2)) if active is None else list(active)] = 1
+    want = ref.splitk_gemm_grouped_ref(x, w_dev, counts)
+    for win in windows:
+        got = splitk_gemm_grouped(x, w, counts, window=win)
+        torch.cuda.synchronize()
+        rel, ab = rel_err(got, want)
+        zeros = bool((got[counts == 0] == 0).all())
+        check(rel < TOL[dtype] and zeros and torch.isfinite(got.float()).all().item(),
+              f"splitk_gemm_grouped {label} E={e} M={m} K={k} N={n} {str(dtype)[6:]} "
+              f"window={win}: max rel err {rel:.2e} (abs {ab:.2e}, bound {TOL[dtype]:.0e}), "
+              f"{int((counts > 0).sum())} active, skipped experts zero: {zeros}")
+        note_err(stats, rel, ab)
 
 
 def tree_leaves(tree, prefix=""):
@@ -650,7 +711,15 @@ def phase_kernels() -> dict:
         for label, (d, ff, e_half) in (("qwen3-moe", (2048, 768, 64)),
                                        ("deepseek-v2", (5120, 1536, 80))):
             expert_case(label, d, ff, e_half, e_half, dtype, gen,
-                        stats["splitk_gemm"] if dtype == bf else None)
+                        stats["splitk_gemm_grouped"] if dtype == bf else None)
+    # the grouped entry alone: K splits with tickets (few tiles), M tiles
+    # beyond 64 rows (dropless prefill), ragged N, one active expert, none
+    for dtype in (bf, torch.float32):
+        grouped_case("split-K", 3, 4, 512, 64, dtype, (1, 2), gen)
+        grouped_case("M tiles", 4, 150, 256, 192, dtype, (1, 2), gen)
+        grouped_case("ragged N", 5, 24, 96, 72, dtype, (2,), gen)
+        grouped_case("one active", 64, 1, 2048, 1536, dtype, (1,), gen, active=(63,))
+        grouped_case("none active", 8, 3, 256, 128, dtype, (1,), gen, active=())
     f32 = torch.float32
     for dtype in (bf, f32):
         splitk_attn_case("full-width", 2, 2, 32, 32, 128, 512, (1, 255, 257, 512), dtype,
@@ -788,7 +857,7 @@ def phase_serve(arch: str = "llama2_7b", n_layers: int | None = None, n_req: int
     from repro_torch.core.tiering import TieredTensor, split_sizes
     from repro_torch.kernels import _build
     from repro_torch.kernels.splitk_flashattn import paged_splitk_flashattn, scatter_rows
-    from repro_torch.kernels.splitk_gemm import splitk_gemm
+    from repro_torch.kernels.splitk_gemm import splitk_gemm, splitk_gemm_grouped
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
     from repro_torch.models.registry import resolve
@@ -830,7 +899,8 @@ def phase_serve(arch: str = "llama2_7b", n_layers: int | None = None, n_req: int
           f"pinned host memory, none on the card")
     # What one decode step reads from the host, weights by operand type: each
     # column-split layer leaf once a layer, a hybrid's shared leaves once a
-    # group, lm_head once, each remote expert that runs its two matrices once.
+    # group, lm_head once, each remote expert that runs its two matrices once
+    # (one grouped launch per expert matrix a layer).
     layer_cols = [w for w in eng.params["layers"].values()
                   if isinstance(w, TieredTensor) and w.axis != -3]
     shared_cols = [w for w in eng.params.get("shared", {}).values()
@@ -858,32 +928,12 @@ def phase_serve(arch: str = "llama2_7b", n_layers: int | None = None, n_req: int
         check(len(experts) == 2 and all(w.local.is_cuda for w in experts),
               f"both expert stacks split {experts[0].local.shape[1]}|{e_rem} experts per layer "
               f"(local tier on the card)" if experts else "expert stacks tiered")
-    rng = np.random.default_rng(0)
-    reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab, prompt_len).astype(np.int32),
-                    max_new_tokens=new_tokens) for i in range(n_req)]
-    for r in reqs:
-        eng.submit(r)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    splitk_gemm.launches = paged_splitk_flashattn.launches = scatter_rows.launches = 0
-    L.tiered_expert_ffn.remote_experts = 0
-    decode = []                                # the steps that admitted nothing
-    t0 = time.time()
-    while eng.scheduler.waiting or any(r is not None for r in eng.active):
-        before = (splitk_gemm.launches, paged_splitk_flashattn.launches,
-                  L.tiered_expert_ffn.remote_experts, len(eng.stats.ttfts),
-                  eng.stats.decode_steps)
-        kv_pages = remote_kv_pages(eng)
-        eng.step()
-        if eng.stats.decode_steps > before[4] and len(eng.stats.ttfts) == before[3]:
-            decode.append({"gemm": splitk_gemm.launches - before[0],
-                           "attn": paged_splitk_flashattn.launches - before[1],
-                           "experts": L.tiered_expert_ffn.remote_experts - before[2],
-                           "kv_pages": kv_pages})
-    torch.cuda.synchronize()
-    wall = time.time() - t0
+    reqs, decode, wall = serve_stepping(eng, cfg, n_req, prompt_len, new_tokens)
     stats = eng.stats
     launches = {"splitk_gemm": splitk_gemm.launches,
+                "splitk_gemm_grouped": splitk_gemm_grouped.launches,
                 "paged_attention": paged_splitk_flashattn.launches,
                 "scatter_rows": scatter_rows.launches}
     peak = torch.cuda.max_memory_allocated()
@@ -897,14 +947,13 @@ def phase_serve(arch: str = "llama2_7b", n_layers: int | None = None, n_req: int
           f"TPOT {stats.tpot * 1e3:.1f} ms over {stats.decode_steps} decode steps | "
           f"TTFT p50 {stats.ttft_p50 * 1e3:.1f} ms | prefill total {stats.prefill_time:.2f} s")
     print(f"launches during the served run: {launches}")
-    print(f"decode step: graphed={eng.graphed}"
-          + (f" (eager: {eng.eager_reason})" if eng.eager_reason else "")
-          + f" | compile_count {eng.compile_count} | cache hits {eng.compile_cache_hits} | "
-            f"recaptures {eng.recaptures}")
+    print(f"decode step: graphed={eng.graphed} | compile_count {eng.compile_count} | cache hits "
+          f"{eng.compile_cache_hits} | recaptures {eng.recaptures}")
     gemm_part, bytes_part = ")", ""
     if experts:
-        gemm_part = (f", {mean('gemm') - static_launches:.2f} for remote experts); remote "
-                     f"experts run {mean('experts'):.2f} of {e_rem * cfg.n_layers}")
+        gemm_part = (f"); splitk_gemm_grouped {mean('grouped'):.2f} (2 x {cfg.n_layers} MoE "
+                     f"layers); remote experts run {mean('experts'):.2f} of "
+                     f"{e_rem * cfg.n_layers}")
         no_skip = remote_step + (e_rem * cfg.n_layers - mean("experts")) * expert_bytes
         bytes_part = f"; {no_skip / 1e9:.3f} GB if every remote expert were read"
     cols = (f"{cfg.n_layers} layers x {len(layer_cols)} + {len(groups)} groups x "
@@ -935,10 +984,10 @@ def phase_serve(arch: str = "llama2_7b", n_layers: int | None = None, n_req: int
           and all(s["attn"] == kv_layers for s in decode),
           f"paged attention launched exactly {kv_layers} times per decode step")
     if experts:
-        bad = [s for s in decode if s["gemm"] - static_launches != 2 * s["experts"]]
-        check(n_dec > 0 and not bad and L.tiered_expert_ffn.remote_experts > 0,
-              f"remote-expert launches equal twice the remote experts with a valid slot in "
-              f"each of {n_dec} decode steps ({len(bad)} steps differ)")
+        bad = [s for s in decode if s["grouped"] != 2 * cfg.n_layers]
+        check(n_dec > 0 and not bad and sum(s["experts"] for s in decode) > 0,
+              f"splitk_gemm_grouped launched exactly 2 x {cfg.n_layers} MoE layers times in "
+              f"each of {n_dec} decode steps ({len(bad)} steps differ), remote experts ran")
     if pc is not None:
         check(stats.local_pages_hwm >= 1 and stats.remote_pages_hwm >= 1,
               "KV pages resident in both tiers")
@@ -954,21 +1003,85 @@ def phase_serve(arch: str = "llama2_7b", n_layers: int | None = None, n_req: int
           f"{setup_peak / 1e9:.3f} - before {base / 1e9:.3f} - device weights "
           f"{w_local / 1e9:.3f}), below what building one layer at a time holds, "
           f"{bound / 1e9:.3f} GB ({terms}): {whole}")
-    if not experts:
-        check(n_dec > 0 and all(s["gemm"] == static_launches for s in decode),
-              f"splitk_gemm launched exactly {static_launches} times per decode step ({cols}"
-              f" column-split weights)")
+    check(n_dec > 0 and all(s["gemm"] == static_launches for s in decode),
+          f"splitk_gemm launched exactly {static_launches} times per decode step ({cols}"
+          f" column-split weights)")
     if peak_limit is not None:
         check(setup_peak < peak_limit and peak < peak_limit,
               f"peak device memory during set-up {setup_peak / 1e9:.3f} GB and during serving "
               f"{peak / 1e9:.3f} GB, each below {peak_limit / 1e9:.0f} GB against "
               f"{total_w / 1e9:.3f} GB of weights")
-    check(eng.graphed == (cfg.family != "moe") and (eng.compile_count > 0) == eng.graphed,
-          f"decode steps graphed by default ({eng.compile_count} buckets) unless MoE, which "
-          f"stays eager")
-    profile_decode_steps(eng, cfg, rng, prompt_len)
+    check(eng.graphed and eng.compile_count > 0,
+          f"decode steps graphed by default ({eng.compile_count} buckets)")
+    profile_decode_steps(eng, cfg, np.random.default_rng(1), prompt_len)
+    if experts:
+        eager_beside(eng, cfg, reqs, decode, n_req, prompt_len, new_tokens,
+                     static_remote + kv_step, expert_bytes)
     return {"launches": launches, "tpot_ms": stats.tpot * 1e3,
             "steps": stats.decode_steps, "engine": eng}
+
+
+def serve_stepping(eng, cfg, n_req, prompt_len, new_tokens):
+    """Serve `n_req` requests of `prompt_len` random tokens (seed 0) one
+    engine step at a time, the wrapper counts reset first; returns the
+    requests, each decode step that admitted nothing (launches, remote
+    experts run, remote KV pages attended) and the wall time."""
+    from repro_torch.kernels.splitk_flashattn import paged_splitk_flashattn, scatter_rows
+    from repro_torch.kernels.splitk_gemm import splitk_gemm, splitk_gemm_grouped
+    from repro_torch.models import layers as L
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab, prompt_len).astype(np.int32),
+                    max_new_tokens=new_tokens) for i in range(n_req)]
+    for r in reqs:
+        eng.submit(r)
+    splitk_gemm.launches = splitk_gemm_grouped.launches = 0
+    paged_splitk_flashattn.launches = scatter_rows.launches = 0
+    L.tiered_expert_ffn.remote_experts.reset()
+    decode = []                                # the steps that admitted nothing
+    t0 = time.time()
+    while eng.scheduler.waiting or any(r is not None for r in eng.active):
+        before = (splitk_gemm.launches, splitk_gemm_grouped.launches,
+                  paged_splitk_flashattn.launches, int(L.tiered_expert_ffn.remote_experts),
+                  len(eng.stats.ttfts), eng.stats.decode_steps)
+        kv_pages = remote_kv_pages(eng)
+        eng.step()
+        if eng.stats.decode_steps > before[5] and len(eng.stats.ttfts) == before[4]:
+            decode.append({"gemm": splitk_gemm.launches - before[0],
+                           "grouped": splitk_gemm_grouped.launches - before[1],
+                           "attn": paged_splitk_flashattn.launches - before[2],
+                           "experts": int(L.tiered_expert_ffn.remote_experts) - before[3],
+                           "kv_pages": kv_pages})
+    torch.cuda.synchronize()
+    return reqs, decode, time.time() - t0
+
+
+def eager_beside(eng, cfg, graphed_reqs, graphed, n_req, prompt_len, new_tokens,
+                 fixed_step_bytes, expert_bytes) -> None:
+    """The MoE served run again on the same engine (its cache state reset),
+    decode steps eager: tokens, remote experts run and remote bytes a step
+    equal to the graphed run's; TPOT and the profiler's traced step, device
+    busy and host time a step beside the graphed run's (printed above)."""
+    fresh_serving_state(eng)
+    eng._jit = False
+    reqs, decode, wall = serve_stepping(eng, cfg, n_req, prompt_len, new_tokens)
+    st = eng.stats
+    mean = lambda steps, key: sum(s[key] for s in steps) / max(1, len(steps))  # noqa: E731
+    step_gb = {name: (fixed_step_bytes + mean(steps, "experts") * expert_bytes) / 1e9
+               for name, steps in (("graphed", graphed), ("eager", decode))}
+    print(f"eager beside (same engine, cache state reset): served {st.served}/{n_req} in "
+          f"{wall:.2f} s | TPOT {st.tpot * 1e3:.1f} ms over {st.decode_steps} decode steps | "
+          f"remote experts run {mean(decode, 'experts'):.2f} a step (graphed "
+          f"{mean(graphed, 'experts'):.2f}) | remote bytes a step {step_gb['eager']:.3f} GB "
+          f"(graphed {step_gb['graphed']:.3f}) | splitk_gemm_grouped "
+          f"{mean(decode, 'grouped'):.2f} a step")
+    check([r.out_tokens for r in reqs] == [r.out_tokens for r in graphed_reqs]
+          and [s["experts"] for s in decode] == [s["experts"] for s in graphed],
+          f"{cfg.name}: eager tokens and remote experts run in each of {len(decode)} decode "
+          f"steps equal the graphed run's ({sum(s['experts'] for s in decode)} in all), so "
+          f"remote bytes a step too ({step_gb['eager']:.3f} GB)")
+    profile_decode_steps(eng, cfg, np.random.default_rng(1), prompt_len)
 
 
 def setup_transient_bound(params) -> tuple[float, str]:
@@ -1247,7 +1360,97 @@ def phase_timing(card: dict, window: int) -> dict:
               f"wrapper calls {s['wrapper_ms']:.3f}, host {s['host_ms']:.3f}) | library "
               f"{s['library_ms']:.3f} ms | bound {s['bound_ms']:.3f} ms")
     step["flash_prefill"] = time_flash_prefill(flush, gen)
+    step["splitk_gemm_grouped"] = time_grouped_experts(link, flush, gen, window)
     return step
+
+
+QWEN3_EXPERTS = dict(d=2048, ff=768, e_rem=64, layers=48)   # offload 0.5
+QWEN3_ACTIVE = 15           # remote experts with a slot a layer (about 14.7 in phase 12)
+
+
+def time_grouped_experts(link, flush, gen, window) -> dict:
+    """The remote expert block of one Qwen3-30B-A3B MoE layer at decode
+    (batch 4, capacity 1: M = 1; 64 remote experts, `QWEN3_ACTIVE` of them
+    with a slot): `splitk_gemm_grouped` on wi then wdown (the kernel),
+    beside the per-expert `splitk_gemm` loop it replaced, the plain version
+    with both stacks in HBM, and a library yardstick (the active experts
+    copied from pinned memory into HBM, then `torch.bmm`); bound: the
+    active experts' bytes over the host link.  Returned per decode step
+    (48 layers)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.splitk_gemm import splitk_gemm_grouped
+
+    bf = torch.bfloat16
+    d, ff, e, n_layers = (QWEN3_EXPERTS[k] for k in ("d", "ff", "e_rem", "layers"))
+    w_dev = {"wi": (torch.randn((e, d, 2 * ff), generator=gen, device="cuda") * 0.02).to(bf),
+             "wdown": (torch.randn((e, ff, d), generator=gen, device="cuda") * 0.02).to(bf)}
+    w = {k: pinned_copy(v) for k, v in w_dev.items()}
+    act_host = sorted(torch.randperm(e, generator=torch.Generator().manual_seed(5))
+                      [:QWEN3_ACTIVE].tolist())
+    act = torch.tensor(act_host, device="cuda")
+    counts = torch.zeros(e, dtype=torch.int32, device="cuda")
+    counts[act] = 1
+    valid = torch.zeros((1, e, 1), dtype=torch.bool, device="cuda")
+    valid[0, act, 0] = True
+    buf = torch.randn((1, e, 1, d), generator=gen, device="cuda").to(bf) * valid[..., None]
+    x = buf.reshape(e, 1, d)
+
+    def kernel():
+        gate, up = torch.chunk(splitk_gemm_grouped(x, w["wi"], counts, window=window), 2, -1)
+        return splitk_gemm_grouped(torch.nn.functional.silu(gate) * up, w["wdown"], counts,
+                                   window=window)
+
+    def plain():
+        gate, up = torch.chunk(ref.splitk_gemm_grouped_ref(x, w_dev["wi"], counts), 2, -1)
+        return ref.splitk_gemm_grouped_ref(torch.nn.functional.silu(gate) * up, w_dev["wdown"],
+                                           counts)
+
+    staged = {k: torch.empty((QWEN3_ACTIVE, *v.shape[1:]), dtype=bf, device="cuda")
+              for k, v in w.items()}
+
+    def library():
+        for k in staged:
+            for i, j in enumerate(act_host):
+                staged[k][i].copy_(w[k][j], non_blocking=True)
+        gate, up = torch.chunk(torch.bmm(x[act], staged["wi"]), 2, -1)
+        return torch.bmm(torch.nn.functional.silu(gate) * up, staged["wdown"])
+
+    def loop():
+        return per_expert_ffn(buf, valid, w["wi"], w["wdown"], 0)
+
+    want = plain()
+    for label, got in (("kernel", kernel()), ("per-expert loop", loop()[0].reshape(e, 1, d)),
+                       ("library", None)):
+        if got is None:
+            got = torch.zeros_like(want)
+            got[act] = library()
+        torch.cuda.synchronize()
+        rel, _ = rel_err(got, want)
+        check(rel < TOL[bf], f"grouped remote experts ({label}) at Qwen3 widths: max rel err "
+                             f"{rel:.2e}")
+    rounds = alternate([kernel, loop, library], flush)
+    t_kernel, t_loop, t_lib = (statistics.median(v) for v in rounds)
+    t_plain = time_ms(plain, flush=flush)
+    rem_b = QWEN3_ACTIVE * (d * 2 * ff + ff * d) * 2
+    loc_b = (x.numel() + e * 2 * ff + e * ff + e * d) * 2
+    flops = QWEN3_ACTIVE * 2 * (d * 2 * ff + ff * d)
+    b_ms, b_by = bound(loc_b, rem_b, flops, link, BF16_PEAK)
+    gbs = lambda ms: rem_b / (ms * 1e-3) / 1e9  # noqa: E731
+    print(f"  remote experts of one Qwen3-30B-A3B layer at decode ({QWEN3_ACTIVE} of {e} active, "
+          f"M=1, {rem_b / 1e6:.2f} MB, wi + wdown), medians of {ROUNDS} alternating rounds: "
+          f"splitk_gemm_grouped {t_kernel:.4f} ms ({gbs(t_kernel):.2f} GB/s, 2 launches) | "
+          f"per-expert splitk_gemm loop {t_loop:.4f} ms ({gbs(t_loop):.2f} GB/s, "
+          f"{2 * QWEN3_ACTIVE} launches and a count read) | plain {t_plain:.4f} ms | bound "
+          f"{b_ms:.4f} ms ({b_by}) | copy active experts + bmm {t_lib:.4f} ms "
+          f"({gbs(t_lib):.2f} GB/s)")
+    t_bytes = max(loc_b / HBM_BW, rem_b / link)
+    out = {"ms": t_kernel, "loop_ms": t_loop, "plain_ms": t_plain, "bound_ms": b_ms,
+           "library_ms": t_lib, "t_bytes": t_bytes, "t_ops": flops / BF16_PEAK}
+    out = {k: n_layers * v for k, v in out.items()}
+    print(f"  per Qwen3 decode step ({n_layers} MoE layers): splitk_gemm_grouped {out['ms']:.3f} "
+          f"ms (per-expert loop {out['loop_ms']:.3f}, copy + bmm {out['library_ms']:.3f}) vs "
+          f"bound {out['bound_ms']:.3f} ms")
+    return out
 
 
 def per_step(t: dict, n_layers: int) -> dict:
@@ -2643,6 +2846,7 @@ def fresh_serving_state(eng) -> None:
     partitioned weights."""
     from repro_torch.serving.engine import EngineStats
 
+    eng._drop_graphs()                     # they hold the old pools' addresses
     if eng.pcache is not None:
         eng.pcache = None
         gc.collect()
@@ -2724,9 +2928,11 @@ def phase_compiled_serve() -> None:
 
 def add_launches(launches: dict, path: dict) -> None:
     """Keep each kernel's count from the first path run that launched it: the
-    paged served run (phase 4) for the kernels of the main path."""
+    paged served run (phase 4) for the kernels of the main path, the MoE
+    served run (phase 12) for `splitk_gemm_grouped`."""
     for name, n in path.items():
-        launches.setdefault(name, n)
+        if n:
+            launches.setdefault(name, n)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -2855,6 +3061,9 @@ def main(argv: list[str] | None = None) -> int:
     replaces = {
         "splitk_gemm": ("src/repro_torch/kernels/csrc/splitk_gemm.cu",
                         "src/repro/kernels/splitk_gemm.py:37"),
+        # no Pallas kernel: the reference's XLA einsum over the remote experts
+        "splitk_gemm_grouped": ("src/repro_torch/kernels/csrc/splitk_gemm.cu",
+                                "src/repro/models/layers.py:440"),
         "paged_attention": ("src/repro_torch/kernels/csrc/paged_flashattn.cu",
                             "src/repro/kernels/splitk_flashattn.py:236"),
         "splitk_flashattn": ("src/repro_torch/kernels/csrc/splitk_flashattn.cu",
@@ -2875,11 +3084,13 @@ def main(argv: list[str] | None = None) -> int:
             "library_ms": s.get("library_ms"),
         })
     print("kernel times: splitk_gemm and paged_attention per decode step of the served run "
-          "(batch 4, 32 layers + lm_head), splitk_flashattn per batch-split decode step "
-          "(32 layers, kv_len 288), flash_prefill per call at B=4 T=2048 causal; launches: "
-          "the first path run that launched each kernel (splitk_gemm and paged_attention in "
-          "phase 4, or the first other served phase that ran; splitk_flashattn in phase 7, "
-          "flash_prefill in phase 8); "
+          "(batch 4, 32 layers + lm_head), splitk_gemm_grouped per Qwen3-30B-A3B decode step "
+          f"(48 layers, {QWEN3_ACTIVE} of 64 remote experts active), splitk_flashattn per "
+          "batch-split decode step (32 layers, kv_len 288), flash_prefill per call at B=4 "
+          "T=2048 causal; launches: the first path run that launched each kernel "
+          "(splitk_gemm and paged_attention in phase 4, splitk_gemm_grouped in phase 12, or "
+          "the first other served phase that ran; splitk_flashattn in phase 7, flash_prefill "
+          "in phase 8); "
           "max_abs_err is over the bf16 full-width shape checks")
     print(json.dumps({"kernels": kernels}))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -44,6 +44,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "splitk_gemm": {
         "dak_splitk_gemm": [_P] * 4 + [_I] * 6 + [_P, _P, _I, _P],
+        "dak_splitk_gemm_grouped": [_P] * 4 + [_I] * 6 + [_P, _P, _I, _P],
     },
     "paged_flashattn": {
         "dak_paged_attention": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _I, _I, _P],

@@ -54,6 +54,21 @@
 // FMA into fp32 registers.
 // Ragged M, N and K edges are masked (TMA and cp.async zero-fill); a tier
 // may be empty.
+//
+// Grouped remote experts (`dak_splitk_gemm_grouped`): y[e] = x[e] @ w[e] for
+// every expert e of a remote MoE expert stack [E, K, N] in mapped host
+// memory whose routed-slot count is > 0.  The reference computes this block
+// with an XLA einsum (src/repro/models/layers.py, `moe_block`), no Pallas
+// kernel; here a plain product would stage the experts in HBM, so the block
+// is one launch of the split-K decode design over (N tile x K split,
+// expert, M tile), the weights and x read through 3-D tensor maps over the
+// stacks.  Bound: bytes, the active experts' weights over the host link.
+// A CTA whose expert's count is 0 returns before it issues a load, so a
+// launch reads no more host memory than one launch per active expert
+// would, and the counts never leave the device (a CUDA graph can hold the
+// step).  Inactive experts are not packed to the front: their CTAs retire
+// at once.  M is cut into tiles of up to 64 rows (MB up to 64), each tile
+// re-reading its expert's weights.
 #include "tma.cuh"
 
 namespace {
@@ -382,6 +397,156 @@ int dispatch_decode(const void* x, const void* wl, const void* wr, void* y, floa
 #undef DAK_DECODE
 }
 
+// ---------------------------------------------------------------------------
+// Grouped remote experts: the split-K decode design over an expert stack.
+// ---------------------------------------------------------------------------
+constexpr int GROUPED_MAX_MB = 64;   // rows of an M tile of the grouped design
+
+template <typename T, int MB>
+__global__ void __launch_bounds__(DTHREADS) splitk_gemm_grouped_kernel(
+    __grid_constant__ const CUtensorMap x_map,   // x [E, M, K], box DBK x MB x 1
+    __grid_constant__ const CUtensorMap w_map,   // w [E, K, N] (mapped host), box DBN x DBK x 1
+    const int* __restrict__ counts, T* __restrict__ y, float* __restrict__ ws,
+    int* __restrict__ tickets, int E, int M, int K, int N, int n_tiles, int splits,
+    int k_split, int stages) {
+  const int e = blockIdx.y;
+  if (counts[e] == 0) return;                 // no routed slot: none of its weights is read
+  extern __shared__ __align__(128) unsigned char smem[];   // [stages][stage], bars
+  constexpr uint32_t STAGE = stage_bytes<T, MB>();
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + stages * STAGE);
+  __shared__ bool last;
+
+  const int tile = (int)blockIdx.x % n_tiles, split = (int)blockIdx.x / n_tiles;
+  const int m0 = (int)blockIdx.z * MB;
+  const int col0 = tile * DBN;
+  const int k_begin = split * k_split;
+  const int k_end = k_begin + k_split < K ? k_begin + k_split : K;
+  const int n_ld = (k_end - k_begin + DBK - 1) / DBK;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&bars[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  auto issue = [&](int i) {       // load i of this CTA into stage i % stages
+    if (tid != 0) return;
+    unsigned char* st = smem + (i % stages) * STAGE;
+    uint64_t* bar = &bars[i % stages];
+    const int k0 = k_begin + i * DBK;
+    mbar_expect_tx(bar, load_bytes<T, MB>());
+    tma_load_3d(st, &w_map, col0, k0, e, bar);
+    tma_load_3d(st + DBK * DBN * sizeof(T), &x_map, k0, m0, e, bar);
+  };
+  for (int i = 0; i < stages && i < n_ld; ++i) issue(i);
+
+  float acc[MB];
+#pragma unroll
+  for (int m = 0; m < MB; ++m) acc[m] = 0.f;
+  for (int i = 0; i < n_ld; ++i) {
+    mbar_wait(&bars[i % stages], (i / stages) & 1);
+    const T* w_s = reinterpret_cast<const T*>(smem + (i % stages) * STAGE);
+    const T* x_s = w_s + DBK * DBN;             // [MB][DBK]
+#pragma unroll 8
+    for (int k = 0; k < DBK; ++k) {
+      const float w = to_f32(w_s[k * DBN + tid]);
+#pragma unroll
+      for (int m = 0; m < MB; ++m) acc[m] = fmaf(to_f32(x_s[m * DBK + k]), w, acc[m]);
+    }
+    __syncthreads();                            // every thread is done with the stage
+    if (i + stages < n_ld) issue(i + stages);
+  }
+
+  const int col = col0 + tid;
+  const int rows = M - m0 < MB ? M - m0 : MB;
+  T* yc = y + ((size_t)e * M + m0) * N + col;
+  if (splits == 1) {
+    if (col < N) {
+#pragma unroll
+      for (int m = 0; m < MB; ++m)
+        if (m < rows) yc[(size_t)m * N] = from_f32<T>(acc[m]);
+    }
+    return;
+  }
+  // one split of a tile: publish the partial, the last to arrive reduces
+  float* wc = ws + ((size_t)e * M + m0) * N + col;   // split s at s * E * M * N
+  const size_t split_stride = (size_t)E * M * N;
+  if (col < N) {
+#pragma unroll
+    for (int m = 0; m < MB; ++m)
+      if (m < rows) wc[split * split_stride + (size_t)m * N] = acc[m];
+  }
+  int* ticket = tickets + ((size_t)e * gridDim.z + blockIdx.z) * n_tiles + tile;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(ticket, 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (col < N) {
+    for (int m = 0; m < rows; ++m) {
+      float sum = 0.f;
+      for (int s = 0; s < splits; ++s) sum += __ldcg(wc + s * split_stride + (size_t)m * N);
+      yc[(size_t)m * N] = from_f32<T>(sum);
+    }
+  }
+  if (tid == 0) *ticket = 0;                    // ready for the next launch
+}
+
+template <typename T, int MB>
+int launch_grouped(const T* x, const T* w, const int* counts, T* y, float* ws, int* tickets,
+                   int E, int M, int K, int N, int window, int k_split, cudaStream_t stream) {
+  constexpr int ELEM = sizeof(T);
+  CUtensorMap x_map{}, w_map{};
+  const uint64_t x_dims[3] = {(uint64_t)K, (uint64_t)M, (uint64_t)E};
+  const uint64_t x_pitch[2] = {(uint64_t)K * ELEM, (uint64_t)M * K * ELEM};
+  const uint32_t x_box[3] = {DBK, MB, 1};
+  if (int err = dak_encode(&x_map, x, ELEM, 3, x_dims, x_pitch, x_box)) return err;
+  const uint64_t w_dims[3] = {(uint64_t)N, (uint64_t)K, (uint64_t)E};
+  const uint64_t w_pitch[2] = {(uint64_t)N * ELEM, (uint64_t)K * N * ELEM};
+  const uint32_t w_box[3] = {DBN, DBK, 1};
+  if (int err = dak_encode(&w_map, w, ELEM, 3, w_dims, w_pitch, w_box)) return err;
+  const int n_tiles = (N + DBN - 1) / DBN, m_tiles = (M + MB - 1) / MB;
+  const int splits = (K + k_split - 1) / k_split;
+  const int max_ld = ((k_split < K ? k_split : K) + DBK - 1) / DBK;
+  constexpr size_t STAGE = stage_bytes<T, MB>();
+  int stages = window < max_ld ? window : max_ld;
+  if (stages < 1) stages = 1;
+  if ((size_t)stages * STAGE > DSMEM_MAX) stages = (int)(DSMEM_MAX / STAGE);
+  const size_t smem = (size_t)stages * (STAGE + sizeof(uint64_t));
+  auto kern = splitk_gemm_grouped_kernel<T, MB>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(n_tiles * splits, E, m_tiles);
+  kern<<<grid, DTHREADS, smem, stream>>>(x_map, w_map, counts, y, ws, tickets, E, M, K, N,
+                                         n_tiles, splits, k_split, stages);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_grouped(const void* x, const void* w, const int* counts, void* y, float* ws,
+                     int* tickets, int E, int M, int K, int N, int window, int k_split,
+                     cudaStream_t stream) {
+  constexpr int EPC = 16 / sizeof(T);
+  // tensor maps need 16-byte aligned bases and row pitches
+  if (k_split % DBK || K % EPC || N % EPC || !aligned16(x) || !aligned16(w) ||
+      (k_split < K && (ws == nullptr || tickets == nullptr)))
+    return DAK_ERR_BAD_ARGUMENT;
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  T* yt = static_cast<T*>(y);
+#define DAK_GROUPED(MB) \
+  launch_grouped<T, MB>(xt, wt, counts, yt, ws, tickets, E, M, K, N, window, k_split, stream)
+  if (M <= 1) return DAK_GROUPED(1);
+  if (M <= 2) return DAK_GROUPED(2);
+  if (M <= 4) return DAK_GROUPED(4);
+  if (M <= 8) return DAK_GROUPED(8);
+  if (M <= 16) return DAK_GROUPED(16);
+  if (M <= 32) return DAK_GROUPED(32);
+  return DAK_GROUPED(GROUPED_MAX_MB);
+#undef DAK_GROUPED
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  w_remote must be mapped host memory
@@ -419,4 +584,32 @@ extern "C" int dak_splitk_gemm(const void* x, const void* w_local, const void* w
   if (stages > DAK_MAX_WINDOW) stages = DAK_MAX_WINDOW;
   return dtype == 0 ? dispatch<float>(x, wl, wr, y, M, K, n_loc, n_rem, stages, s)
                     : dispatch<__nv_bfloat16>(x, wl, wr, y, M, K, n_loc, n_rem, stages, s);
+}
+
+
+// Grouped remote experts: y[e] = x[e] @ w_remote[e] for every e in [0, E)
+// with counts[e] > 0 (x [E, M, K] and y [E, M, N] on the device, w_remote
+// [E, K, N] mapped host memory, counts [E] int32 on the device).  Rows of
+// experts whose count is 0 are not written: the caller zeroes y.  k_split
+// is a multiple of 32 rows; K and N multiples of 16 bytes and x and
+// w_remote 16-byte aligned; when k_split < K, `workspace` holds
+// ceil(K / k_split) * E * M * N floats and `tickets` E * ceil(M / MB) *
+// ceil(N / 64) zeroed ints, MB the power of two >= M up to 64.  Returns 0,
+// a cudaError_t, or a DAK_ERR_* code.
+extern "C" int dak_splitk_gemm_grouped(const void* x, const void* w_remote, const void* counts,
+                                       void* y, int E, int M, int K, int N, int window,
+                                       int k_split, void* workspace, void* tickets, int dtype,
+                                       void* stream) {
+  if (E <= 0 || M <= 0 || K <= 0 || N <= 0 || window < 1 || k_split <= 0 ||
+      counts == nullptr || (dtype != 0 && dtype != 1))
+    return DAK_ERR_BAD_ARGUMENT;
+  const void* w = nullptr;
+  if (const int e = dak_mapped_host_ptr(w_remote, &w)) return e;
+  const int* c = static_cast<const int*>(counts);
+  float* ws = static_cast<float*>(workspace);
+  int* tk = static_cast<int*>(tickets);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? dispatch_grouped<float>(x, w, c, y, ws, tk, E, M, K, N, window, k_split, s)
+                    : dispatch_grouped<__nv_bfloat16>(x, w, c, y, ws, tk, E, M, K, N, window,
+                                                      k_split, s);
 }

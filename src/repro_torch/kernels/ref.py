@@ -22,6 +22,15 @@ def splitk_gemm_ref(x: torch.Tensor, w_local: torch.Tensor,
     return torch.cat([y_local, y_remote], dim=1).to(x.dtype)
 
 
+def splitk_gemm_grouped_ref(x: torch.Tensor, w_remote: torch.Tensor,
+                            counts: torch.Tensor) -> torch.Tensor:
+    """y[e] = x[e] @ w_remote[e] with fp32 accumulation for every expert e
+    whose ``counts[e]`` is > 0, and zeros for the others (x [E, M, K],
+    w_remote [E, K, N], counts [E])."""
+    y = torch.einsum("emk,ekn->emn", x.float(), w_remote.float())
+    return torch.where((counts > 0)[:, None, None], y, 0.0).to(x.dtype)
+
+
 def paged_flashattn_ref(
     q: torch.Tensor,               # [B, H, hd]
     k_pages_local: torch.Tensor,   # [P_loc(+sink), page, Kh, hd]

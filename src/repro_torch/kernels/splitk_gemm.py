@@ -18,7 +18,12 @@ and what the design does about that.  Two designs, one launch each:
 * whole K (prefill, and decode operands whose rows are not 16-byte
   multiples or aligned): one CTA per 64 columns walks all of K.
 
-Both designs stop at the rate at which kernels can read pinned host memory
+A third entry, :func:`splitk_gemm_grouped`, runs a remote MoE expert
+stack ``[E, K, N]``: one launch of the split-K decode design over every
+expert, each CTA reading the routed-slot count of its expert on the device
+and returning before any load when it is 0.
+
+All designs stop at the rate at which kernels can read pinned host memory
 over PCIe: 30-33 GB/s at most on some H100 machines measured, 0.58-0.70x
 the copy engine's 45-54 GB/s, and ~50 GB/s, 0.95x the copy engine, on
 others (``chip_smoke.py --phases 1,9``).
@@ -34,7 +39,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import splitk_gemm_ref
+from repro_torch.kernels.ref import splitk_gemm_grouped_ref, splitk_gemm_ref
 
 DEFAULT_WINDOW = 2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -42,6 +47,7 @@ DECODE_MAX_M = 16           # rows the decode design takes in one tile
 DECODE_BN = 64              # its tile columns (csrc/splitk_gemm.cu DBN)
 DECODE_BK = 32              # rows of one of its loads (DBK)
 REMOTE_CTAS_PER_SM = 1      # remote CTAs a split aims for, per SM
+GROUPED_MAX_M = 64          # rows of an M tile of the grouped entry (GROUPED_MAX_MB)
 
 
 def decode_k_split(n_loc: int, n_rem: int, k: int, sm_count: int) -> int:
@@ -176,3 +182,73 @@ def splitk_gemm(x: torch.Tensor, w_local: torch.Tensor, w_remote: torch.Tensor,
 
 
 splitk_gemm.launches = 0   # kernel launches since the count was last reset
+
+
+def _check_grouped_operands(x: torch.Tensor, w_remote: torch.Tensor,
+                            counts: torch.Tensor) -> None:
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"splitk_gemm_grouped takes float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 3 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous [E, M, K] stack, got {tuple(x.shape)}")
+    e, _, k = x.shape
+    if w_remote.dtype != x.dtype:
+        raise TypeError(f"w_remote is {w_remote.dtype}, x is {x.dtype}")
+    if (w_remote.dim() != 3 or w_remote.shape[:2] != (e, k)
+            or not w_remote.is_contiguous()):
+        raise ValueError(f"w_remote must be a contiguous [E={e}, K={k}, N] stack, "
+                         f"got {tuple(w_remote.shape)}")
+    if w_remote.device.type != "cpu" or not w_remote.is_pinned():
+        raise ValueError("w_remote must be pinned host memory (the remote tier), "
+                         f"got a tensor on {w_remote.device}")
+    if (counts.shape != (e,) or counts.dtype != torch.int32 or counts.device != x.device
+            or not counts.is_contiguous()):
+        raise ValueError(f"counts must be a contiguous [E={e}] int32 tensor on {x.device}, "
+                         f"got {tuple(counts.shape)} {counts.dtype} on {counts.device}")
+    es = x.element_size()
+    if (k * es % 16 or w_remote.shape[2] * es % 16
+            or x.data_ptr() % 16 or w_remote.data_ptr() % 16):
+        raise ValueError("splitk_gemm_grouped reads through tensor maps: K and N must be "
+                         "multiples of 16 bytes and both stacks 16-byte aligned, got "
+                         f"K={k}, N={w_remote.shape[2]} of {x.dtype}")
+
+
+def splitk_gemm_grouped(x: torch.Tensor, w_remote: torch.Tensor, counts: torch.Tensor,
+                        *, window: int = DEFAULT_WINDOW) -> torch.Tensor:
+    """Grouped remote-expert GEMM: ``y[e] = x[e] @ w_remote[e]`` for every
+    expert ``e`` whose ``counts[e]`` is > 0 and zeros for the others; x
+    ``[E, M, K]``, w_remote ``[E, K, N]``, counts ``[E]`` -> ``[E, M, N]``
+    in x's dtype.
+
+    On the card ``x`` and ``counts`` (int32) are device tensors and
+    ``w_remote`` is the pinned remote expert stack, read in place: one
+    launch for all experts, an expert whose count is 0 reading none of its
+    weights, and the counts never coming back to the host, so a CUDA graph
+    can hold the call.  Any M; rows are cut into tiles of up to 64."""
+    if x.device.type == "cpu":
+        return splitk_gemm_grouped_ref(x, w_remote, counts)
+    if x.device.type != "cuda":
+        raise ValueError(f"splitk_gemm_grouped runs on cpu or cuda tensors, got {x.device}")
+    _check_grouped_operands(x, w_remote, counts)
+    e, m, k = x.shape
+    n = w_remote.shape[2]
+    y = torch.zeros((e, m, n), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    n_tiles = -(-n // DECODE_BN)
+    # splits as for one operand as wide as every expert's tiles together
+    k_split = decode_k_split(0, e * n_tiles * DECODE_BN, k, _sm_count(x.device.index))
+    stream = _build.stream_handle(x.device)
+    ws, tickets = None, None
+    if k_split < k:
+        ws = torch.empty(-(-k // k_split) * e * m * n, dtype=torch.float32, device=x.device)
+        tickets = _tickets(x.device, stream, e * -(-m // GROUPED_MAX_M) * n_tiles)
+    rc = _build.load().libs["splitk_gemm"].dak_splitk_gemm_grouped(
+        x.data_ptr(), w_remote.data_ptr(), counts.data_ptr(), y.data_ptr(), e, m, k, n,
+        max(1, int(window)), k_split, 0 if ws is None else ws.data_ptr(),
+        0 if tickets is None else tickets.data_ptr(), _DTYPES[x.dtype], stream)
+    _build.check(rc, "splitk_gemm_grouped")
+    splitk_gemm_grouped.launches += 1
+    return y
+
+
+splitk_gemm_grouped.launches = 0   # kernel launches since the count was last reset

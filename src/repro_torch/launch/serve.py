@@ -35,8 +35,10 @@ engine must absorb (demote, grow the host pool, re-plan with
 ``--adaptive``) with no failed request.
 
 Every decode step runs as a captured CUDA graph (one per window bucket and
-pool shape) unless ``--no-jit`` asks for the eager step; MoE stays eager,
-and the plan line says why.  Observability as in the reference:
+pool shape) unless ``--no-jit`` asks for the eager step.
+``--check-invariants`` audits the page table after every engine step
+(DAK301-305, `repro_torch.analysis`) and aborts on the first
+inconsistency.  Observability as in the reference:
 ``--trace-out PATH`` writes a Chrome trace of the run, ``--metrics-out
 PATH`` the Prometheus text of its metrics registry (``--metrics-interval
 N`` rewrites it every N steps), ``--attribution`` attaches the bandwidth
@@ -132,6 +134,11 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--no-jit", action="store_true",
                     help="run every decode step eagerly instead of replaying one captured "
                          "CUDA graph per window bucket and pool shape")
+    ap.add_argument("--check-invariants", action="store_true",
+                    help="audit the paged cache's page-table invariants (repro_torch.analysis, "
+                         "DAK301-305) after every engine step; aborts on the first "
+                         "inconsistency.  Read-only host bookkeeping: tokens and stats are "
+                         "unchanged")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write a Chrome trace-event JSON of the run (per-step phase spans, "
                          "per-request lifecycle tracks, per-link counter tracks)")
@@ -199,17 +206,16 @@ def main(argv: list[str] | None = None) -> dict:
         page_size=args.page_size, scheduler=args.scheduler,
         prefill_chunk=args.prefill_chunk, adaptive=args.adaptive,
         clock=ModeledClock() if trace is not None else None, recorder=recorder,
-        flight=flight, profiler=profiler, jit_step=False if args.no_jit else None,
-        device=device)
+        flight=flight, profiler=profiler, jit_step=not args.no_jit,
+        check_invariants=args.check_invariants, device=device)
     if shrink is not None:
         engine.schedule_hbm_shrink(*shrink)
         print(f"chaos: HBM shrink to {shrink[1]:.0%} of the local pool "
               f"at decode step {shrink[0]}")
-    why = f" ({engine.eager_reason})" if engine.eager_reason and not args.no_jit else ""
     print(f"plan: global={engine.plan.global_ratio:.2f} "
           f"per-op={ {k: round(v, 2) for k, v in engine.plan.op_ratios.items()} } "
           f"window={engine.window} hw={engine.hw.name} device={device} "
-          f"jit={engine.graphed}{why} adaptive={args.adaptive}")
+          f"jit={engine.graphed} adaptive={args.adaptive}")
     if args.hbm_gb is not None:
         print(f"budget: {args.hbm_gb:.1f} GB HBM vs "
               f"{engine.plan.footprint_bytes / 1e9:.1f} GB footprint")

@@ -15,7 +15,9 @@ layer passes it.  Unlike the reference, the whole-sequence and chunk
 attention blocks and the MLA prefill thread ``mm`` through their
 projections and ``wo`` too: on the card a plain product cannot read a
 pinned remote tier.  Attention itself is plain PyTorch (`attend`), as the
-reference attends through XLA outside any Pallas kernel.
+reference attends through XLA outside any Pallas kernel.  An ``mm`` may
+carry ``grouped``, the grouped product of a tiered expert stack's remote
+block (`tiered_expert_ffn`); without it the plain version runs.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tiering import TieredTensor, matmul
+from repro_torch.kernels.ref import splitk_gemm_grouped_ref
 
 Params = dict[str, Any]
 
@@ -284,11 +287,30 @@ def _expert_ffn(buf: torch.Tensor, wi: torch.Tensor, wdown: torch.Tensor) -> tor
     return torch.einsum("gecf,efd->gecd", F.silu(gate_h) * up_h, wdown)
 
 
-def _remote_only(w: torch.Tensor, like: torch.Tensor) -> TieredTensor:
-    """One remote expert's matrix [K, N] as a column-split operand whose
-    local tier is empty (on `like`'s device), so `mm` reads it in place
-    from the remote stack."""
-    return TieredTensor(local=like.new_empty((w.shape[0], 0)), remote=w, axis=-1)
+class DeviceCount:
+    """A count kept on the devices it is added from, one int64 each: a
+    captured decode step adds to it on every replay, and nothing inside a
+    step reads it back.  ``int()`` reads it (a sync) and `reset` zeroes it
+    in place, so a captured add keeps its target."""
+
+    def __init__(self) -> None:
+        self._totals: dict[torch.device, torch.Tensor] = {}
+
+    def add(self, n: torch.Tensor) -> None:
+        total = self._totals.get(n.device)
+        if total is None:
+            if n.is_cuda and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("a DeviceCount must be allocated before a CUDA graph "
+                                   "capture; warm the step up on the capturing stream first")
+            total = self._totals[n.device] = torch.zeros((), dtype=torch.int64, device=n.device)
+        total.add_(n)
+
+    def reset(self) -> None:
+        for total in self._totals.values():
+            total.zero_()
+
+    def __int__(self) -> int:
+        return sum(int(total) for total in self._totals.values())
 
 
 def tiered_expert_ffn(buf: torch.Tensor, valid: torch.Tensor, wi: TieredTensor,
@@ -298,38 +320,40 @@ def tiered_expert_ffn(buf: torch.Tensor, valid: torch.Tensor, wi: TieredTensor,
     marks the dispatch slots that hold a token.
 
     The local block is one batched product per matrix from HBM, as in the
-    reference.  Each remote expert that holds at least one valid slot runs
-    its [d, 2ff] and [ff, d] matrices through ``mm`` as remote-only
-    operands: on the card the direct-access GEMM reads them in place from
-    pinned host memory, and no expert is copied into HBM.  Remote experts
-    with no valid slot are skipped, which is exact: their buffer rows are
-    zero, so their FFN output is zero, which is what the skip leaves; and
-    the combine never reads them (a dropped pair points at its own expert's
-    last slot with weight 0)."""
+    reference.  The remote block is one grouped product per matrix
+    (``mm.grouped``, else the plain `kernels.ref.splitk_gemm_grouped_ref`)
+    over all remote experts, given each expert's count of valid slots on
+    the device: on the card the grouped direct-access GEMM reads the
+    experts in place from pinned host memory and skips those with a count
+    of 0, and no expert is copied into HBM.  The skip is exact: a skipped
+    expert's buffer rows are zero, so its FFN output is zero, which is what
+    the skip leaves; and the combine never reads them (a dropped pair
+    points at its own expert's last slot with weight 0).  Nothing here
+    reads back to the host; ``remote_experts`` counts the experts run on
+    the device."""
     if not isinstance(wdown, TieredTensor) or wi.axis != -3 or wdown.axis != -3:
         raise ValueError("experts_wi and experts_wdown must both be split on the expert axis")
     e_loc = wi.local.shape[-3]
     if wdown.local.shape[-3] != e_loc:
         raise ValueError("experts_wi/wdown tier mismatch")
     g, _, c, d = buf.shape
-    out = torch.zeros_like(buf)
+    e_rem = wi.remote.shape[-3]
+    blocks = []
     if e_loc:
-        out[:, :e_loc] = _expert_ffn(buf[:, :e_loc], wi.local, wdown.local)
-    # Which remote experts hold a valid slot: one host read of an [E_rem]
-    # count per layer, the price of skipping the others (most of them at
-    # decode, where a step routes B * top_k pairs over all the experts).
-    counts = valid[:, e_loc:].sum(dim=(0, 2)).tolist()
-    active = [j for j, n in enumerate(counts) if n]
-    for j in active:
-        gate_h, up_h = torch.chunk(
-            mm(buf[:, e_loc + j].reshape(g * c, d), _remote_only(wi.remote[j], buf)), 2, dim=-1)
-        out[:, e_loc + j] = mm(F.silu(gate_h) * up_h,
-                               _remote_only(wdown.remote[j], buf)).reshape(g, c, d)
-    tiered_expert_ffn.remote_experts += len(active)
-    return out
+        blocks.append(_expert_ffn(buf[:, :e_loc], wi.local, wdown.local))
+    if e_rem:
+        gmm = getattr(mm, "grouped", splitk_gemm_grouped_ref)
+        counts = valid[:, e_loc:].sum(dim=(0, 2), dtype=torch.int32)     # [E_rem]
+        x = buf[:, e_loc:].transpose(0, 1).reshape(e_rem, g * c, d).contiguous()
+        gate_h, up_h = torch.chunk(gmm(x, wi.remote, counts), 2, dim=-1)
+        y = gmm(F.silu(gate_h) * up_h, wdown.remote, counts)
+        blocks.append(y.reshape(e_rem, g, c, d).transpose(0, 1))
+        tiered_expert_ffn.remote_experts.add((counts > 0).sum())
+    return torch.cat(blocks, dim=1)
 
 
-tiered_expert_ffn.remote_experts = 0   # remote experts run (not skipped) since the last reset
+# remote experts run (not skipped) since the last reset, on the device
+tiered_expert_ffn.remote_experts = DeviceCount()
 
 
 def moe_block(

@@ -26,6 +26,8 @@ kernel and per small op.
   step.
 * The kernel wrappers count their launches only while Python runs, so a
   capture records how far each count moved and every replay adds that.
+  Counts kept on the device (`models.layers.DeviceCount`, the remote
+  experts run) are added by the graph itself.
 * On the CPU there is no graph: a :class:`StepGraph` runs the same step
   over the same fixed buffers eagerly, so buckets, counters and staging
   behave as on the card.
@@ -41,10 +43,10 @@ import torch
 
 from repro_torch.core.tiering import TieredTensor
 from repro_torch.kernels.splitk_flashattn import paged_splitk_flashattn, scatter_rows
-from repro_torch.kernels.splitk_gemm import splitk_gemm
+from repro_torch.kernels.splitk_gemm import splitk_gemm, splitk_gemm_grouped
 
 # The wrappers whose ``launches`` count the kernels a decode step launches.
-LAUNCH_COUNTERS = (splitk_gemm, paged_splitk_flashattn, scatter_rows)
+LAUNCH_COUNTERS = (splitk_gemm, splitk_gemm_grouped, paged_splitk_flashattn, scatter_rows)
 PAGED_INPUTS = ("tokens", "positions", "attn_lens", "table", "tier", "wr_tier", "wr_idx",
                 "wr_off")
 
@@ -111,6 +113,22 @@ class StepInputs:
             self._fetched.record()
             self._fetched.synchronize()
         return self._tokens_host.numpy().copy()
+
+
+_CAPTURE_STREAMS: dict[int, torch.cuda.Stream] = {}
+
+
+def capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The side stream every engine on ``device`` warms up and captures its
+    steps on, one per device for the process.  PyTorch keeps a cuBLAS
+    workspace (32 MiB on Hopper) for every stream a product ran on until
+    the process ends, so a stream of each engine's own would hold one more
+    workspace for every engine ever built."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    stream = _CAPTURE_STREAMS.get(index)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+    return stream
 
 
 def _launch_counts() -> tuple[int, ...]:

@@ -24,8 +24,9 @@ deterministic.
 
 * Prefill runs `models.prefill` (a continuation chunk `prefill_chunk`)
   with the kernel-backed tiered matmul as ``mm``, so the remote weights
-  (remote MoE experts included, one at a time) are read in place over the
-  host link and never copied into HBM; prefill attention is plain PyTorch.
+  (remote MoE experts included, through the grouped GEMM) are read in
+  place over the host link and never copied into HBM; prefill attention is
+  plain PyTorch.
 * Each decode step is `serving.tiered_decode.paged_tiered_decode_step`:
   the tiered GEMM for every tiered weight plus the paged tiered attention
   kernel over `serving.paged_cache.PagedTieredCache`.  MLA caches its
@@ -60,9 +61,16 @@ The decode step is compiled by default (``jit_step``): one CUDA graph per
 one staged copy and its greedy tokens come back by one, on the graphed and
 the eager path alike.  A graph holds the addresses it was captured with,
 so a re-plan that moves weights or a grown remote pool drops the graphs,
-and the next step of a bucket captures again (``recaptures``).  The MoE
-families stay eager: their remote-expert dispatch reads the expert counts
-back to the host once a layer, which no graph can hold.
+and the next step of a bucket captures again (``recaptures``).  Every
+family is graphed, MoE and MLA + MoE included: their remote experts run
+through one grouped launch per matrix whose expert counts stay on the
+device.
+
+``check_invariants`` audits the page table after every step
+(`repro_torch.analysis.page_table`, DAK301-305): a graphed step reads the
+table from fixed device buffers, staged from the host table that
+demotion, migration, pool growth and preemption rewrite.  The audit reads
+host state only and raises `InvariantViolation` on the first finding.
 
 Observability is the reference's (`repro_torch.obs`): a trace recorder
 (request lifecycle, admission, prefill, decode and compile spans, counter
@@ -85,6 +93,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.analysis.page_table import InvariantViolation, check_page_table
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import engine as offload_engine
 from repro_torch.core.ebmodel import WorkloadSpec
@@ -117,12 +126,10 @@ from repro_torch.serving.compiled_step import (
     PAGED_INPUTS,
     StepGraph,
     StepInputs,
+    capture_stream,
     pointer_fingerprint,
 )
 from repro_torch.serving.paged_cache import REMOTE, CacheFull, PagedTieredCache
-
-# Why a family's decode step cannot be captured as a CUDA graph.
-EAGER_REASONS = {"moe": "moe: host read of remote-expert counts"}
 
 
 def _decode_step(cfg: ModelConfig, inputs: dict[str, torch.Tensor], kind: str, window: int,
@@ -309,7 +316,8 @@ class ServingEngine:
         clock: Clock | None = None,
         recorder: TraceRecorder | None = None,
         flight=None,
-        jit_step: bool | None = None,
+        jit_step: bool = True,
+        check_invariants: bool = False,
         profiler=None,
         device="cuda",
     ):
@@ -324,12 +332,13 @@ class ServingEngine:
         ``runtime`` attaches a given `RuntimeController` (its own budgets and
         source, e.g. a `runtime.telemetry.CudaEventSource`).
 
-        ``jit_step`` compiles the decode step, one CUDA graph per bucket
-        (`serving.compiled_step`; on the CPU the same fixed-buffer step runs
-        eagerly).  None, the default, compiles wherever the step can be
-        captured: every family but MoE, whose step reads the remote-expert
-        counts back to the host once a layer; ``True`` on MoE raises, and
-        ``False`` runs every step eagerly.  ``recorder`` is an
+        ``jit_step`` (the default) compiles the decode step, one CUDA graph
+        per bucket (`serving.compiled_step`; on the CPU the same fixed-buffer
+        step runs eagerly); ``False`` runs every step eagerly.
+        ``check_invariants`` audits the paged cache's page-table invariants
+        (`repro_torch.analysis.page_table`, DAK301-305) after every step and
+        raises `InvariantViolation` on the first inconsistency; read-only
+        host bookkeeping, so tokens and stats are unchanged.  ``recorder`` is an
         `obs.trace.TraceRecorder` (default: the no-op null recorder),
         ``flight`` an `obs.flight.FlightRecorder` (a ring of per-step state
         snapshots dumped on an error or the first SLO breach) and
@@ -401,11 +410,8 @@ class ServingEngine:
         self.mesh = None                   # one card: the serving mesh is not ported
         # Compiled decode step: one CUDA graph per (kind, window bucket, pool
         # shape) bucket, on fixed input buffers filled by one staged copy.
-        self.eager_reason = EAGER_REASONS.get(cfg.family)
-        if jit_step and self.eager_reason is not None:
-            raise ValueError(f"jit_step=True: the {cfg.family} decode step cannot be captured "
-                             f"as a CUDA graph ({self.eager_reason})")
-        self._jit = (self.eager_reason is None) if jit_step is None else bool(jit_step)
+        self._jit = bool(jit_step)
+        self.check_invariants = check_invariants
         self._compiled: dict[tuple, StepGraph] = {}
         self.compile_count = 0             # fresh buckets (one graph each)
         self.compile_cache_hits = 0        # steps served by an existing bucket
@@ -465,6 +471,15 @@ class ServingEngine:
                             cat="runtime", **args)
 
             self.runtime.on_event = on_runtime
+
+    def _audit_page_table(self) -> None:
+        """Debug hook: fail fast on page-table corruption (DAK301-305)."""
+        if not self.check_invariants or self.pcache is None:
+            return
+        findings = check_page_table(
+            self.pcache, where=f"engine.step[{self.stats.decode_steps}]")
+        if findings:
+            raise InvariantViolation(findings)
 
     def _make_pcache(self) -> PagedTieredCache:
         """The paged tiered KV cache at the plan's page budget: one layer
@@ -943,7 +958,7 @@ class ServingEngine:
         self.compile_count += 1
         if self.device.type == "cuda" and self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
-            self._capture_stream = torch.cuda.Stream(self.device)
+            self._capture_stream = capture_stream(self.device)
         graph = StepGraph(self._decode_fn(kind, wb, sl, sr), self.device,
                           pool=self._graph_pool, stream=self._capture_stream)
         self._compiled[key] = graph
@@ -1002,6 +1017,7 @@ class ServingEngine:
             self._finish_step_health()
             if self.flight is not None:
                 self.flight.record(self._flight_snapshot())
+            self._audit_page_table()
             return
         active = np.array([r is not None for r in self.active])
         if self.pcache is None:
@@ -1066,6 +1082,7 @@ class ServingEngine:
                 self._next_tok[slot, 0] = tok
         if self.flight is not None:
             self.flight.record(self._flight_snapshot())
+        self._audit_page_table()
 
     def _step_timer(self) -> CudaEventSource | None:
         """The runtime's measurement source when it times decode steps on

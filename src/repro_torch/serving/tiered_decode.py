@@ -6,9 +6,10 @@ Params come from ``TieringPlan.partition`` (stacked leaves, tierable
 operands wrapped in `TieredTensor`); dispatch is by operand type: every
 column-split weight goes through the direct-access GEMM
 (`kernels.ops.tiered_matmul`), and a tiered MoE expert stack runs
-`models.layers.tiered_expert_ffn`, whose remote experts go through the same
-GEMM one at a time, all under the congestion ``window`` passed per step (it
-paces copies, never changes results).  The steps:
+`models.layers.tiered_expert_ffn`, whose remote experts go through the
+grouped GEMM (`kernels.splitk_gemm.splitk_gemm_grouped`, one launch per
+expert matrix a layer), all under the congestion ``window`` passed per step
+(it paces copies, never changes results).  The steps:
 
 * ``paged_tiered_decode_step`` — dense, MoE and MLA decoders: the serving
   engine's ragged step over the paged tiered cache, attended by the paged
@@ -41,6 +42,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tiering import TieredTensor
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.splitk_flashattn import scatter_rows
+from repro_torch.kernels.splitk_gemm import splitk_gemm_grouped
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models import ssm as S
@@ -81,11 +83,23 @@ def _mm(x: torch.Tensor, w: Any, window: int) -> torch.Tensor:
     return x @ w
 
 
+def kernel_grouped_mm(window: int) -> Callable[..., torch.Tensor]:
+    """The grouped remote-expert product every tiered MoE path runs,
+    ``(x [E, M, K], w_remote [E, K, N], counts [E]) -> [E, M, N]``: the
+    grouped direct-access GEMM, one launch over the expert stack."""
+    return lambda x, w, counts: splitk_gemm_grouped(x, w, counts, window=window)
+
+
 def kernel_mm(window: int) -> Callable[[torch.Tensor, Any], torch.Tensor]:
     """The tier-aware matmul every tiered path runs, as an ``mm`` for the
     model's layers: the direct-access GEMM for a tiered weight, a plain
-    product otherwise."""
-    return lambda a, w: _mm(a, w, window)
+    product otherwise; its ``grouped`` is `kernel_grouped_mm` at the same
+    window, for a tiered expert stack."""
+    def mm(a: torch.Tensor, w: Any) -> torch.Tensor:
+        return _mm(a, w, window)
+
+    mm.grouped = kernel_grouped_mm(window)
+    return mm
 
 
 # A `write_and_attend(layer, q, k_new, v_new, scale=None)` callback writes the

@@ -11,7 +11,8 @@ engine's and the JAX engine's (``jit_step=True``), and ``compile_count`` and
 ``compile_cache_hits`` the JAX engine's, for the static run, an adaptive run
 whose window moves between buckets, and the chaos shrink, which grows the
 remote pool (a new key) and, with the zero-budget runtime, forces re-plans
-that move weights (graphs captured again: ``recaptures``)."""
+that move weights (graphs captured again: ``recaptures``); for MoE and
+MLA + MoE, graphed by default, also the remote experts run."""
 from __future__ import annotations
 
 import dataclasses
@@ -39,6 +40,7 @@ from repro_torch.core import engine as TE
 from repro_torch.core.ebmodel import WorkloadSpec as TWorkload
 from repro_torch.core.hardware import TPU_V5E as T_TPU
 from repro_torch.frontend.metrics import ModeledClock as TClock
+from repro_torch.models import layers as TL
 from repro_torch.runtime.controller import RuntimeController as TRuntime
 from repro_torch.serving.engine import Request as TRequest
 from repro_torch.serving.engine import ServingEngine as TEngine
@@ -115,7 +117,7 @@ def test_graphed_tokens_equal_eager_and_reference_engine(arch, ratio, n_layers):
     geng, graphed = _serve("torch", tcfg, tparams, ratio)
     eeng, eager = _serve("torch", tcfg, tparams, ratio, jit_step=False)
     assert graphed == eager == want
-    assert geng.graphed and not eeng.graphed and geng.eager_reason is None
+    assert geng.graphed and not eeng.graphed
     assert _counters(geng) == _counters(jeng) and geng.compile_count >= 1
     assert _counters(eeng) == (0, 0) and eeng.recaptures == geng.recaptures == 0
     assert geng.stats.decode_steps == jeng.stats.decode_steps
@@ -231,17 +233,24 @@ def test_bucket_window_is_the_reference_rule(w):
 
 
 @pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "deepseek_v2_236b"])
-def test_moe_serves_eagerly_by_default_and_refuses_graphs(arch):
-    """MoE (GQA) and MLA + MoE read the remote-expert counts back to the
-    host once a layer: the default serves them eagerly with the JAX
-    engine's tokens, and asking for graphs raises."""
+def test_moe_graphed_tokens_and_counters_equal_eager_and_reference_engine(arch):
+    """MoE (GQA) and MLA + MoE serve graphed by default: their remote
+    experts run through one grouped launch per matrix whose expert counts
+    stay on the device.  Graphed tokens equal eager tokens and the JAX
+    `jit_step=True` engine's, the bucket counters the JAX engine's, and the
+    remote experts run (counted on the device) the eager run's."""
     jcfg, tcfg = _configs(arch, dropless=True)
     jparams, tparams = _weights(jcfg)
-    _, want = _serve("jax", jcfg, jparams, 0.5, jit_step=True)
-    teng, got = _serve("torch", tcfg, tparams, 0.5)
-    assert got == want
-    assert not teng.graphed and teng.eager_reason == "moe: host read of remote-expert counts"
-    assert _counters(teng) == (0, 0) and not teng._compiled
-    with pytest.raises(ValueError, match="remote-expert counts"):
-        TEngine(tcfg, tparams, max_batch=SLOTS, max_len=MAX_LEN, global_offload_ratio=0.5,
-                page_size=PAGE, jit_step=True, device="cpu")
+    jeng, want = _serve("jax", jcfg, jparams, 0.5, jit_step=True)
+    ran = {}
+    engines = {}
+    for jit in (True, False):
+        TL.tiered_expert_ffn.remote_experts.reset()
+        engines[jit], got = _serve("torch", tcfg, tparams, 0.5, jit_step=jit)
+        ran[jit] = int(TL.tiered_expert_ffn.remote_experts)
+        assert got == want
+    geng, eeng = engines[True], engines[False]
+    assert geng.graphed and not eeng.graphed
+    assert _counters(geng) == _counters(jeng) and geng.compile_count >= 1
+    assert _counters(eeng) == (0, 0)
+    assert ran[True] == ran[False] > 0

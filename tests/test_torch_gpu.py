@@ -9,6 +9,7 @@ the reference's kernel tolerances: 2e-4 relative in fp32, 5e-2 in bf16."""
 from __future__ import annotations
 
 import dataclasses
+import gc
 
 import numpy as np
 import pytest
@@ -27,7 +28,7 @@ from repro_torch.kernels.splitk_flashattn import (
     scatter_rows_ref,
     splitk_flashattn,
 )
-from repro_torch.kernels.splitk_gemm import splitk_gemm
+from repro_torch.kernels.splitk_gemm import splitk_gemm, splitk_gemm_grouped
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.serving import tiered_decode as TD
@@ -237,9 +238,9 @@ def test_moe_mla_engine_matches_plain_reference_on_card(cuda_device, arch, ratio
 @pytest.mark.parametrize("rows", [1, 12])
 def test_tiered_expert_ffn_matches_plain(cuda_device, dtype, rows):
     """The expert FFN over a 4|4 split stack: local experts batched from
-    HBM, each remote expert with a valid slot through two direct-access
-    GEMM launches on its pinned matrices, the others skipped; held against
-    the einsum over both tiers on the card."""
+    HBM, the remote block through one grouped direct-access launch per
+    matrix over the pinned stacks, experts without a valid slot skipped on
+    the device; held against the einsum over both tiers on the card."""
     gen = torch.Generator(device=cuda_device).manual_seed(rows)
     g, e, d, ff = 1, 8, 256, 96
     buf = torch.randn((g, e, rows, d), generator=gen, device=cuda_device).to(dtype)
@@ -252,13 +253,41 @@ def test_tiered_expert_ffn_matches_plain(cuda_device, dtype, rows):
     split = {}
     for name, w in (("wi", wi), ("wdown", wdown)):
         split[name] = TieredTensor(local=w[:4].contiguous(), remote=_pinned(w[4:]), axis=-3)
-    before, ran = splitk_gemm.launches, TL.tiered_expert_ffn.remote_experts
+    before = (splitk_gemm.launches, splitk_gemm_grouped.launches,
+              int(TL.tiered_expert_ffn.remote_experts))
     got = TL.tiered_expert_ffn(buf, valid, split["wi"], split["wdown"],
                                mm=TD.kernel_mm(2))
     torch.cuda.synchronize()
-    assert splitk_gemm.launches - before == 4
-    assert TL.tiered_expert_ffn.remote_experts - ran == 2
+    assert splitk_gemm.launches == before[0]
+    assert splitk_gemm_grouped.launches - before[1] == 2
+    assert int(TL.tiered_expert_ffn.remote_experts) - before[2] == 2
     assert rel_err(got, TL._expert_ffn(buf, wi, wdown)) < TOL[dtype]
+
+
+# id: E, M, K, N, active experts; the wrapper picks K splits (tickets) for
+# few tiles and cuts M into tiles of 64 rows
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,m,k,n,active", [
+    (4, 1, 256, 128, (1, 3)), (3, 5, 512, 64, (0, 1, 2)), (6, 24, 96, 72, (5,)),
+    (4, 150, 256, 192, (0, 2)), (64, 1, 2048, 1536, (7, 40)), (5, 3, 128, 64, ()),
+], ids=["split-K", "M5", "ragged-N", "M-tiles", "qwen3", "none-active"])
+@pytest.mark.parametrize("window", [1, 2])
+def test_splitk_gemm_grouped_matches_plain(cuda_device, dtype, e, m, k, n, active, window):
+    gen = torch.Generator(device=cuda_device).manual_seed(e * m + k)
+    x = torch.randn((e, m, k), generator=gen, device=cuda_device).to(dtype)
+    w_dev = (torch.randn((e, k, n), generator=gen, device=cuda_device) * 0.05).to(dtype)
+    counts = torch.zeros(e, dtype=torch.int32, device=cuda_device)
+    counts[list(active)] = 2
+    before = splitk_gemm_grouped.launches
+    got = splitk_gemm_grouped(x, _pinned(w_dev), counts, window=window)
+    torch.cuda.synchronize()
+    assert splitk_gemm_grouped.launches == before + 1
+    assert rel_err(got, tref.splitk_gemm_grouped_ref(x, w_dev, counts)) < TOL[dtype]
+    assert torch.equal(got[counts == 0], torch.zeros_like(got[counts == 0]))
+    with pytest.raises(ValueError, match="pinned host memory"):
+        splitk_gemm_grouped(x, w_dev, counts)               # remote stack on the card
+    with pytest.raises(ValueError, match="int32"):
+        splitk_gemm_grouped(x, _pinned(w_dev), counts.long())
 
 
 def test_k_only_pinned_paged_cache(cuda_device):
@@ -750,19 +779,25 @@ def _full_width(arch: str, dev):
     return cfg, TM.init_params(cfg, torch.Generator(device=dev).manual_seed(7), device=dev)
 
 
-@pytest.mark.parametrize("arch", ["llama2_7b", "mamba2_370m"])
+@pytest.mark.parametrize("arch", ["llama2_7b", "mamba2_370m", "qwen3_moe_30b_a3b"])
 def test_graphed_step_matches_eager_on_card(cuda_device, arch):
     """A 2-layer full-width fp32 model: the graphed engine's tokens equal
     the eager engine's bit for bit, and every engine step launches each
     kernel exactly as often (a replay adds the launches its capture
     recorded); one bucket, every later decode step a hit."""
     cfg, params = _full_width(arch, cuda_device)
+    TL.tiered_expert_ffn.remote_experts.reset()
     eager_eng, eager, eager_steps = _graph_engine_run(cfg, params, cuda_device, False)
+    eager_experts = int(TL.tiered_expert_ffn.remote_experts)
     assert eager_eng.compile_count == 0 and not eager_eng.graphed
     del eager_eng
+    TL.tiered_expert_ffn.remote_experts.reset()
     eng, graphed, steps = _graph_engine_run(cfg, params, cuda_device, True)
     assert graphed == eager
     assert steps == eager_steps and sum(s["splitk_gemm"] for s in steps) > 0
+    assert int(TL.tiered_expert_ffn.remote_experts) == eager_experts
+    if cfg.family == "moe":
+        assert eager_experts > 0 and sum(s["splitk_gemm_grouped"] for s in steps) > 0
     assert eng.compile_count == 1 and eng.recaptures == 0
     assert eng.compile_count + eng.compile_cache_hits == eng.stats.decode_steps
     assert all(g.graph is not None for g in eng._compiled.values())
@@ -796,6 +831,65 @@ def test_graphed_step_recaptures_after_grow_and_replan_on_card(cuda_device):
     assert len(shapes) >= 2, "the grown remote pool gave a new bucket"
     current = tuple(eng.pcache.pools["k_remote"].shape)
     assert all(g.graph is None for key, g in eng._compiled.items() if key[5] != current)
+
+
+def test_graphed_step_tables_match_host_under_shrink_with_audit_on_card(cuda_device):
+    """llama2-7b (2 layers, fp32) graphed with ``check_invariants=True``
+    under the shrink to 20% of the local pages at decode step 2, which
+    demotes pages and grows the remote pool: every step passes the audit,
+    and after each decode step the fixed device buffers the graph read (the
+    page table and its tiers) hold the host table's entries for every slot
+    still decoding; the tokens are those of the same run eager."""
+    cfg, params = _full_width("llama2_7b", cuda_device)
+    runs = {}
+    for jit in (False, True):
+        eng = ServingEngine(cfg, params, max_batch=3, max_len=32, global_offload_ratio=0.5,
+                            page_size=4, jit_step=jit, check_invariants=True,
+                            device=cuda_device)
+        eng.schedule_hbm_shrink(2, 0.2)
+        rng = np.random.default_rng(7)
+        reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab, n).astype(np.int32),
+                        max_new_tokens=8) for i, n in enumerate(SERVE_PROMPT_LENS)]
+        for r in reqs:
+            eng.submit(r)
+        checked = 0
+        while eng.scheduler.waiting or eng.prefilling or any(r is not None for r in eng.active):
+            steps = eng.stats.decode_steps
+            eng.step()
+            if eng.stats.decode_steps == steps:
+                continue
+            pc, buffers = eng.pcache, eng._inputs.buffers
+            table, tier = buffers["table"].cpu().numpy(), buffers["tier"].cpu().numpy()
+            for slot, req in enumerate(eng.active):
+                if req is not None:
+                    n = int(pc.n_pages[slot])
+                    assert (table[slot, :n] == pc.table[slot, :n]).all()
+                    assert (tier[slot, :n] == pc.tier[slot, :n]).all()
+                    checked += 1
+        assert eng.stats.served == len(reqs) and checked > 0
+        assert eng.stats.elastic_demoted_pages > 0 or eng.stats.remote_grown_pages > 0
+        runs[jit] = [r.out_tokens for r in reqs]
+        del eng
+    assert runs[True] == runs[False]
+
+
+def test_engines_share_one_capture_stream_and_leave_no_memory_on_card(cuda_device):
+    """Graphed engines built and dropped in turn capture on one side stream
+    per device: the second leaves the card's allocated memory where the
+    first left it (a stream per engine kept a cuBLAS workspace each)."""
+    cfg = TC.get_smoke("llama2_7b")
+    params = TM.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                            device=cuda_device)
+    after, streams = [], []
+    for _ in range(2):
+        eng, _, _ = _graph_engine_run(cfg, params, cuda_device, True)
+        streams.append(eng._capture_stream)
+        del eng
+        gc.collect()
+        torch.cuda.synchronize()
+        after.append(torch.cuda.memory_allocated(cuda_device))
+    assert streams[0] is streams[1]
+    assert after[1] <= after[0]
 
 
 def test_failed_capture_raises_and_never_falls_back(cuda_device, monkeypatch):

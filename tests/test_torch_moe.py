@@ -4,7 +4,9 @@ package's, on qwen3_moe_30b_a3b smoke with bridged weights.
 `moe_block` is held to the reference at the default capacity factor (1.5,
 which drops pairs) and dropless, at prefill (one group per sequence) and
 decode (one global group), with a forced top-k tie, and with the expert
-stack split across tiers (remote experts with no valid slot skipped); the
+stack split across tiers (the remote block one grouped product per matrix,
+experts with no valid slot skipped; the plain grouped product against the
+reference's `_expert_ffn` on the remote block); the
 decode step at cf 1.5 with an idle slot; the engines' tokens exactly,
 dropless, at offload {0, 0.5} with spills forced.  fp32 within 2e-4
 relative."""
@@ -34,6 +36,7 @@ from repro_torch.core import engine as TE
 from repro_torch.core import tiering as TT
 from repro_torch.core.ebmodel import WorkloadSpec as TWorkload
 from repro_torch.core.hardware import TPU_V5E as T_TPU
+from repro_torch.kernels.ref import splitk_gemm_grouped_ref
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.serving import tiered_decode as TTD
@@ -122,11 +125,11 @@ def test_moe_block_with_tied_router_logits(weights):
 
 @pytest.mark.parametrize("b,t", [(2, 9), (4, 1)], ids=["prefill", "decode"])
 def test_tiered_expert_skip_matches_all_experts(weights, b, t):
-    """The expert stack split 4|4 across tiers: the skip path (remote experts
-    one at a time, those without a valid slot skipped) equals the unsplit
-    einsum and the reference's tiered einsum; it runs exactly the remote
-    experts the router sent a pair to (an expert's first pair is always
-    kept)."""
+    """The expert stack split 4|4 across tiers: the skip path (the remote
+    block one grouped product per matrix, experts without a valid slot
+    skipped) equals the unsplit einsum and the reference's tiered einsum; it
+    runs exactly the remote experts the router sent a pair to (an expert's
+    first pair is always kept)."""
     jlp, tlp = _layer0(weights)
     split = {key: (TT.partition(tlp[key], 0.5, axis=-3), JT.partition(jlp[key], 0.5, axis=-3))
              for key in ("experts_wi", "experts_wdown")}
@@ -134,9 +137,9 @@ def test_tiered_expert_skip_matches_all_experts(weights, b, t):
     t_tiered = dict(tlp, **{k: v[0] for k, v in split.items()})
     j_tiered = dict(jlp, **{k: v[1] for k, v in split.items()})
     x = np.random.default_rng(11).normal(size=(b, t, JCFG.d_model)).astype(np.float32)
-    TL.tiered_expert_ffn.remote_experts = 0
+    TL.tiered_expert_ffn.remote_experts.reset()
     got = TL.moe_block(TCFG, torch.from_numpy(x), t_tiered)
-    run = TL.tiered_expert_ffn.remote_experts
+    run = int(TL.tiered_expert_ffn.remote_experts)
     plain = TL.moe_block(TCFG, torch.from_numpy(x), tlp)
     assert rel_err(got, plain) < FP32_TOL
     assert rel_err(got, JL.moe_block(JCFG, jnp.asarray(x), j_tiered)) < FP32_TOL
@@ -148,6 +151,9 @@ def test_tiered_expert_skip_matches_all_experts(weights, b, t):
 
 
 def test_tiered_expert_ffn_skips_experts_without_a_slot():
+    """One grouped call per matrix over all three remote experts, given each
+    one's count of valid slots; only expert 4 holds one, so the counter
+    reads 1 and experts 3 and 5 come out zero."""
     rng = np.random.default_rng(4)
     g, e, c, d, ff = 1, 6, 3, 8, 5
     buf = rng.normal(size=(g, e, c, d)).astype(np.float32)
@@ -159,18 +165,47 @@ def test_tiered_expert_ffn_skips_experts_without_a_slot():
     calls = []
 
     def mm(a, w):
-        calls.append(tuple(w.shape))
-        return TT.matmul(a, w)
+        raise AssertionError("the expert stacks take the grouped product only")
 
-    TL.tiered_expert_ffn.remote_experts = 0
+    def grouped(x, w, counts):
+        calls.append((tuple(x.shape), tuple(w.shape), counts.tolist()))
+        return splitk_gemm_grouped_ref(x, w, counts)
+
+    mm.grouped = grouped
+    TL.tiered_expert_ffn.remote_experts.reset()
     got = TL.tiered_expert_ffn(torch.from_numpy(buf), torch.from_numpy(valid),
                                TT.partition(wi, 0.5, axis=-3), TT.partition(wdown, 0.5, axis=-3),
                                mm=mm)
-    assert TL.tiered_expert_ffn.remote_experts == 1                # expert 4 of remote 3..5
-    assert calls == [(d, 2 * ff), (ff, d)]
+    assert int(TL.tiered_expert_ffn.remote_experts) == 1           # expert 4 of remote 3..5
+    assert calls == [((3, c, d), (3, d, 2 * ff), [0, 1, 0]), ((3, c, ff), (3, ff, d), [0, 1, 0])]
     want = TL._expert_ffn(torch.from_numpy(buf), wi, wdown)
     assert rel_err(got, want) < FP32_TOL
     assert torch.equal(got[0, 3], torch.zeros(c, d)) and torch.equal(got[0, 5], torch.zeros(c, d))
+
+
+@pytest.mark.parametrize("g", [1, 3], ids=["decode", "prefill"])
+def test_plain_grouped_product_matches_reference_expert_ffn(g):
+    """The plain grouped product, run as `tiered_expert_ffn` runs it on the
+    remote block (the [G, E, C, d] buffer as [E, G*C, d], wi, SwiGLU,
+    wdown), against the reference's `_expert_ffn` on the same block; some
+    experts hold no valid slot (zero rows, skipped)."""
+    rng = np.random.default_rng(20 + g)
+    e, c, d, ff = 5, 4, 16, 12
+    n_valid = rng.integers(0, c + 1, size=(g, e))
+    n_valid[:, 2] = 0                                            # expert 2: no slot at all
+    valid = np.arange(c)[None, None, :] < n_valid[..., None]
+    buf = rng.normal(size=(g, e, c, d)).astype(np.float32) * valid[..., None]
+    wi = rng.normal(size=(e, d, 2 * ff)).astype(np.float32)
+    wdown = rng.normal(size=(e, ff, d)).astype(np.float32)
+    counts = torch.from_numpy(valid.sum(axis=(0, 2)).astype(np.int32))
+    x = torch.from_numpy(buf).transpose(0, 1).reshape(e, g * c, d)
+    gate, up = torch.chunk(splitk_gemm_grouped_ref(x, torch.from_numpy(wi), counts), 2, dim=-1)
+    y = splitk_gemm_grouped_ref(torch.nn.functional.silu(gate) * up, torch.from_numpy(wdown),
+                                counts)
+    got = y.reshape(e, g, c, d).transpose(0, 1)
+    want = JL._expert_ffn(jnp.asarray(buf), jnp.asarray(wi), jnp.asarray(wdown))
+    assert rel_err(got, want) < FP32_TOL
+    assert torch.equal(got[:, 2], torch.zeros(g, c, d))
 
 
 def _plans(cfg_j, cfg_t, wl, ratio):
