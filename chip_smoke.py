@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py              # phases 1-8 and 11-29, needs one CUDA card
+    python3 chip_smoke.py              # phases 1-8 and 11-30, needs one CUDA card
     python3 chip_smoke.py --phases 1,9 # the host-link read probe
     python3 chip_smoke.py --phases 1,5,9,10  # timings, probe, replaced designs
 
@@ -151,6 +151,26 @@ runs, printing each result on its own line:
    served eagerly and then graphed on the same weights: tokens exactly
    equal, TPOT, device-busy share and host time a step of each, capture
    time per bucket and the graph pool's bytes;
+30. the measurement surface and the autotuner, through `launch/serve.main`
+   with phase 4's llama2-7b traffic (32 layers, bf16, offload 0.5, page 16,
+   4 slots, 8 requests of 128 + 32 tokens), report and tables under
+   ``build/phase30``: (a) ``--bench-json``: the report is the one `main`
+   returns, schema 2 with a ``torch`` provenance stamp, its tokens/s
+   consistent with its TPOT; (b) ``--autotune --autotune-cache``: every
+   tuned GEMM and paged-attention configuration against its plain version
+   at the served shape (bf16 and fp32), the table reloaded lookup-only
+   reproducing every winner of a fresh sweep, `check_autotune_table`
+   clean, TPOT tuned beside default, and the share of served GEMM shapes
+   where the model's pick among {split-K, whole K} x {window 1, 2} is the
+   fastest of the four on the card (printed, not gated); (c)
+   ``--no-kernels`` (the reference oracle): the untiered engine's tokens
+   equal the tiered engine's at 2 layers in fp32 with no kernel launched,
+   then its TPOT at 32 layers in bf16 beside the all-HBM TPOT of the
+   tiered engine at ``--offload-ratio 0``; (d) `smem_footprint_bytes` equal to each
+   kernel's own count (``*_smem`` query entries) for every launch
+   configuration of the phase, the lints' 227 KiB equal to the card's
+   opt-in limit, and `check_kernels` clean at every served plan of the
+   chip phases;
 every served run (4, 12, 14, 16, 17, 19, 21, 26) builds its engine one layer at
 a time, checks that set-up held no more device memory beyond the weights it
 keeps than building one layer holds (`setup_transient_bound`), that the
@@ -2925,6 +2945,308 @@ def phase_compiled_serve() -> None:
         gc.collect()
         torch.cuda.empty_cache()
 
+# ---------------------------------------------------------------------------
+# Phase 30: the measurement surface (--bench-json, --no-kernels), the
+# autotuner (--autotune, --autotune-cache) and the kernel lints
+# ---------------------------------------------------------------------------
+SURFACE_ARGS = ("--arch", "llama2_7b", "--dtype", "bfloat16", "--offload-ratio", "0.5",
+                "--page-size", "16", "--max-batch", str(DECODE_BATCH), "--requests", "8",
+                "--prompt-len", str(PREFILL_LEN), "--new-tokens", "32",
+                "--max-len", str(PREFILL_LEN + 32))
+# the served plans of the chip phases: (arch, layers or None for all, offload,
+# page, slots, max_len, element bytes)
+SERVED_PLANS = (
+    ("llama2_7b", None, 0.5, 16, DECODE_BATCH, PREFILL_LEN + 32, 2),
+    ("llama2_7b", 2, 0.5, 4, 3, 32, 4),
+    ("qwen3_moe_30b_a3b", None, 0.5, 16, DECODE_BATCH, PREFILL_LEN + 32, 2),
+    ("deepseek_v2_236b", 2, 0.5, 16, DECODE_BATCH, PREFILL_LEN + 32, 2),
+    ("opt_6p7b", None, 0.5, 16, DECODE_BATCH, PREFILL_LEN + 32, 2),
+    ("opt_30b", None, 0.5, 16, DECODE_BATCH, PREFILL_LEN + 16, 2),
+    ("mamba2_370m", None, 0.5, 16, DECODE_BATCH, PREFILL_LEN + 32, 2),
+    ("zamba2_2p7b", None, 0.5, 16, DECODE_BATCH, PREFILL_LEN + 32, 2),
+    ("llava_next_34b", None, 0.5, 16, DECODE_BATCH, PREFILL_LEN + 16, 2),
+    ("hubert_xlarge", None, 0.5, 16, DECODE_BATCH, PREFILL_LEN + 32, 2),
+)
+
+
+def serve_cli(args: list[str]) -> tuple[dict, dict]:
+    """`launch/serve.main(args)` with the launch counts zeroed just before;
+    returns its report and the launches it made."""
+    from repro_torch.launch import serve
+
+    reset_launch_counts()
+    report = serve.main(list(args))
+    torch.cuda.synchronize()
+    return report, launch_counts()
+
+
+def tuned_gemm_check(entry, dtype, gen) -> float:
+    """A tuned GEMM winner's launch at its served shape against the plain
+    version; returns the relative error."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.splitk_gemm import splitk_gemm
+
+    m, k, n_loc, n_rem = entry.shape
+    wl, wr, wr_dev = make_tier_pair(k, n_loc, n_rem, dtype, gen)
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    got = splitk_gemm(x, wl, wr, window=entry.config["window"],
+                      k_split=entry.config["k_split"])
+    return rel_err(got, ref.splitk_gemm_ref(x, wl, wr_dev))[0]
+
+
+def tuned_paged_check(entry, dtype, gen) -> float:
+    """A tuned paged-attention winner (window = its slots) at its served
+    shape against the plain version; returns the relative error."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.splitk_flashattn import paged_splitk_flashattn
+
+    h, kh, hd, ps, mp = entry.shape
+    lens = [min(mp * ps, n) for n in PAGED_LENS]
+    q, pools, pools_dev, table, tier, lens_t = paged_inputs(
+        DECODE_BATCH, h, kh, hd, ps, mp, 2 * mp, 2 * mp, lens, dtype, gen)
+    got = paged_splitk_flashattn(q, pools["k_local"], pools["v_local"], pools["k_remote"],
+                                 pools["v_remote"], table, tier, lens_t,
+                                 window=entry.config["slots"])
+    want = ref.paged_flashattn_ref(q, pools_dev["k_local"], pools_dev["v_local"],
+                                   pools_dev["k_remote"], pools_dev["v_remote"], table, tier,
+                                   lens_t)
+    return rel_err(got, want)[0]
+
+
+def modeled_winner_agreement(tuner, entries, gen) -> tuple[int, int]:
+    """For each served GEMM shape, the model's pick among {split-K at the
+    wrapper's split, whole K} x {window 1, 2} against the fastest of the
+    four timed on the card (CUDA events, L2 flushed, median of 10, in
+    alternating rounds); prints both and returns (agreeing, shapes)."""
+    from repro_torch.kernels import splitk_gemm as G
+
+    scratch = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    agree = 0
+    for e in entries:
+        m, k, n_loc, n_rem = e.shape
+        wl, wr, _ = make_tier_pair(k, n_loc, n_rem, torch.bfloat16, gen)
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        split = G.decode_k_split(n_loc, n_rem, k, G.sm_count(tuner.hw))
+        configs = [(ks, w) for ks in (split, 0) for w in (1, 2)]
+        timed = alternate([lambda ks=ks, w=w: G._launch(x, wl, wr, w, ks) for ks, w in configs],
+                          scratch.zero_)
+        ms = [statistics.median(t) for t in timed]
+        modeled = [tuner._gemm_cost(m, k, n_loc, n_rem, ks, w, 2) for ks, w in configs]
+        fast, pick = ms.index(min(ms)), modeled.index(min(modeled))
+        agree += fast == pick
+        name = lambda i: f"{'split-K' if configs[i][0] else 'whole K'} w{configs[i][1]}"  # noqa: E731
+        print(f"  GEMM {e.shape}: card {' | '.join(f'{name(i)} {ms[i]:.4f}' for i in range(4))}"
+              f" ms -> fastest {name(fast)}; model picks {name(pick)}; full-sweep winner "
+              f"{e.config}")
+        del wl, wr, x
+    return agree, len(entries)
+
+
+def surface_lints(tuner, card) -> None:
+    """(d): every launch configuration phase 30 used, `smem_footprint_bytes`
+    against each kernel's own count; the lints' 227 KiB against the card's
+    opt-in limit; check_kernels clean at every chip phase's served plan."""
+    import repro_torch.configs as C
+    from repro_torch.analysis import kernel_lints as KL
+    from repro_torch.core import engine as E
+    from repro_torch.core.ebmodel import WorkloadSpec
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.kernels import splitk_flashattn as A
+    from repro_torch.kernels import splitk_gemm as G
+
+    fp = KL.flash_prefill
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    check(KL.SMEM_OPTIN_BYTES == optin,
+          f"the lints' per-CTA shared memory {KL.SMEM_OPTIN_BYTES} B equals the card's "
+          f"shared_memory_per_block_optin {optin} B")
+    cfg = C.get("llama2_7b")
+    plan = E.plan(cfg, WorkloadSpec(batch=DECODE_BATCH, seq_len=PREFILL_LEN + 32,
+                                    phase="decode"), H100_SXM, global_ratio=0.5, kv_page_size=16)
+    gemms, attns, prefills = KL.describe_launches(
+        cfg, plan, KL.operand_shapes(cfg), align=128, batch=DECODE_BATCH,
+        max_len=PREFILL_LEN + 32, dtype_bytes=2)
+    gemm_cfgs = {(g.m, g.k, g.k_split, g.window) for g in gemms}
+    gemm_cfgs |= {(e.shape[0], e.shape[1], e.config["k_split"], e.config["window"])
+                  for e in tuner.table.values() if e.op == "splitk_gemm" and e.config}
+    gemm_cfgs |= {(PREFILL_LEN, k, 0, 1) for k in (4096, 11008)}      # prefill's whole K
+    bad = []
+    for m, k, ks, w in sorted(gemm_cfgs):
+        want = G.smem_query(m, k, window=w, k_split=ks, dtype=torch.bfloat16)
+        got = (G.smem_footprint_bytes(m, k, 0, 0, window=w, k_split=ks, dtype=torch.bfloat16),
+               G.ring_stages(m, k, window=w, k_split=ks, dtype=torch.bfloat16)[0])
+        if got != want:
+            bad.append(((m, k, ks, w), got, want))
+    attn_cfgs = {(a.kind, a.h, a.kh, a.hd, a.chunk, a.n_chunks, a.window) for a in attns}
+    attn_cfgs |= {("paged", *e.shape, e.config["slots"]) for e in tuner.table.values()
+                  if e.op == "paged_splitk_flashattn" and e.config}
+    attn_cfgs.add(("batch", 32, 32, 128, A.CHUNK, -(-SPLIT_KV_LEN // A.CHUNK), 1))   # phase 7
+    for kind, h, kh, hd, chunk, n, w in sorted(attn_cfgs):
+        box = A._box_bytes(chunk, hd, 2)
+        stages = A.ring_stages(w, 2 * box, n)[0]
+        if kind == "paged":
+            want = A.paged_smem_query(DECODE_BATCH, h, kh, hd, chunk, n, window=w,
+                                      dtype=torch.bfloat16)
+            got = (A.paged_smem_footprint_bytes(DECODE_BATCH, h, kh, hd, chunk, n, window=w,
+                                                dtype=torch.bfloat16), stages)
+        else:
+            want = A.smem_query(h, kh, hd, chunk * n, window=w, dtype=torch.bfloat16)
+            got = (A.smem_footprint_bytes(h, kh, hd, chunk * n, window=w,
+                                          dtype=torch.bfloat16), stages)
+        if got != want:
+            bad.append(((kind, h, kh, hd, chunk, n, w), got, want))
+    for dtype in (torch.bfloat16, torch.float32):
+        if fp.smem_footprint_bytes(128, dtype=dtype) != fp.smem_query(128, dtype=dtype):
+            bad.append((("flash_prefill", dtype), fp.smem_footprint_bytes(128, dtype=dtype),
+                        fp.smem_query(128, dtype=dtype)))
+    check(not bad, f"smem_footprint_bytes equals the kernel's own count (bytes and ring stages) "
+                   f"for all {len(gemm_cfgs)} GEMM, {len(attn_cfgs)} attention and 2 "
+                   f"flash_prefill launch configurations of phase 30" + (f": {bad[:3]}" if bad
+                                                                        else ""))
+    findings = []
+    for arch, n_layers, ratio, page, slots, max_len, db in SERVED_PLANS:
+        cfg = C.get(arch)
+        if n_layers:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        plan = E.plan(cfg, WorkloadSpec(batch=slots, seq_len=max_len, phase="decode"),
+                      H100_SXM, global_ratio=ratio, kv_page_size=page)
+        findings += KL.check_kernels(cfg, plan, H100_SXM, KL.operand_shapes(cfg),
+                                     align=32 if cfg.d_model < 1024 else 128, batch=slots,
+                                     max_len=max_len, dtype_bytes=db, where=arch)
+    check(not findings, f"check_kernels is clean at the {len(SERVED_PLANS)} served plans of the "
+                        f"chip phases" + (f": {[str(f) for f in findings[:3]]}" if findings
+                                          else ""))
+
+
+def phase_surface(card: dict) -> None:
+    """Phase 30: (a) the llama2-7b served run of phase 4 through
+    `launch/serve.main` with --bench-json; (b) the same traffic with
+    --autotune and --autotune-cache: every tuned configuration held against
+    its plain version, the table reloaded lookup-only reproducing every
+    winner, its lints clean, TPOT tuned and default, and the share of GEMM
+    shapes where the model's pick matches the card's; (c) --no-kernels, the
+    reference oracle: tokens equal to the tiered engine's at 2 layers in
+    fp32, no kernel launched, and its TPOT at 32 layers in bf16 beside the
+    all-HBM TPOT of the tiered engine at offload 0; (d) the lints."""
+    import repro_torch.configs as C
+    from repro_torch.analysis.kernel_lints import check_autotune_table
+    from repro_torch.kernels.autotune import Autotuner
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    out = REPO / "build" / "phase30"
+    out.mkdir(parents=True, exist_ok=True)
+    where = f"{card['name']} at {card['power']}"
+    # (a) the report
+    bench = out / "bench.json"
+    rep, runs = serve_cli([*SURFACE_ARGS, "--bench-json", str(bench)])
+    data = json.loads(bench.read_text())
+    rate = data["generated_tokens"] / data["wall_s"]
+    check(data == json.loads(json.dumps(rep, default=float)) and data["schema_version"] == 2
+          and data["provenance"]["torch"] == torch.__version__ and data["served"] == 8
+          and data["generated_tokens"] == 8 * 32,
+          f"--bench-json wrote the report main returned: schema_version 2, provenance torch "
+          f"{data['provenance']['torch']}, 8 served, {data['generated_tokens']} tokens")
+    check(abs(data["tokens_per_s"] - rate) <= 1e-9 * rate
+          and data["tokens_per_s"] <= DECODE_BATCH * 1e3 / data["tpot_ms"],
+          f"report tokens/s {data['tokens_per_s']:.3f} = generated / wall, within the "
+          f"{DECODE_BATCH} slots' decode rate at TPOT {data['tpot_ms']:.2f} ms "
+          f"({DECODE_BATCH * 1e3 / data['tpot_ms']:.3f} tokens/s)")
+    check(runs["splitk_gemm"] > 0 and runs["paged_splitk_flashattn"] > 0,
+          f"the default run launched splitk_gemm {runs['splitk_gemm']} and paged attention "
+          f"{runs['paged_splitk_flashattn']} times")
+    # (b) the autotuner
+    table = out / "autotune.json"
+    table.unlink(missing_ok=True)
+    rep_t, _ = serve_cli([*SURFACE_ARGS, "--autotune", "--autotune-cache", str(table),
+                          "--bench-json", str(out / "bench_tuned.json")])
+    tuner = Autotuner.load(str(table), sweep=False)
+    fresh = Autotuner(tuner.hw)
+
+    def lookup(t, e):
+        if e.op == "splitk_gemm":
+            return t.best_gemm(*e.shape, e.dtype)
+        return t.best_paged(*e.shape, e.ratio, e.dtype)
+
+    loaded = all(lookup(tuner, e) == e.config for e in tuner.table.values())
+    # a GEMM key fixes its sweep (an attention key buckets the remote fraction)
+    swept = all(lookup(fresh, e) == e.config for e in tuner.table.values()
+                if e.op == "splitk_gemm")
+    lints = check_autotune_table([e.to_json() for e in tuner.table.values()])
+    check(len(tuner.table) >= 6 and loaded and tuner.misses == 0 and swept and not lints
+          and tuner.validate() == [],
+          f"the {len(tuner.table)}-entry table reloaded lookup-only reproduces every winner "
+          f"(hits {tuner.hits}, misses {tuner.misses}), a fresh sweep every GEMM winner; "
+          f"check_autotune_table finds {len(lints)}")
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    errs = {}
+    for e in tuner.table.values():
+        check_one = {"splitk_gemm": tuned_gemm_check,
+                     "paged_splitk_flashattn": tuned_paged_check}[e.op]
+        for dtype in (torch.bfloat16, torch.float32):
+            errs[(e.op, e.shape, e.config.__repr__(), dtype)] = check_one(e, dtype, gen)
+    torch.cuda.synchronize()
+    worst = {dt: max(v for (_, _, _, d), v in errs.items() if d == dt) for dt in TOL}
+    check(all(v < TOL[d] for (_, _, _, d), v in errs.items()),
+          f"every tuned configuration of the run ({len(tuner.table)}) matches its plain version "
+          f"at the served shape: worst relative error bf16 {worst[torch.bfloat16]:.2e}, fp32 "
+          f"{worst[torch.float32]:.2e}")
+    for e in sorted(tuner.table.values(), key=lambda e: e.key()):
+        print(f"  tuned {e.op} {e.shape} {e.dtype} ratio {e.ratio}: {e.config} "
+              f"(modeled {e.modeled_us:.2f} us)")
+    print(f"  TPOT on {where}: default {rep['tpot_ms']:.2f} ms, tuned {rep_t['tpot_ms']:.2f} ms "
+          f"(counters {rep_t['autotune']})")
+    gemm_entries = sorted((e for e in tuner.table.values() if e.op == "splitk_gemm"),
+                          key=lambda e: e.shape)
+    agree, n = modeled_winner_agreement(tuner, gemm_entries, gen)
+    print(f"  modeled-winner agreement on {where}: {agree}/{n} served GEMM shapes "
+          f"(model vs card among split-K/whole K x window 1/2; printed, not gated)")
+    # (c) --no-kernels, the reference oracle: exact tokens at 2 layers fp32,
+    # then its TPOT at 32 layers beside the all-HBM run of the tiered engine
+    cfg = dataclasses.replace(C.get("llama2_7b"), n_layers=2)
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(7),
+                           dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(3, cfg.vocab, n).astype(np.int32) for n in (10, 16, 7, 14, 9)]
+    toks, counts = {}, {}
+    for kernels in (True, False):
+        reset_launch_counts()
+        eng = ServingEngine(cfg, params, max_batch=3, max_len=32, global_offload_ratio=0.5,
+                            page_size=4, use_kernels=kernels, device="cuda")
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=8) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        toks[kernels], counts[kernels] = [r.out_tokens for r in reqs], launch_counts()
+        del eng
+    check(toks[True] == toks[False] and counts[True]["splitk_gemm"] > 0
+          and not any(counts[False].values()),
+          f"--no-kernels engine (2 layers, fp32) emits the tiered engine's tokens "
+          f"({sum(map(len, toks[True]))}) and launches no kernel ({counts[False]})")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep_n, runs_n = serve_cli([*SURFACE_ARGS, "--no-kernels", "--bench-json",
+                               str(out / "bench_no_kernels.json")])
+    check(rep_n["served"] == 8 and not any(runs_n.values()) and not rep_n["compile"]["jit"],
+          f"--no-kernels served 8/8 at 32 layers bf16 and launched no kernel ({runs_n})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the all-HBM comparison: the same engine, kernels and graphs at offload 0
+    rep_h, runs_h = serve_cli([*SURFACE_ARGS, "--offload-ratio", "0", "--bench-json",
+                               str(out / "bench_hbm.json")])
+    check(rep_h["served"] == 8 and rep_h["compile"]["jit"] and runs_h["paged_splitk_flashattn"] > 0,
+          f"the tiered engine at --offload-ratio 0 served 8/8 at 32 layers bf16, graphed "
+          f"({runs_h})")
+    print(f"  TPOT on {where}: all-HBM (tiered engine at --offload-ratio 0) "
+          f"{rep_h['tpot_ms']:.2f} ms, tiered at offload 0.5 {rep['tpot_ms']:.2f} ms, reference "
+          f"oracle (--no-kernels: eager plain PyTorch, no graph) {rep_n['tpot_ms']:.2f} ms; "
+          f"{rep_h['tokens_per_s']:.2f} / {rep['tokens_per_s']:.2f} / "
+          f"{rep_n['tokens_per_s']:.2f} tokens/s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) the lints
+    surface_lints(tuner, card)
+
 
 def add_launches(launches: dict, path: dict) -> None:
     """Keep each kernel's count from the first path run that launched it: the
@@ -2939,8 +3261,8 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,11,12,13,14,15,16,17,18,19,20,21,22,23,24,25,26,"
-                            "27,28,29",
-                    help="comma-separated subset of phases 1-29 (default: 1-8 and 11-29; 9 "
+                            "27,28,29,30",
+                    help="comma-separated subset of phases 1-30 (default: 1-8 and 11-30; 9 "
                          "is the host-link read probe, 10 the decode-attention kernels beside "
                          "the design they replaced)")
     args = ap.parse_args(argv)
@@ -3053,6 +3375,9 @@ def main(argv: list[str] | None = None) -> int:
                  "llama2-7b and Mamba2-370M at full width and depth, bf16"):
         phase_compiled_parity()
         phase_compiled_serve()
+    if start(30, "measurement surface and autotuner, llama2-7b (32 layers, bf16), offload 0.5, "
+                 "page 16: --bench-json, --autotune, --no-kernels, kernel lints"):
+        phase_surface(card)
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

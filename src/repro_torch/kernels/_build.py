@@ -41,21 +41,28 @@ _DAK_ERRORS = {
 }
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_LLP, _IP = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)
+# The `*_smem` entries are queries: what a launch with those arguments would
+# hold in shared memory (and its ring stages), by the launch's own arithmetic.
 _SIGNATURES = {
     "splitk_gemm": {
         "dak_splitk_gemm": [_P] * 4 + [_I] * 6 + [_P, _P, _I, _P],
         "dak_splitk_gemm_grouped": [_P] * 4 + [_I] * 6 + [_P, _P, _I, _P],
+        "dak_splitk_gemm_smem": [_I] * 5 + [_LLP, _IP],
     },
     "paged_flashattn": {
         "dak_paged_attention": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _I, _I, _P],
         "dak_scatter_rows": [_P] * 5 + [_I] * 6 + [_P],
+        "dak_paged_attention_smem": [_I] * 8 + [_LLP, _IP],
     },
     "splitk_flashattn": {
         "dak_splitk_attention": [_P] * 6 + [_I] * 9 + [_P],
+        "dak_splitk_attention_smem": [_I] * 6 + [_LLP, _IP],
     },
     "flash_prefill": {
         "dak_flash_prefill": [_P] * 4 + [_I] * 8 + [_P],
         "dak_flash_prefill_fma": [_P] * 4 + [_I] * 8 + [_P],
+        "dak_flash_prefill_smem": [_I, _I, _LLP],
     },
     "host_mem": {
         "dak_host_alloc": [ctypes.c_size_t, ctypes.POINTER(ctypes.c_void_p)],
@@ -163,6 +170,16 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: {_DAK_ERRORS[rc]}")
     raise RuntimeError(
         f"{what}: CUDA error {rc} ({torch.cuda.cudart().cudaGetErrorString(rc)})")
+
+
+def smem_query(source: str, entry: str, *args: int, stages: bool = True) -> tuple[int, int]:
+    """Call a kernel library's shared-memory query entry: ``(bytes, ring
+    stages)`` of the launch the integer arguments describe (stages 0 for an
+    entry that reports none).  Needs the card, like every entry."""
+    nbytes, n_stages = ctypes.c_longlong(0), ctypes.c_int(0)
+    out = (ctypes.byref(nbytes), ctypes.byref(n_stages)) if stages else (ctypes.byref(nbytes),)
+    check(getattr(load().libs[source], entry)(*args, *out), entry)
+    return nbytes.value, n_stages.value
 
 
 def stream_handle(device: torch.device) -> int:

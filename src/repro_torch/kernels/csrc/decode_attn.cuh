@@ -56,6 +56,23 @@ inline int ring_stages(int window, uint32_t stage_bytes, int chunks) {
   return stages < 1 ? 1 : stages;
 }
 
+// Dynamic shared memory of a launch: the ring (or the merge scratch that
+// reuses it, if larger), one mbarrier a stage, and `extra` bytes after them.
+inline size_t launch_smem(int stages, uint32_t box, int dpl, int hpw, size_t extra) {
+  size_t ring = (size_t)stages * 2 * box;
+  if (ring < merge_bytes(dpl, hpw)) ring = merge_bytes(dpl, hpw);
+  return ring + (size_t)stages * sizeof(uint64_t) + extra;
+}
+
+// The dims per lane (DPL) and query heads per CTA (HPW): the dispatchers
+// pick their template arguments here, and so do the shared-memory queries.
+inline int dims_per_lane(int hd) {
+  return hd <= 32 ? 1 : hd <= 64 ? 2 : hd <= 128 ? 4 : hd <= 256 ? 8 : hd <= 512 ? 16 : 32;
+}
+inline int heads_per_cta(int dpl, int H, int Kh) {
+  return dpl > 8 || H == Kh ? 1 : max_heads(dpl);
+}
+
 // The online-softmax state of one warp.
 template <int DPL, int HPW>
 struct WarpState {

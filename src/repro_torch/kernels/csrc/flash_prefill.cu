@@ -217,11 +217,16 @@ __global__ void __launch_bounds__(THREADS) flash_prefill_kernel(
   }
 }
 
+// Dynamic shared memory of an FMA-path launch: q, k and v tiles of fp32
+// rows padded by one float, the score tile and three row vectors.
+inline size_t fma_smem(int hd) {
+  return ((size_t)3 * TILE * (hd + 1) + (size_t)TILE * (TILE + 1) + 3 * TILE) * sizeof(float);
+}
+
 template <typename T, int DJ>
 int launch_prefill(const void* q, const void* k, const void* v, void* out, int B, int H, int Kh,
                    int Tq, int Tk, int hd, int causal, cudaStream_t stream) {
-  const size_t smem =
-      ((size_t)3 * TILE * (hd + 1) + (size_t)TILE * (TILE + 1) + 3 * TILE) * sizeof(float);
+  const size_t smem = fma_smem(hd);
   if (smem > 227 * 1024) return DAK_ERR_BAD_ARGUMENT;
   auto kern = flash_prefill_kernel<T, DJ>;
   if (smem > 48 * 1024) {
@@ -474,10 +479,16 @@ __global__ void __launch_bounds__(TC_THREADS, 1) flash_prefill_tc_kernel(
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+// Dynamic shared memory of a tensor-core launch at padded head dim HD: Q
+// and two stages of K and V tiles, bf16 rows padded by 16 bytes.
+__host__ __device__ constexpr size_t tc_smem(int HD) {
+  return (size_t)(TC_BQ + 4 * TC_BK) * (HD + 8) * sizeof(bf16);
+}
+
 template <int HD, bool VEC>
 int launch_tc(const void* q, const void* k, const void* v, void* out, int B, int H, int Kh,
               int Tq, int Tk, int hd, int causal, cudaStream_t stream) {
-  constexpr size_t smem = (size_t)(TC_BQ + 4 * TC_BK) * (HD + 8) * sizeof(bf16);
+  constexpr size_t smem = tc_smem(HD);
   static_assert(smem <= 227 * 1024, "Q and two K/V stages must fit in shared memory");
   auto kern = flash_prefill_tc_kernel<HD, VEC>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -535,4 +546,16 @@ extern "C" int dak_flash_prefill_fma(const void* q, const void* k, const void* v
   return dtype == 0
              ? dispatch_prefill<float>(q, k, v, out, B, H, Kh, Tq, Tk, hd, causal != 0, s)
              : dispatch_prefill<__nv_bfloat16>(q, k, v, out, B, H, Kh, Tq, Tk, hd, causal != 0, s);
+}
+
+// The dynamic shared memory a dak_flash_prefill launch at head dim `hd`
+// would hold (its tiles are fixed at compile time).  Launches nothing; the
+// wrapper's shared-memory footprint is checked against it.  Returns 0 or
+// DAK_ERR_BAD_ARGUMENT.
+extern "C" int dak_flash_prefill_smem(int hd, int dtype, long long* bytes) {
+  if (hd <= 0 || hd > 256 || (dtype != 0 && dtype != 1) || bytes == nullptr)
+    return DAK_ERR_BAD_ARGUMENT;
+  const int padded = hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 256;
+  *bytes = (long long)(dtype == 0 ? fma_smem(hd) : tc_smem(padded));
+  return 0;
 }

@@ -179,6 +179,15 @@ __global__ void __launch_bounds__(THREADS) paged_attn_kernel(
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+// The ring stages and dynamic shared memory of a paged launch: the ring, its
+// mbarriers, then the slot's page list [MP] and the remote flags [B].
+inline size_t paged_smem(int B, int hd, int ps, int MP, int window, int elem, int dpl, int hpw,
+                         int* stages) {
+  const uint32_t box = decode::box_bytes(ps, hd, elem);
+  *stages = decode::ring_stages(window, 2 * box, MP);
+  return decode::launch_smem(*stages, box, dpl, hpw, (size_t)(MP + B) * sizeof(int));
+}
+
 struct Paged {
   const void *q, *kl, *vl, *kr, *vr;
   const int *table, *tier, *lens;
@@ -192,11 +201,8 @@ template <typename T, int DPL, int HPW, bool TMA>
 int launch_attn(const Paged& a, cudaStream_t stream) {
   const int G = a.H / a.Kh;
   const int n_hg = (G + HPW - 1) / HPW;
-  const uint32_t box = decode::box_bytes(a.ps, a.hd, sizeof(T));
-  const int stages = decode::ring_stages(a.window, 2 * box, a.MP);
-  size_t ring = (size_t)stages * 2 * box;
-  if (ring < decode::merge_bytes(DPL, HPW)) ring = decode::merge_bytes(DPL, HPW);
-  const size_t smem = ring + (size_t)stages * sizeof(uint64_t) + (size_t)(a.MP + a.B) * sizeof(int);
+  int stages = 0;
+  const size_t smem = paged_smem(a.B, a.hd, a.ps, a.MP, a.window, sizeof(T), DPL, HPW, &stages);
   if (smem > 227 * 1024) return DAK_ERR_BAD_ARGUMENT;
   CUtensorMap maps[4]{};
   if constexpr (TMA) {
@@ -231,7 +237,7 @@ int dispatch_heads(const Paged& a, bool tma, cudaStream_t s) {
     return launch_attn<T, DPL, 1, false>(a, s);
   } else {
     constexpr int HM = decode::max_heads(DPL);
-    if (a.H == a.Kh)
+    if (decode::heads_per_cta(DPL, a.H, a.Kh) == 1)
       return tma ? launch_attn<T, DPL, 1, true>(a, s) : launch_attn<T, DPL, 1, false>(a, s);
     return tma ? launch_attn<T, DPL, HM, true>(a, s) : launch_attn<T, DPL, HM, false>(a, s);
   }
@@ -241,12 +247,14 @@ template <typename T>
 int dispatch_attn(const Paged& a, cudaStream_t s) {
   const bool tma = a.hd * sizeof(T) % 16 == 0 && a.ps <= 256 && aligned16(a.kl) &&
                    aligned16(a.vl) && aligned16(a.kr) && aligned16(a.vr);
-  if (a.hd <= 32) return dispatch_heads<T, 1>(a, tma, s);
-  if (a.hd <= 64) return dispatch_heads<T, 2>(a, tma, s);
-  if (a.hd <= 128) return dispatch_heads<T, 4>(a, tma, s);
-  if (a.hd <= 256) return dispatch_heads<T, 8>(a, tma, s);
-  if (a.hd <= 512) return dispatch_heads<T, 16>(a, false, s);
-  return dispatch_heads<T, 32>(a, false, s);
+  switch (decode::dims_per_lane(a.hd)) {
+    case 1: return dispatch_heads<T, 1>(a, tma, s);
+    case 2: return dispatch_heads<T, 2>(a, tma, s);
+    case 4: return dispatch_heads<T, 4>(a, tma, s);
+    case 8: return dispatch_heads<T, 8>(a, tma, s);
+    case 16: return dispatch_heads<T, 16>(a, false, s);
+    default: return dispatch_heads<T, 32>(a, false, s);
+  }
 }
 
 __global__ void scatter_rows_kernel(unsigned char* __restrict__ pool,
@@ -314,4 +322,19 @@ extern "C" int dak_scatter_rows(void* pool, const void* rows, const int* wr_tier
       static_cast<unsigned char*>(dst), static_cast<const unsigned char*>(rows), wr_tier,
       wr_idx, wr_off, tier_sel, P, ps, row_bytes, vec);
   return cudaGetLastError();
+}
+
+// What a dak_paged_attention launch with these arguments would hold: its
+// ring stages and its dynamic shared memory in bytes.  Launches nothing;
+// the wrapper's shared-memory footprint is checked against it.  Returns 0
+// or DAK_ERR_BAD_ARGUMENT.
+extern "C" int dak_paged_attention_smem(int B, int H, int Kh, int hd, int ps, int MP, int window,
+                                        int dtype, long long* bytes, int* stages) {
+  if (B <= 0 || Kh <= 0 || H % Kh || hd <= 0 || hd > 1024 || ps <= 0 || MP <= 0 || window < 1 ||
+      (dtype != 0 && dtype != 1) || bytes == nullptr || stages == nullptr)
+    return DAK_ERR_BAD_ARGUMENT;
+  const int dpl = decode::dims_per_lane(hd);
+  *bytes = (long long)paged_smem(B, hd, ps, MP, window, dtype == 0 ? 4 : 2, dpl,
+                                 decode::heads_per_cta(dpl, H, Kh), stages);
+  return 0;
 }

@@ -133,6 +133,15 @@ __global__ void __launch_bounds__(THREADS) splitk_attn_kernel(
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+// The ring stages and dynamic shared memory of a batch-split launch: the
+// ring of CHUNK-row K/V boxes over kv_len positions and its mbarriers.
+inline size_t split_smem(int hd, int kv_len, int window, int elem, int dpl, int hpw,
+                         int* stages) {
+  const uint32_t box = decode::box_bytes(CHUNK, hd, elem);
+  *stages = decode::ring_stages(window, 2 * box, (kv_len + CHUNK - 1) / CHUNK);
+  return decode::launch_smem(*stages, box, dpl, hpw, 0);
+}
+
 struct Split {
   const void *q, *kl, *vl, *kr, *vr;
   void* out;
@@ -143,12 +152,8 @@ template <typename T, int DPL, int HPW, bool TMA>
 int launch_splitk(const Split& a, cudaStream_t stream) {
   const int G = a.H / a.Kh;
   const int n_hg = (G + HPW - 1) / HPW;
-  const int n_chunks = (a.kv_len + CHUNK - 1) / CHUNK;
-  const uint32_t box = decode::box_bytes(CHUNK, a.hd, sizeof(T));
-  const int stages = decode::ring_stages(a.window, 2 * box, n_chunks);
-  size_t ring = (size_t)stages * 2 * box;
-  if (ring < decode::merge_bytes(DPL, HPW)) ring = decode::merge_bytes(DPL, HPW);
-  const size_t smem = ring + (size_t)stages * sizeof(uint64_t);
+  int stages = 0;
+  const size_t smem = split_smem(a.hd, a.kv_len, a.window, sizeof(T), DPL, HPW, &stages);
   if (smem > 227 * 1024) return DAK_ERR_BAD_ARGUMENT;
   CUtensorMap maps[4]{};
   if constexpr (TMA) {
@@ -191,7 +196,7 @@ int dispatch_heads(const Split& a, bool tma, cudaStream_t s) {
     return launch_splitk<T, DPL, 1, false>(a, s);
   } else {
     constexpr int HM = decode::max_heads(DPL);
-    if (a.H == a.Kh)
+    if (decode::heads_per_cta(DPL, a.H, a.Kh) == 1)
       return tma ? launch_splitk<T, DPL, 1, true>(a, s) : launch_splitk<T, DPL, 1, false>(a, s);
     return tma ? launch_splitk<T, DPL, HM, true>(a, s) : launch_splitk<T, DPL, HM, false>(a, s);
   }
@@ -203,12 +208,14 @@ int dispatch_splitk(const Split& a, cudaStream_t s) {
   const bool tma = a.hd * sizeof(T) % 16 == 0 &&
                    (a.B_loc == 0 || (aligned16(a.kl) && aligned16(a.vl))) &&
                    (a.B_rem == 0 || (aligned16(a.kr) && aligned16(a.vr)));
-  if (a.hd <= 32) return dispatch_heads<T, 1>(a, tma, s);
-  if (a.hd <= 64) return dispatch_heads<T, 2>(a, tma, s);
-  if (a.hd <= 128) return dispatch_heads<T, 4>(a, tma, s);
-  if (a.hd <= 256) return dispatch_heads<T, 8>(a, tma, s);
-  if (a.hd <= 512) return dispatch_heads<T, 16>(a, false, s);
-  return dispatch_heads<T, 32>(a, false, s);
+  switch (decode::dims_per_lane(a.hd)) {
+    case 1: return dispatch_heads<T, 1>(a, tma, s);
+    case 2: return dispatch_heads<T, 2>(a, tma, s);
+    case 4: return dispatch_heads<T, 4>(a, tma, s);
+    case 8: return dispatch_heads<T, 8>(a, tma, s);
+    case 16: return dispatch_heads<T, 16>(a, false, s);
+    default: return dispatch_heads<T, 32>(a, false, s);
+  }
 }
 
 }  // namespace
@@ -234,4 +241,19 @@ extern "C" int dak_splitk_attention(const void* q, const void* k_local, const vo
   const Split a{q, k_local, v_local, kr, vr, out, B_loc, B_rem, S, H, Kh, hd, kv_len, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? dispatch_splitk<float>(a, s) : dispatch_splitk<__nv_bfloat16>(a, s);
+}
+
+// What a dak_splitk_attention launch with these arguments would hold: its
+// ring stages and its dynamic shared memory in bytes.  Launches nothing;
+// the wrapper's shared-memory footprint is checked against it.  Returns 0
+// or DAK_ERR_BAD_ARGUMENT.
+extern "C" int dak_splitk_attention_smem(int H, int Kh, int hd, int kv_len, int window, int dtype,
+                                         long long* bytes, int* stages) {
+  if (Kh <= 0 || H % Kh || hd <= 0 || hd > 1024 || kv_len < 1 || window < 1 ||
+      (dtype != 0 && dtype != 1) || bytes == nullptr || stages == nullptr)
+    return DAK_ERR_BAD_ARGUMENT;
+  const int dpl = decode::dims_per_lane(hd);
+  *bytes = (long long)split_smem(hd, kv_len, window, dtype == 0 ? 4 : 2, dpl,
+                                 decode::heads_per_cta(dpl, H, Kh), stages);
+  return 0;
 }

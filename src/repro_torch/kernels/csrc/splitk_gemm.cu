@@ -191,11 +191,30 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// The M tile each design takes for M rows: the whole-K BM and the split-K
+// MB.  The dispatchers and `smem_query` both pick their tiles here.
+inline int whole_k_bm(int M) { return M <= 16 ? 16 : M <= 64 ? 64 : 128; }
+inline int decode_mb(int M) { return M <= 1 ? 1 : M <= 2 ? 2 : M <= 4 ? 4 : M <= 8 ? 8 : 16; }
+
+// Ring stages of the whole-K design: `window` chunks in flight, no more
+// than K has chunks, at most DAK_MAX_WINDOW.
+inline int whole_k_stages(int K, int window) {
+  const int n_k = (K + BK - 1) / BK;
+  int stages = window < n_k ? window : n_k;
+  return stages > DAK_MAX_WINDOW ? DAK_MAX_WINDOW : stages;
+}
+
+// Dynamic shared memory of a whole-K launch: `stages` x and w chunks.
+template <typename T, int BM>
+size_t whole_k_smem(int stages) {
+  return (size_t)stages * (BM * BK + BK * BN) * sizeof(T);
+}
+
 template <typename T, int BM, bool VEC>
 int launch(const T* x, const T* wl, const T* wr, T* y, int M, int K, int n_loc,
            int n_rem, int stages, cudaStream_t stream) {
   const int n_loc_tiles = (n_loc + BN - 1) / BN, n_rem_tiles = (n_rem + BN - 1) / BN;
-  const size_t smem = (size_t)stages * (BM * BK + BK * BN) * sizeof(T);
+  const size_t smem = whole_k_smem<T, BM>(stages);
   auto kern = splitk_gemm_kernel<T, BM, VEC>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -218,14 +237,17 @@ int dispatch(const void* x, const void* wl, const void* wr, void* y, int M, int 
   const T* wlt = static_cast<const T*>(wl);
   const T* wrt = static_cast<const T*>(wr);
   T* yt = static_cast<T*>(y);
-  if (M <= 16)
-    return vec ? launch<T, 16, true>(xt, wlt, wrt, yt, M, K, n_loc, n_rem, stages, stream)
-               : launch<T, 16, false>(xt, wlt, wrt, yt, M, K, n_loc, n_rem, stages, stream);
-  if (M <= 64)
-    return vec ? launch<T, 64, true>(xt, wlt, wrt, yt, M, K, n_loc, n_rem, stages, stream)
-               : launch<T, 64, false>(xt, wlt, wrt, yt, M, K, n_loc, n_rem, stages, stream);
-  return vec ? launch<T, 128, true>(xt, wlt, wrt, yt, M, K, n_loc, n_rem, stages, stream)
-             : launch<T, 128, false>(xt, wlt, wrt, yt, M, K, n_loc, n_rem, stages, stream);
+  switch (whole_k_bm(M)) {
+    case 16:
+      return vec ? launch<T, 16, true>(xt, wlt, wrt, yt, M, K, n_loc, n_rem, stages, stream)
+                 : launch<T, 16, false>(xt, wlt, wrt, yt, M, K, n_loc, n_rem, stages, stream);
+    case 64:
+      return vec ? launch<T, 64, true>(xt, wlt, wrt, yt, M, K, n_loc, n_rem, stages, stream)
+                 : launch<T, 64, false>(xt, wlt, wrt, yt, M, K, n_loc, n_rem, stages, stream);
+    default:
+      return vec ? launch<T, 128, true>(xt, wlt, wrt, yt, M, K, n_loc, n_rem, stages, stream)
+                 : launch<T, 128, false>(xt, wlt, wrt, yt, M, K, n_loc, n_rem, stages, stream);
+  }
 }
 
 
@@ -246,6 +268,24 @@ __host__ __device__ constexpr uint32_t load_bytes() {
 template <typename T, int MB>
 __host__ __device__ constexpr uint32_t stage_bytes() {
   return (load_bytes<T, MB>() + 127) / 128 * 128;
+}
+
+// Ring stages of the split-K designs: `window` loads in flight, no more
+// than a CTA's split has loads, within DSMEM_MAX.
+template <typename T, int MB>
+int decode_stages(int K, int window, int k_split) {
+  const int max_ld = ((k_split < K ? k_split : K) + DBK - 1) / DBK;
+  int stages = window < max_ld ? window : max_ld;
+  if (stages < 1) stages = 1;
+  constexpr size_t STAGE = stage_bytes<T, MB>();
+  if ((size_t)stages * STAGE > DSMEM_MAX) stages = (int)(DSMEM_MAX / STAGE);
+  return stages;
+}
+
+// Dynamic shared memory of a split-K launch: the ring and one mbarrier a stage.
+template <typename T, int MB>
+size_t decode_smem(int stages) {
+  return (size_t)stages * (stage_bytes<T, MB>() + sizeof(uint64_t));
 }
 
 template <typename T, int MB>
@@ -358,12 +398,8 @@ int launch_decode(const T* x, const T* wl, const T* wr, T* y, float* ws, int* ti
     return e;
   const int n_loc_tiles = (n_loc + DBN - 1) / DBN, n_rem_tiles = (n_rem + DBN - 1) / DBN;
   const int splits = (K + k_split - 1) / k_split;
-  const int max_ld = ((k_split < K ? k_split : K) + DBK - 1) / DBK;
-  constexpr size_t STAGE = stage_bytes<T, MB>();
-  int stages = window < max_ld ? window : max_ld;
-  if (stages < 1) stages = 1;
-  if ((size_t)stages * STAGE > DSMEM_MAX) stages = (int)(DSMEM_MAX / STAGE);
-  const size_t smem = (size_t)stages * (STAGE + sizeof(uint64_t));
+  const int stages = decode_stages<T, MB>(K, window, k_split);
+  const size_t smem = decode_smem<T, MB>(stages);
   auto kern = splitk_gemm_decode_kernel<T, MB>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -389,11 +425,13 @@ int dispatch_decode(const void* x, const void* wl, const void* wr, void* y, floa
   T* yt = static_cast<T*>(y);
 #define DAK_DECODE(MB) \
   launch_decode<T, MB>(xt, wlt, wrt, yt, ws, tickets, M, K, n_loc, n_rem, window, k_split, stream)
-  if (M <= 1) return DAK_DECODE(1);
-  if (M <= 2) return DAK_DECODE(2);
-  if (M <= 4) return DAK_DECODE(4);
-  if (M <= 8) return DAK_DECODE(8);
-  return DAK_DECODE(16);
+  switch (decode_mb(M)) {
+    case 1: return DAK_DECODE(1);
+    case 2: return DAK_DECODE(2);
+    case 4: return DAK_DECODE(4);
+    case 8: return DAK_DECODE(8);
+    default: return DAK_DECODE(16);
+  }
 #undef DAK_DECODE
 }
 
@@ -508,12 +546,8 @@ int launch_grouped(const T* x, const T* w, const int* counts, T* y, float* ws, i
   if (int err = dak_encode(&w_map, w, ELEM, 3, w_dims, w_pitch, w_box)) return err;
   const int n_tiles = (N + DBN - 1) / DBN, m_tiles = (M + MB - 1) / MB;
   const int splits = (K + k_split - 1) / k_split;
-  const int max_ld = ((k_split < K ? k_split : K) + DBK - 1) / DBK;
-  constexpr size_t STAGE = stage_bytes<T, MB>();
-  int stages = window < max_ld ? window : max_ld;
-  if (stages < 1) stages = 1;
-  if ((size_t)stages * STAGE > DSMEM_MAX) stages = (int)(DSMEM_MAX / STAGE);
-  const size_t smem = (size_t)stages * (STAGE + sizeof(uint64_t));
+  const int stages = decode_stages<T, MB>(K, window, k_split);
+  const size_t smem = decode_smem<T, MB>(stages);
   auto kern = splitk_gemm_grouped_kernel<T, MB>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -545,6 +579,34 @@ int dispatch_grouped(const void* x, const void* w, const int* counts, void* y, f
   if (M <= 32) return DAK_GROUPED(32);
   return DAK_GROUPED(GROUPED_MAX_MB);
 #undef DAK_GROUPED
+}
+
+// The ring stages and dynamic shared memory a dak_splitk_gemm launch of
+// these arguments uses, by the launch's own arithmetic and tile choice.
+template <typename T>
+void smem_query(int M, int K, int window, int k_split, long long* bytes, int* stages) {
+  if (k_split > 0) {
+#define DAK_QUERY(MB)                                     \
+  {                                                       \
+    *stages = decode_stages<T, MB>(K, window, k_split);   \
+    *bytes = (long long)decode_smem<T, MB>(*stages);      \
+    return;                                               \
+  }
+    switch (decode_mb(M)) {
+      case 1: DAK_QUERY(1)
+      case 2: DAK_QUERY(2)
+      case 4: DAK_QUERY(4)
+      case 8: DAK_QUERY(8)
+      default: DAK_QUERY(16)
+    }
+#undef DAK_QUERY
+  }
+  *stages = whole_k_stages(K, window);
+  switch (whole_k_bm(M)) {
+    case 16: *bytes = (long long)whole_k_smem<T, 16>(*stages); return;
+    case 64: *bytes = (long long)whole_k_smem<T, 64>(*stages); return;
+    default: *bytes = (long long)whole_k_smem<T, 128>(*stages); return;
+  }
 }
 
 }  // namespace
@@ -579,9 +641,7 @@ extern "C" int dak_splitk_gemm(const void* x, const void* w_local, const void* w
                       : dispatch_decode<__nv_bfloat16>(x, wl, wr, y, ws, tk, M, K, n_loc, n_rem,
                                                        window, k_split, s);
   }
-  const int n_k = (K + BK - 1) / BK;
-  int stages = window < n_k ? window : n_k;
-  if (stages > DAK_MAX_WINDOW) stages = DAK_MAX_WINDOW;
+  const int stages = whole_k_stages(K, window);
   return dtype == 0 ? dispatch<float>(x, wl, wr, y, M, K, n_loc, n_rem, stages, s)
                     : dispatch<__nv_bfloat16>(x, wl, wr, y, M, K, n_loc, n_rem, stages, s);
 }
@@ -612,4 +672,21 @@ extern "C" int dak_splitk_gemm_grouped(const void* x, const void* w_remote, cons
   return dtype == 0 ? dispatch_grouped<float>(x, w, c, y, ws, tk, E, M, K, N, window, k_split, s)
                     : dispatch_grouped<__nv_bfloat16>(x, w, c, y, ws, tk, E, M, K, N, window,
                                                       k_split, s);
+}
+
+// What a dak_splitk_gemm launch with these arguments would hold: its ring
+// stages and its dynamic shared memory in bytes (`k_split` > 0 the split-K
+// design, which takes M <= 16; 0 whole K).  Launches nothing; the
+// wrappers' shared-memory footprints are checked against it.  Returns 0 or
+// DAK_ERR_BAD_ARGUMENT.
+extern "C" int dak_splitk_gemm_smem(int M, int K, int window, int k_split, int dtype,
+                                    long long* bytes, int* stages) {
+  if (M <= 0 || K <= 0 || window < 1 || k_split < 0 || (k_split > 0 && (M > 16 || k_split % DBK)) ||
+      (dtype != 0 && dtype != 1) || bytes == nullptr || stages == nullptr)
+    return DAK_ERR_BAD_ARGUMENT;
+  if (dtype == 0)
+    smem_query<float>(M, K, window, k_split, bytes, stages);
+  else
+    smem_query<__nv_bfloat16>(M, K, window, k_split, bytes, stages);
+  return 0;
 }

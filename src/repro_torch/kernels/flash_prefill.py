@@ -20,8 +20,40 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_prefill_ref
+from repro_torch.kernels.splitk_gemm import elem_bytes
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TC_BLOCK_Q, TC_BLOCK_K = 128, 64     # the bf16 tensor-core path's q and k tiles
+FMA_TILE = 64                        # the fp32 FMA path's q and k tile
+
+
+def _is_fp32(dtype) -> bool:
+    return elem_bytes(dtype) == 4
+
+
+def tiles(dtype) -> tuple[int, int]:
+    """The (q, k) tile the kernel is compiled with for ``dtype``."""
+    return (FMA_TILE, FMA_TILE) if _is_fp32(dtype) else (TC_BLOCK_Q, TC_BLOCK_K)
+
+
+def smem_footprint_bytes(hd: int, *, dtype) -> int:
+    """Dynamic shared memory of one `flash_prefill` launch, by the kernel's
+    arithmetic (``csrc/flash_prefill.cu`` `fma_smem`, `tc_smem`): in fp32
+    the q, k and v tiles of rows padded by one float, the 64 x 65 score
+    tile and three row vectors; in bf16 the Q tile and two K/V stages, hd
+    padded to 32, 64, 128 or 256 and rows by 8 elements.  Counterpart of
+    the reference's ``vmem_footprint_bytes``."""
+    if _is_fp32(dtype):
+        return (3 * FMA_TILE * (hd + 1) + FMA_TILE * (FMA_TILE + 1) + 3 * FMA_TILE) * 4
+    padded = next(p for p in (32, 64, 128, 256) if hd <= p or p == 256)
+    return (TC_BLOCK_Q + 4 * TC_BLOCK_K) * (padded + 8) * 2
+
+
+def smem_query(hd: int, *, dtype) -> int:
+    """The kernel's own count of its dynamic shared memory
+    (``dak_flash_prefill_smem``).  Needs the card."""
+    return _build.smem_query("flash_prefill", "dak_flash_prefill_smem", hd,
+                             0 if _is_fp32(dtype) else 1, stages=False)[0]
 
 
 def flash_prefill(

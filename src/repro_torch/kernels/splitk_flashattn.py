@@ -27,14 +27,111 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import paged_flashattn_ref, splitk_flashattn_ref
+from repro_torch.kernels.splitk_gemm import MAX_WINDOW, elem_bytes
 
 DEFAULT_WINDOW = 2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 1024         # the widest hd the kernels take (its q and acc live in registers)
+RING_MAX = 96 * 1024        # the K/V ring's cap in shared memory (decode_attn.cuh RING_MAX)
+CHUNK = 32                  # rows of one batch-split load (splitk_flashattn.cu CHUNK)
+_WARPS = 4                  # warps of a CTA (decode_attn.cuh THREADS / 32)
+
+
+def _dims_per_lane(hd: int) -> int:
+    return next(d for d, top in ((1, 32), (2, 64), (4, 128), (8, 256), (16, 512), (32, None))
+                if top is None or hd <= top)
+
+
+def _heads_per_cta(dpl: int, h: int, kh: int) -> int:
+    """Query heads a CTA takes (decode_attn.cuh `heads_per_cta`): one when
+    G = 1 or hd > 256, else as many as keep q and acc within 64 registers."""
+    if dpl > 8 or h == kh:
+        return 1
+    return 4 if dpl == 8 else 8
+
+
+def _box_bytes(rows: int, hd: int, elem: int) -> int:
+    return -(-rows * hd * elem // 128) * 128
+
+
+def ring_stages(window: int, stage_bytes: int, chunks: int) -> tuple[int, str | None]:
+    """The K/V ring's stages as the kernels compute them (decode_attn.cuh
+    `ring_stages`): ``min(window, MAX_WINDOW) + 1``, cut to what fits in
+    RING_MAX and to the sequence's chunks.  Also returns what cut the
+    requested ring (``window + 1`` stages), None if nothing: "MAX_WINDOW",
+    "RING_MAX" or "chunks"."""
+    window = max(1, int(window))
+    stages, cut = min(window, MAX_WINDOW) + 1, ("MAX_WINDOW" if window > MAX_WINDOW else None)
+    fit = RING_MAX // stage_bytes
+    if stages > fit:
+        stages, cut = fit, "RING_MAX"
+    if stages > chunks:
+        stages, cut = chunks, cut or "chunks"
+    return max(1, stages), cut
+
+
+def _launch_smem(stages: int, box: int, dpl: int, hpw: int, extra: int) -> int:
+    merge = _WARPS * hpw * (32 * dpl + 2) * 4
+    return max(stages * 2 * box, merge) + stages * 8 + extra
+
+
+def paged_smem_footprint_bytes(b: int, h: int, kh: int, hd: int, page_size: int,
+                               max_pages: int, *, window: int, dtype) -> int:
+    """Dynamic shared memory of one `paged_splitk_flashattn` launch, by the
+    kernel's arithmetic (``csrc/paged_flashattn.cu`` `paged_smem`): a ring
+    of K and V page boxes (`ring_stages` over ``max_pages``), or the warps'
+    merge scratch that reuses it if larger, one mbarrier a stage, and the
+    slot's page list and the remote flags, ``(max_pages + b)`` ints.
+    Counterpart of the reference's ``paged_vmem_footprint_bytes``."""
+    dpl = _dims_per_lane(hd)
+    box = _box_bytes(page_size, hd, elem_bytes(dtype))
+    stages, _ = ring_stages(window, 2 * box, max_pages)
+    return _launch_smem(stages, box, dpl, _heads_per_cta(dpl, h, kh), (max_pages + b) * 4)
+
+
+def smem_footprint_bytes(h: int, kh: int, hd: int, kv_len: int, *, window: int,
+                         dtype) -> int:
+    """Dynamic shared memory of one `splitk_flashattn` (batch-split)
+    launch, by the kernel's arithmetic (``csrc/splitk_flashattn.cu``
+    `split_smem`): a ring of CHUNK-row K and V boxes over ``kv_len``
+    positions, or the merge scratch if larger, and one mbarrier a stage.
+    Counterpart of the reference's ``vmem_footprint_bytes``."""
+    dpl = _dims_per_lane(hd)
+    box = _box_bytes(CHUNK, hd, elem_bytes(dtype))
+    stages, _ = ring_stages(window, 2 * box, -(-kv_len // CHUNK))
+    return _launch_smem(stages, box, dpl, _heads_per_cta(dpl, h, kh), 0)
+
+
+def paged_smem_query(b: int, h: int, kh: int, hd: int, page_size: int, max_pages: int, *,
+                     window: int, dtype) -> tuple[int, int]:
+    """The paged kernel's own count: ``(dynamic shared memory bytes, ring
+    stages)`` from ``dak_paged_attention_smem``.  Needs the card."""
+    return _build.smem_query("paged_flashattn", "dak_paged_attention_smem", b, h, kh, hd,
+                             page_size, max_pages, max(1, int(window)),
+                             0 if elem_bytes(dtype) == 4 else 1)
+
+
+def smem_query(h: int, kh: int, hd: int, kv_len: int, *, window: int,
+               dtype) -> tuple[int, int]:
+    """The batch-split kernel's own count: ``(dynamic shared memory bytes,
+    ring stages)`` from ``dak_splitk_attention_smem``.  Needs the card."""
+    return _build.smem_query("splitk_flashattn", "dak_splitk_attention_smem", h, kh, hd, kv_len,
+                             max(1, int(window)), 0 if elem_bytes(dtype) == 4 else 1)
+
+
+def host_first_slot_order(tier: np.ndarray, lens: np.ndarray, page_size: int) -> np.ndarray:
+    """The slot each rank of CTAs attends, as the paged kernel derives it:
+    slots holding any in-use remote page first, stable within each class
+    (the reference's ``host_first_slot_order``)."""
+    tier, lens = np.asarray(tier), np.asarray(lens)
+    in_use = np.arange(tier.shape[1])[None, :] < -(-lens[:, None] // page_size)
+    has_remote = np.any((tier > 0) & in_use, axis=1)
+    return np.argsort(~has_remote, kind="stable").astype(np.int32)
 
 
 class Launch(NamedTuple):

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -48,6 +49,22 @@ DECODE_BN = 64              # its tile columns (csrc/splitk_gemm.cu DBN)
 DECODE_BK = 32              # rows of one of its loads (DBK)
 REMOTE_CTAS_PER_SM = 1      # remote CTAs a split aims for, per SM
 GROUPED_MAX_M = 64          # rows of an M tile of the grouped entry (GROUPED_MAX_MB)
+DSMEM_MAX = 200 * 1024      # the split-K ring's cap in shared memory (DSMEM_MAX)
+WHOLE_K_BN, WHOLE_K_BK = 64, 32      # the whole-K design's tile columns and chunk rows (BN, BK)
+MAX_WINDOW = 8              # DAK_MAX_WINDOW (dak_common.cuh): the whole-K ring's stages,
+                            # the attention rings' loads in flight, at most
+TMA_BOX_MAX = 256           # elements a tensor-map box may span in each dimension
+
+# SMs of the GPU profiles: the copied hardware table has no such field.  A
+# profile without one (the TPU's, kept for comparing keys with the
+# reference) gets the H100's count, since the designs are its kernels'.
+_PROFILE_SM_COUNT = {"h100_sxm": 132, "gh200": 132, "rtx6000_blackwell": 188}
+
+
+def sm_count(hw) -> int:
+    """SMs of a hardware profile (`core.hardware.HardwareSpec`), behind the
+    modeled default split; a launch reads its card's own (`_sm_count`)."""
+    return _PROFILE_SM_COUNT.get(hw.name, _PROFILE_SM_COUNT["h100_sxm"])
 
 
 def decode_k_split(n_loc: int, n_rem: int, k: int, sm_count: int) -> int:
@@ -64,6 +81,107 @@ def decode_k_split(n_loc: int, n_rem: int, k: int, sm_count: int) -> int:
     loads = -(-k // DECODE_BK)
     want = -(-REMOTE_CTAS_PER_SM * sm_count // tiles)
     return max(1, loads // want) * DECODE_BK
+
+
+def elem_bytes(dtype) -> int:
+    """Bytes of one element of a torch dtype, a dtype name ("bfloat16") or
+    an element size given as an int."""
+    if isinstance(dtype, int):
+        return dtype
+    if isinstance(dtype, torch.dtype):
+        return torch.empty((), dtype=dtype).element_size()
+    return {"float32": 4, "bfloat16": 2, "float16": 2}[str(dtype)]
+
+
+def _decode_mb(m: int) -> int:
+    """Rows of x a split-K load carries: the power of two >= M, up to 16."""
+    return next(mb for mb in (1, 2, 4, 8, DECODE_MAX_M) if m <= mb or mb == DECODE_MAX_M)
+
+
+def _whole_k_bm(m: int) -> int:
+    """Rows of a whole-K M tile: 16, 64 or 128 (the dispatch on M)."""
+    return 16 if m <= 16 else 64 if m <= 64 else 128
+
+
+def decode_shapes_ok(m: int, k: int, n_loc: int, n_rem: int, elem: int) -> bool:
+    """Whether the split-K decode design takes these extents: M <= 16 and
+    rows of 16-byte multiples (bases must also be 16-byte aligned, which
+    only tensors can tell: `_decode_operands_ok`)."""
+    return (m <= DECODE_MAX_M and k * elem % 16 == 0 and n_loc * elem % 16 == 0
+            and n_rem * elem % 16 == 0)
+
+
+def ring_stages(m: int, k: int, *, window: int, k_split: int, dtype) -> tuple[int, str | None]:
+    """The ring stages a launch runs with, as the kernel computes them, and
+    what cut the requested ``window`` (None if nothing did): "loads" (a
+    CTA has fewer loads than the window), "DSMEM_MAX" (the split-K ring's
+    shared-memory cap) or "MAX_WINDOW" (the whole-K cap of 8).
+    ``k_split`` > 0 is the split-K design, 0 whole K."""
+    window = max(1, int(window))
+    if k_split > 0:
+        stage = _stage_bytes(_decode_mb(m), elem_bytes(dtype))
+        max_ld = -(-min(k_split, k) // DECODE_BK)
+        stages = max(1, min(window, max_ld))
+        if stages * stage > DSMEM_MAX:
+            return DSMEM_MAX // stage, "DSMEM_MAX"
+    else:
+        stages = min(window, -(-k // WHOLE_K_BK))
+        if stages > MAX_WINDOW:
+            return MAX_WINDOW, "MAX_WINDOW"
+    return stages, (None if stages == window else "loads")
+
+
+def _stage_bytes(mb: int, elem: int) -> int:
+    """One split-K ring stage: a DBK x DBN weight box and MB x DBK of x,
+    rounded up to the 128 bytes a TMA destination is aligned to."""
+    return -(-(DECODE_BK * DECODE_BN + mb * DECODE_BK) * elem // 128) * 128
+
+
+def smem_footprint_bytes(m: int, k: int, n_loc: int, n_rem: int, *, window: int,
+                         k_split: int, dtype) -> int:
+    """Dynamic shared memory of one `splitk_gemm` launch, by the kernel's
+    own arithmetic, clamps included (``csrc/splitk_gemm.cu``
+    `decode_smem`, `whole_k_smem`): ``stages * (STAGE + 8)`` for the
+    split-K design (``k_split`` > 0; a ring stage and its mbarrier), and
+    ``stages * (BM*BK + BK*BN) * elem`` for whole K (``k_split`` 0).  The
+    tiers' widths change the grid, not a CTA's footprint.  Counterpart of
+    the reference's ``vmem_footprint_bytes``; the kernel lint DAK101 holds
+    it against the per-CTA shared-memory limit."""
+    del n_loc, n_rem
+    stages, _ = ring_stages(m, k, window=window, k_split=k_split, dtype=dtype)
+    elem = elem_bytes(dtype)
+    if k_split > 0:
+        return stages * (_stage_bytes(_decode_mb(m), elem) + 8)
+    return stages * (_whole_k_bm(m) * WHOLE_K_BK + WHOLE_K_BK * WHOLE_K_BN) * elem
+
+
+def smem_query(m: int, k: int, *, window: int, k_split: int, dtype) -> tuple[int, int]:
+    """The kernel's own count for a launch: ``(dynamic shared memory
+    bytes, ring stages)`` from ``dak_splitk_gemm_smem``.  Needs the card."""
+    return _build.smem_query("splitk_gemm", "dak_splitk_gemm_smem", m, k, max(1, int(window)),
+                             k_split, 0 if elem_bytes(dtype) == 4 else 1)
+
+
+def host_first_order(n_loc_tiles: int, n_rem_tiles: int, splits: int = 1) -> np.ndarray:
+    """The output tile and split each CTA of a launch computes, in block
+    order, as ``tile * splits + split`` with tiles numbered in output
+    column order (local tiles, then remote): the kernel's remote CTAs come
+    first, and within a tier the tiles of one split are neighbours.  With
+    one split this is the reference's ``host_first_order``."""
+    out = []
+    for tiles, first in ((n_rem_tiles, n_loc_tiles), (n_loc_tiles, 0)):
+        for idx in range(tiles * splits):
+            out.append((first + idx % tiles) * splits + idx // tiles)
+    return np.asarray(out, dtype=np.int64)
+
+
+def default_k_split(m: int, k: int, n_loc: int, n_rem: int, elem: int, sm_count: int) -> int:
+    """The wrapper's own design choice for operands that a tensor map can
+    describe: the split-K design at `decode_k_split` for M <= 16 and rows
+    of 16-byte multiples, else whole K (0)."""
+    if decode_shapes_ok(m, k, n_loc, n_rem, elem):
+        return decode_k_split(n_loc, n_rem, k, sm_count)
+    return 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -96,11 +214,11 @@ def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
 
 
 def _decode_operands_ok(x: torch.Tensor, w_local: torch.Tensor, w_remote: torch.Tensor) -> bool:
-    """Whether a tensor map can describe every operand: 16-byte aligned
-    bases and rows a multiple of 16 bytes."""
-    es = x.element_size()
-    return (x.shape[1] * es % 16 == 0 and w_local.shape[1] * es % 16 == 0
-            and w_remote.shape[1] * es % 16 == 0
+    """Whether the split-K decode design takes the operands: M <= 16 and a
+    tensor map can describe every operand (16-byte aligned bases and rows a
+    multiple of 16 bytes)."""
+    return (decode_shapes_ok(x.shape[0], x.shape[1], w_local.shape[1], w_remote.shape[1],
+                             x.element_size())
             and all(t.data_ptr() % 16 == 0 for t in (x, w_local, w_remote) if t.numel()))
 
 
@@ -155,7 +273,7 @@ def _check_cuda_operands(x: torch.Tensor, w_local: torch.Tensor,
 
 
 def splitk_gemm(x: torch.Tensor, w_local: torch.Tensor, w_remote: torch.Tensor,
-                *, window: int = DEFAULT_WINDOW) -> torch.Tensor:
+                *, window: int = DEFAULT_WINDOW, k_split: int | None = None) -> torch.Tensor:
     """Tiered GEMM: ``x [M, K] @ [w_local [K, N_loc] | w_remote [K, N_rem]]``
     -> ``[M, N_loc + N_rem]`` in x's dtype.  Either tier may be empty.
 
@@ -163,7 +281,15 @@ def splitk_gemm(x: torch.Tensor, w_local: torch.Tensor, w_remote: torch.Tensor,
     is pinned host memory that the kernel reads in place.  ``window`` (>= 1)
     is the number of loads each CTA keeps in flight (the depth of its
     shared-memory ring, capped by shared memory); it never changes the
-    result."""
+    result.  ``k_split`` picks the design: None the wrapper's own choice
+    (split-K at `decode_k_split` where the decode design takes the
+    operands, else whole K), 0 whole K, and a positive multiple of
+    DECODE_BK the split-K design with that many rows of K per CTA, refused
+    where that design cannot take the operands.  The plain CPU version
+    ignores both knobs."""
+    if k_split is not None and (k_split < 0 or k_split % DECODE_BK):
+        raise ValueError(f"k_split must be 0 (whole K) or a positive multiple of {DECODE_BK}, "
+                         f"got {k_split}")
     if x.device.type == "cpu":
         return splitk_gemm_ref(x, w_local, w_remote)
     if x.device.type != "cuda":
@@ -173,9 +299,13 @@ def splitk_gemm(x: torch.Tensor, w_local: torch.Tensor, w_remote: torch.Tensor,
     n_loc, n_rem = w_local.shape[1], w_remote.shape[1]
     if m == 0:
         return torch.empty((0, n_loc + n_rem), dtype=x.dtype, device=x.device)
-    k_split = 0
-    if m <= DECODE_MAX_M and _decode_operands_ok(x, w_local, w_remote):
-        k_split = decode_k_split(n_loc, n_rem, k, _sm_count(x.device.index))
+    decode_ok = _decode_operands_ok(x, w_local, w_remote)
+    if k_split is None:
+        k_split = decode_k_split(n_loc, n_rem, k, _sm_count(x.device.index)) if decode_ok else 0
+    elif k_split > 0 and not decode_ok:
+        raise ValueError(f"k_split={k_split} asks for the split-K decode design, which takes "
+                         f"M <= {DECODE_MAX_M} and 16-byte rows and bases only; got M={m}, "
+                         f"K={k}, N_loc={n_loc}, N_rem={n_rem} of {x.dtype}")
     y = _launch(x, w_local, w_remote, window, k_split)
     splitk_gemm.launches += 1
     return y

@@ -44,6 +44,23 @@ PATH`` the Prometheus text of its metrics registry (``--metrics-interval
 N`` rewrites it every N steps), ``--attribution`` attaches the bandwidth
 attribution profiler, and ``--flight-dir DIR`` the flight recorder
 (``--flight-slo-breach-ms`` dumps a bundle at the first TTFT over it).
+
+The measurement surface is the reference's: ``--bench-json PATH`` writes
+the run's machine-readable report (`bench_report`: tokens/s, TPOT, TTFT
+and queue percentiles, KV pages, the window, compile and elastic counters,
+``schema_version`` and a ``provenance`` stamp naming ``torch``; with
+``--adaptive`` it defaults to ``BENCH_serving.json``), and `main` returns
+that report.  ``--no-kernels`` serves the untiered model through the
+reference path (`ServingEngine(use_kernels=False)`: no tier, no kernel,
+no graph, eager plain PyTorch), the oracle whose tokens the kernel path
+must emit; the all-HBM comparison is the main path at
+``--offload-ratio 0`` (the same engine and graphs; nothing is tiered, so
+its products are plain).
+``--autotune`` sweeps the kernels' knobs per shape under the EB cost
+model and runs the lint-validated winners (`kernels.autotune`);
+``--autotune-cache PATH`` loads a table first if it exists (its winners
+reproduce bit for bit; without ``--autotune`` unseen shapes keep the
+kernels' own choices) and, with ``--autotune``, rewrites it after the run.
 """
 from __future__ import annotations
 
@@ -60,10 +77,11 @@ import repro_torch.configs as C
 from repro_torch.frontend.metrics import ModeledClock
 from repro_torch.frontend.scheduler import scheduler_names
 from repro_torch.frontend.workload import DEFAULT_CLASSES, Trace, poisson_trace
+from repro_torch.kernels.autotune import Autotuner
 from repro_torch.models import model as M
 from repro_torch.obs.attribution import AttributionProfiler
 from repro_torch.obs.flight import FlightRecorder
-from repro_torch.obs.metrics import serving_registry
+from repro_torch.obs.metrics import BENCH_SCHEMA_VERSION, provenance, serving_registry
 from repro_torch.obs.trace import ChromeTraceRecorder
 from repro_torch.serving.engine import Request, ServingEngine, resolve_device
 
@@ -79,12 +97,27 @@ def _write_atomic(path: str, text: str) -> None:
     os.replace(tmp, path)
 
 
-def _registry(args, engine: ServingEngine, stats, wall: float, trace):
-    """The run's metrics registry (the reference's serving registry)."""
+def _bench_registry(args, engine: ServingEngine, stats, wall: float):
+    """The metrics registry behind one serving run's report (the single
+    producer of the report's stats and of the Prometheus exposition)."""
     return serving_registry(engine, stats, wall, meta={
         "arch": args.arch, "smoke": bool(args.smoke), "adaptive": bool(args.adaptive),
-        "trace": args.trace or ("poisson" if trace is not None else None),
+        "trace": args.trace or ("poisson" if getattr(args, "arrival_rate", None) else None),
         "requests": args.requests})
+
+
+def bench_report(args, engine: ServingEngine, stats, wall: float, reg=None) -> dict:
+    """The BENCH_serving.json schema, one flat dict per serving run, as the
+    reference's: the registry's nested view, then ``schema_version`` and
+    the ``provenance`` stamp (git revision, config, clock, ``torch``
+    version) that lets a comparison refuse cross-schema or cross-config
+    pairs."""
+    if reg is None:
+        reg = _bench_registry(args, engine, stats, wall)
+    report = reg.nested()
+    report["schema_version"] = BENCH_SCHEMA_VERSION
+    report["provenance"] = provenance(engine, arch=args.arch)
+    return report
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -102,6 +135,20 @@ def main(argv: list[str] | None = None) -> dict:
                     help="HBM budget in GB: plan the global ratio from the "
                          "model footprint (paper Fig. 10 mode)")
     ap.add_argument("--page-size", type=int, default=8)
+    ap.add_argument("--no-kernels", action="store_true",
+                    help="serve the untiered model through the reference path (no tier, no "
+                         "kernel, no graph): the oracle the kernel path's tokens must equal")
+    ap.add_argument("--bench-json", default=None, metavar="PATH",
+                    help="write the machine-readable benchmark report here (default "
+                         "BENCH_serving.json with --adaptive)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="sweep the kernels' knobs per (op, shape, dtype, offload ratio, hw) "
+                         "under the EB cost model and run the lint-validated winners "
+                         "(kernels.autotune)")
+    ap.add_argument("--autotune-cache", default=None, metavar="PATH",
+                    help="JSON autotune table: loaded before the run if it exists (winners "
+                         "reproduce bit for bit; without --autotune unseen shapes keep the "
+                         "kernels' own choices), rewritten after the run with --autotune")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--dtype", default="float32", choices=sorted(_DTYPES))
@@ -165,6 +212,8 @@ def main(argv: list[str] | None = None) -> dict:
         except ValueError:
             raise SystemExit(f"--hbm-shrink expects STEP:FRAC (e.g. 6:0.3), "
                              f"got {args.hbm_shrink!r}") from None
+    if args.bench_json is None and args.adaptive:
+        args.bench_json = "BENCH_serving.json"
 
     cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
     try:
@@ -195,27 +244,40 @@ def main(argv: list[str] | None = None) -> dict:
             args.flight_dir,
             slo_breach_s=(args.flight_slo_breach_ms / 1e3
                           if args.flight_slo_breach_ms is not None else None))
+    tuner = None
+    if args.autotune or args.autotune_cache:
+        if args.autotune_cache and os.path.exists(args.autotune_cache):
+            tuner = Autotuner.load(args.autotune_cache, sweep=args.autotune)
+            print(f"autotune: loaded {len(tuner.table)} entries "
+                  f"from {args.autotune_cache} (hw={tuner.hw.name})")
+        else:
+            tuner = Autotuner(sweep=args.autotune)
     profiler = AttributionProfiler() if args.attribution else None
     gen = torch.Generator(device=device).manual_seed(0)
-    # built layer by layer: the unsplit model is never whole on the device
+    dtype = _DTYPES[args.dtype]
+    # Tiered, the engine is built layer by layer: the unsplit model is never
+    # whole on the device.  The untiered reference path keeps the whole tree
+    # there (the same draws: `init_params` stacks `layer_source`'s layers).
+    params = (M.init_params(cfg, gen, dtype=dtype, device=device) if args.no_kernels
+              else M.layer_source(cfg, gen, dtype=dtype, device=device))
     engine = ServingEngine(
-        cfg, M.layer_source(cfg, gen, dtype=_DTYPES[args.dtype], device=device),
-        max_batch=args.max_batch, max_len=args.max_len,
+        cfg, params, max_batch=args.max_batch, max_len=args.max_len,
         hbm_budget_bytes=args.hbm_gb * 1e9 if args.hbm_gb is not None else None,
         global_offload_ratio=None if args.hbm_gb is not None else args.offload_ratio,
-        page_size=args.page_size, scheduler=args.scheduler,
+        use_kernels=not args.no_kernels, page_size=args.page_size, scheduler=args.scheduler,
         prefill_chunk=args.prefill_chunk, adaptive=args.adaptive,
         clock=ModeledClock() if trace is not None else None, recorder=recorder,
         flight=flight, profiler=profiler, jit_step=not args.no_jit,
-        check_invariants=args.check_invariants, device=device)
+        check_invariants=args.check_invariants, tuner=tuner, device=device)
+    del params
     if shrink is not None:
         engine.schedule_hbm_shrink(*shrink)
         print(f"chaos: HBM shrink to {shrink[1]:.0%} of the local pool "
               f"at decode step {shrink[0]}")
     print(f"plan: global={engine.plan.global_ratio:.2f} "
           f"per-op={ {k: round(v, 2) for k, v in engine.plan.op_ratios.items()} } "
-          f"window={engine.window} hw={engine.hw.name} device={device} "
-          f"jit={engine.graphed} adaptive={args.adaptive}")
+          f"window={engine.window} tiered={engine.tiered} hw={engine.hw.name} "
+          f"device={device} jit={engine.graphed} adaptive={args.adaptive}")
     if args.hbm_gb is not None:
         print(f"budget: {args.hbm_gb:.1f} GB HBM vs "
               f"{engine.plan.footprint_bytes / 1e9:.1f} GB footprint")
@@ -237,8 +299,8 @@ def main(argv: list[str] | None = None) -> dict:
     if args.metrics_out and args.metrics_interval > 0:
         def step_hook(steps: int) -> None:
             if steps % args.metrics_interval == 0:
-                _write_atomic(args.metrics_out, _registry(
-                    args, engine, engine.stats, time.time() - t0, trace).to_prometheus())
+                _write_atomic(args.metrics_out, _bench_registry(
+                    args, engine, engine.stats, time.time() - t0).to_prometheus())
 
     stats = engine.run(step_hook=step_hook)
     wall = time.time() - t0
@@ -290,31 +352,31 @@ def main(argv: list[str] | None = None) -> dict:
         print(f"attribution: {prep['steps']} steps | labels: {labels or 'none'}"
               f" | transitions {btl['transitions']} | bw optimality "
               f"mean {fr['mean']:.3f} max {fr['max']:.3f}")
+    reg = _bench_registry(args, engine, stats, wall)
+    report = bench_report(args, engine, stats, wall, reg=reg)
+    if args.bench_json:
+        with open(args.bench_json, "w") as fh:
+            json.dump(report, fh, indent=2, default=float)
+        print(f"wrote {args.bench_json}")
     if args.trace_out:
         recorder.save(args.trace_out)
         print(f"wrote {args.trace_out} ({len(recorder.events)} trace events)")
     if args.metrics_out:
-        _write_atomic(args.metrics_out,
-                      _registry(args, engine, stats, wall, trace).to_prometheus())
+        _write_atomic(args.metrics_out, reg.to_prometheus())
         print(f"wrote {args.metrics_out}")
     if args.tokens_out:
         with open(args.tokens_out, "w") as fh:
             json.dump({str(r.rid): list(r.out_tokens) for r in submitted}, fh, sort_keys=True)
             fh.write("\n")
         print(f"wrote {args.tokens_out}")
+    if tuner is not None:
+        print(f"autotune: {tuner.counters()}")
+        if args.autotune and args.autotune_cache:
+            tuner.save(args.autotune_cache)
+            print(f"wrote {args.autotune_cache} ({len(tuner.table)} entries)")
     if flight is not None and flight.dumped:
         print(f"flight bundles: {', '.join(flight.dumped)}")
-    return {"served": stats.served, "wall_s": wall,
-            "generated_tokens": stats.generated_tokens,
-            "tokens_per_s": stats.generated_tokens / wall if wall > 0 else 0.0,
-            "tpot_ms": stats.tpot * 1e3, "ttft_p50_ms": stats.ttft_p50 * 1e3,
-            "prefill_chunks": stats.prefill_chunks, "preemptions": stats.preemptions,
-            "slo": slo, "health": stats.health, "failed_requests": stats.failed_requests,
-            "elastic_replans": stats.elastic_replans, "replans": stats.replans,
-            "jit": engine.graphed, "compile_count": engine.compile_count,
-            "compile_cache_hits": engine.compile_cache_hits,
-            "recaptures": engine.recaptures,
-            "flight_bundles": list(flight.dumped) if flight is not None else []}
+    return report
 
 
 if __name__ == "__main__":

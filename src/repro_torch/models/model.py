@@ -280,7 +280,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None,
     """Random weights with the reference's layout: `init_top`'s leaves, then
     the stack of `n_layers` `init_layer` draws from the same `generator`
     (which must live on `device`), written layer by layer into the stacks."""
-    src = layer_source(cfg, generator, dtype, device)
+    return stack_source(layer_source(cfg, generator, dtype, device))
+
+
+def stack_source(src: LayerSource) -> Params:
+    """The whole stacked tree of a `LayerSource` on its device, its layers
+    asked for in order and written into the stacks one at a time."""
     layers = {k: torch.empty((src.n_layers, *v.shape), dtype=v.dtype, device=src.device)
               for k, v in src.shapes.items()}
     for i in range(src.n_layers):

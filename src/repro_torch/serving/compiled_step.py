@@ -31,6 +31,10 @@ kernel and per small op.
 * On the CPU there is no graph: a :class:`StepGraph` runs the same step
   over the same fixed buffers eagerly, so buckets, counters and staging
   behave as on the card.
+* ``after_first_run`` is called once a step has first run eagerly (the
+  warm-up on the card, before the capture): the engine seals the
+  bucket's autotuner lookups there (`kernels.autotune.RecordedLookups`),
+  so a capture and its replays, like a jitted step's calls, count no hit.
 """
 from __future__ import annotations
 
@@ -147,11 +151,13 @@ class StepGraph:
     :meth:`drop` releases the graph; the next run captures it again."""
 
     def __init__(self, fn: Callable[..., torch.Tensor], device: torch.device, *,
-                 pool: Any = None, stream: torch.cuda.Stream | None = None):
+                 pool: Any = None, stream: torch.cuda.Stream | None = None,
+                 after_first_run: Callable[[], None] | None = None):
         self.fn = fn
         self.device = device
         self.pool = pool
         self.stream = stream
+        self.after_first_run = after_first_run   # called once the step has run eagerly
         self.graph: torch.cuda.CUDAGraph | None = None
         self.tokens: torch.Tensor | None = None   # the graph's output buffer
         self.captured = False
@@ -162,10 +168,12 @@ class StepGraph:
 
     def run(self, *state: Any) -> torch.Tensor:
         if self.device.type != "cuda":
-            if not self.captured:     # no graph on the CPU: the same step, eagerly
+            tokens = self.fn(*state)  # no graph on the CPU: the same step, eagerly
+            if not self.captured:
                 self.captured = True
                 self.captures += 1
-            return self.fn(*state)
+                self._first_run_done()
+            return tokens
         if not self.captured:
             return self._capture(state)
         self.graph.replay()
@@ -184,6 +192,7 @@ class StepGraph:
         with torch.cuda.stream(self.stream):
             tokens = self.fn(*state)
         current.wait_stream(self.stream)
+        self._first_run_done()
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
@@ -208,6 +217,10 @@ class StepGraph:
         self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
         self.capture_s = time.perf_counter() - t0
         return tokens
+
+    def _first_run_done(self) -> None:
+        if self.after_first_run is not None:
+            self.after_first_run()
 
     def drop(self) -> None:
         """Release the graph: the addresses it holds are about to change."""

@@ -79,6 +79,14 @@ the last steps' state on an error or an SLO breach, and an attribution
 profiler over the modeled step cost.  All default off, and off they leave
 tokens and stats bit-identical.
 
+A ``tuner`` (`kernels.autotune.Autotuner`) gives every decode step's
+kernels their tuned knobs (the GEMM's design and ring depth, a cap on the
+attention's window), looked up as the reference's jitted step does: a
+graphed bucket asks while it first runs, and its replays ask nothing.
+``use_kernels=False`` is the reference's oracle path: the untiered tree on
+the device, the dense cache, `models.prefill` and `models.decode_step`,
+no graph; the plan still prices the modeled clock.
+
 The encoder has no decode step and is refused (`models.require_served`);
 it runs through `models.forward`.  Not ported yet: the mesh.
 """
@@ -108,6 +116,7 @@ from repro_torch.frontend.metrics import (
     slo_report,
 )
 from repro_torch.frontend.scheduler import Scheduler, get_scheduler
+from repro_torch.kernels.autotune import RecordedLookups
 from repro_torch.models import model as M
 from repro_torch.obs.attribution import NULL_PROFILER
 from repro_torch.obs.trace import (
@@ -133,24 +142,25 @@ from repro_torch.serving.paged_cache import REMOTE, CacheFull, PagedTieredCache
 
 
 def _decode_step(cfg: ModelConfig, inputs: dict[str, torch.Tensor], kind: str, window: int,
-                 sink_local: int, sink_remote: int, params: dict[str, Any],
+                 sink_local: int, sink_remote: int, tuner: Any, params: dict[str, Any],
                  pools: dict[str, torch.Tensor] | None,
                  cache: dict[str, torch.Tensor] | None) -> torch.Tensor:
     """One decode step of `kind` ("paged", "hybrid" or "ssm") over the fixed
-    input buffers at ``window``: the pools and the recurrent state are
-    updated in place; returns the greedy tokens [B] int32 on the device."""
+    input buffers at ``window`` (and ``tuner``, or None): the pools and the
+    recurrent state are updated in place; returns the greedy tokens [B]
+    int32 on the device."""
     if kind == "ssm":
         logits, _ = TD.tiered_ssm_decode_step(cfg, params, cache, inputs["tokens"],
-                                              window=window)
+                                              window=window, tuner=tuner)
     else:
         args = tuple(inputs[name] for name in PAGED_INPUTS)
         sinks = dict(sink_local=sink_local, sink_remote=sink_remote)
         if kind == "hybrid":
             logits, _, _ = TD.tiered_hybrid_decode_step(cfg, params, cache, pools, *args,
-                                                        **sinks, window=window)
+                                                        **sinks, window=window, tuner=tuner)
         else:
             logits, _ = TD.paged_tiered_decode_step(cfg, params, pools, *args, **sinks,
-                                                    window=window)
+                                                    window=window, tuner=tuner)
     return torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
 
 
@@ -308,6 +318,7 @@ class ServingEngine:
         hw: HardwareSpec = H100_SXM,
         hbm_budget_bytes: float | None = None,
         global_offload_ratio: float | None = None,
+        use_kernels: bool = True,
         page_size: int = 8,
         adaptive: bool = False,
         runtime: RuntimeController | None = None,
@@ -318,6 +329,7 @@ class ServingEngine:
         flight=None,
         jit_step: bool = True,
         check_invariants: bool = False,
+        tuner: Any = None,
         profiler=None,
         device="cuda",
     ):
@@ -344,7 +356,19 @@ class ServingEngine:
         snapshots dumped on an error or the first SLO breach) and
         ``profiler`` an `obs.attribution.AttributionProfiler` fed the modeled
         cost of every step (default: the no-op null profiler); off, each
-        leaves tokens and stats bit-identical.
+        leaves tokens and stats bit-identical.  ``tuner`` is a
+        `kernels.autotune.Autotuner` whose winners every decode step's
+        kernels run with (the reference's lookups: a graphed bucket asks
+        while it is first run, so replays count no hit).
+
+        ``use_kernels=False`` is the reference's oracle mode: no tier, no
+        kernel, no graph.  The engine keeps the untiered tree on its
+        device, serves from the dense cache of `models.init_cache` through
+        `models.prefill` and `models.decode_step`, and still plans, so the
+        modeled clock prices the plan's split.  It is the source of correct
+        tokens, not a speed yardstick: eager plain PyTorch, host-bound on the
+        card.  The all-HBM comparison is ``global_offload_ratio=0`` on the
+        kernel path.
 
         ``params`` is the unpartitioned stacked tree (`models.init_params`
         or `bridge.params_from_numpy`) or a `models.model.LayerSource`
@@ -374,8 +398,12 @@ class ServingEngine:
             global_ratio=global_offload_ratio, kv_page_size=page_size)
         self.window = self.plan.window.n_inflight
         self._align = 32 if cfg.d_model < 1024 else 128
+        self.tiered = bool(use_kernels)
         source = params if isinstance(params, M.LayerSource) else M.LayerSource.from_tree(params)
-        self.params = self.plan.partition_source(source, align=self._align)
+        if self.tiered:
+            self.params = self.plan.partition_source(source, align=self._align)
+        else:
+            self.params = params if isinstance(params, dict) else M.stack_source(source)
         # Adaptive runtime: seeded from the static plan; pass `runtime` to
         # choose the budgets and the measurement source.
         self.runtime: RuntimeController | None = runtime
@@ -385,13 +413,16 @@ class ServingEngine:
         self._dtype = source.dtype
         self.pcache: PagedTieredCache | None = None
         self.cache: dict[str, torch.Tensor] | None = None
-        if cfg.family in ("ssm", "hybrid"):
+        if not self.tiered:
+            # the reference path: one dense cache, K/V included, in HBM
+            self.cache = M.init_cache(cfg, max_batch, max_len, self._dtype, self.device)
+        elif cfg.family in ("ssm", "hybrid"):
             # the recurrent conv window and SSD state of every layer, one row
             # per slot, in HBM (a hybrid's K/V goes to the page cache)
             self.cache = {k: v for k, v in M.init_cache(cfg, max_batch, max_len, self._dtype,
                                                         self.device).items()
                           if k in ("conv", "state")}
-        if cfg.family != "ssm":
+        if self.tiered and cfg.family != "ssm":
             self.pcache = self._make_pcache()
         self._t0 = self.clock.now()
         self.lens = np.zeros(max_batch, dtype=np.int32)     # per-slot kv length
@@ -410,7 +441,9 @@ class ServingEngine:
         self.mesh = None                   # one card: the serving mesh is not ported
         # Compiled decode step: one CUDA graph per (kind, window bucket, pool
         # shape) bucket, on fixed input buffers filled by one staged copy.
-        self._jit = bool(jit_step)
+        # The untiered reference path stays eager (it is the oracle).
+        self.tuner = tuner
+        self._jit = bool(jit_step) and self.tiered
         self.check_invariants = check_invariants
         self._compiled: dict[tuple, StepGraph] = {}
         self.compile_count = 0             # fresh buckets (one graph each)
@@ -959,17 +992,20 @@ class ServingEngine:
         if self.device.type == "cuda" and self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
             self._capture_stream = capture_stream(self.device)
-        graph = StepGraph(self._decode_fn(kind, wb, sl, sr), self.device,
-                          pool=self._graph_pool, stream=self._capture_stream)
+        lookups = RecordedLookups(self.tuner) if self.tuner is not None else None
+        graph = StepGraph(self._decode_fn(kind, wb, sl, sr, lookups), self.device,
+                          pool=self._graph_pool, stream=self._capture_stream,
+                          after_first_run=lookups.seal if lookups is not None else None)
         self._compiled[key] = graph
         return graph, f"{kind}/w{wb}"
 
-    def _decode_fn(self, kind: str, window: int, sink_local: int, sink_remote: int):
+    def _decode_fn(self, kind: str, window: int, sink_local: int, sink_remote: int,
+                   tuner: Any = None):
         """The decode step of one bucket, ``fn(params, pools, cache)``:
-        bound to the fixed input buffers, not to the engine (so a cached
-        graph keeps no reference back to it)."""
+        bound to the fixed input buffers and its tuner view, not to the
+        engine (so a cached graph keeps no reference back to it)."""
         return functools.partial(_decode_step, self.cfg, self._inputs.buffers, kind, window,
-                                 sink_local, sink_remote)
+                                 sink_local, sink_remote, tuner)
 
     def _decode_state(self) -> tuple:
         """What a decode step reads besides its inputs: params, pools and
@@ -1020,6 +1056,9 @@ class ServingEngine:
             self._audit_page_table()
             return
         active = np.array([r is not None for r in self.active])
+        if not self.tiered:
+            self._reference_decode(t_step_clock, prefill_tokens, active)
+            return
         if self.pcache is None:
             self._inputs.load(tokens=self._next_tok)
         else:
@@ -1044,11 +1083,30 @@ class ServingEngine:
         else:
             sinks = ((self.pcache.sink_local, self.pcache.sink_remote)
                      if self.pcache is not None else (0, 0))
-            tok_dev = self._decode_fn(self._decode_kind(), self.window,
-                                      *sinks)(*self._decode_state())
+            tok_dev = self._decode_fn(self._decode_kind(), self.window, *sinks,
+                                      self.tuner)(*self._decode_state())
         if timer is not None:
             timer.end()
         nxt = self._inputs.fetch(tok_dev)  # the step's only host sync
+        self._finish_decode(t_step_clock, prefill_tokens, active, nxt, t0, tc0, bucket)
+
+    def _reference_decode(self, t_step_clock: float, prefill_tokens: int,
+                          active: np.ndarray) -> None:
+        """The untiered decode step (``use_kernels=False``): `models.decode_step`
+        over the dense cache, every slot at its own position."""
+        tc0 = self.clock.now() if self.recorder.enabled else 0.0
+        t0 = time.time()
+        tokens = torch.as_tensor(self._next_tok, dtype=torch.int32, device=self.device)
+        positions = torch.as_tensor(np.where(active, self.lens, 0), dtype=torch.int32,
+                                    device=self.device)
+        logits, self.cache = M.decode_step(self.cfg, self.params, self.cache, tokens, positions)
+        nxt = torch.argmax(logits[:, 0], dim=-1).to(torch.int32).cpu().numpy()
+        self._finish_decode(t_step_clock, prefill_tokens, active, nxt, t0, tc0, None)
+
+    def _finish_decode(self, t_step_clock: float, prefill_tokens: int, active: np.ndarray,
+                       nxt: np.ndarray, t0: float, tc0: float, bucket: str | None) -> None:
+        """The rest of a decode step once its tokens are on the host: stats,
+        the clock, spans, the runtime, health, and each slot's new token."""
         self.stats.decode_time += time.time() - t0
         self.stats.decode_steps += 1
         self._clock_tick_decode(active)

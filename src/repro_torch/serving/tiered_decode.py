@@ -9,7 +9,9 @@ column-split weight goes through the direct-access GEMM
 `models.layers.tiered_expert_ffn`, whose remote experts go through the
 grouped GEMM (`kernels.splitk_gemm.splitk_gemm_grouped`, one launch per
 expert matrix a layer), all under the congestion ``window`` passed per step
-(it paces copies, never changes results).  The steps:
+(it paces copies, never changes results).  Every step takes an optional
+``tuner`` (`kernels.autotune.Autotuner`), threaded into each GEMM and
+attention call as the reference threads its own.  The steps:
 
 * ``paged_tiered_decode_step`` — dense, MoE and MLA decoders: the serving
   engine's ragged step over the paged tiered cache, attended by the paged
@@ -77,9 +79,9 @@ def split_cache_batch(cache: dict[str, torch.Tensor], kv_ratio: float,
     return out
 
 
-def _mm(x: torch.Tensor, w: Any, window: int) -> torch.Tensor:
+def _mm(x: torch.Tensor, w: Any, window: int, tuner: Any = None) -> torch.Tensor:
     if isinstance(w, TieredTensor):
-        return ops.tiered_matmul(x, w, window=window)
+        return ops.tiered_matmul(x, w, window=window, tuner=tuner)
     return x @ w
 
 
@@ -90,13 +92,14 @@ def kernel_grouped_mm(window: int) -> Callable[..., torch.Tensor]:
     return lambda x, w, counts: splitk_gemm_grouped(x, w, counts, window=window)
 
 
-def kernel_mm(window: int) -> Callable[[torch.Tensor, Any], torch.Tensor]:
+def kernel_mm(window: int, tuner: Any = None) -> Callable[[torch.Tensor, Any], torch.Tensor]:
     """The tier-aware matmul every tiered path runs, as an ``mm`` for the
-    model's layers: the direct-access GEMM for a tiered weight, a plain
-    product otherwise; its ``grouped`` is `kernel_grouped_mm` at the same
-    window, for a tiered expert stack."""
+    model's layers: the direct-access GEMM for a tiered weight (tuned by
+    ``tuner`` when one is given), a plain product otherwise; its
+    ``grouped`` is `kernel_grouped_mm` at the same window, for a tiered
+    expert stack (which takes no tuned knob)."""
     def mm(a: torch.Tensor, w: Any) -> torch.Tensor:
-        return _mm(a, w, window)
+        return _mm(a, w, window, tuner)
 
     mm.grouped = kernel_grouped_mm(window)
     return mm
@@ -110,11 +113,11 @@ WriteAndAttend = Callable[..., torch.Tensor]
 
 def _gqa_attend(cfg: ModelConfig, lp: dict[str, Any], hn: torch.Tensor,
                 positions: torch.Tensor, idx: int, window: int,
-                write_and_attend: WriteAndAttend) -> torch.Tensor:
+                write_and_attend: WriteAndAttend, tuner: Any = None) -> torch.Tensor:
     """GQA attention over the injected cache: returns [B,1,Hp*hd] (pre-wo)."""
     hd, hp = cfg.resolved_head_dim, cfg.padded_heads
     b = hn.shape[0]
-    q, k_new, v_new = L.qkv_project(cfg, hn, lp, mm=kernel_mm(window))
+    q, k_new, v_new = L.qkv_project(cfg, hn, lp, mm=kernel_mm(window, tuner))
     q, k_new = L._maybe_qk_norm(cfg, q, k_new, lp)
     rot = int(hd * cfg.rope_fraction)
     if rot:
@@ -127,7 +130,7 @@ def _gqa_attend(cfg: ModelConfig, lp: dict[str, Any], hn: torch.Tensor,
 
 def _mla_attend(cfg: ModelConfig, lp: dict[str, Any], hn: torch.Tensor,
                 positions: torch.Tensor, idx: int, window: int,
-                write_and_attend: WriteAndAttend) -> torch.Tensor:
+                write_and_attend: WriteAndAttend, tuner: Any = None) -> torch.Tensor:
     """Absorbed-form MLA over latent-width pages: returns [B,1,H*vd] (pre-wo).
 
     The page row is the latent ``[ckv | k_rope]`` (one kv head, width
@@ -139,7 +142,7 @@ def _mla_attend(cfg: ModelConfig, lp: dict[str, Any], hn: torch.Tensor,
     h, rd, vd = cfg.n_heads, cfg.rope_head_dim, cfg.v_head_dim
     rank = cfg.kv_lora_rank
     b = hn.shape[0]
-    kmm = kernel_mm(window)
+    kmm = kernel_mm(window, tuner)
     q_nope, q_rope = L.mla_project_q(cfg, hn, lp, mm=kmm)         # [B,1,H,*]
     c_kv, k_rope = L.mla_project_kv_latent(cfg, hn, lp, mm=kmm)   # [B,1,*]
     cos, sin = L.rope_cos_sin(positions[:, None], rd, cfg.rope_theta)
@@ -154,8 +157,8 @@ def _mla_attend(cfg: ModelConfig, lp: dict[str, Any], hn: torch.Tensor,
 
 
 def _head(cfg: ModelConfig, params: dict[str, Any], x: torch.Tensor,
-          window: int) -> torch.Tensor:
-    return M.lm_head(cfg, params, x, mm=kernel_mm(window))
+          window: int, tuner: Any = None) -> torch.Tensor:
+    return M.lm_head(cfg, params, x, mm=kernel_mm(window, tuner))
 
 
 def _decode_transformer(
@@ -165,24 +168,25 @@ def _decode_transformer(
     positions: torch.Tensor,         # [B] int per-slot write positions
     window: int,
     write_and_attend: WriteAndAttend,
+    tuner: Any = None,
 ) -> torch.Tensor:
     """Shared decode body of the dense, MoE and MLA decoders: the
     attention flavour and the FFN are picked per family; tiered weights run
     the direct-access GEMM, attention runs through `write_and_attend`."""
     x = params["embed"][tokens.long()]                # [B,1,d]
-    kmm = kernel_mm(window)
+    kmm = kernel_mm(window, tuner)
     attend = _mla_attend if cfg.use_mla else _gqa_attend
     for i in range(cfg.n_layers):
         lp = layer_slice(params["layers"], i)
         hn = L.norm(cfg, x, lp, "ln1")
-        attn = attend(cfg, lp, hn, positions, i, window, write_and_attend)
-        x = x + _mm(attn, lp["wo"], window)
+        attn = attend(cfg, lp, hn, positions, i, window, write_and_attend, tuner)
+        x = x + _mm(attn, lp["wo"], window, tuner)
         hn2 = L.norm(cfg, x, lp, "ln2")
         if cfg.family == "moe":
             x = x + L.moe_block(cfg, hn2, lp, mm=kmm)
         else:
             x = x + L.mlp_block(cfg, hn2, lp, mm=kmm)
-    return _head(cfg, params, x, window)
+    return _head(cfg, params, x, window, tuner)
 
 
 def tiered_decode_step(
@@ -193,6 +197,7 @@ def tiered_decode_step(
     pos: int,
     *,
     window: int = 2,
+    tuner: Any = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """One slot-aligned decode step over tiered weights + batch-split KV
     (the paper's §5 layout; GQA decoders, dense or MoE, as in the
@@ -221,10 +226,12 @@ def tiered_decode_step(
                 scatter_rows(remote, new[b_loc:, 0].to(remote.dtype).contiguous(), wr_tier,
                              wr_idx, wr_off, 0, b_rem, remote=True)
         layer = {key: cache[key][i] for key in ("k_local", "v_local", "k_remote", "v_remote")}
-        return ops.tiered_decode_attention(q, layer, kv_len=pos + 1, window=window)
+        return ops.tiered_decode_attention(q, layer, kv_len=pos + 1, window=window,
+                                           tuner=tuner)
 
     positions = torch.full((b,), pos, dtype=torch.int32, device=dev)
-    logits = _decode_transformer(cfg, params, tokens, positions, window, write_and_attend)
+    logits = _decode_transformer(cfg, params, tokens, positions, window, write_and_attend,
+                                 tuner)
     return logits, cache
 
 
@@ -232,7 +239,7 @@ def _paged_writer(
     pools: dict[str, torch.Tensor],
     table: torch.Tensor, tier: torch.Tensor, attn_lens: torch.Tensor,
     wr_tier: torch.Tensor, wr_idx: torch.Tensor, wr_off: torch.Tensor,
-    sink_local: int, sink_remote: int, window: int,
+    sink_local: int, sink_remote: int, window: int, tuner: Any = None,
 ) -> WriteAndAttend:
     """write_and_attend over a paged tiered pool set (writes `pools` in
     place).  Each slot's row goes to its target page in one tier; on the
@@ -256,7 +263,7 @@ def _paged_writer(
                        "v_local": pools[f"{v_name}_local"][i],
                        "v_remote": pools[f"{v_name}_remote"][i]}
         return ops.paged_decode_attention(q, layer_pools, table, tier, attn_lens,
-                                          window=window, scale=scale)
+                                          window=window, scale=scale, tuner=tuner)
 
     return write_and_attend
 
@@ -277,6 +284,7 @@ def paged_tiered_decode_step(
     sink_local: int,
     sink_remote: int,
     window: int = 2,
+    tuner: Any = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """One ragged decode step over tiered weights + paged tiered KV.
 
@@ -286,9 +294,9 @@ def paged_tiered_decode_step(
     pools = dict(pools)
     write_and_attend = _paged_writer(
         pools, table, tier, attn_lens, wr_tier, wr_idx, wr_off,
-        sink_local, sink_remote, window)
+        sink_local, sink_remote, window, tuner)
     logits = _decode_transformer(cfg, params, tokens, positions, window,
-                                 write_and_attend)
+                                 write_and_attend, tuner)
     return logits, pools
 
 
@@ -299,6 +307,7 @@ def tiered_ssm_decode_step(
     tokens: torch.Tensor,            # [B,1] int
     *,
     window: int = 2,
+    tuner: Any = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """One recurrent decode step for pure-SSM decoders over tiered weights.
 
@@ -308,7 +317,7 @@ def tiered_ssm_decode_step(
     Every slot steps, idle ones too (their state is overwritten when a
     request is admitted).  The cache is updated in place, a layer at a
     time; returns (logits [B,1,vocab], the cache)."""
-    return _recurrent_step(cfg, params, cache, tokens, window, None, None)
+    return _recurrent_step(cfg, params, cache, tokens, window, None, None, tuner)
 
 
 def tiered_hybrid_decode_step(
@@ -328,6 +337,7 @@ def tiered_hybrid_decode_step(
     sink_local: int,
     sink_remote: int,
     window: int = 2,
+    tuner: Any = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor], dict[str, torch.Tensor]]:
     """One ragged decode step for Zamba2-style hybrids: each group runs its
     shared attention + MLP block (GQA over the group's paged tiered KV
@@ -337,33 +347,33 @@ def tiered_hybrid_decode_step(
     pools = dict(pools)
     write_and_attend = _paged_writer(
         pools, table, tier, attn_lens, wr_tier, wr_idx, wr_off,
-        sink_local, sink_remote, window)
+        sink_local, sink_remote, window, tuner)
     logits, cache = _recurrent_step(cfg, params, cache, tokens, window, positions,
-                                    write_and_attend)
+                                    write_and_attend, tuner)
     return logits, cache, pools
 
 
 def _recurrent_step(cfg: ModelConfig, params: dict[str, Any], cache: dict[str, torch.Tensor],
                     tokens: torch.Tensor, window: int, positions: torch.Tensor | None,
-                    write_and_attend: WriteAndAttend | None
+                    write_and_attend: WriteAndAttend | None, tuner: Any = None
                     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """The body of both recurrent steps: a hybrid's shared block before
     each group (`models.model.shared_block`), then every tiered SSM layer,
     whose new conv window and state overwrite its slice of `cache`."""
     x = params["embed"][tokens.long()]
     h0 = x
-    kmm = kernel_mm(window)
+    kmm = kernel_mm(window, tuner)
     for i in range(cfg.n_layers):
         sp = M.shared_block(cfg, params, i)
         if sp is not None:
             z = M.shared_in(x, h0, sp)
             attn = _gqa_attend(cfg, sp, L.norm(cfg, z, sp, "ln1"), positions,
-                               i // cfg.hybrid_attn_every, window, write_and_attend)
-            x = M.shared_out(cfg, x, z + _mm(attn, sp["wo"], window), sp, kmm)
+                               i // cfg.hybrid_attn_every, window, write_and_attend, tuner)
+            x = M.shared_out(cfg, x, z + _mm(attn, sp["wo"], window, tuner), sp, kmm)
         lp = layer_slice(params["layers"], i)
         y, conv_i, state_i = S.ssm_block_decode(
             cfg, L.norm(cfg, x, lp, "ln1"), lp, cache["conv"][i], cache["state"][i], mm=kmm)
         x = x + y
         cache["conv"][i] = conv_i
         cache["state"][i] = state_i
-    return _head(cfg, params, x, window), cache
+    return _head(cfg, params, x, window, tuner), cache

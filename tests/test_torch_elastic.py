@@ -8,6 +8,7 @@ also equal the unpressured static run's."""
 from __future__ import annotations
 
 import dataclasses
+import json
 
 import jax
 import numpy as np
@@ -182,17 +183,23 @@ def test_shrink_without_runtime_keeps_the_plan(weights):
     assert torch.is_tensor(teng.pcache.pools["k_remote"])
 
 
-def test_serve_flags_run_the_runtime_and_the_shrink():
+def test_serve_flags_run_the_runtime_and_the_shrink(tmp_path):
     """`--adaptive --hbm-shrink 2:0.2` on the CPU: every request served,
-    none failed, the engine healthy at the end after a forced re-plan; a
-    malformed shrink is refused."""
+    none failed, the engine healthy at the end after a forced re-plan, the
+    report written where `--bench-json` says; a malformed shrink is
+    refused."""
     from repro_torch.launch import serve
 
+    bench = tmp_path / "bench.json"
     out = serve.main(["--device", "cpu", "--smoke", "--requests", "5", "--max-batch", "3",
                       "--prompt-len", "10", "--new-tokens", "6", "--max-len", "32",
                       "--offload-ratio", "0.5", "--page-size", "4", "--adaptive",
-                      "--hbm-shrink", "2:0.2"])
-    assert out["served"] == 5 and out["failed_requests"] == 0 and out["health"] == "healthy"
-    assert out["elastic_replans"] >= 1 and out["replans"] >= out["elastic_replans"]
+                      "--hbm-shrink", "2:0.2", "--bench-json", str(bench)])
+    written = json.loads(bench.read_text())
+    assert written["schema_version"] == out["schema_version"] and written["served"] == 5
+    assert out["served"] == 5 and out["failed_requests"] == 0
+    assert out["elastic"]["state"] == "healthy"
+    assert out["elastic"]["elastic_replans"] >= 1
+    assert out["runtime"]["replans"] >= out["elastic"]["elastic_replans"]
     with pytest.raises(SystemExit, match="STEP:FRAC"):
         serve.main(["--device", "cpu", "--smoke", "--hbm-shrink", "2"])

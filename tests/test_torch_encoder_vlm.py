@@ -250,11 +250,11 @@ def test_serve_command_slo_scheduler_on_poisson_arrivals(tmp_path):
                       "--new-tokens", "3", "--max-len", "24", "--offload-ratio", "0.5",
                       "--page-size", "4", "--scheduler", "slo", "--prefill-chunk", "4",
                       "--arrival-rate", "2000", "--tokens-out", str(out)])
-    assert rep["served"] == 5 and rep["prefill_chunks"] > 0
+    assert rep["served"] == 5 and rep["scheduling"]["prefill_chunks"] > 0
     tokens = json.loads(out.read_text())
     assert sorted(tokens) == [str(i) for i in range(5)]
     assert all(1 <= len(v) <= 3 for v in tokens.values())
-    assert sum(c["requests"] for c in rep["slo"].values()) == 5
+    assert sum(c["requests"] for c in rep["scheduling"]["slo"].values()) == 5
 
 
 def test_vlm_serves_through_the_serve_command():

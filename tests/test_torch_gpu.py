@@ -43,6 +43,7 @@ from torch_helpers import (  # noqa: F401  (cuda_device is a fixture)
 
 pytestmark = pytest.mark.gpu
 TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 
 
 def _pinned(t: torch.Tensor) -> torch.Tensor:
@@ -913,3 +914,121 @@ def test_failed_capture_raises_and_never_falls_back(cuda_device, monkeypatch):
     assert eng.graphed and not any(g.captured for g in eng._compiled.values())
     with pytest.raises(RuntimeError, match="capturing the decode step"):
         eng.step()
+
+
+# ---------------------------------------------------------------------------
+# The autotuner's knobs and the kernel lints' footprints on the card
+# ---------------------------------------------------------------------------
+def _tuned_gemm_cases():
+    """(m, k, n_loc, n_rem, k_split, window): every design candidate the
+    tuner sweeps at llama2-7b-like decode shapes cut narrow, and whole K at
+    a prefill M."""
+    from repro_torch.kernels.autotune import Autotuner
+
+    tuner, out = Autotuner(), []
+    for m, k, n_loc, n_rem in ((4, 4096, 256, 256), (1, 1024, 128, 640), (16, 2048, 0, 512)):
+        for ks in tuner.gemm_k_splits(m, k, n_loc, n_rem, 2):
+            out.extend((m, k, n_loc, n_rem, ks, w) for w in (1, 2, 8))
+    out.extend((33, 512, 128, 128, 0, w) for w in (1, 3, 8))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n_loc,n_rem,k_split,window", _tuned_gemm_cases())
+def test_splitk_gemm_tuned_knobs_match_plain(cuda_device, dtype, m, k, n_loc, n_rem, k_split,
+                                             window):
+    gen = torch.Generator(device=cuda_device).manual_seed(k + n_rem + k_split)
+    x = torch.randn((m, k), generator=gen, device=cuda_device).to(dtype)
+    wl = torch.randn((k, n_loc), generator=gen, device=cuda_device).to(dtype)
+    wr_dev = torch.randn((k, n_rem), generator=gen, device=cuda_device).to(dtype)
+    got = splitk_gemm(x, wl, _pinned(wr_dev), window=window, k_split=k_split)
+    torch.cuda.synchronize()
+    assert rel_err(got, tref.splitk_gemm_ref(x, wl, wr_dev)) < TOL[dtype]
+
+
+def test_splitk_gemm_refuses_a_split_the_decode_design_cannot_take(cuda_device):
+    x = torch.ones((17, 64), device=cuda_device)
+    wl, wr = torch.ones((64, 64), device=cuda_device), _pinned(torch.ones((64, 64)))
+    with pytest.raises(ValueError, match="split-K decode design"):
+        splitk_gemm(x, wl, wr, k_split=32)                # M = 17 > 16
+    with pytest.raises(ValueError, match="multiple of 32"):
+        splitk_gemm(x[:4], wl, wr, k_split=48)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_smem_footprint_equals_the_kernels_count(cuda_device, dtype):
+    from repro_torch.kernels import splitk_gemm as G
+
+    checked = 0
+    for m in (1, 3, 4, 16, 33, 128):
+        for k in (40, 4096, 11008):
+            for k_split in (0, 32, 800, 4096):
+                if k_split and m > G.DECODE_MAX_M:
+                    continue
+                for window in (1, 2, 8, 9, 64):
+                    want = G.smem_query(m, k, window=window, k_split=k_split, dtype=dtype)
+                    stages, _ = G.ring_stages(m, k, window=window, k_split=k_split, dtype=dtype)
+                    assert (G.smem_footprint_bytes(m, k, 128, 128, window=window,
+                                                   k_split=k_split, dtype=dtype),
+                            stages) == want, (m, k, k_split, window)
+                    checked += 1
+    assert checked > 200
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_smem_footprints_equal_the_kernels_counts(cuda_device, dtype):
+    from repro_torch.kernels import splitk_flashattn as A
+
+    for case, (b, h, kh, hd, ps, mp, *_rest) in PAGED_CASES.items():
+        for window in (1, 2, 4, 8, 16):
+            stages, _ = A.ring_stages(window, 2 * A._box_bytes(ps, hd, ELEM_BYTES[dtype]), mp)
+            want = A.paged_smem_query(b, h, kh, hd, ps, mp, window=window, dtype=dtype)
+            assert (A.paged_smem_footprint_bytes(b, h, kh, hd, ps, mp, window=window,
+                                                 dtype=dtype), stages) == want, (case, window)
+    for h, kh, hd, kv_len in ((32, 32, 128, 288), (32, 8, 128, 2000), (8, 1, 576, 70),
+                              (4, 2, 30, 5), (2, 2, 1024, 100)):
+        for window in (1, 2, 8, 12):
+            stages, _ = A.ring_stages(window, 2 * A._box_bytes(A.CHUNK, hd, ELEM_BYTES[dtype]),
+                                      -(-kv_len // A.CHUNK))
+            want = A.smem_query(h, kh, hd, kv_len, window=window, dtype=dtype)
+            assert (A.smem_footprint_bytes(h, kh, hd, kv_len, window=window, dtype=dtype),
+                    stages) == want, (h, kh, hd, kv_len, window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_prefill_smem_footprint_equals_the_kernels_count(cuda_device, dtype):
+    import importlib
+
+    fp = importlib.import_module("repro_torch.kernels.flash_prefill")
+    for hd in (30, 64, 80, 128, 192, 256):
+        assert fp.smem_footprint_bytes(hd, dtype=dtype) == fp.smem_query(hd, dtype=dtype), hd
+
+
+def test_smem_limit_of_the_lints_is_the_cards_opt_in_limit(cuda_device):
+    from repro_torch.analysis.kernel_lints import SMEM_OPTIN_BYTES
+
+    props = torch.cuda.get_device_properties(cuda_device)
+    assert SMEM_OPTIN_BYTES == props.shared_memory_per_block_optin == 227 * 1024
+
+
+@pytest.mark.parametrize("jit", [True, False])
+def test_tuned_engine_matches_untuned_on_card(cuda_device, jit):
+    from repro_torch.kernels.autotune import Autotuner
+
+    cfg = dataclasses.replace(TC.get("llama2_7b"), n_layers=2)
+    params = TM.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(3),
+                            device=cuda_device)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(3, cfg.vocab, n).astype(np.int32) for n in SERVE_PROMPT_LENS]
+    runs = []
+    for tuner in (None, Autotuner()):
+        eng = ServingEngine(cfg, params, max_batch=3, max_len=32, global_offload_ratio=0.5,
+                            page_size=4, jit_step=jit, tuner=tuner, device=cuda_device)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=6) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        runs.append([r.out_tokens for r in reqs])
+        if tuner is not None:
+            assert tuner.table and tuner.validate() == []
+    assert runs[0] == runs[1]

@@ -219,19 +219,20 @@ def test_serve_writes_trace_metrics_and_flight_bundles(tmp_path):
     from repro_torch.obs.flight import load_bundle
 
     for extra in ([], ["--no-jit"]):
-        trace, prom, fdir = tmp_path / "t.json", tmp_path / "m.prom", tmp_path / "fl"
+        trace, prom, fdir = tmp_path / "t.json", tmp_path / "m.prom", tmp_path / f"fl{len(extra)}"
         out = serve.main(["--smoke", "--device", "cpu", "--requests", "3", "--prompt-len", "6",
                           "--new-tokens", "4", "--max-len", "32", "--offload-ratio", "0.5",
                           "--page-size", "4", "--trace-out", str(trace), "--metrics-out",
                           str(prom), "--metrics-interval", "2", "--attribution",
                           "--flight-dir", str(fdir), "--flight-slo-breach-ms", "0",
                           *extra])
-        assert out["served"] == 3 and out["jit"] == (not extra)
-        assert (out["compile_count"] >= 1) == (not extra)
+        assert out["served"] == 3 and out["compile"]["jit"] == (not extra)
+        assert (out["compile"]["count"] >= 1) == (not extra)
         assert validate_trace(json.loads(trace.read_text())) == []
         assert "compile_count" in prom.read_text() and "served" in prom.read_text()
-        assert len(out["flight_bundles"]) == 1
-        assert load_bundle(out["flight_bundles"][0])["reason"] == "slo_breach"
+        bundles = sorted(p for p in fdir.iterdir() if not p.name.endswith(".tmp"))
+        assert len(bundles) == 1
+        assert load_bundle(str(bundles[0]))["reason"] == "slo_breach"
 
 
 def test_hygiene_covers_obs_and_the_compiled_step():
