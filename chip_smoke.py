@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py              # phases 1-8 and 11-30, needs one CUDA card
+    python3 chip_smoke.py              # phases 1-8 and 11-31, needs one CUDA card
     python3 chip_smoke.py --phases 1,9 # the host-link read probe
     python3 chip_smoke.py --phases 1,5,9,10  # timings, probe, replaced designs
 
@@ -171,6 +171,19 @@ runs, printing each result on its own line:
    configuration of the phase, the lints' 227 KiB equal to the card's
    opt-in limit, and `check_kernels` clean at every served plan of the
    chip phases;
+31. the serving mesh (`launch.mesh`, one process per rank, spawned so this
+   process joins no process group), llama2-7b bf16, offload 0.5, page 16,
+   4 requests of 32 + 8 tokens, graphed: (a) P = 1 over NCCL at all 32
+   layers against the engine without a mesh on the same traffic in the
+   same process: equal tokens, equal kernel launches in every engine step
+   and equal modeled remote bytes in every step (the trace's per-link
+   counters), TPOT of both; (b) P = 2 over gloo, two ranks sharing the
+   card, at 8 of 32 layers (a gloo gather passes through host memory):
+   both ranks emit the tokens of the engine without a mesh at that depth,
+   each rank's counted host-link bytes for the weights are half the
+   single-link figure and its `mesh_traffic_report` link's within 1%,
+   the plan carries the mesh and ``mesh_shape`` is [2]; TPOT and peak
+   device memory of each rank;
 every served run (4, 12, 14, 16, 17, 19, 21, 26) builds its engine one layer at
 a time, checks that set-up held no more device memory beyond the weights it
 keeps than building one layer holds (`setup_transient_bound`), that the
@@ -3248,6 +3261,151 @@ def phase_surface(card: dict) -> None:
     surface_lints(tuner, card)
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: the serving mesh, each part in spawned ranks
+# ---------------------------------------------------------------------------
+MESH_PROMPT, MESH_NEW, MESH_SHARED_LAYERS = 32, 8, 8
+
+
+def mesh_requests(cfg):
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.default_rng(31)
+    return [Request(rid=i, prompt=rng.integers(3, cfg.vocab, MESH_PROMPT).astype(np.int32),
+                    max_new_tokens=MESH_NEW) for i in range(DECODE_BATCH)]
+
+
+def mesh_serve(cfg, mesh) -> dict:
+    """Build llama2-7b (seed 0, bf16, layer by layer) with or without `mesh`,
+    serve phase 31's traffic graphed, and return what the checks compare:
+    tokens, launches per engine step, modeled remote bytes per step (the
+    trace's link counters), TPOT, peak device memory, the mesh figures.
+    The launch counts are zeroed just before the engine serves."""
+    from repro_torch.models import model as M
+    from repro_torch.obs.trace import ChromeTraceRecorder
+    from repro_torch.serving.engine import ServingEngine
+
+    t0 = time.time()
+    rec = ChromeTraceRecorder()
+    eng = ServingEngine(
+        cfg, M.layer_source(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            dtype=torch.bfloat16, device="cuda"),
+        max_batch=DECODE_BATCH, max_len=MESH_PROMPT + MESH_NEW, global_offload_ratio=0.5,
+        page_size=16, recorder=rec, device="cuda", mesh=mesh)
+    built = time.time() - t0
+    reqs = mesh_requests(cfg)
+    if mesh is not None:
+        mesh.reset_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    per_step = serve_counting(eng, reqs)
+    torch.cuda.synchronize()
+    link_steps = [sum(e["args"].values()) for e in rec.events
+                  if e.get("ph") == "C" and e.get("name") == "link_bytes"]
+    out = {"tokens": [r.out_tokens for r in reqs], "steps": per_step, "link_steps": link_steps,
+           "tpot_ms": eng.stats.tpot * 1e3, "peak": torch.cuda.max_memory_allocated(),
+           "built_s": built, "w_remote": eng._weight_bytes[1],
+           "per_link_bytes": eng.mesh_traffic_report()["per_link_bytes"],
+           "plan_mesh": eng.plan.mesh is not None, "mesh_shape": eng.mesh_shape}
+    if mesh is not None:
+        out.update(link_bytes=dict(mesh.link_bytes), fetches=mesh.fetches)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank(rank: int, n: int, n_layers: int, plain_ranks: tuple[int, ...],
+              out_dir: str) -> None:
+    """One rank of phase 31: the engine without a mesh (on `plain_ranks`,
+    before the mesh exists), then the mesh engine; results to out_dir as
+    JSON."""
+    import repro_torch.configs as C
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    cfg = dataclasses.replace(C.get("llama2_7b"), n_layers=n_layers)
+    res = {"plain": mesh_serve(cfg, None)} if rank in plain_ranks else {}
+    res["mesh"] = mesh_serve(cfg, make_dev_mesh(1, n))
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(res, default=float))
+
+
+def run_mesh_part(n: int, backend: str, n_layers: int, plain_ranks: tuple[int, ...],
+                  label: str) -> list[dict] | None:
+    """Spawn phase 31's ranks for one part; returns each rank's results, or
+    None (a failed check) when a rank raised."""
+    import shutil
+
+    from repro_torch.launch.mesh import run_ranks
+
+    out = REPO / "build" / "phase31" / label
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t0 = time.time()
+    try:
+        run_ranks(mesh_rank, n, backend=backend, init_method=f"file://{out / 'store'}",
+                  args=(n, n_layers, plain_ranks, str(out)))
+    except Exception as e:                 # a rank raised: the part fails, it is not skipped
+        check(False, f"phase 31 ({label}): a rank failed: {type(e).__name__}: {e}")
+        return None
+    print(f"  {label}: {n} rank(s) over {backend} ran in {time.time() - t0:.1f} s")
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(n)]
+
+
+def phase_mesh() -> None:
+    """Phase 31 (see the module docstring): (a) P = 1 over NCCL at 32 layers
+    beside the engine without a mesh, (b) P = 2 over gloo sharing the card
+    at 8 layers."""
+    from repro_torch.core import multicast
+
+    ov = multicast.GRANULARITY_OVERHEAD
+    ranks = run_mesh_part(1, "nccl", 32, (0,), "p1_nccl")
+    if ranks is not None:
+        plain, mesh = ranks[0]["plain"], ranks[0]["mesh"]
+        decode = [s for s in mesh["steps"] if s["paged_splitk_flashattn"]]
+        last = decode[-1] if decode else {"splitk_gemm": 0, "paged_splitk_flashattn": 0}
+        check(mesh["tokens"] == plain["tokens"]
+              and all(len(t) == MESH_NEW for t in mesh["tokens"]),
+              f"(a) P=1 over NCCL, 32 layers: tokens equal the engine without a mesh for all "
+              f"{DECODE_BATCH} requests")
+        check(mesh["steps"] == plain["steps"] and bool(decode)
+              and all(s["splitk_gemm"] for s in decode),
+              f"(a) launches equal in all {len(mesh['steps'])} engine steps; a decode step "
+              f"launches {last['splitk_gemm']} splitk_gemm and "
+              f"{last['paged_splitk_flashattn']} paged attention")
+        check(mesh["link_steps"] == plain["link_steps"] and mesh["link_steps"],
+              f"(a) modeled remote bytes equal in all {len(mesh['link_steps'])} steps "
+              f"({mesh['link_steps'][-1] / 1e9:.4f} GB in the last)")
+        check(mesh["plan_mesh"] and mesh["mesh_shape"] == [1],
+              "(a) the plan carries the mesh, mesh_shape [1]")
+        print(f"  (a) TPOT without a mesh {plain['tpot_ms']:.2f} ms, P=1 mesh "
+              f"{mesh['tpot_ms']:.2f} ms | peak device memory {plain['peak'] / 1e9:.3f} GB "
+              f"vs {mesh['peak'] / 1e9:.3f} GB | weights fetched up the link "
+              f"{mesh['link_bytes']['weights'] / mesh['fetches'] / 1e9:.4f} GB a fetch, "
+              f"kv {mesh['link_bytes']['kv'] / 1e9:.4f} GB in all | built in "
+              f"{plain['built_s']:.1f} s and {mesh['built_s']:.1f} s")
+    ranks = run_mesh_part(2, "gloo", MESH_SHARED_LAYERS, (0,), "p2_gloo")
+    if ranks is not None:
+        plain = ranks[0]["plain"]
+        for rank, res in enumerate(ranks):
+            mesh = res["mesh"]
+            per_fetch = mesh["link_bytes"]["weights"] / max(1, mesh["fetches"])
+            check(mesh["tokens"] == plain["tokens"],
+                  f"(b) P=2 over gloo, {MESH_SHARED_LAYERS} layers, rank {rank}: tokens equal "
+                  f"the engine without a mesh")
+            check(math.isclose(per_fetch, plain["w_remote"] / 2, rel_tol=0.01)
+                  and math.isclose(per_fetch * ov, mesh["per_link_bytes"][rank], rel_tol=0.01),
+                  f"(b) rank {rank}: {per_fetch / 1e9:.4f} GB of weights up its host link a "
+                  f"fetch, half the single-link {plain['w_remote'] / 1e9:.4f} GB and its report "
+                  f"link's {mesh['per_link_bytes'][rank] / ov / 1e9:.4f} GB (payload)")
+            check(mesh["plan_mesh"] and mesh["mesh_shape"] == [2],
+                  f"(b) rank {rank}: the plan carries the mesh, mesh_shape [2]")
+            print(f"  (b) rank {rank}: TPOT {mesh['tpot_ms']:.2f} ms (without a mesh "
+                  f"{plain['tpot_ms']:.2f} ms) | peak device memory {mesh['peak'] / 1e9:.3f} GB "
+                  f"| kv up the link {mesh['link_bytes']['kv'] / 1e6:.3f} MB over "
+                  f"{mesh['fetches']} fetches | built in {mesh['built_s']:.1f} s")
+
+
 def add_launches(launches: dict, path: dict) -> None:
     """Keep each kernel's count from the first path run that launched it: the
     paged served run (phase 4) for the kernels of the main path, the MoE
@@ -3261,8 +3419,8 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,11,12,13,14,15,16,17,18,19,20,21,22,23,24,25,26,"
-                            "27,28,29,30",
-                    help="comma-separated subset of phases 1-30 (default: 1-8 and 11-30; 9 "
+                            "27,28,29,30,31",
+                    help="comma-separated subset of phases 1-31 (default: 1-8 and 11-31; 9 "
                          "is the host-link read probe, 10 the decode-attention kernels beside "
                          "the design they replaced)")
     args = ap.parse_args(argv)
@@ -3378,6 +3536,9 @@ def main(argv: list[str] | None = None) -> int:
     if start(30, "measurement surface and autotuner, llama2-7b (32 layers, bf16), offload 0.5, "
                  "page 16: --bench-json, --autotune, --no-kernels, kernel lints"):
         phase_surface(card)
+    if start(31, "serving mesh, llama2-7b bf16, offload 0.5, page 16, 4 requests of 32 + 8 "
+                 "tokens: P=1 over NCCL (32 layers), P=2 over gloo sharing the card (8 layers)"):
+        phase_mesh()
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

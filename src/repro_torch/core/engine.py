@@ -60,10 +60,10 @@ class MeshPlan:
 
     The remote tier is sharded into disjoint 1/P slices, one per chip's
     host link; every stage downstream keys off this record: the partitioner
-    rounds remote extents to P-divisible slices, `launch.sharding` places
-    them with a `PartitionSpec` on ``axis_name``, the decode path rebuilds
-    full operands through ``kernels.ops.broadcast_remote`` inside
-    ``shard_map``, and the runtime keeps one congestion window per link.
+    rounds remote extents to P-divisible slices, `launch.sharding` keeps
+    each rank's slice on ``axis_name``, the decode path rebuilds full
+    operands through ``kernels.ops.broadcast_remote``'s all-gather, and the
+    runtime keeps one congestion window per link.
     """
 
     n_devices: int
@@ -133,7 +133,7 @@ class TieringPlan:
             _set_path(out, od.path, tiering.place(t) if place_remote else t)
         return out
 
-    def partition_source(self, source: Any, *, align: int = 1) -> dict[str, Any]:
+    def partition_source(self, source: Any, *, align: int = 1, mesh: Any = None) -> dict[str, Any]:
         """`partition` of the stacked tree that a layer source stands for
         (`models.model.LayerSource`: the top-level leaves, one layer's
         shapes, and ``layer(i)``), built without the unsplit model ever
@@ -152,17 +152,31 @@ class TieringPlan:
         the source's own tree is never changed.  Splits follow
         `partition`'s rule on the same registry axis, so the result equals
         ``partition(whole)`` bit for bit.  A pinned allocation that fails
-        raises, naming its bytes."""
+        raises, naming its bytes.
+
+        With a serving ``mesh`` (`launch.mesh.Mesh`, sharded on the plan's
+        mesh axis) the result equals ``shard_tiered_params(partition(whole))``
+        (`launch.sharding`): every remote tier P divides is built as this
+        rank's 1/P slice alone, pinned, beside a device buffer of its whole
+        extent that the fetch-once broadcast fills, so no rank ever pins
+        the whole tier."""
         from repro_torch.kernels import _build
+        from repro_torch.launch import sharding
 
         device = source.device
+        axis_name = self.mesh.axis_name if mesh is not None else None
+        if mesh is not None and (self.mesh is None
+                                 or mesh.shape[axis_name] != self.mesh.n_devices):
+            raise ValueError(f"{mesh} does not match the plan's device axis {self.mesh}")
         out = _copy_tree(source.top)      # nested dicts copied: the source's stay as they are
         layer_splits: dict[str, tuple[int, int]] = {}     # key -> (axis, local extent)
         for od in self.registry:
             if od.path[0] != "layers":
                 t = self._tier(od, resolve(source.top, od.path), align)
                 if t is not None:
-                    _set_path(out, od.path, tiering.place(t))
+                    if mesh is not None:
+                        t = sharding.shard_tiered(t, mesh, axis_name)
+                    _set_path(out, od.path, t if t.mesh_axes else tiering.place(t))
                 del t       # its unpinned remote copy is freed before any layer is drawn
             elif (split := self._split_spec(od, align)) is not None:
                 dim = resolve(source.shapes, od.path[1:]).shape[od.axis]
@@ -171,6 +185,7 @@ class TieringPlan:
                     layer_splits[od.path[1]] = (od.axis, n_local)
         n = source.n_layers
         layers: dict[str, Any] = {}
+        starts: dict[str, int] = {}       # key -> this rank's first remote column
         for key, meta in source.shapes.items():
             shape = (n, *meta.shape)
             if key not in layer_splits:
@@ -180,13 +195,20 @@ class TieringPlan:
             local_shape, remote_shape = list(shape), list(shape)
             local_shape[axis] = n_local
             remote_shape[axis] -= n_local
-            remote = (_build.pinned_empty(remote_shape, meta.dtype) if device.type == "cuda"
-                      else torch.empty(remote_shape, dtype=meta.dtype, device=device))
-            layers[key] = tiering.TieredTensor(
-                local=torch.empty(local_shape, dtype=meta.dtype, device=device),
-                remote=remote, axis=axis)
+            local = torch.empty(local_shape, dtype=meta.dtype, device=device)
+            host_shape = list(remote_shape)
+            sharded = mesh is not None and sharding.split_spec(
+                tuple(remote_shape), axis, mesh, axis_name)
+            if sharded:
+                starts[key], host_shape[axis] = sharding.host_slice(
+                    tuple(remote_shape), axis, mesh, axis_name)
+            host = (_build.pinned_empty(host_shape, meta.dtype) if device.type == "cuda"
+                    else torch.empty(host_shape, dtype=meta.dtype, device=device))
+            layers[key] = (sharding.sharded_tiered(local, tuple(remote_shape), host, axis,
+                                                   axis_name) if sharded
+                           else tiering.TieredTensor(local=local, remote=host, axis=axis))
         for i in range(n):
-            _write_layer(layers, i, source.layer(i))
+            _write_layer(layers, i, source.layer(i), starts)
         return {"layers": layers, **out}
 
     def _tier(self, od: Operand, leaf: torch.Tensor, align: int) -> Any:
@@ -213,15 +235,21 @@ class TieringPlan:
         return ratio, align_eff
 
 
-def _write_layer(layers: dict[str, Any], i: int, layer: dict[str, Any]) -> None:
+def _write_layer(layers: dict[str, Any], i: int, layer: dict[str, Any],
+                 starts: dict[str, int]) -> None:
     """Write one layer's leaves into slot i of the stacks (each tiered leaf's
-    two halves into its two tiers); the layer is dropped on return."""
+    two halves into its two tiers, a mesh-sharded one's remote half as this
+    rank's slice from ``starts[key]`` on); the layer is dropped on return."""
     for key, leaf in layer.items():
         dst = layers[key]
         if isinstance(dst, tiering.TieredTensor):
             local, remote = tiering.halves(leaf, dst.axis, dst.local.shape[dst.axis])
             dst.local[i].copy_(local)
-            dst.remote[i].copy_(remote)
+            if dst.shard is not None:
+                dst.shard[i].copy_(remote.narrow(dst.axis, starts[key],
+                                                 dst.shard.shape[dst.axis]))
+            else:
+                dst.remote[i].copy_(remote)
         else:
             dst[i].copy_(leaf)
 

@@ -39,11 +39,23 @@ class TieredTensor:
     """An operand partitioned across (local HBM, remote host) tiers.
 
     ``axis`` is the split axis; negative axes stay valid when a leading
-    layer axis is sliced off (`serving.tiered_decode.layer_slice`)."""
+    layer axis is sliced off (`serving.tiered_decode.layer_slice`).
+
+    ``mesh_axes`` marks a mesh-sharded remote tier (the reference's
+    ``TieredArray.mesh_axes``): this rank's host partition is ``shard``,
+    its disjoint 1/P slice along `axis` (pinned on a CUDA device), which
+    only its own host link reads, and ``remote`` is a fixed buffer of the
+    whole remote extent on the local tier's device, which the fetch-once
+    broadcast (`kernels.ops.mesh_fetch_params`) fills every step and the
+    kernels read.  So ``shape`` and ``remote.nbytes`` are the global
+    figures the reference reads off its global arrays.  ``mesh_axes is
+    None`` (the default) means ``remote`` is the whole host partition."""
 
     local: torch.Tensor            # rows [0, split) along `axis`
     remote: torch.Tensor           # rows [split, dim) along `axis`
     axis: int = 0
+    mesh_axes: str | None = None   # mesh axis sharding the remote tier (None = whole)
+    shard: torch.Tensor | None = None   # this rank's 1/P slice of the remote tier
 
     @property
     def shape(self) -> tuple[int, ...]:
@@ -57,7 +69,9 @@ class TieredTensor:
         if self.axis >= 0:
             raise ValueError("only operands split on a negative axis can be "
                              "indexed on their leading axis")
-        return TieredTensor(self.local[i], self.remote[i], axis=self.axis)
+        return TieredTensor(self.local[i], self.remote[i], axis=self.axis,
+                            mesh_axes=self.mesh_axes,
+                            shard=self.shard[i] if self.shard is not None else None)
 
 
 def halves(x: torch.Tensor, axis: int, n_local: int) -> tuple[torch.Tensor, torch.Tensor]:

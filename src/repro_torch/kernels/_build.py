@@ -35,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Error codes of csrc/dak_common.cuh (cudaError_t values are positive).
 _DAK_ERRORS = {
-    -1: "remote-tier pointer is not pinned host memory mapped into the device",
+    -1: "remote-tier pointer is neither device memory nor pinned host memory mapped "
+        "into the device",
     -2: "shape or launch parameter the kernel does not take",
     -3: "the driver refused to encode a tensor map",
 }
@@ -184,6 +185,16 @@ def smem_query(source: str, entry: str, *args: int, stages: bool = True) -> tupl
 
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def remote_placement_ok(t: torch.Tensor, device: torch.device) -> bool:
+    """Whether `t` may be a kernel's remote operand next to local operands
+    on `device`: pinned host memory, which the kernel reads over the host
+    link (the remote tier on one card), or a tensor on `device` itself (a
+    serving mesh's remote tier, gathered into fixed device buffers each
+    step, `kernels.ops.mesh_fetch_params`).  Any other placement is
+    refused."""
+    return (t.device.type == "cpu" and t.is_pinned()) or t.device == device
 
 
 _PINNED = {"bytes": 0}      # bytes `pinned_empty` holds in this process

@@ -67,3 +67,22 @@ static inline int dak_mapped_host_ptr(const void* host_ptr, const void** dev_ptr
   *dev_ptr = attr.devicePointer;
   return 0;
 }
+
+// The device-side address of a remote-tier operand the kernels read: mapped
+// host memory (the remote tier on one card, read over the host link) or
+// device memory (a serving mesh's remote tier, gathered into fixed device
+// buffers each step).  TMA tensor maps and element loads take either
+// address; anything else is refused.
+static inline int dak_remote_ptr(const void* ptr, const void** dev_ptr) {
+  cudaPointerAttributes attr;
+  cudaError_t err = cudaPointerGetAttributes(&attr, ptr);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return DAK_ERR_NOT_MAPPED_HOST;
+  }
+  if (attr.type == cudaMemoryTypeDevice) {
+    *dev_ptr = ptr;
+    return 0;
+  }
+  return dak_mapped_host_ptr(ptr, dev_ptr);
+}

@@ -280,7 +280,7 @@ __global__ void scatter_rows_kernel(unsigned char* __restrict__ pool,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  The remote pools must be mapped host
-// memory; hd <= 1024.  Returns 0, a cudaError_t, or a DAK_ERR_* code.
+// or device memory (dak_remote_ptr); hd <= 1024.  Returns 0, a cudaError_t, or a DAK_ERR_* code.
 extern "C" int dak_paged_attention(const void* q, const void* k_local, const void* v_local,
                                    const void* k_remote, const void* v_remote,
                                    const int* table, const int* tier, const int* lens,
@@ -292,9 +292,9 @@ extern "C" int dak_paged_attention(const void* q, const void* k_local, const voi
     return DAK_ERR_BAD_ARGUMENT;
   const void* kr = nullptr;
   const void* vr = nullptr;
-  int e = dak_mapped_host_ptr(k_remote, &kr);
+  int e = dak_remote_ptr(k_remote, &kr);
   if (e) return e;
-  e = dak_mapped_host_ptr(v_remote, &vr);
+  e = dak_remote_ptr(v_remote, &vr);
   if (e) return e;
   const Paged a{q, k_local, v_local, kr, vr, table, tier, lens, out, B, H, Kh, hd, ps, MP,
                 P_local, P_remote, scale, window};

@@ -221,7 +221,7 @@ int dispatch_splitk(const Split& a, cudaStream_t s) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  With B_rem > 0 the remote caches must be
-// mapped host memory; hd <= 1024.  Returns 0, a cudaError_t, or a DAK_ERR_*
+// mapped host or device memory (dak_remote_ptr); hd <= 1024.  Returns 0, a cudaError_t, or a DAK_ERR_*
 // code.
 extern "C" int dak_splitk_attention(const void* q, const void* k_local, const void* v_local,
                                     const void* k_remote, const void* v_remote, void* out,
@@ -233,9 +233,9 @@ extern "C" int dak_splitk_attention(const void* q, const void* k_local, const vo
   const void* kr = nullptr;
   const void* vr = nullptr;
   if (B_rem > 0) {
-    int e = dak_mapped_host_ptr(k_remote, &kr);
+    int e = dak_remote_ptr(k_remote, &kr);
     if (e) return e;
-    e = dak_mapped_host_ptr(v_remote, &vr);
+    e = dak_remote_ptr(v_remote, &vr);
     if (e) return e;
   }
   const Split a{q, k_local, v_local, kr, vr, out, B_loc, B_rem, S, H, Kh, hd, kv_len, window};

@@ -611,8 +611,8 @@ void smem_query(int M, int K, int window, int k_split, long long* bytes, int* st
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  w_remote must be mapped host memory
-// when n_rem > 0.  k_split > 0 takes the split-K decode design (M <= 16,
+// dtype: 0 = float32, 1 = bfloat16.  w_remote must be mapped host memory or
+// device memory (dak_remote_ptr) when n_rem > 0.  k_split > 0 takes the split-K decode design (M <= 16,
 // k_split a multiple of 32 rows; K, n_loc and n_rem multiples of 16 bytes and
 // 16-byte aligned operands; when k_split < K, `workspace` holds
 // ceil(K / k_split) * M * (n_loc + n_rem) floats and `tickets`
@@ -628,7 +628,7 @@ extern "C" int dak_splitk_gemm(const void* x, const void* w_local, const void* w
     return DAK_ERR_BAD_ARGUMENT;
   const void* wr = nullptr;
   if (n_rem > 0) {
-    const int e = dak_mapped_host_ptr(w_remote, &wr);
+    const int e = dak_remote_ptr(w_remote, &wr);
     if (e) return e;
   }
   const void* wl = n_loc > 0 ? w_local : nullptr;
@@ -649,7 +649,7 @@ extern "C" int dak_splitk_gemm(const void* x, const void* w_local, const void* w
 
 // Grouped remote experts: y[e] = x[e] @ w_remote[e] for every e in [0, E)
 // with counts[e] > 0 (x [E, M, K] and y [E, M, N] on the device, w_remote
-// [E, K, N] mapped host memory, counts [E] int32 on the device).  Rows of
+// [E, K, N] mapped host or device memory, counts [E] int32 on the device).  Rows of
 // experts whose count is 0 are not written: the caller zeroes y.  k_split
 // is a multiple of 32 rows; K and N multiples of 16 bytes and x and
 // w_remote 16-byte aligned; when k_split < K, `workspace` holds
@@ -664,7 +664,7 @@ extern "C" int dak_splitk_gemm_grouped(const void* x, const void* w_remote, cons
       counts == nullptr || (dtype != 0 && dtype != 1))
     return DAK_ERR_BAD_ARGUMENT;
   const void* w = nullptr;
-  if (const int e = dak_mapped_host_ptr(w_remote, &w)) return e;
+  if (const int e = dak_remote_ptr(w_remote, &w)) return e;
   const int* c = static_cast<const int*>(counts);
   float* ws = static_cast<float*>(workspace);
   int* tk = static_cast<int*>(tickets);

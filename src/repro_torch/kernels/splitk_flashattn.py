@@ -19,8 +19,11 @@ In both kernels one CTA per (sequence, query-head group, kv head) reads its
 pages or chunks by TMA through a ``window + 1``-stage shared-memory ring and
 keeps a warp-level fp32 online softmax over group-major GQA heads.  Each
 kernel's head note says what bounds it and what the design does about that.
-Also here: :func:`scatter_rows`, the decode steps' K/V row writer, whose
-CUDA side writes remote rows through the mapped pointer.  A CPU tensor takes
+Under a serving mesh the remote pools and caches are the remote tier
+gathered into fixed buffers on the card, which both kernels read as they read
+mapped host memory.  Also here: :func:`scatter_rows`, the decode steps' K/V
+row writer, whose CUDA side writes remote rows through the mapped pointer
+(or straight into a gathered pool).  A CPU tensor takes
 each function's plain version; a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
@@ -191,8 +194,9 @@ def _check_pool(name: str, pool: torch.Tensor, like: torch.Tensor, remote: bool)
     if pool.dim() != 4 or not pool.is_contiguous() or pool.shape[0] == 0:
         raise ValueError(f"{name} must be a contiguous non-empty "
                          f"[P, page, Kh, hd] pool, got {tuple(pool.shape)}")
-    if remote and (pool.device.type != "cpu" or not pool.is_pinned()):
-        raise ValueError(f"{name} must be pinned host memory (the remote tier)")
+    if remote and not _build.remote_placement_ok(pool, like.device):
+        raise ValueError(f"{name} must be pinned host memory or live on {like.device} "
+                         f"(the remote tier), got a tensor on {pool.device}")
     if not remote and pool.device != like.device:
         raise ValueError(f"{name} must live on {like.device} (the local tier)")
 
@@ -324,8 +328,9 @@ def splitk_flashattn(
         if t.numel() and t.device != q.device:
             raise ValueError(f"{name} must live on {q.device} (the local tier)")
     for name, t in (("k_remote", k_remote), ("v_remote", v_remote)):
-        if t.numel() and (t.device.type != "cpu" or not t.is_pinned()):
-            raise ValueError(f"{name} must be pinned host memory (the remote tier)")
+        if t.numel() and not _build.remote_placement_ok(t, q.device):
+            raise ValueError(f"{name} must be pinned host memory or live on {q.device} "
+                             f"(the remote tier), got a tensor on {t.device}")
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"splitk_flashattn takes hd <= {MAX_HEAD_DIM} on the card, got {hd}")
     if b == 0:
@@ -356,8 +361,9 @@ def scatter_rows(pool: torch.Tensor, rows: torch.Tensor, wr_tier: torch.Tensor,
     ``_paged_writer``, sends every other slot's row to the tier's ``sink``
     page (never read); the CUDA helper skips those writes instead, so a
     remote pool is written only where a row belongs.  ``remote`` says the
-    pool is the pinned host tier, which the CUDA side writes through its
-    mapped pointer."""
+    pool is the remote tier: pinned host memory, which the CUDA side writes
+    through its mapped pointer, or, under a serving mesh, the gathered
+    remote pool on the rows' device."""
     if pool.device.type == "cpu" and rows.device.type == "cpu":
         idx = torch.where(wr_tier == tier_sel, wr_idx, torch.full_like(wr_idx, sink))
         scatter_rows_ref(pool, rows, idx, wr_off)
@@ -370,8 +376,9 @@ def scatter_rows(pool: torch.Tensor, rows: torch.Tensor, wr_tier: torch.Tensor,
             or not rows.is_contiguous():
         raise ValueError(f"rows {rows.dtype} {tuple(rows.shape)} do not fit pool "
                          f"{pool.dtype} {tuple(pool.shape)}")
-    if remote and (pool.device.type != "cpu" or not pool.is_pinned()):
-        raise ValueError("a remote pool must be pinned host memory")
+    if remote and not _build.remote_placement_ok(pool, rows.device):
+        raise ValueError(f"a remote pool must be pinned host memory or live on {rows.device}, "
+                         f"got a tensor on {pool.device}")
     if not remote and pool.device != rows.device:
         raise ValueError(f"a local pool must live on {rows.device}")
     for name, t in (("wr_tier", wr_tier), ("wr_idx", wr_idx), ("wr_off", wr_off)):
@@ -382,7 +389,7 @@ def scatter_rows(pool: torch.Tensor, rows: torch.Tensor, wr_tier: torch.Tensor,
     rc = _build.load().libs["paged_flashattn"].dak_scatter_rows(
         pool.data_ptr(), rows.data_ptr(), wr_tier.data_ptr(), wr_idx.data_ptr(),
         wr_off.data_ptr(), int(tier_sel), b, pool.shape[0], pool.shape[1], row_bytes,
-        int(remote), _build.stream_handle(rows.device))
+        int(pool.device.type == "cpu"), _build.stream_handle(rows.device))
     _build.check(rc, "scatter_rows")
     scatter_rows.launches += 1
 

@@ -28,6 +28,10 @@ over PCIe: 30-33 GB/s at most on some H100 machines measured, 0.58-0.70x
 the copy engine's 45-54 GB/s, and ~50 GB/s, 0.95x the copy engine, on
 others (``chip_smoke.py --phases 1,9``).
 
+Under a serving mesh the remote operand is instead the remote tier gathered
+into a fixed buffer on the card (`kernels.ops.mesh_fetch_params`): the
+kernels take either address, and the wrapper refuses any other placement.
+
 Counterpart of ``src/repro/kernels/splitk_gemm.py`` (``_kernel``).  A CPU
 tensor takes the plain version, :func:`splitk_gemm_ref`; a CUDA tensor
 launches the kernel or raises.
@@ -265,9 +269,9 @@ def _check_cuda_operands(x: torch.Tensor, w_local: torch.Tensor,
     if w_local.numel() and w_local.device != x.device:
         raise ValueError(f"w_local must live on {x.device} (the local tier), "
                          f"got {w_local.device}")
-    if w_remote.numel() and (w_remote.device.type != "cpu" or not w_remote.is_pinned()):
-        raise ValueError("w_remote must be pinned host memory (the remote tier), "
-                         f"got a tensor on {w_remote.device}")
+    if w_remote.numel() and not _build.remote_placement_ok(w_remote, x.device):
+        raise ValueError(f"w_remote must be pinned host memory or live on {x.device} "
+                         f"(the remote tier), got a tensor on {w_remote.device}")
     if w_local.shape[1] + w_remote.shape[1] == 0:
         raise ValueError("splitk_gemm needs N_loc + N_rem >= 1")
 
@@ -327,9 +331,9 @@ def _check_grouped_operands(x: torch.Tensor, w_remote: torch.Tensor,
             or not w_remote.is_contiguous()):
         raise ValueError(f"w_remote must be a contiguous [E={e}, K={k}, N] stack, "
                          f"got {tuple(w_remote.shape)}")
-    if w_remote.device.type != "cpu" or not w_remote.is_pinned():
-        raise ValueError("w_remote must be pinned host memory (the remote tier), "
-                         f"got a tensor on {w_remote.device}")
+    if not _build.remote_placement_ok(w_remote, x.device):
+        raise ValueError(f"w_remote must be pinned host memory or live on {x.device} "
+                         f"(the remote tier), got a tensor on {w_remote.device}")
     if (counts.shape != (e,) or counts.dtype != torch.int32 or counts.device != x.device
             or not counts.is_contiguous()):
         raise ValueError(f"counts must be a contiguous [E={e}] int32 tensor on {x.device}, "

@@ -61,23 +61,43 @@ model and runs the lint-validated winners (`kernels.autotune`);
 ``--autotune-cache PATH`` loads a table first if it exists (its winners
 reproduce bit for bit; without ``--autotune`` unseen shapes keep the
 kernels' own choices) and, with ``--autotune``, rewrites it after the run.
+
+``--mesh-devices P`` serves one replica across P ranks (`launch.mesh`, the
+reference's fetch-once mesh): each rank pins 1/P of the remote tier and
+every step's all-gather rebuilds it whole.  ``--mesh-backend`` picks the
+``torch.distributed`` backend, and nothing falls back: ``nccl`` (the
+default on the card) needs a card per rank, ``gloo`` (the default on the
+CPU) also serves ranks that share one card.  Run as is, the command spawns
+its own P ranks (`launch.mesh.run_ranks`, meeting through a file store in
+a temporary directory); under ``torchrun --nproc-per-node P`` each process
+is one rank and joins from the environment.  Every rank serves the same
+requests; rank 0 prints, with the plan line ``mesh: P host links x ...``,
+each rank's counted host-link bytes and peak device memory, and writes
+``--bench-json`` (with the reference's ``mesh_shape`` and
+``mesh_traffic`` fields).  Without the flag there is no mesh.  NCCL with
+P > 1 across cards is written but has not been run.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import os
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import repro_torch.configs as C
 from repro_torch.frontend.metrics import ModeledClock
 from repro_torch.frontend.scheduler import scheduler_names
 from repro_torch.frontend.workload import DEFAULT_CLASSES, Trace, poisson_trace
 from repro_torch.kernels.autotune import Autotuner
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import model as M
 from repro_torch.obs.attribution import AttributionProfiler
 from repro_torch.obs.flight import FlightRecorder
@@ -151,6 +171,15 @@ def main(argv: list[str] | None = None) -> dict:
                          "kernels' own choices), rewritten after the run with --autotune")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--mesh-devices", type=int, default=None, metavar="P",
+                    help="serve one replica across P ranks, each with its own host link: "
+                         "the remote tier shards 1/P per rank and every step rebuilds it "
+                         "fetch-once with one all-gather (spawns the ranks, or joins under "
+                         "torchrun)")
+    ap.add_argument("--mesh-backend", default=None, choices=mesh_mod.BACKENDS,
+                    help="torch.distributed backend of the mesh: nccl (default on the card; "
+                         "one card per rank) or gloo (default on the CPU; ranks may share "
+                         "one card)")
     ap.add_argument("--dtype", default="float32", choices=sorted(_DTYPES))
     ap.add_argument("--scheduler", default="fcfs", choices=sorted(scheduler_names()),
                     help="serving frontend policy: fcfs (whole-prompt admission order), "
@@ -214,13 +243,74 @@ def main(argv: list[str] | None = None) -> dict:
                              f"got {args.hbm_shrink!r}") from None
     if args.bench_json is None and args.adaptive:
         args.bench_json = "BENCH_serving.json"
+    args.shrink = shrink
+    args.save_autotune = bool(args.autotune and args.autotune_cache)
+    if args.mesh_devices is None:
+        return _serve(args, None)
+    if args.mesh_devices < 1:
+        raise SystemExit(f"--mesh-devices takes P >= 1, got {args.mesh_devices}")
+    if args.mesh_backend is None:
+        args.mesh_backend = "gloo" if torch.device(args.device).type == "cpu" else "nccl"
+    if dist.is_initialized() or "WORLD_SIZE" in os.environ:
+        return _serve_rank(args)
+    mesh_mod.check_backend(args.mesh_backend, args.mesh_devices)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "report.json")
+        mesh_mod.run_ranks(_spawned_rank, args.mesh_devices, backend=args.mesh_backend,
+                           init_method=f"file://{os.path.join(tmp, 'store')}",
+                           args=(argv, out))
+        with open(out) as fh:
+            return json.load(fh)
 
+
+def _spawned_rank(rank: int, argv: list[str] | None, out: str) -> None:
+    """One rank `run_ranks` spawned: serve, and rank 0 hands its report back."""
+    report = main(argv)
+    if rank == 0:
+        with open(out, "w") as fh:
+            json.dump(report, fh, default=float)
+
+
+# what only rank 0 of a mesh writes (the other ranks serve the same requests
+# and load the same autotune table, but do not rewrite it)
+_RANK0_OUTPUTS = ("bench_json", "tokens_out", "trace_out", "metrics_out", "flight_dir")
+
+
+def _serve_rank(args) -> dict:
+    """Serve as one rank of the mesh: join the process group (from the
+    environment under torchrun, unless the caller already has), build the
+    mesh, serve; ranks other than 0 print and write nothing."""
+    joined = not dist.is_initialized()
+    if joined:
+        mesh_mod.init_rank(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
+                           backend=args.mesh_backend, init_method="env://")
+    try:
+        if dist.get_backend() != args.mesh_backend:
+            raise SystemExit(f"--mesh-backend {args.mesh_backend}, but the process group "
+                             f"runs {dist.get_backend()}")
+        mesh = mesh_mod.make_dev_mesh(1, args.mesh_devices)
+        if dist.get_rank() == 0:
+            return _serve(args, mesh)
+        quiet = argparse.Namespace(**{**vars(args), **dict.fromkeys(_RANK0_OUTPUTS),
+                                      "save_autotune": False})
+        with contextlib.redirect_stdout(io.StringIO()):
+            return _serve(quiet, mesh)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _serve(args, mesh) -> dict:
+    """One serving run (on this rank of `mesh`, when given)."""
+    shrink = args.shrink
     cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
     try:
         M.require_served(cfg)
     except NotImplementedError as e:
         raise SystemExit(str(e)) from None
     device = resolve_device(args.device)
+    if mesh is not None:
+        device = mesh_mod.rank_device(mesh.backend, device)
     trace = None
     if args.trace:
         trace = Trace.load(args.trace)
@@ -268,7 +358,7 @@ def main(argv: list[str] | None = None) -> dict:
         prefill_chunk=args.prefill_chunk, adaptive=args.adaptive,
         clock=ModeledClock() if trace is not None else None, recorder=recorder,
         flight=flight, profiler=profiler, jit_step=not args.no_jit,
-        check_invariants=args.check_invariants, tuner=tuner, device=device)
+        check_invariants=args.check_invariants, tuner=tuner, device=device, mesh=mesh)
     del params
     if shrink is not None:
         engine.schedule_hbm_shrink(*shrink)
@@ -277,7 +367,14 @@ def main(argv: list[str] | None = None) -> dict:
     print(f"plan: global={engine.plan.global_ratio:.2f} "
           f"per-op={ {k: round(v, 2) for k, v in engine.plan.op_ratios.items()} } "
           f"window={engine.window} tiered={engine.tiered} hw={engine.hw.name} "
-          f"device={device} jit={engine.graphed} adaptive={args.adaptive}")
+          f"device={device} jit={engine.graphed} adaptive={args.adaptive} "
+          f"mesh={engine.mesh_shape}")
+    if engine.plan.mesh is not None:
+        mp = engine.plan.mesh
+        print(f"mesh: {mp.n_devices} host links x {mp.host_link_bw / 1e9:.0f} GB/s -> "
+              f"aggregate {mp.aggregate_host_bw / 1e9:.0f} GB/s | per-link fetch-once "
+              f"{mp.per_link_bytes_multicast / 1e6:.1f} MB vs naive "
+              f"{mp.per_link_bytes_naive / 1e6:.1f} MB | backend {mesh.backend}")
     if args.hbm_gb is not None:
         print(f"budget: {args.hbm_gb:.1f} GB HBM vs "
               f"{engine.plan.footprint_bytes / 1e9:.1f} GB footprint")
@@ -344,6 +441,8 @@ def main(argv: list[str] | None = None) -> dict:
     if engine.graphed:
         print(f"compiled step: {engine.compile_count} buckets | cache hits "
               f"{engine.compile_cache_hits} | recaptures {engine.recaptures}")
+    if mesh is not None:
+        _print_mesh_ranks(mesh, device)
     if profiler is not None:
         prep = profiler.report()
         btl = prep["bottleneck"]
@@ -371,12 +470,26 @@ def main(argv: list[str] | None = None) -> dict:
         print(f"wrote {args.tokens_out}")
     if tuner is not None:
         print(f"autotune: {tuner.counters()}")
-        if args.autotune and args.autotune_cache:
+        if args.save_autotune:
             tuner.save(args.autotune_cache)
             print(f"wrote {args.autotune_cache} ({len(tuner.table)} entries)")
     if flight is not None and flight.dumped:
         print(f"flight bundles: {', '.join(flight.dumped)}")
     return report
+
+
+def _print_mesh_ranks(mesh, device: torch.device) -> None:
+    """Each rank's counted host-link bytes and peak device memory, gathered
+    to every rank and printed (by rank 0)."""
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    mine = {"weights": mesh.link_bytes["weights"], "kv": mesh.link_bytes["kv"],
+            "fetches": mesh.fetches, "peak": peak}
+    every: list[dict] = [{}] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    for rank, r in enumerate(every):
+        print(f"mesh rank {rank}: host link {r['weights'] / 1e6:.3f} MB weights over "
+              f"{r['fetches']} fetches + {r['kv'] / 1e6:.3f} MB kv | peak device memory "
+              f"{r['peak'] / 1e9:.3f} GB")
 
 
 if __name__ == "__main__":

@@ -87,8 +87,23 @@ graphed bucket asks while it first runs, and its replays ask nothing.
 the device, the dense cache, `models.prefill` and `models.decode_step`,
 no graph; the plan still prices the modeled clock.
 
+With a ``mesh`` (`launch.mesh.Mesh`) the engine serves one replica across
+P ranks, one process each, every rank running the same engine on the same
+requests (scheduling is deterministic, so every rank emits the same
+tokens).  This is the reference's fetch-once serving mode (paper §4.3.2):
+the plan is solved on the aggregate of the P host links, each rank builds
+and pins only its 1/P slice of every remote partition and of every remote
+KV page (`launch.sharding`, `PagedTieredCache`'s sharded mode), and each
+step copies its slice up its own host link and one all-gather over the
+mesh rebuilds the whole remote tier in fixed device buffers that the
+kernels read (`tiered_decode.fetch_remote_shards`).  Each offloaded byte so
+crosses one host link a step; the traffic accounting and the adaptive
+runtime keep one figure and one congestion window per link.  The gathers
+run before a graphed step and outside it, into buffers whose addresses
+the graph holds.
+
 The encoder has no decode step and is refused (`models.require_served`);
-it runs through `models.forward`.  Not ported yet: the mesh.
+it runs through `models.forward`.
 """
 from __future__ import annotations
 
@@ -104,8 +119,9 @@ import torch
 from repro_torch.analysis.page_table import InvariantViolation, check_page_table
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import engine as offload_engine
+from repro_torch.core import multicast
 from repro_torch.core.ebmodel import WorkloadSpec
-from repro_torch.core.hardware import H100_SXM, HardwareSpec
+from repro_torch.core.hardware import H100_SXM, HardwareSpec, MeshSpec
 from repro_torch.frontend.metrics import (
     Clock,
     ModeledClock,
@@ -129,7 +145,12 @@ from repro_torch.obs.trace import (
 )
 from repro_torch.runtime.controller import RuntimeController
 from repro_torch.runtime.health import HEALTHY, HealthMonitor
-from repro_torch.runtime.telemetry import CudaEventSource, StepSample, weight_tier_bytes
+from repro_torch.runtime.telemetry import (
+    CudaEventSource,
+    StepSample,
+    weight_link_bytes,
+    weight_tier_bytes,
+)
 from repro_torch.serving import tiered_decode as TD
 from repro_torch.serving.compiled_step import (
     PAGED_INPUTS,
@@ -332,6 +353,8 @@ class ServingEngine:
         tuner: Any = None,
         profiler=None,
         device="cuda",
+        mesh=None,
+        mesh_axis: str | None = None,
     ):
         """``scheduler`` is the frontend policy: a name ('fcfs' | 'priority'
         | 'slo'), a `frontend.scheduler.Scheduler`, or None for FCFS with
@@ -378,7 +401,14 @@ class ServingEngine:
         is pinned host memory, and a source never has the unsplit model
         whole on the device.  The engine keeps only the partitioned tree;
         a caller that drops its own reference lets the unsplit weights be
-        freed."""
+        freed.
+
+        ``mesh`` (`launch.mesh.Mesh`, this process one of its ranks) serves
+        the replica across the ranks of ``mesh_axis`` (default: its last
+        axis): every rank builds the engine with the same arguments and
+        runs the same requests.  Each remote partition and remote KV page
+        is pinned as this rank's 1/P slice and gathered whole every step;
+        ``device`` is this rank's (ranks may share one card under gloo)."""
         self.device = resolve_device(device)
         M.require_served(cfg)
         self.cfg = cfg
@@ -392,16 +422,21 @@ class ServingEngine:
         else:
             kw = {"chunk_tokens": prefill_chunk} if prefill_chunk else {}
             self.scheduler = get_scheduler(scheduler or "fcfs", **kw)
+        self.mesh = mesh
+        self.mesh_axis = (mesh_axis or mesh.axis_names[-1]) if mesh is not None else None
+        self.n_links = int(mesh.shape[self.mesh_axis]) if mesh is not None else 1
         wl = WorkloadSpec(batch=max_batch, seq_len=max_len, phase="decode")
         self.plan = offload_engine.plan(
             cfg, wl, hw, hbm_budget_bytes=hbm_budget_bytes,
-            global_ratio=global_offload_ratio, kv_page_size=page_size)
+            global_ratio=global_offload_ratio, kv_page_size=page_size,
+            mesh=(MeshSpec(n_devices=self.n_links, axis_name=self.mesh_axis)
+                  if mesh is not None else None))
         self.window = self.plan.window.n_inflight
         self._align = 32 if cfg.d_model < 1024 else 128
         self.tiered = bool(use_kernels)
         source = params if isinstance(params, M.LayerSource) else M.LayerSource.from_tree(params)
         if self.tiered:
-            self.params = self.plan.partition_source(source, align=self._align)
+            self.params = self.plan.partition_source(source, align=self._align, mesh=mesh)
         else:
             self.params = params if isinstance(params, dict) else M.stack_source(source)
         # Adaptive runtime: seeded from the static plan; pass `runtime` to
@@ -410,6 +445,8 @@ class ServingEngine:
         if adaptive and self.runtime is None:
             self.runtime = RuntimeController(cfg, self.plan, hw, align=self._align)
         self._weight_bytes = weight_tier_bytes(self.params)
+        self._weight_link_bytes = weight_link_bytes(self.params, self.n_links)
+        self._step_params: dict[str, Any] | None = None   # the step's fetched tree
         self._dtype = source.dtype
         self.pcache: PagedTieredCache | None = None
         self.cache: dict[str, torch.Tensor] | None = None
@@ -438,7 +475,6 @@ class ServingEngine:
         # `healthy` and every counter stays zero.
         self.health = HealthMonitor()
         self._pending_shrink: tuple[int, float] | None = None
-        self.mesh = None                   # one card: the serving mesh is not ported
         # Compiled decode step: one CUDA graph per (kind, window bucket, pool
         # shape) bucket, on fixed input buffers filled by one staged copy.
         # The untiered reference path stays eager (it is the oracle).
@@ -478,8 +514,39 @@ class ServingEngine:
 
     @property
     def mesh_shape(self) -> list[int]:
-        """Device-axis shape of the serving mesh (one card: ``[1]``)."""
-        return [1]
+        """Device-axis shape of the serving mesh (``[1]`` off-mesh)."""
+        return [self.n_links]
+
+    def mesh_traffic_report(self) -> dict:
+        """Modeled host-link traffic for one full read of the offloaded
+        weights, against the §4.3.2 read-amplification oracle.
+
+        ``per_link_bytes`` is what the engine's own accounting says each
+        rank's host link carries (realized shard extents, burst-granularity
+        overhead applied); the oracle figures come from
+        `core.multicast.sharded_fetch_report` on the same host footprint.
+        On the fetch-once path the two agree and sit at ~1/P of the naive
+        figure; operands that fell back to whole remotes push
+        ``per_link_bytes`` toward the naive bound."""
+        _, w_remote = self._weight_bytes
+        rep = multicast.sharded_fetch_report(w_remote, self.n_links)
+        ov = multicast.GRANULARITY_OVERHEAD
+        return {
+            "n_devices": self.n_links,
+            "host_bytes": w_remote,
+            "per_link_bytes": [b * ov for b in self._weight_link_bytes],
+            "oracle_per_link_multicast": rep.traffic_multicast / self.n_links,
+            "oracle_per_link_naive": rep.traffic_no_multicast / self.n_links,
+        }
+
+    def _fetched_params(self) -> dict[str, Any]:
+        """The params with every mesh-sharded remote tier gathered whole
+        into its device buffer (`tiered_decode.fetch_remote_shards`;
+        identity off-mesh), once a step: a step that prefills and decodes
+        gathers each operand once."""
+        if self._step_params is None:
+            self._step_params = TD.fetch_remote_shards(self.params, self.mesh, self.mesh_axis)
+        return self._step_params
 
     def _wire_observability(self) -> None:
         """Point the health monitor's and runtime controller's event hooks
@@ -538,7 +605,9 @@ class ServingEngine:
             max_pages_per_slot=-(-self.max_len // self.page_size),
             dtype=self._dtype,
             store_v=not cfg.use_mla,
-            device=self.device)
+            device=self.device,
+            mesh=self.mesh,
+            mesh_axis=self.mesh_axis)
 
     @property
     def queue(self) -> deque[Request]:
@@ -648,12 +717,12 @@ class ServingEngine:
         chunk = torch.as_tensor(req.prompt[ps.pos:ps.pos + n], dtype=torch.int32,
                                 device=self.device)[None, :]
         if ps.pos == 0 and n == len(req.prompt):
-            ps.logits, ps.cache = M.prefill(self.cfg, self.params, {"tokens": chunk},
+            ps.logits, ps.cache = M.prefill(self.cfg, self._fetched_params(), {"tokens": chunk},
                                             max_len=self.max_len, mm=mm)
         else:
             if ps.cache is None:           # first chunk of a split prompt
                 ps.cache = M.init_cache(self.cfg, 1, self.max_len, self._dtype, self.device)
-            ps.logits, ps.cache = M.prefill_chunk(self.cfg, self.params, ps.cache, chunk,
+            ps.logits, ps.cache = M.prefill_chunk(self.cfg, self._fetched_params(), ps.cache, chunk,
                                                   ps.pos, mm=mm)
             self.stats.prefill_chunks += 1
         ps.pos += n
@@ -788,26 +857,34 @@ class ServingEngine:
         if self.runtime is None or self.pcache is None:
             return
         frac = self.pcache.local_limit / max(1, self.pcache.n_local)
+        self._fetched_params()             # a re-split reads the whole remote tiers
         new_params = self.runtime.elastic_replan(frac, self.params)
         if new_params is not None and new_params is not self.params:
             self.health.pressure("replan")
             self._install_params(new_params)
 
     def _install_params(self, new_params: dict[str, Any]) -> None:
-        """Swap in a repartitioned params tree (re-plan paths) and refresh
-        the traffic accounting.  The stream is synchronised first: a kernel
-        may still read the old tiers, and a pinned tier's memory is freed
-        as soon as its last tensor is dropped.  Captured steps hold the old
-        tiers' addresses, so when any leaf moved they are dropped before
-        the old tiers can go (a re-plan that moves nothing keeps them)."""
+        """Swap in a repartitioned params tree (re-plan paths): re-shard it
+        under a mesh, drop the step's fetched tree, refresh the traffic
+        accounting.  The stream is synchronised first: a kernel may still
+        read the old tiers, and a pinned tier's memory is freed as soon as
+        its last tensor is dropped.  Captured steps hold the old tiers'
+        addresses, so when any leaf moved they are dropped before the old
+        tiers can go (a re-plan that moves nothing keeps them)."""
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
+        if self.mesh is not None:
+            from repro_torch.launch.sharding import shard_tiered_params
+
+            new_params = shard_tiered_params(new_params, self.mesh, self.mesh_axis)
+        self._step_params = None
         fingerprint = pointer_fingerprint(new_params)
         if fingerprint != self._params_fp:
             self._drop_graphs()
             self._params_fp = fingerprint
         self.params = new_params
         self._weight_bytes = weight_tier_bytes(self.params)
+        self._weight_link_bytes = weight_link_bytes(self.params, self.n_links)
 
     def _grow_remote(self, pages: int) -> None:
         """`PagedTieredCache.grow_remote`, which replaces the remote pools:
@@ -1010,8 +1087,10 @@ class ServingEngine:
     def _decode_state(self) -> tuple:
         """What a decode step reads besides its inputs: params, pools and
         recurrent state, updated in place (a capture bakes in their
-        addresses)."""
-        return self.params, self.pcache.pools if self.pcache is not None else None, self.cache
+        addresses).  Under a mesh the remote tiers and pools are gathered
+        here, into the fixed buffers the step reads."""
+        pools = self.pcache.compute_pools() if self.pcache is not None else None
+        return self._fetched_params(), pools, self.cache
 
     def _decode_kind(self) -> str:
         if self.pcache is None:
@@ -1026,6 +1105,7 @@ class ServingEngine:
         telemetry sample is reported after the compute."""
         t_step_clock = self.clock.now()    # engine-clock step origin (wall or modeled)
         self._preempt_moved_step = 0
+        self._step_params = None           # a new step fetches the remote tiers again
         if self.runtime is not None:
             self.window = self.runtime.window
         if (self._pending_shrink is not None
@@ -1059,6 +1139,7 @@ class ServingEngine:
         if not self.tiered:
             self._reference_decode(t_step_clock, prefill_tokens, active)
             return
+        rows = None                        # the step's remote row writes (tier, page)
         if self.pcache is None:
             self._inputs.load(tokens=self._next_tok)
         else:
@@ -1071,23 +1152,27 @@ class ServingEngine:
                 tokens=self._next_tok, positions=np.where(active, self.lens, 0),
                 attn_lens=np.where(active, self.lens + 1, 0), table=self.pcache.table,
                 tier=self.pcache.tier, wr_tier=wr_tier, wr_idx=wr_idx, wr_off=wr_off)
+            rows = (wr_tier, wr_idx)
         timer = self._step_timer()
         tc0 = self.clock.now() if self.recorder.enabled else 0.0
         t0 = time.time()
         bucket = None                      # compile-span label on a fresh bucket
         if timer is not None:
             timer.begin()
+        state = self._decode_state()       # under a mesh: the step's gathers, timed with it
         if self._jit:
             graph, bucket = self._compiled_step(self._decode_kind())
-            tok_dev = graph.run(*self._decode_state())
+            tok_dev = graph.run(*state)
         else:
             sinks = ((self.pcache.sink_local, self.pcache.sink_remote)
                      if self.pcache is not None else (0, 0))
             tok_dev = self._decode_fn(self._decode_kind(), self.window, *sinks,
-                                      self.tuner)(*self._decode_state())
+                                      self.tuner)(*state)
         if timer is not None:
             timer.end()
         nxt = self._inputs.fetch(tok_dev)  # the step's only host sync
+        if self.pcache is not None:
+            self.pcache.commit_pools(state[1], rows=rows)
         self._finish_decode(t_step_clock, prefill_tokens, active, nxt, t0, tc0, bucket)
 
     def _reference_decode(self, t_step_clock: float, prefill_tokens: int,
@@ -1173,8 +1258,14 @@ class ServingEngine:
         timer = self._step_timer()
         if timer is not None and n_active:
             timer.observe(w_local + kv_local, w_remote + kv_remote)
+        # Under a mesh each host link carries its 1/P slice of every sharded
+        # partition and remote page (whole copies for the divisibility
+        # fallback); remote_bytes is the sum over links.
         passes = (1 if n_active else 0) + self._prefill_calls_step
-        link_b = [w_remote * passes + kv_remote]      # one host link
+        link_b = [b * passes for b in self._weight_link_bytes]
+        if self.pcache is not None and n_active:
+            kv_links = self.pcache.attended_link_bytes(self.lens, active, self.n_links)
+            link_b = [a + b for a, b in zip(link_b, kv_links)]
         sample = StepSample(
             step=self.stats.decode_steps,
             duration_s=max(self.clock.now() - t_step_clock, 1e-9),
@@ -1186,6 +1277,7 @@ class ServingEngine:
             local_bytes=w_local * passes + kv_local,
             remote_bytes=sum(link_b),
             window=self.window,
+            remote_bytes_per_link=tuple(link_b) if self.n_links > 1 else None,
             health=self.health.state,
             local_deficit=self.pcache.local_deficit if self.pcache is not None else 0)
         if self.recorder.enabled:
@@ -1215,6 +1307,7 @@ class ServingEngine:
                                 cat="bottleneck", step=tr[0])
         if self.runtime is None:
             return
+        self._fetched_params()             # a re-split reads the whole remote tiers
         new_params = self.runtime.on_step(
             sample, cache=self.pcache, params=self.params,
             migration_used=self._preempt_moved_step)

@@ -22,7 +22,21 @@ place.  The elastic budget is the reference's: ``local_limit`` caps the
 local pages the allocator places (`set_local_limit` shrinks it mid-run,
 `demote_coldest` drains the deficit), and `grow_remote` enlarges the host
 pool, on the card by a new pinned allocation that the old pages are copied
-into.  Not ported yet: the sharded mesh mode.
+into.
+
+With a serving ``mesh`` the cache runs the reference's sharded mode: page
+tables and local pools replicate (every rank runs the same schedule), and
+each remote pool shards on the in-page sequence axis
+(`launch.sharding.remote_pool_spec`), so a rank pins ``[L, pages+1,
+page/P, Kh, hd]``: 1/P of every remote page, the part its own host link
+reads.  `compute_pools` gathers whole pages into a fixed device pool per
+K/V (the KV side of the fetch-once all-gather), which the paged kernel and
+the row writer use for the step; `commit_pools` then copies this rank's
+slice of the rows the step wrote back to its pinned shard.  Host-side page
+writes (prompts, demotions, growth) keep the sharded layout; reading whole
+remote pages back (promotion, `gather`) is a collective every rank makes
+in the same order.  A page size that P does not divide keeps whole remote
+pools on every rank (the naive fallback).
 """
 from __future__ import annotations
 
@@ -31,6 +45,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops
+from repro_torch.launch.sharding import remote_pool_spec
 from repro_torch.runtime.telemetry import PageTouchHistogram
 
 LOCAL, REMOTE = 0, 1
@@ -62,9 +78,13 @@ class PagedTieredCache:
         store_v: bool = True,
         temperature: PageTouchHistogram | None = None,
         device="cuda",
+        mesh=None,
+        mesh_axis: str | None = None,
     ):
         """``store_v=False`` allocates K pages only (a latent row that
-        serves as both K and V; the V read aliases the K pool)."""
+        serves as both K and V; the V read aliases the K pool).  ``mesh``
+        (`launch.mesh.Mesh`) enables the sharded mode on ``mesh_axis``
+        (default: its last axis)."""
         if page_size <= 0:
             raise ValueError("page_size must be positive")
         if local_pages + remote_pages < max_pages_per_slot:
@@ -78,14 +98,24 @@ class PagedTieredCache:
         self.max_slots = max_slots
         self.max_pages = max_pages_per_slot
         self.kv_names: tuple[str, ...] = ("k", "v") if store_v else ("k",)
+        self.mesh = mesh
+        self.mesh_axis = (mesh_axis or mesh.axis_names[-1]) if mesh is not None else None
+        self.remote_spec: tuple = ()
+        if mesh is not None:
+            self.remote_spec = remote_pool_spec(
+                (n_layers, remote_pages + 1, page_size, kv_heads, head_dim), mesh, self.mesh_axis)
+        self.remote_sharded = bool(self.remote_spec)
         # +1 sink page at index n_{local,remote} (never allocated, never read)
         self.pools: dict[str, torch.Tensor] = {}
+        self._gathered: dict[str, torch.Tensor] = {}   # sharded mode: whole remote pools
         for name in self.kv_names:
             for suffix, pages in (("local", local_pages), ("remote", remote_pages)):
                 shape = (n_layers, pages + 1, page_size, kv_heads, head_dim)
-                self.pools[f"{name}_{suffix}"] = (
-                    self._host_pool(shape, dtype) if suffix == "remote"
-                    else torch.zeros(shape, dtype=dtype, device=self.device))
+                if suffix == "local":
+                    self.pools[f"{name}_local"] = torch.zeros(shape, dtype=dtype,
+                                                              device=self.device)
+                else:
+                    self._make_remote(f"{name}_remote", shape, dtype)
         self.free: dict[int, list[int]] = {
             LOCAL: list(range(local_pages)),
             REMOTE: list(range(remote_pages)),
@@ -114,10 +144,57 @@ class PagedTieredCache:
 
         return _build.pinned_empty(shape, dtype).zero_()
 
-    def commit_pools(self, pools: dict[str, torch.Tensor]) -> None:
-        """Install a step's pools (the decode step updates them in place, so
-        this is the same tensors back)."""
-        self.pools = pools
+    @property
+    def _host_rows(self) -> tuple[int, int]:
+        """(first, count) of the in-page rows this rank's remote shard holds."""
+        n = self.page_size // self.mesh.shape[self.mesh_axis]
+        return self.mesh.axis_index(self.mesh_axis) * n, n
+
+    def _make_remote(self, key: str, shape: tuple[int, ...], dtype: torch.dtype) -> None:
+        """Allocate remote pool `key` of whole shape `shape` (zeroed): the
+        host pool, or under the sharded mode this rank's in-page slice of
+        it plus the whole pool on the device that `compute_pools` fills."""
+        if not self.remote_sharded:
+            self.pools[key] = self._host_pool(shape, dtype)
+            return
+        host = list(shape)
+        host[2] = self._host_rows[1]
+        self.pools[key] = self._host_pool(tuple(host), dtype)
+        self._gathered[key] = torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def compute_pools(self) -> dict[str, torch.Tensor]:
+        """The decode step's view of the pools.  Sharded, each remote pool is
+        gathered whole into its fixed device pool (this rank's slice up its
+        own host link, one all-gather); otherwise the pools themselves.
+        Hand the step's pools back through `commit_pools`."""
+        if not self.remote_sharded:
+            return self.pools
+        for key, full in self._gathered.items():
+            ops.gather_shards(self.mesh, self.mesh_axis, self.pools[key], full, 2, kind="kv")
+        return {**self.pools, **self._gathered}
+
+    def commit_pools(self, pools: dict[str, torch.Tensor],
+                     rows: tuple[np.ndarray, np.ndarray] | None = None) -> None:
+        """Install a step's pools.  The decode step updates them in place, so
+        unsharded this is the same tensors back; sharded, ``rows`` (the
+        step's per-slot write tier and page index) names the remote pages it
+        wrote, whose in-page slice this rank holds goes back to its pinned
+        shard."""
+        if not self.remote_sharded:
+            self.pools = pools
+            return
+        if rows is None:
+            return
+        wr_tier, wr_idx = (np.asarray(a) for a in rows)
+        pages = sorted({int(i) for t, i in zip(wr_tier, wr_idx)
+                        if t == REMOTE and i < self.n_remote})
+        if not pages:
+            return
+        lo, n = self._host_rows
+        for key, full in self._gathered.items():
+            idx = torch.as_tensor(pages, dtype=torch.long, device=full.device)
+            written = full[:, idx, lo:lo + n].to("cpu")
+            self.pools[key][:, torch.as_tensor(pages, dtype=torch.long)] = written
 
     def _sync_host(self) -> None:
         """Order a host-side pool access after the work queued on the card
@@ -125,18 +202,32 @@ class PagedTieredCache:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
 
-    def _put_pages(self, pool: torch.Tensor, idx, pages: torch.Tensor) -> None:
-        """``pool[:, idx] = pages`` across devices (pages [L, n, page, ...])."""
+    def _put_pages(self, key: str, idx, pages: torch.Tensor) -> None:
+        """``pools[key][:, idx] = pages`` across devices (pages [L, n, page,
+        ...] whole; a sharded remote pool keeps this rank's in-page rows)."""
         self._sync_host()
+        pool = self.pools[key]
+        if self.remote_sharded and key.endswith("_remote"):
+            lo, n = self._host_rows
+            pages = pages[:, :, lo:lo + n]
         pages = pages.to(device=pool.device, dtype=pool.dtype)
         pool[:, torch.as_tensor(np.asarray(idx), dtype=torch.long,
                                 device=pool.device)] = pages
 
-    def _take_pages(self, pool: torch.Tensor, idx) -> torch.Tensor:
-        """``pool[:, idx]`` as a new tensor on the pool's device."""
+    def _take_pages(self, key: str, idx) -> torch.Tensor:
+        """``pools[key][:, idx]`` whole, as a new tensor on the pool's device
+        (the local pool's for a sharded remote pool, whose pages every rank
+        gathers together)."""
         self._sync_host()
-        return pool[:, torch.as_tensor(np.asarray(idx), dtype=torch.long,
+        pool = self.pools[key]
+        mine = pool[:, torch.as_tensor(np.asarray(idx), dtype=torch.long,
                                        device=pool.device)]
+        if not (self.remote_sharded and key.endswith("_remote")):
+            return mine
+        whole = list(mine.shape)
+        whole[2] = self.page_size
+        out = torch.empty(whole, dtype=mine.dtype, device=self.device)
+        return ops.gather_shards(self.mesh, self.mesh_axis, mine, out, 2, kind="kv")
 
     # -- occupancy ---------------------------------------------------------
     @property
@@ -262,9 +353,8 @@ class PagedTieredCache:
         dsts = [self.free[tier_to].pop() for _ in ids]
         sfx = {LOCAL: "local", REMOTE: "remote"}
         for name in self.kv_names:
-            src_pool = self.pools[f"{name}_{sfx[tier_from]}"]
-            dst_pool = self.pools[f"{name}_{sfx[tier_to]}"]
-            self._put_pages(dst_pool, dsts, self._take_pages(src_pool, ids))
+            self._put_pages(f"{name}_{sfx[tier_to]}", dsts,
+                            self._take_pages(f"{name}_{sfx[tier_from]}", ids))
         for src, dst, (slot, p) in zip(ids, dsts, owners, strict=True):
             del self._owner[(tier_from, int(src))]
             self._owner[(tier_to, dst)] = (slot, p)
@@ -352,10 +442,11 @@ class PagedTieredCache:
         for name in self.kv_names:
             key = f"{name}_remote"
             pool = self.pools[key]
-            grown = self._host_pool((pool.shape[0], n + extra + 1, *pool.shape[2:]), pool.dtype)
+            whole = (pool.shape[0], n + extra + 1, self.page_size, *pool.shape[3:])
+            self._make_remote(key, whole, pool.dtype)
+            grown = self.pools[key]
             grown[:, :n] = pool[:, :n]
             grown[:, n + extra] = pool[:, n]      # old pages, new pages, then the sink
-            self.pools[key] = grown
         self.free[REMOTE].extend(range(n, n + extra))
         self.n_remote += extra
         return self.n_remote
@@ -394,6 +485,19 @@ class PagedTieredCache:
             local += int((tiers == LOCAL).sum())
         return local * page_bytes, remote * page_bytes
 
+    def attended_link_bytes(self, lens: np.ndarray, active: np.ndarray,
+                            n_links: int) -> list[float]:
+        """Per-host-link bytes of one decode step's remote-page reads.
+
+        Sharded pools spread every remote page 1/P across the links
+        (fetch-once); the replicated fallback pulls each page whole over
+        every link (naive).  Sums to :meth:`attended_bytes`'s remote figure
+        times the replication factor."""
+        _, remote = self.attended_bytes(lens, active)
+        if self.remote_sharded:
+            return [remote / max(1, n_links)] * n_links
+        return [float(remote)] * n_links
+
     # -- data movement -----------------------------------------------------
     def write_prompt(self, slot: int, k: torch.Tensor,
                      v: torch.Tensor | None = None) -> None:
@@ -416,13 +520,15 @@ class PagedTieredCache:
                 continue
             idx = self.table[slot, sel]
             for name, src in sources.items():
-                self._put_pages(self.pools[f"{name}_{suffix}"], idx, src[:, sel])
+                self._put_pages(f"{name}_{suffix}", idx, src[:, sel])
 
     def gather(self, slot: int, length: int) -> tuple[torch.Tensor, torch.Tensor]:
         """Reconstruct the dense [L, length, Kh, hd] K and V for `slot` on
         the local pool's device (testing / debugging; the decode path
         gathers inside the kernel).  K-only caches return the K pages for
-        both (V aliases K)."""
+        both (V aliases K).  Sharded, every rank must call it together (the
+        remote pools are gathered whole first)."""
+        pools = self.compute_pools()
         self._sync_host()
         ps = self.page_size
         v_name = "v" if "v_local" in self.pools else "k"
@@ -432,8 +538,8 @@ class PagedTieredCache:
             idx, tier = int(self.table[slot, p]), int(self.tier[slot, p])
             suffix = "local" if tier == LOCAL else "remote"
             n = min(ps, length - p * ps)
-            ks.append(self.pools[f"k_{suffix}"][:, idx, :n].to(dev))
-            vs.append(self.pools[f"{v_name}_{suffix}"][:, idx, :n].to(dev))
+            ks.append(pools[f"k_{suffix}"][:, idx, :n].to(dev))
+            vs.append(pools[f"{v_name}_{suffix}"][:, idx, :n].to(dev))
         if not ks:
             l_, _, _, kh, hd = self.pools["k_local"].shape
             z = torch.zeros((l_, 0, kh, hd), dtype=self.pools["k_local"].dtype, device=dev)

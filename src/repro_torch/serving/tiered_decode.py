@@ -30,9 +30,13 @@ attention call as the reference threads its own.  The steps:
   rows in pinned host memory, attended by the batch-split kernel
   (`kernels.ops.tiered_decode_attention`).
 
+Under a serving mesh every step first runs ``fetch_remote_shards``, the
+fetch-once stage: each mesh-sharded remote partition is gathered whole into
+its fixed device buffer, and the steps above then run unchanged over it.
+
 Not ported: the reference's deprecated ``partition_dense_params`` shim and
 its ``TIERABLE`` list (``TieringPlan.partition`` is the one partition path
-here).  Not ported yet: the mesh fetch (``fetch_remote_shards``).
+here).
 """
 from __future__ import annotations
 
@@ -50,6 +54,22 @@ from repro_torch.models import model as M
 from repro_torch.models import ssm as S
 from repro_torch.models.model import layer_slice
 from repro_torch.serving.paged_cache import LOCAL, REMOTE
+
+
+def fetch_remote_shards(params: dict[str, Any], mesh: Any,
+                        mesh_axis: str | None) -> dict[str, Any]:
+    """The decode path's fetch-once stage (paper §4.3.2).
+
+    Under a serving mesh every host-resident partition is held as this
+    rank's 1/P slice along its split axis (`launch.sharding`); one
+    `kernels.ops.broadcast_remote` pass copies each slice up this rank's
+    own host link and all-gathers the whole partition into the operand's
+    device buffer, so each offloaded byte crosses a host link once a step.
+    The single-rank steps then run unchanged (the same tokens).  No mesh
+    (or no sharded leaf) returns `params` as it is."""
+    if mesh is None:
+        return params
+    return ops.mesh_fetch_params(params, mesh, mesh_axis or mesh.axis_names[-1])
 
 
 def split_cache_batch(cache: dict[str, torch.Tensor], kv_ratio: float,

@@ -74,8 +74,12 @@ def test_splitk_gemm_matches_plain(cuda_device, dtype, m, k, n_loc, n_rem, windo
     assert splitk_gemm.launches == before + 1
     assert rel_err(got, tref.splitk_gemm_ref(x, wl, wr_dev)) < TOL[dtype]
     if n_rem:
+        # a serving mesh's remote tier, gathered on the card: the same bits
+        assert torch.equal(splitk_gemm(x, wl, wr_dev, window=window), got)
         with pytest.raises(ValueError, match="pinned host memory"):
-            splitk_gemm(x, wl, wr_dev, window=window)     # remote tier on the card
+            splitk_gemm(x, wl, wr_dev.cpu(), window=window)     # unpinned host memory
+        with pytest.raises(ValueError, match="pinned host memory"):
+            splitk_gemm(x, wl, torch.empty_like(wr_dev, device="meta"), window=window)
 
 
 # id: B, H, Kh, hd, page, MP (table width), pool pages per tier, lens, the
@@ -161,6 +165,83 @@ def test_paged_attention_matches_plain(cuda_device, case, dtype, window):
     for i, n in enumerate(lens):
         if n == 0:
             assert torch.all(got[i] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["gqa-small", "full-width", "full-width-all-remote",
+                                  "mla-full-width", "zamba2-h32-kh32-hd80"])
+def test_paged_attention_gathered_remote_pools_on_card(cuda_device, case, dtype):
+    """A serving mesh gathers the remote pools into device buffers: paged
+    attention over them gives the pinned pools' result bit for bit, and a
+    remote pool in unpinned host memory or on another device is refused."""
+    q, pools, pools_dev, table, tier, lens_t, _, scale = _paged_case(case, dtype, cuda_device)
+    got = ops.paged_decode_attention(q, pools, table, tier, lens_t, window=2, scale=scale)
+    gathered = {**pools, "k_remote": pools_dev["k_remote"], "v_remote": pools_dev["v_remote"]}
+    before = paged_splitk_flashattn.launches
+    on_card = ops.paged_decode_attention(q, gathered, table, tier, lens_t, window=2,
+                                         scale=scale)
+    torch.cuda.synchronize()
+    assert paged_splitk_flashattn.launches == before + 1
+    assert torch.equal(on_card, got)
+    for bad in (pools_dev["k_remote"].cpu(), torch.empty_like(pools_dev["k_remote"],
+                                                              device="meta")):
+        with pytest.raises(ValueError, match="pinned host memory"):
+            ops.paged_decode_attention(q, {**gathered, "k_remote": bad, "v_remote": bad},
+                                       table, tier, lens_t, scale=scale)
+
+
+def test_scatter_rows_into_a_gathered_remote_pool(cuda_device):
+    """The row writer takes the remote tier on the card (a mesh's gathered
+    pool) as it takes the pinned one."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    pool_dev = torch.randn((7, 4, 2, 8), generator=gen, device=cuda_device)
+    rows = torch.randn((3, 2, 8), generator=gen, device=cuda_device)
+    wr_tier = torch.tensor([1, 0, 1], dtype=torch.int32, device=cuda_device)
+    wr_idx = torch.tensor([2, 5, 0], dtype=torch.int32, device=cuda_device)
+    wr_off = torch.tensor([3, 1, 0], dtype=torch.int32, device=cuda_device)
+    pool = pool_dev.clone()
+    scatter_rows(pool, rows, wr_tier, wr_idx, wr_off, 1, 6, remote=True)
+    torch.cuda.synchronize()
+    scatter_rows_ref(pool_dev, rows[wr_tier == 1], wr_idx[wr_tier == 1], wr_off[wr_tier == 1])
+    assert torch.equal(pool, pool_dev)
+
+
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+@pytest.mark.parametrize("arch,n_layers", [("llama2_7b", 2), ("qwen3_moe_30b_a3b", 2),
+                                           ("zamba2_2p7b", 12)])    # Zamba2: both shared blocks
+def test_one_rank_mesh_engine_matches_engine_on_card(cuda_device, tmp_path, arch, n_layers,
+                                                     backend):
+    """A one-rank mesh on the card: the remote tier is pinned as the rank's
+    slice, gathered into device buffers every step and read there by the
+    kernels; tokens equal the engine without a mesh, graphed and eager."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as LM
+
+    cfg = dataclasses.replace(TC.get(arch), n_layers=n_layers)
+    LM.init_rank(0, 1, backend=backend, init_method=f"file://{tmp_path / 'store'}")
+    try:
+        mesh = LM.make_dev_mesh(1, 1)
+        toks = {}
+        for name, m, jit in (("plain", None, True), ("mesh", mesh, True), ("eager", mesh, False)):
+            eng = ServingEngine(
+                cfg, TM.layer_source(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                                     device=cuda_device),
+                max_batch=3, max_len=32, global_offload_ratio=0.5, page_size=4,
+                jit_step=jit, device=cuda_device, mesh=m)
+            rng = np.random.default_rng(7)
+            reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab, n).astype(np.int32),
+                            max_new_tokens=6) for i, n in enumerate(SERVE_PROMPT_LENS)]
+            for r in reqs:
+                eng.submit(r)
+            eng.run()
+            toks[name] = [r.out_tokens for r in reqs]
+            del eng
+        assert toks["mesh"] == toks["eager"] == toks["plain"]
+        assert mesh.link_bytes["weights"] > 0 and mesh.fetches > 0
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
 
 
 @pytest.mark.parametrize("remote", [False, True])
@@ -285,8 +366,10 @@ def test_splitk_gemm_grouped_matches_plain(cuda_device, dtype, e, m, k, n, activ
     assert splitk_gemm_grouped.launches == before + 1
     assert rel_err(got, tref.splitk_gemm_grouped_ref(x, w_dev, counts)) < TOL[dtype]
     assert torch.equal(got[counts == 0], torch.zeros_like(got[counts == 0]))
+    # a serving mesh's remote experts, gathered on the card: the same bits
+    assert torch.equal(splitk_gemm_grouped(x, w_dev, counts, window=window), got)
     with pytest.raises(ValueError, match="pinned host memory"):
-        splitk_gemm_grouped(x, w_dev, counts)               # remote stack on the card
+        splitk_gemm_grouped(x, w_dev.cpu(), counts)          # unpinned host memory
     with pytest.raises(ValueError, match="int32"):
         splitk_gemm_grouped(x, _pinned(w_dev), counts.long())
 
@@ -353,9 +436,13 @@ def test_splitk_flashattn_matches_plain(cuda_device, dtype, b_loc, b_rem, h, kh,
     assert rel_err(got, want) < TOL[dtype]
     assert torch.equal(got, again)
     if b_rem:
+        # a serving mesh's remote tier, gathered on the card: the same bits
+        on_card = splitk_flashattn(q, dev["k_local"], dev["v_local"], dev["k_remote"],
+                                   dev["v_remote"], kv_len=kv_len, window=window)
+        assert torch.equal(on_card, got)
         with pytest.raises(ValueError, match="pinned host memory"):
-            splitk_flashattn(q, dev["k_local"], dev["v_local"], dev["k_remote"],
-                             dev["v_remote"], kv_len=kv_len)      # remote tier on the card
+            splitk_flashattn(q, dev["k_local"], dev["v_local"], dev["k_remote"].cpu(),
+                             dev["v_remote"].cpu(), kv_len=kv_len)   # unpinned host memory
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
