@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py              # phases 1-8 and 11-31, needs one CUDA card
+    python3 chip_smoke.py              # phases 1-8 and 11-32, needs one CUDA card
     python3 chip_smoke.py --phases 1,9 # the host-link read probe
-    python3 chip_smoke.py --phases 1,5,9,10  # timings, probe, replaced designs
+    python3 chip_smoke.py --phases 1,5,9  # kernel timings and the probe
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 runs, printing each result on its own line:
@@ -62,9 +62,6 @@ runs, printing each result on its own line:
    1-D bulk copy, 2-D TMA), CTAs, bytes in flight per CTA and row width,
    beside the copy engine; with phase 5, each attention kernel's remote
    rate against the probe's best read;
-10. only when asked (``--phases 1,10``), both decode-attention kernels
-   beside the design they replaced (``csrc/decode_attn_cpasync.cu``, on no
-   path), each launch alone in alternating rounds, at phase 5's shapes;
 11. MoE token parity: phase 3's check on a 2-layer full-width Qwen3-30B-A3B
    in fp32 with dropless expert capacity;
 12. the MoE served run: Qwen3-30B-A3B at its published widths and depth
@@ -184,6 +181,17 @@ runs, printing each result on its own line:
    single-link figure and its `mesh_traffic_report` link's within 1%,
    the plan carries the mesh and ``mesh_shape`` is [2]; TPOT and peak
    device memory of each rank;
+32. the materialization lint (`repro_torch.analysis.materialization`, a
+   dispatch-mode taint walk over every aten op run) on the card: llama2-7b
+   at full width and 2 layers, bf16, offload 0.5, page 16, its remote
+   tiers pinned, (a) one engine step that admits 4 requests (their
+   prefills) and decodes, and one more eager decode step: no finding, the
+   kernels launched inside it; (b) phase 5's prefetch yardstick (the remote
+   tier copied into HBM, then cuBLAS) at wq's split: exactly one DAK001,
+   from the device-move rule, and `splitk_gemm` on the same operands: none;
+   (c) the same steps on a P = 1 mesh over NCCL (this process joins a
+   one-rank group, last of all phases, and leaves it): no finding, the
+   fetch-once gathers run; ops walked, findings and seconds of each part;
 every served run (4, 12, 14, 16, 17, 19, 21, 26) builds its engine one layer at
 a time, checks that set-up held no more device memory beyond the weights it
 keeps than building one layer holds (`setup_transient_bound`), that the
@@ -1272,6 +1280,14 @@ def bound(local_bytes, remote_bytes, flops, link_bw, peak):
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+def prefetch_cublas(x, wl, wr, wr_dev):
+    """The prefetching yardstick of the tiered GEMM: the pinned remote tier
+    `wr` copied into its HBM buffer `wr_dev`, then cuBLAS on each tier (the
+    design direct access replaces; phase 32 holds the lint to catching it)."""
+    wr_dev.copy_(wr, non_blocking=True)
+    return torch.cat([x @ wl, x @ wr_dev], dim=1)
+
+
 def time_decode_gemm(shapes, window, gen, flush, link, label) -> dict:
     """The wrapper's decode GEMM (split-K), the whole-K design and prefetch
     + cuBLAS at M = DECODE_BATCH over `shapes`, in alternating rounds; one
@@ -1300,8 +1316,7 @@ def time_decode_gemm(shapes, window, gen, flush, link, label) -> dict:
         t_plain = time_ms(lambda: ref.splitk_gemm_ref(x, wl, wr_dev), flush=flush)
 
         def prefetch(x=x, wl=wl, wr=wr, wr_dev=wr_dev):
-            wr_dev.copy_(wr, non_blocking=True)
-            return torch.cat([x @ wl, x @ wr_dev], dim=1)
+            return prefetch_cublas(x, wl, wr, wr_dev)
 
         rounds = alternate([lambda: splitk_gemm(x, wl, wr, window=window),
                             lambda: old(window), prefetch], flush)
@@ -1365,8 +1380,7 @@ def phase_timing(card: dict, window: int) -> dict:
         t_plain = time_ms(lambda: ref.splitk_gemm_ref(x, wl, wr_dev), flush=flush)
 
         def prefetch(x=x, wl=wl, wr=wr, wr_dev=wr_dev):
-            wr_dev.copy_(wr, non_blocking=True)
-            return torch.cat([x @ wl, x @ wr_dev], dim=1)
+            return prefetch_cublas(x, wl, wr, wr_dev)
 
         t_lib = time_ms(prefetch, flush=flush)
         loc_b = (x.numel() + wl.numel() + PREFILL_LEN * (n_loc + n_rem)) * 2
@@ -1750,89 +1764,6 @@ def time_flash_prefill(flush, gen) -> dict:
                    t_bytes=t_bytes, t_ops=t_ops)
         del q, k, v, args
     return out
-
-
-# ---------------------------------------------------------------------------
-# Phase 10 (only when asked): the decode-attention kernels beside the design
-# they replaced
-# ---------------------------------------------------------------------------
-def cpasync_paged(q, pools, table, tier, lens):
-    """The paged kernel's replaced design (csrc/decode_attn_cpasync.cu, on no
-    path) on the same operands; returns the call, taking the window."""
-    from repro_torch.kernels import _build
-
-    lib = _build.load_measurement().libs["decode_attn_cpasync"]
-    out = torch.empty_like(q)
-    b, h, hd = q.shape
-    _, ps, kh, _ = pools["k_local"].shape
-    ptrs = [t.data_ptr() for t in (q, pools["k_local"], pools["v_local"], pools["k_remote"],
-                                   pools["v_remote"], table, tier, lens, out)]
-
-    def run(window):
-        _build.check(lib.dak_paged_attention_cpasync(
-            *ptrs, b, h, kh, hd, ps, table.shape[1], pools["k_local"].shape[0],
-            pools["k_remote"].shape[0], hd ** -0.5, window, 1,
-            _build.stream_handle(q.device)), "paged attention (cp.async design)")
-        return out
-
-    return run
-
-
-def cpasync_batch_split(q, cache, kv_len):
-    """The batch-split kernel's replaced design (csrc/decode_attn_cpasync.cu,
-    on no path) on the same operands; returns the call, taking the window."""
-    from repro_torch.kernels import _build
-
-    lib = _build.load_measurement().libs["decode_attn_cpasync"]
-    out = torch.empty_like(q)
-    b, h, hd = q.shape
-    b_loc, s, kh, _ = cache["k_local"].shape
-    ptrs = [t.data_ptr() for t in (q, cache["k_local"], cache["v_local"], cache["k_remote"],
-                                   cache["v_remote"], out)]
-
-    def run(window):
-        _build.check(lib.dak_splitk_attention_cpasync(
-            *ptrs, b_loc, b - b_loc, s, h, kh, hd, kv_len, window, 1,
-            _build.stream_handle(q.device)), "splitk_flashattn (cp.async design)")
-        return out
-
-    return run
-
-
-def phase_replaced_designs(window: int) -> None:
-    """Both decode-attention kernels beside the cp.async design they
-    replaced, each launch alone, in ROUNDS alternating rounds, at the served
-    runs' late-step shapes and at a long cache (phase 5's operands)."""
-    from repro_torch.kernels.splitk_flashattn import _launch_batch_split, _launch_paged
-
-    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda").zero_
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    bf = torch.bfloat16
-
-    def compare(name, label, new, old, want, rem_b):
-        rel, _ = rel_err(old(), want)
-        check(rel < TOL[bf], f"{name} cp.async design {label}: max rel err {rel:.2e}")
-        rounds = alternate([new, old], flush)
-        t_new, t_old = (statistics.median(v) for v in rounds)
-        wins = sum(a < b for a, b in zip(*rounds))
-        gbs = lambda ms: rem_b / (ms * 1e-3) / 1e9  # noqa: E731
-        print(f"  {name} {label} window {window}: kernel {t_new:.4f} ms ({gbs(t_new):.2f} GB/s), "
-              f"cp.async design {t_old:.4f} ms ({gbs(t_old):.2f} GB/s), {t_old / t_new:.2f}x; "
-              f"medians of {ROUNDS} alternating rounds, kernel faster in {wins}")
-
-    for label, lens, mp in (("served", PAGED_LENS, 10), ("long cache", PAGED_LONG_LENS, 128)):
-        q, pools, _, table, tier, lens_t, _, rem_b, want, prep = paged_timing_case(lens, mp, gen)
-        old = cpasync_paged(q, pools, table, tier, lens_t)
-        compare("paged_attention", f"{label} lens={list(lens)} MP={mp}",
-                lambda: _launch_paged(prep[window]), lambda: old(window), want, rem_b)
-        del q, pools, prep
-    for label, s_len, kv_len in (("served", 512, SPLIT_KV_LEN), ("long cache", 2048, 2048)):
-        q, cache, _, want, prep = batch_split_timing_case(s_len, kv_len, gen)
-        old = cpasync_batch_split(q, cache, kv_len)
-        rem_b = 2 * kv_len * 32 * 128 * 2 * 2
-        compare("splitk_flashattn", f"{label} S={s_len} kv_len={kv_len}",
-                lambda: _launch_batch_split(prep[window]), lambda: old(window), want, rem_b)
-        del q, cache, prep
 
 
 # ---------------------------------------------------------------------------
@@ -3406,6 +3337,133 @@ def phase_mesh() -> None:
                   f"{mesh['fetches']} fetches | built in {mesh['built_s']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 32: the materialization lint on the card
+# ---------------------------------------------------------------------------
+LINT_LAYERS, LINT_PROMPT, LINT_NEW = 2, 32, 4
+
+
+def lint_engine_steps(mesh=None) -> dict:
+    """Build llama2-7b at full width and LINT_LAYERS layers (bf16, offload
+    0.5, page 16, remote tiers pinned, layer by layer as phase 4; eager
+    steps), submit DECODE_BATCH requests and run two engine steps under the
+    materialization lint: the first admits them (their prefills) and
+    decodes once, the second decodes.  Returns the findings, the aten ops
+    walked, the direct-access entry points run and their launches."""
+    import repro_torch.configs as C
+    from repro_torch.analysis import materialization as MZ
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = dataclasses.replace(C.get("llama2_7b"), n_layers=LINT_LAYERS)
+    eng = ServingEngine(
+        cfg, M.layer_source(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            dtype=torch.bfloat16, device="cuda"),
+        max_batch=DECODE_BATCH, max_len=LINT_PROMPT + LINT_NEW, global_offload_ratio=0.5,
+        page_size=16, jit_step=False, device="cuda", mesh=mesh)
+    rng = np.random.default_rng(32)
+    for i in range(DECODE_BATCH):
+        eng.submit(Request(rid=i, prompt=rng.integers(3, cfg.vocab, LINT_PROMPT)
+                           .astype(np.int32), max_new_tokens=LINT_NEW))
+    out = {"findings": [], "ops": 0, "sinks": 0, "pinned": 0}
+    seeds = MZ.engine_remote_tensors(eng)
+    out["pinned"] = sum(t.is_pinned() for t in seeds)
+    before = launch_counts()
+    for rule, where in (("DAK002", "prefill+decode"), ("DAK001", "decode")):
+        with MZ.MaterializationLint(rule=rule, where=where) as lint:
+            lint.seed(seeds)
+            eng.step()
+        torch.cuda.synchronize()
+        out["findings"] += [f"{f.rule} [{f.where}] {f.detail}" for f in lint.findings]
+        out["ops"] += lint.ops
+        out["sinks"] += lint.sinks
+    out["launches"] = {k: v - before[k] for k, v in launch_counts().items()}
+    out["fetches"] = mesh.fetches if mesh is not None else 0
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lint(card: dict) -> None:
+    """Phase 32 (see the module docstring): the materialization lint over
+    (a) the engine's admitted prefill and eager decode steps with pinned
+    tiers, (b) phase 5's prefetch yardstick, (c) a one-rank mesh step."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.analysis import materialization as MZ
+    from repro_torch.kernels.splitk_gemm import splitk_gemm
+    from repro_torch.launch.mesh import init_rank, make_dev_mesh
+
+    t0 = time.time()
+    res = lint_engine_steps()
+    check(res["pinned"] > 0, f"(a) {res['pinned']} of the lint's remote seeds are pinned host "
+                             f"memory (the remote weight tiers and KV pools)")
+    check(not res["findings"] and res["launches"]["splitk_gemm"] > 0
+          and res["launches"]["paged_splitk_flashattn"] > 0,
+          f"(a) llama2-7b ({LINT_LAYERS} layers, bf16, offload 0.5, pinned tiers): "
+          f"{DECODE_BATCH} admitted prefills and two eager decode steps under the lint: "
+          f"{len(res['findings'])} findings over {res['ops']} aten ops walked, "
+          f"{res['sinks']} direct-access entry points run ({res['launches']['splitk_gemm']} "
+          f"splitk_gemm and {res['launches']['paged_splitk_flashattn']} paged attention "
+          f"launches)")
+    for f in res["findings"]:
+        print(f"    {f}")
+    print(f"  (a) {time.time() - t0:.1f} s")
+
+    t1 = time.time()
+    k, n_loc, n_rem = GEMM_SHAPES["wq"]
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    wl, wr, wr_dev = make_tier_pair(k, n_loc, n_rem, torch.bfloat16, gen)
+    x = torch.randn((DECODE_BATCH, k), generator=gen, device="cuda").to(torch.bfloat16)
+    found = {}
+    for label, fn in (("prefetch+cuBLAS", lambda: prefetch_cublas(x, wl, wr, wr_dev)),
+                      ("splitk_gemm", lambda: splitk_gemm(x, wl, wr))):
+        with MZ.MaterializationLint(rule="DAK001", where=label) as lint:
+            lint.seed([wr])
+            y = fn()
+        torch.cuda.synchronize()
+        found[label] = (lint.findings, lint.ops, y)
+    fs, n_ops, y_pre = found["prefetch+cuBLAS"]
+    check([(f.rule, f.context["kind"]) for f in fs] == [("DAK001", "device-move")],
+          f"(b) phase 5's prefetch yardstick at wq's split (M={DECODE_BATCH} K={k} "
+          f"N={n_loc}|{n_rem} bf16) under the lint: {[f.rule for f in fs]} over {n_ops} aten "
+          f"ops: {fs[0].detail if fs else 'nothing fired'}")
+    fs, n_ops, y_dak = found["splitk_gemm"]
+    rel, _ = rel_err(y_dak, y_pre)
+    check(not fs and rel < TOL[torch.bfloat16],
+          f"(b) splitk_gemm on the same operands under the lint: {len(fs)} findings over "
+          f"{n_ops} aten ops, max rel err against the yardstick {rel:.2e}")
+    del wl, wr, wr_dev, x, found
+    print(f"  (b) {time.time() - t1:.1f} s")
+
+    t2 = time.time()
+    out = REPO / "build" / "phase32"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    # this process joins a one-rank group here, last, and leaves it after
+    init_rank(0, 1, backend="nccl", init_method=f"file://{out / 'store'}")
+    try:
+        res = lint_engine_steps(make_dev_mesh(1, 1))
+    except Exception as e:                 # the part fails, it is not skipped
+        check(False, f"phase 32 (c): the mesh step failed: {type(e).__name__}: {e}")
+        return
+    finally:
+        dist.destroy_process_group()
+    check(not res["findings"] and res["fetches"] > 0 and res["launches"]["splitk_gemm"] > 0,
+          f"(c) a P=1 mesh over NCCL (this process, one rank), the same engine and steps "
+          f"under the lint: "
+          f"{len(res['findings'])} findings over {res['ops']} aten ops walked, "
+          f"{res['sinks']} direct-access entry points run, {res['fetches']} fetch-once "
+          f"gathers (gather_shards)")
+    for f in res["findings"]:
+        print(f"    {f}")
+    print(f"  (c) {time.time() - t2:.1f} s | phase 32 {time.time() - t0:.1f} s on "
+          f"{card['name']} at {card['power']}")
+
+
 def add_launches(launches: dict, path: dict) -> None:
     """Keep each kernel's count from the first path run that launched it: the
     paged served run (phase 4) for the kernels of the main path, the MoE
@@ -3419,10 +3477,9 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,11,12,13,14,15,16,17,18,19,20,21,22,23,24,25,26,"
-                            "27,28,29,30,31",
-                    help="comma-separated subset of phases 1-31 (default: 1-8 and 11-31; 9 "
-                         "is the host-link read probe, 10 the decode-attention kernels beside "
-                         "the design they replaced)")
+                            "27,28,29,30,31,32",
+                    help="comma-separated subset of phases 1-32 (default: 1-8 and 11-32; 9 "
+                         "is the host-link read probe)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -3445,6 +3502,8 @@ def main(argv: list[str] | None = None) -> int:
     stats = {n: {"max_abs_err": None, "max_rel_err": None} for n in KERNELS}
     launches: dict[str, int] = {}
     step = {}
+    begun: dict[int, float] = {}          # phase -> time it started
+
     def start(n: int, title: str) -> bool:
         """Whether phase `n` runs; if so, free what earlier phases left and
         print its title with the pinned host bytes still held."""
@@ -3452,6 +3511,7 @@ def main(argv: list[str] | None = None) -> int:
             return False
         gc.collect()
         torch.cuda.empty_cache()
+        begun[n] = time.time()
         print(f"phase {n}: {title} [pinned host bytes at start: {_build.pinned_bytes()}]")
         return True
 
@@ -3476,8 +3536,6 @@ def main(argv: list[str] | None = None) -> int:
                 rate = step[name]["remote_bytes"] / (step[name]["ms"] * 1e-3) / 1e9
                 print(f"  {name} at the served shape reads its remote tier at {rate:.2f} GB/s, "
                       f"{rate / cap:.2f}x the probe's best kernel read ({cap:.2f} GB/s)")
-    if start(10, "decode-attention kernels beside the cp.async design they replaced"):
-        phase_replaced_designs(window=1)
     if start(11, "MoE token parity, 2-layer full-width Qwen3-30B-A3B, fp32, dropless, "
                  "offload 0.5, page 4"):
         phase_parity("qwen3_moe_30b_a3b", n_layers=2, dropless=True)
@@ -3539,6 +3597,13 @@ def main(argv: list[str] | None = None) -> int:
     if start(31, "serving mesh, llama2-7b bf16, offload 0.5, page 16, 4 requests of 32 + 8 "
                  "tokens: P=1 over NCCL (32 layers), P=2 over gloo sharing the card (8 layers)"):
         phase_mesh()
+    if start(32, "materialization lint on the card, llama2-7b (2 layers, bf16), offload 0.5, "
+                 "page 16: engine steps, the prefetch yardstick, a P=1 mesh step"):
+        phase_lint(card)
+    ends = sorted(begun.values())[1:] + [time.time()]
+    print("phase seconds: " + ", ".join(f"{n} {end - t:.1f}" for (n, t), end
+                                        in zip(sorted(begun.items(), key=lambda kv: kv[1]), ends))
+          + f" | whole run {time.time() - t0:.1f} s, the build included")
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:

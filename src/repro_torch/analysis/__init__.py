@@ -1,8 +1,14 @@
-"""repro_torch.analysis — the page-table audit, plan checks and kernel lints.
+"""repro_torch.analysis — static verifier for the DAK direct-access
+invariants of the port.
 
-Copies of the reference's ``src/repro/analysis`` modules, their imports
-pointed at the port, each diffable against its reference:
+Four passes, each with stable ``DAKxxx`` rule IDs (see ``findings.RULES``),
+the counterparts of the reference's ``src/repro/analysis`` modules:
 
+- :mod:`repro_torch.analysis.materialization` — DAK001-003, no
+  HBM-materialization: a taint walk (a ``TorchDispatchMode``) over the aten
+  ops of the serving entry points, on the meta device at full size
+  (:mod:`repro_torch.analysis.surface` builds the abstract params, tiers
+  and pools), on CPU tensors and around a live engine on the card;
 - :mod:`repro_torch.analysis.kernel_lints` — DAK101-103 over the port's
   CUDA kernels: shared memory against the per-CTA opt-in limit (and rings
   the kernels cut), the TMA rules, grid coverage and host-first orders;
@@ -15,7 +21,8 @@ pointed at the port, each diffable against its reference:
   which guard the page table a graphed decode step reads from fixed
   device buffers.
 
-Not ported yet: the materialization lint, the surface and the CLI.
+``python -m repro_torch.analysis --all`` (:mod:`repro_torch.analysis.cli`)
+runs every pass over the serving matrix and exits non-zero on any finding.
 """
 from repro_torch.analysis.findings import (RULES, Finding, format_text, render_report,
                                            write_report)

@@ -38,6 +38,7 @@ from typing import Any
 import numpy as np
 
 from repro_torch.analysis.findings import Finding
+from repro_torch.analysis.surface import operand_shapes  # noqa: F401  (re-exported)
 from repro_torch.core import tiering
 from repro_torch.core.engine import TieringPlan
 from repro_torch.core.hardware import H100_SXM, HardwareSpec
@@ -356,24 +357,6 @@ def check_autotune_table(
 # --------------------------------------------------------------------------
 # Building launch descriptors from a plan + abstract operand shapes
 # --------------------------------------------------------------------------
-def operand_shapes(cfg) -> dict[str, tuple[int, ...]]:
-    """Registry ``path_str`` -> full (unsplit) leaf shape, from the meta
-    device: the reference's ``analysis.surface.operand_shapes``."""
-    from repro_torch.models import model as M
-    from repro_torch.models.registry import operand_registry, resolve
-
-    src = M.layer_source(cfg, None, device="meta")
-    params = {**src.top, "layers": {k: (src.n_layers, *v.shape) for k, v in src.shapes.items()}}
-    shapes: dict[str, tuple[int, ...]] = {}
-    for od in operand_registry(cfg):
-        try:
-            leaf = resolve(params, od.path)
-        except KeyError:
-            continue  # registry names an optional leaf this config lacks
-        shapes[od.path_str] = tuple(leaf if isinstance(leaf, tuple) else leaf.shape)
-    return shapes
-
-
 def check_alignment_invariants(
         plan: TieringPlan, shapes: dict[str, tuple[int, ...]], *,
         align: int, where: str = "plan") -> list[Finding]:

@@ -29,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("splitk_gemm", "paged_flashattn", "splitk_flashattn", "flash_prefill",
            "host_mem")
-MEASUREMENT_SOURCES = ("host_probe", "decode_attn_cpasync")   # on no path, built only when asked
+MEASUREMENT_SOURCES = ("host_probe",)   # on no path, built only when asked
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -72,10 +72,6 @@ _SIGNATURES = {
     },
     "host_probe": {
         "dak_host_read_probe": [_P] + [_I] * 7 + [_P, _P],
-    },
-    "decode_attn_cpasync": {
-        "dak_paged_attention_cpasync": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _I, _I, _P],
-        "dak_splitk_attention_cpasync": [_P] * 6 + [_I] * 9 + [_P],
     },
 }
 

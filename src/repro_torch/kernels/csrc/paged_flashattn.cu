@@ -21,9 +21,9 @@
 //    stay in flight while a page is folded in; at window 1 (the served
 //    path) load and update overlap.  This is what reads the link at its
 //    cap: against 16-byte cp.async from every thread into a ring of
-//    `window` stages, folded before the next load is issued
-//    (csrc/decode_attn_cpasync.cu), 2.2-3.0x faster at llama2-7b's served
-//    shape on an H100 80GB HBM3 (chip_smoke.py --phases 1,10).  `window`
+//    `window` stages, folded before the next load is issued (the design
+//    this replaced), 2.2-3.0x faster at llama2-7b's served shape on an
+//    H100 80GB HBM3, timed in alternating rounds on one card.  `window`
 //    never changes the result.  Rows of a page past the slot's length
 //    arrive too and are masked in the update.  Pools a tensor map cannot
 //    describe (hd*elem not a multiple of 16 B, hd or page above 256, an

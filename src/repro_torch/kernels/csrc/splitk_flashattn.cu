@@ -28,12 +28,13 @@
 //    and are not read over the link), into a ring of window + 1 stages, so
 //    `window` loads stay in flight while a chunk is folded in and at window
 //    1 load and update overlap.  `window` never changes the result.  The
-//    design this replaced (csrc/decode_attn_cpasync.cu) moved 32 KB a round
-//    trip and already read the link at 0.89-0.94x of its cap at llama2-7b's
-//    shapes, so here the two are level (chip_smoke.py --phases 1,10 on an
-//    H100 80GB HBM3).  Caches a tensor map cannot describe (hd*elem not a
-//    multiple of 16 B, hd above 256, an unaligned base) take element loads
-//    into the same ring (template flag TMA = false).
+//    design this replaced (16-byte cp.async into a `window`-stage ring)
+//    moved 32 KB a round trip and already read the link at 0.89-0.94x of
+//    its cap at llama2-7b's shapes, so here the two were level, timed in
+//    alternating rounds on an H100 80GB HBM3.  Caches a tensor map cannot
+//    describe (hd*elem not a multiple of 16 B, hd above 256, an unaligned
+//    base) take element loads into the same ring (template flag TMA =
+//    false).
 //  * One CTA per (request, query-head group, kv head) walks the request's
 //    kv_len positions: B*Kh CTAs, 128 for llama2-7b at batch 4.
 //  * Host-first batch order (`host_first_batch_order` in the reference):

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_prefill_ref
+from repro_torch.kernels.sink import direct_access
 from repro_torch.kernels.splitk_gemm import elem_bytes
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,6 +57,7 @@ def smem_query(hd: int, *, dtype) -> int:
                              0 if _is_fp32(dtype) else 1, stages=False)[0]
 
 
+@direct_access(lambda q, k, v, *, causal=True: flash_prefill_ref(q, k, v, causal))
 def flash_prefill(
     q: torch.Tensor,          # [B, H, Tq, hd]
     k: torch.Tensor,          # [B, Kh, Tk, hd]

@@ -37,6 +37,7 @@ import torch.distributed as dist
 from repro_torch.core.tiering import TieredTensor
 from repro_torch.distributed.collectives import single_tensor_collective
 from repro_torch.kernels.autotune import dtype_name
+from repro_torch.kernels.sink import direct_access
 from repro_torch.kernels.splitk_flashattn import paged_splitk_flashattn, splitk_flashattn
 from repro_torch.kernels.splitk_gemm import splitk_gemm
 
@@ -131,6 +132,7 @@ def _scratch(mesh, numel: int, dtype: torch.dtype, device: torch.device) -> torc
     return buf[:numel]
 
 
+@direct_access(lambda mesh, axis_name, shard, out, axis, **_: out)
 def gather_shards(mesh, axis_name: str, shard: torch.Tensor, out: torch.Tensor, axis: int,
                   *, kind: str = "weights") -> torch.Tensor:
     """Fill `out` (the whole extent, on its device) with every rank's slice

@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import paged_flashattn_ref, splitk_flashattn_ref
+from repro_torch.kernels.sink import direct_access
 from repro_torch.kernels.splitk_gemm import MAX_WINDOW, elem_bytes
 
 DEFAULT_WINDOW = 2
@@ -208,6 +209,8 @@ def _check_index(name: str, t: torch.Tensor, shape: tuple, device) -> None:
                          f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+@direct_access(lambda q, kl, vl, kr, vr, table, tier, lens, *, scale=None, **_:
+               paged_flashattn_ref(q, kl, vl, kr, vr, table, tier, lens, scale=scale))
 def paged_splitk_flashattn(
     q: torch.Tensor,               # [B, H, hd]
     k_pages_local: torch.Tensor,   # [P_loc(+sink), page, Kh, hd]
@@ -277,6 +280,8 @@ def _check_cache(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
                          f"got {tuple(t.shape)}")
 
 
+@direct_access(lambda q, kl, vl, kr, vr, *, kv_len, **_:
+               splitk_flashattn_ref(q, kl, vl, kr, vr, kv_len))
 def splitk_flashattn(
     q: torch.Tensor,          # [B, H, hd], B = B_loc + B_rem, local requests first
     k_local: torch.Tensor,    # [B_loc, S, Kh, hd]
@@ -351,6 +356,16 @@ def scatter_rows_ref(pool: torch.Tensor, rows: torch.Tensor, idx: torch.Tensor,
     pool[idx.long(), off.long()] = rows.to(pool.dtype)
 
 
+def _scatter_rows_plain(pool: torch.Tensor, rows: torch.Tensor, wr_tier: torch.Tensor,
+                        wr_idx: torch.Tensor, wr_off: torch.Tensor, tier_sel: int, sink: int,
+                        **_) -> None:
+    """`scatter_rows`' plain version: every slot whose row belongs to the
+    other tier writes it into this tier's ``sink`` page instead."""
+    idx = torch.where(wr_tier == tier_sel, wr_idx, torch.full_like(wr_idx, sink))
+    scatter_rows_ref(pool, rows, idx, wr_off)
+
+
+@direct_access(_scatter_rows_plain)
 def scatter_rows(pool: torch.Tensor, rows: torch.Tensor, wr_tier: torch.Tensor,
                  wr_idx: torch.Tensor, wr_off: torch.Tensor, tier_sel: int,
                  sink: int, *, remote: bool) -> None:
@@ -365,8 +380,7 @@ def scatter_rows(pool: torch.Tensor, rows: torch.Tensor, wr_tier: torch.Tensor,
     through its mapped pointer, or, under a serving mesh, the gathered
     remote pool on the rows' device."""
     if pool.device.type == "cpu" and rows.device.type == "cpu":
-        idx = torch.where(wr_tier == tier_sel, wr_idx, torch.full_like(wr_idx, sink))
-        scatter_rows_ref(pool, rows, idx, wr_off)
+        _scatter_rows_plain(pool, rows, wr_tier, wr_idx, wr_off, tier_sel, sink)
         return
     if rows.device.type != "cuda":
         raise ValueError(f"scatter_rows runs on cpu or cuda rows, got {rows.device}")

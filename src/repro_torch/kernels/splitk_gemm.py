@@ -45,6 +45,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import splitk_gemm_grouped_ref, splitk_gemm_ref
+from repro_torch.kernels.sink import direct_access
 
 DEFAULT_WINDOW = 2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -276,6 +277,7 @@ def _check_cuda_operands(x: torch.Tensor, w_local: torch.Tensor,
         raise ValueError("splitk_gemm needs N_loc + N_rem >= 1")
 
 
+@direct_access(lambda x, w_local, w_remote, **_: splitk_gemm_ref(x, w_local, w_remote))
 def splitk_gemm(x: torch.Tensor, w_local: torch.Tensor, w_remote: torch.Tensor,
                 *, window: int = DEFAULT_WINDOW, k_split: int | None = None) -> torch.Tensor:
     """Tiered GEMM: ``x [M, K] @ [w_local [K, N_loc] | w_remote [K, N_rem]]``
@@ -346,6 +348,7 @@ def _check_grouped_operands(x: torch.Tensor, w_remote: torch.Tensor,
                          f"K={k}, N={w_remote.shape[2]} of {x.dtype}")
 
 
+@direct_access(lambda x, w_remote, counts, **_: splitk_gemm_grouped_ref(x, w_remote, counts))
 def splitk_gemm_grouped(x: torch.Tensor, w_remote: torch.Tensor, counts: torch.Tensor,
                         *, window: int = DEFAULT_WINDOW) -> torch.Tensor:
     """Grouped remote-expert GEMM: ``y[e] = x[e] @ w_remote[e]`` for every

@@ -297,6 +297,8 @@ class DeviceCount:
         self._totals: dict[torch.device, torch.Tensor] = {}
 
     def add(self, n: torch.Tensor) -> None:
+        if n.device.type == "meta":       # an abstract trace (the lint) counts nothing
+            return
         total = self._totals.get(n.device)
         if total is None:
             if n.is_cuda and torch.cuda.is_current_stream_capturing():

@@ -162,6 +162,13 @@ class PagedTieredCache:
         self.pools[key] = self._host_pool(tuple(host), dtype)
         self._gathered[key] = torch.zeros(shape, dtype=dtype, device=self.device)
 
+    def remote_buffers(self) -> list[torch.Tensor]:
+        """Every buffer that holds remote pages: the remote pools (this
+        rank's in-page slices under the sharded mode) and, sharded, the
+        whole remote pools on the device that `compute_pools` fills."""
+        return [t for k, t in self.pools.items() if k.endswith("_remote")] + \
+            list(self._gathered.values())
+
     def compute_pools(self) -> dict[str, torch.Tensor]:
         """The decode step's view of the pools.  Sharded, each remote pool is
         gathered whole into its fixed device pool (this rank's slice up its

@@ -1119,3 +1119,79 @@ def test_tuned_engine_matches_untuned_on_card(cuda_device, jit):
         if tuner is not None:
             assert tuner.table and tuner.validate() == []
     assert runs[0] == runs[1]
+
+
+# ---------------------------------------------------------------------------
+# The materialization lint on the card
+# ---------------------------------------------------------------------------
+def _lint_served(cfg, dev, *, jit_step: bool, lint_from: int | None):
+    """Serve SERVE_PROMPT_LENS one engine step at a time (smoke weights,
+    offload 0.5, remote tiers pinned), each step from ``lint_from`` on under
+    the materialization lint; returns (tokens, findings, ops walked)."""
+    from repro_torch.analysis import materialization as MZ
+
+    eng = ServingEngine(cfg, TM.layer_source(cfg, torch.Generator(device=dev).manual_seed(0),
+                                             device=dev),
+                        max_batch=3, max_len=32, global_offload_ratio=0.5, page_size=4,
+                        jit_step=jit_step, device=dev)
+    rng = np.random.default_rng(7)
+    reqs = [Request(rid=i, prompt=rng.integers(3, cfg.vocab, n).astype(np.int32),
+                    max_new_tokens=6) for i, n in enumerate(SERVE_PROMPT_LENS)]
+    for r in reqs:
+        eng.submit(r)
+    findings, ops_walked, step = [], 0, 0
+    while eng.scheduler.waiting or eng.prefilling or any(r is not None for r in eng.active):
+        if lint_from is None or step < lint_from:
+            eng.step()
+        else:
+            seeds = MZ.engine_remote_tensors(eng)
+            assert any(t.is_pinned() for t in seeds)
+            with MZ.MaterializationLint(rule="DAK001", where=f"step {step}") as lint:
+                lint.seed(seeds)
+                eng.step()
+            findings += lint.findings
+            ops_walked += lint.ops
+        step += 1
+    torch.cuda.synchronize()
+    return [r.out_tokens for r in reqs], findings, ops_walked
+
+
+def test_lint_is_green_over_an_eager_engine_with_pinned_tiers(cuda_device):
+    cfg = TC.get_smoke("llama2_7b")
+    plain, _, _ = _lint_served(cfg, cuda_device, jit_step=False, lint_from=None)
+    tokens, findings, walked = _lint_served(cfg, cuda_device, jit_step=False, lint_from=0)
+    assert findings == [] and walked > 0
+    assert tokens == plain
+
+
+def test_lint_around_graphed_replays_keeps_them_and_their_tokens(cuda_device):
+    """Steps after the first (the capture) replay the graph under the lint."""
+    cfg = TC.get_smoke("llama2_7b")
+    plain, _, _ = _lint_served(cfg, cuda_device, jit_step=True, lint_from=None)
+    tokens, findings, _ = _lint_served(cfg, cuda_device, jit_step=True, lint_from=2)
+    assert findings == []
+    assert tokens == plain
+
+
+def test_lint_fires_on_a_remote_tier_moved_to_the_card(cuda_device):
+    from repro_torch.analysis import materialization as MZ
+    from repro_torch.core import tiering
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    w = tiering.place(tiering.partition(
+        torch.randn((64, 96), generator=gen, device=cuda_device), 0.5, axis=-1, align=16))
+    x = torch.randn((4, 64), generator=gen, device=cuda_device)
+    assert w.remote.is_pinned()
+    staged = torch.empty(w.remote.shape, device=cuda_device)
+
+    def prefetch(x, w):                  # the prefetch yardstick: stage, then cuBLAS
+        staged.copy_(w.remote, non_blocking=True)
+        return torch.cat([x @ w.local, x @ staged], dim=1)
+
+    for fn in (lambda x, w: x @ w.remote.to("cuda"), prefetch):
+        fs = MZ.lint_traced(fn, (x, w), rule="DAK001", where="card")
+        assert [(f.rule, f.context["kind"]) for f in fs] == [("DAK001", "device-move")]
+        assert "onto cuda" in fs[0].detail
+    y = MZ.lint_traced(lambda x, w: ops.tiered_matmul(x, w), (x, w), rule="DAK001",
+                       where="card")
+    assert y == []
