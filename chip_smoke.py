@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py              # phases 1-8 and 11-32, needs one CUDA card
+    python3 chip_smoke.py              # phases 1-8 and 11-33, needs one CUDA card
     python3 chip_smoke.py --phases 1,9 # the host-link read probe
+    python3 chip_smoke.py --phases 1,34   # a traced full-size train step
     python3 chip_smoke.py --phases 1,5,9  # kernel timings and the probe
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
@@ -144,7 +145,8 @@ runs, printing each result on its own line:
    depth (2 layers of llama2-7b, Mamba2-370M and LLaVA-NeXT-34B, 12 of
    Zamba2-2.7B), graphed tokens equal to the eager engine's and the plain
    reference's, launches per engine step equal to eager's; then llama2-7b
-   (32 layers) and Mamba2-370M (48 layers) in bf16 with phase 4's traffic,
+   (16 of 32 layers; 32 before phase 33 joined the default run) and
+   Mamba2-370M (48 layers) in bf16 with phase 4's traffic,
    served eagerly and then graphed on the same weights: tokens exactly
    equal, TPOT, device-busy share and host time a step of each, capture
    time per bucket and the graph pool's bytes;
@@ -190,8 +192,32 @@ runs, printing each result on its own line:
    tier copied into HBM, then cuBLAS) at wq's split: exactly one DAK001,
    from the device-move rule, and `splitk_gemm` on the same operands: none;
    (c) the same steps on a P = 1 mesh over NCCL (this process joins a
-   one-rank group, last of all phases, and leaves it): no finding, the
-   fetch-once gathers run; ops walked, findings and seconds of each part;
+   one-rank group and leaves it): no finding, the fetch-once gathers run;
+   ops walked, findings and seconds of each part;
+33. the training stack (`launch.steps.make_train_step`, `optim.adamw`,
+   `launch.train`) at StarCoder2-3B's published widths, fp32 bound 2e-4
+   relative to each leaf's max: (a) at 2 layers in fp32, batch 2 x 256
+   from the synthetic pipeline, one loss-and-gradient pass on the card
+   against the same pass on the CPU, remat on against off on the card, and
+   `adamw.update` on both devices from the same gradients (gradients are
+   compared, not parameters after a step: AdamW's first step moves every
+   weight by about lr whatever its gradient's size); (b) 8 steps on one
+   batch (lr 1e-3, no warmup), the loss falling; (c) all 30 layers in bf16
+   with remat, batch 2 x 4096 (train_4k's sequence, so attention's
+   q-chunk checkpoint runs), 4 steps on pipeline batches: finite losses
+   and gradient norms, peak device memory below the card's, step ms,
+   tokens/s and the 6ND share of the bf16 peak, with the 2-layer peaks
+   with and without remat before it; (d) `launch.train` at 2 layers in
+   bf16, 6 steps, a checkpoint every 2 and a failure at 3 (under
+   ``build/phase33``, deleted after): final step 6, 1 restart, each save's
+   and restore's seconds and bytes, the last checkpoint restored and
+   verified equal to the final state bit for bit; (e)
+   `make_dp_train_step_compressed` at P = 1 over NCCL (this process joins
+   a one-rank group and leaves it), 2 layers in bf16, 4 steps, losses
+   within 3% of the plain step's;
+34. only when asked (``--phases 1,34``), one torch.profiler trace of phase
+   33 (c)'s full-size train step: device-busy share and the kernels that
+   take most device time;
 every served run (4, 12, 14, 16, 17, 19, 21, 26) builds its engine one layer at
 a time, checks that set-up held no more device memory beyond the weights it
 keeps than building one layer holds (`setup_transient_bound`), that the
@@ -216,6 +242,7 @@ import dataclasses
 import gc
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1167,25 +1194,33 @@ def setup_transient_bound(params) -> tuple[float, str]:
 def profile_decode_steps(eng, cfg, rng, prompt_len, steps=3) -> dict:
     """One torch.profiler trace of `steps` decode steps of the served engine
     at batch 4 (after the served run, on fresh requests, prefill outside the
-    trace): the device's busy share of the steps' wall time and the kernels
-    that take most device time.  Returns the traced and device-busy ms per
-    step (empty when the profiler saw no device time)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    trace): see `trace_device`."""
     from repro_torch.serving.engine import Request
 
     for i in range(DECODE_BATCH):
         eng.submit(Request(rid=1000 + i, max_new_tokens=steps + 3,
                            prompt=rng.integers(3, cfg.vocab, prompt_len).astype(np.int32)))
     eng.step()                                  # admissions, prefills and one decode step
+    out = trace_device(eng.step, steps, f"decode steps at batch 4 "
+                                        f"({'graphed' if eng.graphed else 'eager'})")
+    eng.run()
+    return out
+
+
+def trace_device(step, steps: int, what: str) -> dict:
+    """One torch.profiler trace of `steps` calls of `step`: the device's busy
+    share of their wall time and the kernels that take most device time.
+    Returns the traced and device-busy ms per step (empty when the profiler
+    saw no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            eng.step()
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    eng.run()
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
                    and e.time_range.end > e.time_range.start)
@@ -1195,7 +1230,7 @@ def profile_decode_steps(eng, cfg, rng, prompt_len, steps=3) -> dict:
             busy += b - max(a, end)
             end = b
     if busy == 0.0:
-        print(f"  profiler: {steps} decode steps traced, but torch.profiler recorded "
+        print(f"  profiler: {steps} {what} traced, but torch.profiler recorded "
               f"no device time on this machine; no breakdown")
         return {}
     self_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
@@ -1204,10 +1239,10 @@ def profile_decode_steps(eng, cfg, rng, prompt_len, steps=3) -> dict:
                    and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA),
                   key=self_us, reverse=True) or sorted(
         (e for e in prof.key_averages() if self_us(e) > 0), key=self_us, reverse=True)
-    print(f"  profiler: {steps} decode steps at batch 4 ({'graphed' if eng.graphed else 'eager'})"
-          f" in {wall_us / 1e3:.2f} ms of host wall time ({wall_us / steps / 1e3:.2f} ms per step);"
-          f" device busy {busy / 1e3:.2f} ms ({busy / wall_us:.1%}), idle "
-          f"{(wall_us - busy) / 1e3:.2f} ms ({(wall_us - busy) / steps / 1e3:.2f} ms per step)")
+    print(f"  profiler: {steps} {what} in {wall_us / 1e3:.2f} ms of host wall time "
+          f"({wall_us / steps / 1e3:.2f} ms per step); device busy {busy / 1e3:.2f} ms "
+          f"({busy / wall_us:.1%}), idle {(wall_us - busy) / 1e3:.2f} ms "
+          f"({(wall_us - busy) / steps / 1e3:.2f} ms per step)")
     for e in rows[:12]:
         print(f"    {self_us(e) / 1e3 / steps:9.3f} ms per step  {e.count // steps:5d} calls per "
               f"step  {e.key[:100]}")
@@ -2728,7 +2763,9 @@ def phase_elastic_serve() -> None:
 # ---------------------------------------------------------------------------
 COMPILED_PARITY = (("llama2_7b", 2), ("mamba2_370m", 2),
                    ("zamba2_2p7b", ZAMBA2_PARITY_LAYERS), ("llava_next_34b", 2))
-COMPILED_SERVED = ("llama2_7b", "mamba2_370m")
+# (arch, layers or None for all): llama2-7b at 16 of its 32 layers since the
+# training phase (33) joined the default run; figures before it are at 32
+COMPILED_SERVED = (("llama2_7b", 16), ("mamba2_370m", None))
 
 
 def launch_counts() -> dict:
@@ -2824,8 +2861,8 @@ def fresh_serving_state(eng) -> None:
 
 
 def phase_compiled_serve() -> None:
-    """Phase 4's traffic (bf16, full width and depth, offload 0.5, page 16, 4
-    slots, 8 requests of 128 + 32 tokens) served eagerly and then graphed on
+    """Phase 4's traffic (bf16, full width at the depths of `COMPILED_SERVED`,
+    offload 0.5, page 16, 4 slots, 8 requests of 128 + 32 tokens) served eagerly and then graphed on
     the same weights (one engine, its cache state reset in between): tokens
     equal exactly (the same kernels run in the same order), TPOT, the
     profiler's device-busy share and host time a step of each, the capture
@@ -2835,15 +2872,19 @@ def phase_compiled_serve() -> None:
     from repro_torch.serving.engine import Request, ServingEngine
 
     new_tokens = 32
-    for arch in COMPILED_SERVED:
+    for arch, n_layers in COMPILED_SERVED:
         cfg = C.get(arch)
+        depth = f"{cfg.n_layers} layers"
+        if n_layers is not None:
+            depth = f"{n_layers} of {cfg.n_layers} layers"
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
         t0 = time.time()
         eng = ServingEngine(
             cfg, M.layer_source(cfg, torch.Generator(device="cuda").manual_seed(0),
                                 dtype=torch.bfloat16, device="cuda"),
             max_batch=DECODE_BATCH, max_len=PREFILL_LEN + new_tokens, global_offload_ratio=0.5,
             page_size=16, jit_step=False, device="cuda")
-        print(f"{arch} ({cfg.n_layers} layers, bf16): engine built in {time.time() - t0:.1f} s")
+        print(f"{arch} ({depth}, bf16): engine built in {time.time() - t0:.1f} s")
         out = {}
         for mode in ("eager", "graphed"):
             if mode == "graphed":
@@ -3389,8 +3430,6 @@ def phase_lint(card: dict) -> None:
     """Phase 32 (see the module docstring): the materialization lint over
     (a) the engine's admitted prefill and eager decode steps with pinned
     tiers, (b) phase 5's prefetch yardstick, (c) a one-rank mesh step."""
-    import shutil
-
     import torch.distributed as dist
 
     from repro_torch.analysis import materialization as MZ
@@ -3443,7 +3482,7 @@ def phase_lint(card: dict) -> None:
     out = REPO / "build" / "phase32"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
-    # this process joins a one-rank group here, last, and leaves it after
+    # this process joins a one-rank group here and leaves it after
     init_rank(0, 1, backend="nccl", init_method=f"file://{out / 'store'}")
     try:
         res = lint_engine_steps(make_dev_mesh(1, 1))
@@ -3464,6 +3503,296 @@ def phase_lint(card: dict) -> None:
           f"{card['name']} at {card['power']}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 33: the training stack
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "starcoder2_3b"  # the train driver's default, and one H100 holds it whole
+TRAIN_BATCH = 2
+TRAIN_SEQ = 4096              # train_4k's sequence: attention takes its q-chunked path
+TRAIN_SHORT_SEQ = 256         # parts (a), (b), (d) and (e)
+TRAIN_STEPS = 4               # full-size steps of part (c)
+
+
+def tree_rel_err(got, want) -> tuple[float, str]:
+    """The worst leaf's max |got - want| / max |want|, computed on `want`'s
+    device (the card's, where one tree is on the CPU), and its path."""
+    from repro_torch.tree import flatten
+
+    worst = (0.0, "")
+    for (key, a), (_, b) in zip(flatten(got), flatten(want), strict=True):
+        a, b = a.to(b.device).float(), b.float()
+        err = float((a - b).abs().max() / (b.abs().max() + 1e-9)) if b.numel() else 0.0
+        worst = max(worst, (err, key))
+    return worst
+
+
+def train_batch(cfg, seq: int, device, step: int = 0) -> dict:
+    """Batch `step` of the synthetic pipeline (seed 0) on `device`."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticPipeline
+
+    pipe = SyntheticPipeline(cfg, ShapeConfig("phase33", seq, TRAIN_BATCH, "train"))
+    return {k: torch.from_numpy(v).to(device) for k, v in pipe.batch_at(step).items()}
+
+
+def train_gradients_part(cfg) -> None:
+    """(a) and (b): gradients on the card against the CPU, remat on against
+    off, `adamw.update` on both devices from the same gradients; then 8
+    steps on one batch."""
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_map
+
+    tol = TOL[torch.float32]
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(33), device="cuda")
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    batch = train_batch(cfg, TRAIN_SHORT_SEQ, "cuda")
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    loss, grads = S.make_loss_and_grads(cfg)(params, batch)
+    t0 = time.time()
+    cpu_loss, cpu_grads = S.make_loss_and_grads(cfg)(cpu_params, cpu_batch)
+    cpu_s = time.time() - t0
+    lrel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    err, where = tree_rel_err(cpu_grads, grads)
+    check(lrel < tol and err < tol,
+          f"(a) loss and gradients, 2 layers fp32, batch {TRAIN_BATCH} x {TRAIN_SHORT_SEQ}, remat: "
+          f"card {float(loss):.6f} vs CPU {float(cpu_loss):.6f} (rel {lrel:.2e}); worst "
+          f"gradient leaf {where} at {err:.2e} of its max (CPU pass {cpu_s:.1f} s)")
+    _, grads_nr = S.make_loss_and_grads(cfg, remat=False)(params, batch)
+    err, where = tree_rel_err(grads_nr, grads)
+    check(err < tol, f"(a) remat off against remat on, on the card: worst leaf {where} at "
+                     f"{err:.2e} of its max")
+    del grads_nr, cpu_grads
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=8)
+    new, state, gnorm = adamw.update(tree_map(torch.clone, params), grads, adamw.init(params),
+                                     opt_cfg)
+    cpu_new, cpu_state, cpu_gnorm = adamw.update(
+        tree_map(torch.clone, cpu_params), tree_map(lambda t: t.cpu(), grads),
+        adamw.init(cpu_params), opt_cfg)
+    errs = {name: tree_rel_err(a, b) for name, a, b in (
+        ("params", cpu_new, new), ("m", cpu_state["m"], state["m"]),
+        ("v", cpu_state["v"], state["v"]))}
+    nrel = abs(float(gnorm) - float(cpu_gnorm)) / float(cpu_gnorm)
+    check(all(e < tol for e, _ in errs.values()) and nrel < tol
+          and state["step"].device.type == "cuda" and int(state["step"]) == 1,
+          f"(a) adamw.update from the same gradients, card against CPU: gnorm rel {nrel:.2e}; "
+          + ", ".join(f"{n} worst {w} at {e:.2e}" for n, (e, w) in errs.items()))
+    del new, state, cpu_new, cpu_state, grads, cpu_params, cpu_batch
+
+    step = S.make_train_step(cfg, opt_cfg)
+    opt = adamw.init(params)
+    losses = []
+    for _ in range(8):
+        loss, params, opt, _ = step(params, opt, batch)
+        losses.append(float(loss))
+    check(losses[-1] < losses[0] and all(math.isfinite(v) for v in losses),
+          f"(b) 8 steps on one batch (lr 1e-3, no warmup): loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, a drop of {losses[0] - losses[-1]:.4f} "
+          f"({', '.join(f'{v:.4f}' for v in losses)})")
+
+
+def train_peak(cfg, params, batch, remat: bool) -> int:
+    """Peak device bytes of one loss-and-gradient pass beyond what was held
+    before it."""
+    from repro_torch.launch import steps as S
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = S.make_loss_and_grads(cfg, remat=remat)(params, batch)
+    torch.cuda.synchronize()
+    del out
+    return torch.cuda.max_memory_allocated() - base
+
+
+def train_full_part(card: dict, cfg) -> None:
+    """(c): all layers, bf16, remat, train_4k's sequence; before it, the
+    remat and no-remat peaks at 2 layers and the same batch."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    cut = dataclasses.replace(cfg, n_layers=2)
+    params = M.init_params(cut, gen, dtype=torch.bfloat16, device="cuda")
+    batch = train_batch(cut, TRAIN_SEQ, "cuda")
+    peaks = {remat: train_peak(cut, params, batch, remat) for remat in (True, False)}
+    print(f"  (c) 2 layers, bf16, batch {TRAIN_BATCH} x {TRAIN_SEQ}: a loss-and-gradient pass "
+          f"peaks {peaks[True] / 1e9:.3f} GB above the weights with remat, "
+          f"{peaks[False] / 1e9:.3f} GB without (attention's q-chunk checkpoint on in both)")
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    params = M.init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    opt = adamw.init(params)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    print(f"  (c) {cfg.name}: {cfg.n_layers} layers, bf16 weights and fp32 moments "
+          f"{held / 1e9:.3f} GB on the card, made in {time.time() - t0:.1f} s")
+    step = S.make_train_step(cfg, adamw.AdamWConfig(lr=3e-4, warmup_steps=2,
+                                                    total_steps=TRAIN_STEPS))
+    pipe = SyntheticPipeline(cfg, ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train"))
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, norms = [], [], []
+    for i in range(TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in pipe.batch_at(i).items()}
+        torch.cuda.synchronize()
+        t = time.time()
+        loss, params, opt, gnorm = step(params, opt, batch)
+        losses.append(float(loss))
+        norms.append(float(gnorm))
+        times.append(time.time() - t)
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    step_s = statistics.median(times[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n = cfg.param_count()
+    share = 6 * n * tokens / (step_s * BF16_PEAK)
+    check(all(math.isfinite(v) for v in losses + norms) and peak < total,
+          f"(c) {cfg.name} trained at all {cfg.n_layers} layers, bf16, remat, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps: losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}, gnorm {', '.join(f'{v:.3f}' for v in norms)}; "
+          f"peak device memory {peak / 1e9:.3f} GB of the card's {total / 1e9:.3f} GB")
+    print(f"  (c) step ms {', '.join(f'{t * 1e3:.1f}' for t in times)} (the first with "
+          f"warm-up); median of the rest {step_s * 1e3:.1f} ms, {tokens / step_s:.1f} tokens/s; "
+          f"6ND share {share:.4f} (N {n / 1e9:.4f} G from cfg.param_count(), D {tokens} tokens a "
+          f"step, against {BF16_PEAK / 1e12:.0f} TFLOP/s bf16 at {card['power']})")
+
+
+def phase_train_trace(card: dict) -> None:
+    """Phase 34, only when asked: one torch.profiler trace of phase 33 (c)'s
+    train step after one untraced step (tracing a step of ~15k kernels adds
+    ~20 s of trace processing, so the default run leaves it out)."""
+    import repro_torch.configs as C
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+
+    cfg = C.get(TRAIN_ARCH)
+    state = {"params": M.init_params(cfg, torch.Generator(device="cuda").manual_seed(33),
+                                     dtype=torch.bfloat16, device="cuda")}
+    state["opt"] = adamw.init(state["params"])
+    step = S.make_train_step(cfg, adamw.AdamWConfig(lr=3e-4, warmup_steps=2,
+                                                    total_steps=TRAIN_STEPS))
+    batch = train_batch(cfg, TRAIN_SEQ, "cuda")
+
+    def one_step():
+        _, state["params"], state["opt"], _ = step(state["params"], state["opt"], batch)
+
+    one_step()
+    trace_device(one_step, 1, f"{cfg.name} train step ({cfg.n_layers} layers, bf16, remat, "
+                              f"{TRAIN_BATCH} x {TRAIN_SEQ}) on {card['name']} at "
+                              f"{card['power']}")
+
+
+def train_driver_part(cfg, out: Path) -> None:
+    """(d): `launch.train` at 2 layers, bf16, with a restart from a
+    checkpoint; the last checkpoint restored against the final state."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import train
+    from repro_torch.tree import flatten
+
+    ckpt_dir = out / "ckpt"
+    args = train.parse_args(["--arch", TRAIN_ARCH, "--dtype", "bfloat16", "--steps", "6",
+                             "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SHORT_SEQ),
+                             "--ckpt-every", "2", "--fail-at", "3", "--log-every", "1",
+                             "--ckpt-dir", str(ckpt_dir)])
+    t0 = time.time()
+    res = train.run(cfg, args)
+    run_s = time.time() - t0
+    for s in res["saves"]:
+        print(f"  (d) save of step {s.step}: {s.seconds:.2f} s, {s.bytes / 1e9:.3f} GB "
+              f"({s.bytes / s.seconds / 1e9:.2f} GB/s, on a thread beside the steps)")
+    for r in res["restores"]:
+        print(f"  (d) restore of step {r['step']}: {r['seconds']:.2f} s, {r['bytes'] / 1e9:.3f} "
+              f"GB onto the card, each file's sha256 verified")
+    t1 = time.time()
+    tree, _ = CheckpointManager(ckpt_dir).restore(6, like=res["state"], verify=True)
+    torch.cuda.synchronize()
+    restore_s = time.time() - t1
+    same = all(a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+               for (_, a), (_, b) in zip(flatten(tree), flatten(res["state"]), strict=True))
+    check(res["final_step"] == 6 and res["restarts"] == 1 and same
+          and [s.step for s in res["saves"]] == [2, 4, 6],
+          f"(d) launch.train, 2 layers bf16, 6 steps, checkpoint every 2, failure at 3: final "
+          f"step {res['final_step']}, {res['restarts']} restart, saves at "
+          f"{[s.step for s in res['saves']]}; step 6 restored (files verified, "
+          f"{restore_s:.2f} s) equals the final state bit for bit: {same} ({run_s:.1f} s)")
+    del tree, res
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def train_dp_part(cfg, out: Path) -> None:
+    """(e): the compressed data-parallel step at P = 1 over NCCL (this
+    process joins a one-rank group and leaves it) beside the plain step."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.collectives import ErrorFeedback
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import init_rank, make_dev_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_map
+
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=20)
+    plain_params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(33),
+                                 dtype=torch.bfloat16, device="cuda")
+    params = tree_map(torch.clone, plain_params)
+    init_rank(0, 1, backend="nccl", init_method=f"file://{out / 'store'}")
+    try:
+        comp = S.make_dp_train_step_compressed(cfg, make_dev_mesh(1, 1), opt_cfg)
+        plain = S.make_train_step(cfg, opt_cfg)
+        opt, plain_opt = adamw.init(params), adamw.init(plain_params)
+        residual = ErrorFeedback.init(params)
+        pairs = []
+        for i in range(4):
+            batch = train_batch(cfg, TRAIN_SHORT_SEQ, "cuda", step=i)
+            lc, params, opt, residual, _ = comp(params, opt, residual, batch)
+            lp, plain_params, plain_opt, _ = plain(plain_params, plain_opt, batch)
+            pairs.append((float(lc), float(lp)))
+    except Exception as e:                 # the part fails, it is not skipped
+        check(False, f"phase 33 (e): the compressed step failed: {type(e).__name__}: {e}")
+        return
+    finally:
+        dist.destroy_process_group()
+    worst = max(abs(c - p) / abs(p) for c, p in pairs)
+    check(worst < 0.03,
+          f"(e) make_dp_train_step_compressed at P=1 over NCCL, 2 layers bf16, 4 steps: losses "
+          f"{', '.join(f'{c:.4f}' for c, _ in pairs)} against the plain step's "
+          f"{', '.join(f'{p:.4f}' for _, p in pairs)}: worst {worst:.2e} (bound 3e-2)")
+
+
+def phase_train(card: dict) -> None:
+    """Phase 33 (see the module docstring): the training stack at
+    StarCoder2-3B's published widths."""
+    import repro_torch.configs as C
+
+    t0 = time.time()
+    cfg = C.get(TRAIN_ARCH)
+    cut = dataclasses.replace(cfg, n_layers=2)
+    out = REPO / "build" / "phase33"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    parts = (("a, b", lambda: train_gradients_part(cut)),
+             ("c", lambda: train_full_part(card, cfg)),
+             ("d", lambda: train_driver_part(cut, out)),
+             ("e", lambda: train_dp_part(cut, out)))
+    for name, part in parts:
+        t = time.time()
+        part()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  ({name}) {time.time() - t:.1f} s")
+    shutil.rmtree(out, ignore_errors=True)
+    print(f"  phase 33 {time.time() - t0:.1f} s on {card['name']} at {card['power']}")
+
+
 def add_launches(launches: dict, path: dict) -> None:
     """Keep each kernel's count from the first path run that launched it: the
     paged served run (phase 4) for the kernels of the main path, the MoE
@@ -3477,9 +3806,9 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,11,12,13,14,15,16,17,18,19,20,21,22,23,24,25,26,"
-                            "27,28,29,30,31,32",
-                    help="comma-separated subset of phases 1-32 (default: 1-8 and 11-32; 9 "
-                         "is the host-link read probe)")
+                            "27,28,29,30,31,32,33",
+                    help="comma-separated subset of phases 1-34 (default: 1-8 and 11-33; 9 "
+                         "is the host-link read probe, 34 a traced train step)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -3588,7 +3917,8 @@ def main(argv: list[str] | None = None) -> int:
                  "AIMD on CUDA-event bandwidth, and a shrink to 20% at decode step 2"):
         phase_elastic_serve()
     if start(29, "compiled decode step: graphed vs eager, fp32 parity at cut depth, then "
-                 "llama2-7b and Mamba2-370M at full width and depth, bf16"):
+                 "llama2-7b (16 of 32 layers) and Mamba2-370M (48 layers) at full width, "
+                 "bf16"):
         phase_compiled_parity()
         phase_compiled_serve()
     if start(30, "measurement surface and autotuner, llama2-7b (32 layers, bf16), offload 0.5, "
@@ -3600,6 +3930,12 @@ def main(argv: list[str] | None = None) -> int:
     if start(32, "materialization lint on the card, llama2-7b (2 layers, bf16), offload 0.5, "
                  "page 16: engine steps, the prefetch yardstick, a P=1 mesh step"):
         phase_lint(card)
+    if start(33, "training stack, StarCoder2-3B at published widths: gradients card vs CPU, "
+                 "learning, 30 layers bf16 at 2 x 4096, the train driver with a restart, the "
+                 "compressed step at P=1 over NCCL"):
+        phase_train(card)
+    if start(34, "a traced train step, StarCoder2-3B (30 layers, bf16, remat), 2 x 4096"):
+        phase_train_trace(card)
     ends = sorted(begun.values())[1:] + [time.time()]
     print("phase seconds: " + ", ".join(f"{n} {end - t:.1f}" for (n, t), end
                                         in zip(sorted(begun.items(), key=lambda kv: kv[1]), ends))

@@ -16,7 +16,7 @@ import torch
 
 
 def tensor_from_numpy(a: np.ndarray, device="cuda") -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    a = np.asarray(a, order="C")          # ascontiguousarray would make a 0-d array 1-d
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
     else:

@@ -1,3 +1,2 @@
-"""Distributed-optimization collectives over torch.distributed (the
-reference's `distributed/`; its fault tolerance waits for the training stack).
-"""
+"""Fault tolerance + distributed-optimization helpers (the reference's
+`distributed/`, over torch.distributed)."""

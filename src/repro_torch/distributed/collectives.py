@@ -22,11 +22,7 @@ from typing import Any, Callable
 import torch
 import torch.distributed as dist
 
-
-def _tree_map(fn: Callable, tree: Any) -> Any:
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+from repro_torch.tree import tree_map
 
 
 def single_tensor_collective(name: str, old: str) -> Callable:
@@ -62,7 +58,7 @@ class ErrorFeedback:
 
     @staticmethod
     def init(grads: Any) -> Any:
-        return _tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device),
+        return tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device),
                          grads)
 
     @staticmethod
@@ -93,7 +89,7 @@ def reduce_scatter_grads(grads: Any, group=None) -> Any:
         dist.all_reduce(out, group=group)
         return out
 
-    return _tree_map(one, grads)
+    return tree_map(one, grads)
 
 
 def all_gather_params(params: Any, group=None) -> Any:
@@ -106,4 +102,4 @@ def all_gather_params(params: Any, group=None) -> Any:
         all_gather(out, p.contiguous(), group=group)
         return out
 
-    return _tree_map(one, params)
+    return tree_map(one, params)

@@ -18,8 +18,8 @@ rank has a card of its own (asking for it with more ranks than cards
 raises), gloo for CPU ranks and for ranks that share one card.  NCCL with
 P > 1 across cards is written but has not been run.
 
-`make_production_mesh` (the TPU pod shape) is not ported here: it waits for
-the training stack's dry-run decision.
+`make_production_mesh` (the TPU pod shape) is not ported here: it comes
+with the dry run (`launch/dryrun.py`), which the port does not have yet.
 """
 from __future__ import annotations
 

@@ -154,12 +154,20 @@ def attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            causal: bool, q_offset: int = 0, kv_len=None) -> torch.Tensor:
     """Grouped-query attention.  `kv_len` masks positions >= kv_len;
     `q_offset` is the absolute position of q[0] for causal masking.  Long
-    query spans are processed in chunks of ATTN_CHUNK_Q queries."""
+    query spans are processed in chunks of ATTN_CHUNK_Q queries; while
+    autograd records, each chunk runs under a checkpoint, so backward
+    keeps O(Tq_chunk * Tk) logits instead of O(Tq * Tk)."""
     b, tq, h, hd = q.shape
     if tq <= ATTN_CHUNK_THRESHOLD or tq % ATTN_CHUNK_Q:
         return _attend_dense(cfg, q, k, v, causal, q_offset, kv_len)
+    chunk = _attend_dense
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        from torch.utils.checkpoint import checkpoint
+
+        def chunk(*args):
+            return checkpoint(_attend_dense, *args, use_reentrant=False)
     return torch.cat([
-        _attend_dense(cfg, q[:, s:s + ATTN_CHUNK_Q], k, v, causal, q_offset + s, kv_len)
+        chunk(cfg, q[:, s:s + ATTN_CHUNK_Q], k, v, causal, q_offset + s, kv_len)
         for s in range(0, tq, ATTN_CHUNK_Q)], dim=1)
 
 

@@ -19,7 +19,8 @@ per-request reference the serving engine is checked against;
 entry point takes ``mm``, the tier-aware matmul, so the engine can run the
 same code through the direct-access kernel; a hybrid's ``concat_proj``,
 ``in_proj`` and ``vision_proj`` are not registered and stay plain
-products, as in the reference.  Not ported: ``forward``'s remat (training).
+products, as in the reference.  `forward` takes the reference's remat
+(training: `launch.steps.make_train_step`).
 """
 from __future__ import annotations
 
@@ -59,6 +60,16 @@ def require_served(cfg: ModelConfig) -> None:
 def layer_slice(layers: Any, i: int) -> Any:
     """Layer `i` of a stacked (possibly tiered) layer tree."""
     return {k: v[i] for k, v in layers.items()}
+
+
+def unstack_layers(layers: Any, n: int) -> list[Any]:
+    """The `n` layers of a stacked layer tree: each plain tensor leaf
+    unbound once, so autograd stacks the layers' gradients once (indexing
+    layer by layer gives each layer's gradient a zero tensor of the whole
+    stack); tiered leaves indexed as `layer_slice` does."""
+    parts = {k: v.unbind(0) if isinstance(v, torch.Tensor) else [v[i] for i in range(n)]
+             for k, v in layers.items()}
+    return [{k: p[i] for k, p in parts.items()} for i in range(n)]
 
 
 # ==========================================================================
@@ -334,27 +345,56 @@ def _attn_mlp_layer(cfg: ModelConfig, x: torch.Tensor, lp: Params, positions: to
 
 
 def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor],
-            mm: L.Matmul = L.matmul) -> torch.Tensor:
+            mm: L.Matmul = L.matmul, remat: bool = False, remat_policy=None) -> torch.Tensor:
     """Logits [B, T, vocab] at every position of `embed_inputs`' sequence
     (causal unless ``cfg.is_causal`` is false, as for the encoder).  A
     hybrid runs its shared block before each group of ``hybrid_attn_every``
-    layers, on the embedding ``h0`` too."""
+    layers, on the embedding ``h0`` too.
+
+    With `remat`, each layer (a hybrid: each group with its shared block)
+    runs under a non-reentrant checkpoint, so backward keeps one boundary
+    activation a layer and recomputes the rest.  `remat_policy`, optional,
+    is a selective-checkpoint policy (the ``policy_fn_or_list`` of
+    ``torch.utils.checkpoint.create_selective_checkpoint_contexts``, e.g.
+    the matmuls saved); without remat it is ignored, as in the reference."""
     x = embed_inputs(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     h0 = x
-    for i in range(cfg.n_layers):
-        sp = shared_block(cfg, params, i)
-        if sp is not None:
-            z = shared_in(x, h0, sp)
+    layers = unstack_layers(params["layers"], cfg.n_layers)
+    every = cfg.hybrid_attn_every if cfg.family == "hybrid" else 1
+    if cfg.family == "hybrid":
+        n_blocks = max(1, cfg.hybrid_shared_blocks)
+        shared = unstack_layers(params["shared"], n_blocks)
+
+    def group(h: torch.Tensor, start: int) -> torch.Tensor:
+        if cfg.family == "hybrid":
+            sp = shared[(start // every) % n_blocks]
+            z = shared_in(h, h0, sp)
             z = z + L.attention_block(cfg, L.norm(cfg, z, sp, "ln1"), sp, positions,
                                       cfg.is_causal, mm=mm)
-            x = shared_out(cfg, x, z, sp, mm)
-        lp = layer_slice(params["layers"], i)
-        if cfg.family in ("ssm", "hybrid"):
-            x = x + S.ssm_block(cfg, L.norm(cfg, x, lp, "ln1"), lp, mm=mm)[0]
-        else:
-            x = _attn_mlp_layer(cfg, x, lp, positions, cfg.is_causal, mm)
+            h = shared_out(cfg, h, z, sp, mm)
+        for lp in layers[start:min(start + every, cfg.n_layers)]:
+            if cfg.family in ("ssm", "hybrid"):
+                h = h + S.ssm_block(cfg, L.norm(cfg, h, lp, "ln1"), lp, mm=mm)[0]
+            else:
+                h = _attn_mlp_layer(cfg, h, lp, positions, cfg.is_causal, mm)
+        return h
+
+    for start in range(0, cfg.n_layers, every):
+        x = checkpointed(group, x, start, policy=remat_policy) if remat else group(x, start)
     return lm_head(cfg, params, x, mm=mm)
+
+
+def checkpointed(fn: Callable, *args, policy=None):
+    """``fn(*args)`` under a non-reentrant activation checkpoint, selective
+    under `policy` when one is given."""
+    from torch.utils import checkpoint as ckpt
+
+    if policy is None:
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+    return ckpt.checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=lambda: ckpt.create_selective_checkpoint_contexts(policy))
 
 
 # ==========================================================================

@@ -1195,3 +1195,87 @@ def test_lint_fires_on_a_remote_tier_moved_to_the_card(cuda_device):
     y = MZ.lint_traced(lambda x, w: ops.tiered_matmul(x, w), (x, w), rule="DAK001",
                        where="card")
     assert y == []
+
+
+# ---------------------------------------------------------------------------
+# The training stack on the card
+# ---------------------------------------------------------------------------
+def _tree_rel_err(got, want) -> float:
+    from repro_torch.tree import flatten
+
+    return max(rel_err(a, b) for (_, a), (_, b) in zip(flatten(got), flatten(want), strict=True))
+
+
+def test_train_step_on_card_matches_the_cpu(cuda_device):
+    """One loss-and-gradient pass and one train step of the smoke dense model,
+    the card against the CPU on the same weights and batch (fp32)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.launch import steps as S
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_map
+
+    cfg = TC.get_smoke("starcoder2_3b")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in
+             SyntheticPipeline(cfg, ShapeConfig("t", 32, 4, "train")).batch_at(0).items()}
+    on_card = tree_map(lambda t: t.to(cuda_device), params)
+    card_batch = {k: v.to(cuda_device) for k, v in batch.items()}
+    for n_mb in (1, 2):
+        loss, grads = S.make_loss_and_grads(cfg, n_mb)(params, batch)
+        card_loss, card_grads = S.make_loss_and_grads(cfg, n_mb)(on_card, card_batch)
+        assert float(card_loss) == pytest.approx(float(loss), rel=TOL[torch.float32])
+        assert _tree_rel_err(card_grads, grads) < TOL[torch.float32]
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=4)
+    step = S.make_train_step(cfg, opt_cfg)
+    loss, _, state, _ = step(params, adamw.init(params), batch)
+    card_loss, _, card_state, _ = step(on_card, adamw.init(on_card), card_batch)
+    assert float(card_loss) == pytest.approx(float(loss), rel=TOL[torch.float32])
+    assert card_state["step"].device.type == "cuda" and int(card_state["step"]) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_update_on_card_matches_the_cpu(cuda_device, dtype, monkeypatch):
+    """`adamw.update` on CUDA tensors, leaves walked in slices, against the
+    same update on the CPU from the same gradients: params and moments."""
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_map
+
+    monkeypatch.setattr(adamw, "CHUNK", 1000)
+    g = torch.Generator().manual_seed(5)
+    params = {"w": torch.randn((7, 300), generator=g).to(dtype),
+              "layers": {"wi": torch.randn((3, 40, 50), generator=g).to(dtype)}}
+    grads = tree_map(lambda p: (3 * torch.randn(p.shape, generator=g)).to(dtype), params)
+    cfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=5)
+    cpu_p, cpu_s = tree_map(torch.clone, params), adamw.init(params)
+    card_p = tree_map(lambda t: t.to(cuda_device), params)
+    card_s = adamw.init(card_p)
+    card_g = tree_map(lambda t: t.to(cuda_device), grads)
+    for _ in range(2):
+        cpu_p, cpu_s, norm = adamw.update(cpu_p, grads, cpu_s, cfg)
+        card_p, card_s, card_norm = adamw.update(card_p, card_g, card_s, cfg)
+        assert float(card_norm) == pytest.approx(float(norm), rel=1e-5)
+    assert card_s["step"].device.type == "cuda" and card_s["step"].dtype == torch.int32
+    for got, want in ((card_p, cpu_p), (card_s["m"], cpu_s["m"]), (card_s["v"], cpu_s["v"])):
+        assert _tree_rel_err(got, want) < TOL[dtype]
+
+
+def test_checkpoint_roundtrip_of_card_bf16_leaves(cuda_device, tmp_path):
+    """bf16 leaves on the card saved (raw words) and restored onto the card
+    bit for bit; an async save snapshots at the call."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.tree import flatten, tree_map
+
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    tree = {"params": {"w": torch.randn((64, 33), generator=g, device=cuda_device)
+                       .to(torch.bfloat16)},
+            "opt": {"m": torch.randn((64, 33), generator=g, device=cuda_device),
+                    "step": torch.ones((), dtype=torch.int32, device=cuda_device)}}
+    want = tree_map(torch.clone, tree)
+    mgr = CheckpointManager(tmp_path)
+    mgr.save_async(3, tree)
+    tree["params"]["w"].add_(1)
+    mgr.wait()
+    out, _ = mgr.restore(3, like=want)
+    for (key, a), (_, b) in zip(flatten(out), flatten(want)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b), key

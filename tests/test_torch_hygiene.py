@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import repro_torch.configs as TC
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.models import model as TM
 from repro_torch.serving.engine import Request, ServingEngine
 
@@ -43,6 +43,10 @@ def test_port_imports_neither_jax_nor_the_reference():
            for p in PORT_FILES}
     assert not {k: v for k, v in bad.items() if v}
     assert "repro_torch" in _imported_roots(REPO / "src/repro_torch/configs/__init__.py")
+    training = {"launch/train.py", "launch/steps.py", "optim/adamw.py", "data/pipeline.py",
+                "checkpoint/manager.py", "distributed/fault.py", "launch/sharding.py", "tree.py"}
+    port = REPO / "src" / "repro_torch"
+    assert training <= {str(p.relative_to(port)) for p in PORT_FILES if port in p.parents}
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -53,6 +57,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         ServingEngine(cfg, params, max_len=32, global_offload_ratio=0.5)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--smoke", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--smoke", "--steps", "1"])
     eng = ServingEngine(cfg, params, max_len=32, global_offload_ratio=0.5, page_size=4,
                         device="cpu")
     eng.submit(Request(rid=0, prompt=np.arange(3, 9, dtype=np.int32), max_new_tokens=3))
