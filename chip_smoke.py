@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # phases 1-8 and 11-33, needs one CUDA card
     python3 chip_smoke.py --phases 1,9 # the host-link read probe
     python3 chip_smoke.py --phases 1,34   # a traced full-size train step
+    python3 chip_smoke.py --phases 1,35   # the dry run on the card's machine
     python3 chip_smoke.py --phases 1,5,9  # kernel timings and the probe
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
@@ -218,6 +219,11 @@ runs, printing each result on its own line:
 34. only when asked (``--phases 1,34``), one torch.profiler trace of phase
    33 (c)'s full-size train step: device-busy share and the kernels that
    take most device time;
+35. only when asked (``--phases 1,35``), the dry run on the card's
+   machine: ``python -m repro_torch.launch.dryrun --mesh single`` in a
+   subprocess for a decode, a prefill and a train cell, each ending ok,
+   the card's allocated memory unchanged, and no JAX module imported
+   (``-X importtime``); each cell's summary line and figures printed;
 every served run (4, 12, 14, 16, 17, 19, 21, 26) builds its engine one layer at
 a time, checks that set-up held no more device memory beyond the weights it
 keeps than building one layer holds (`setup_transient_bound`), that the
@@ -242,6 +248,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -3802,13 +3809,62 @@ def add_launches(launches: dict, path: dict) -> None:
             launches.setdefault(name, n)
 
 
+DRYRUN_CELLS = (("qwen2p5_14b", "decode_32k"), ("chatglm3_6b", "prefill_32k"),
+                (TRAIN_ARCH, "train_4k"))
+
+
+def phase_dryrun() -> None:
+    """Phase 35, only when asked: `launch.dryrun` is the one entry point
+    that needs no card.  Each cell runs as ``python -X importtime -m
+    repro_torch.launch.dryrun`` (the import log shows whether JAX came in);
+    the card's allocated memory is read before and after."""
+    out = REPO / "build" / "phase35"
+    shutil.rmtree(out, ignore_errors=True)
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    for arch, shape in DRYRUN_CELLS:
+        before = torch.cuda.memory_allocated()
+        t0 = time.time()
+        run = subprocess.run([sys.executable, "-X", "importtime", "-m", "repro_torch.launch.dryrun",
+                              "--arch", arch, "--shape", shape, "--mesh", "single",
+                              "--out", str(out)], capture_output=True, text=True, env=env,
+                             timeout=600)
+        wall = time.time() - t0
+        jax = sorted({ln.rsplit("|", 1)[-1].strip() for ln in run.stderr.splitlines()
+                      if ln.startswith("import time:")
+                      and ln.rsplit("|", 1)[-1].strip().split(".")[0] in ("jax", "jaxlib")})
+        lines = [ln for ln in run.stdout.splitlines() if ln.startswith("[")]
+        for ln in lines:
+            print(f"  {ln}")
+        path = out / f"{arch}__{shape}__pod16x16.json"
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        check(run.returncode == 0 and "dry-run done: ok=1 skip=0 err=0" in run.stdout
+              and rec.get("status") == "ok",
+              f"{arch} {shape}: exit {run.returncode}, {rec.get('status')} in {wall:.1f} s")
+        if rec.get("status") == "error":
+            print(f"    {rec['error']}\n    " + rec["trace"][-1500:].replace("\n", "\n    "))
+        check(torch.cuda.memory_allocated() == before,
+              f"{arch} {shape}: the card's allocated memory {before} B before, "
+              f"{torch.cuda.memory_allocated()} B after")
+        check(not jax, f"{arch} {shape}: no JAX module imported ({jax[:3] or 'none'})")
+        if rec.get("status") == "ok":
+            print(f"    flops/device {rec['flops_per_device']:.4g}, hbm bytes/device "
+                  f"{rec['hbm_bytes_per_device']:.4g} ({rec['hbm_bytes_basis'].split(':')[0]}), "
+                  f"collective bytes/device {rec['collective_bytes_per_device']:.4g} "
+                  f"{rec['collective_counts']}; t_compute {rec['t_compute']:.4g} s, t_memory "
+                  f"{rec['t_memory']:.4g} s, t_collective {rec['t_collective']:.4g} s at "
+                  f"{rec['link_bw'] / 1e9:.0f} GB/s; layers traced {rec['layers_traced']}, "
+                  f"trace {rec['trace_s']} s, replicated {list(rec['replicated_ops'])}")
+    shutil.rmtree(out, ignore_errors=True)
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,11,12,13,14,15,16,17,18,19,20,21,22,23,24,25,26,"
                             "27,28,29,30,31,32,33",
-                    help="comma-separated subset of phases 1-34 (default: 1-8 and 11-33; 9 "
-                         "is the host-link read probe, 34 a traced train step)")
+                    help="comma-separated subset of phases 1-35 (default: 1-8 and 11-33; 9 "
+                         "is the host-link read probe, 34 a traced train step, 35 the dry "
+                         "run)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -3936,6 +3992,9 @@ def main(argv: list[str] | None = None) -> int:
         phase_train(card)
     if start(34, "a traced train step, StarCoder2-3B (30 layers, bf16, remat), 2 x 4096"):
         phase_train_trace(card)
+    if start(35, "the dry run on the card's machine: a decode, a prefill and a train cell on "
+                 "the fake 16 x 16 mesh, no device"):
+        phase_dryrun()
     ends = sorted(begun.values())[1:] + [time.time()]
     print("phase seconds: " + ", ".join(f"{n} {end - t:.1f}" for (n, t), end
                                         in zip(sorted(begun.items(), key=lambda kv: kv[1]), ends))

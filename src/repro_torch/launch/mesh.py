@@ -18,11 +18,15 @@ rank has a card of its own (asking for it with more ranks than cards
 raises), gloo for CPU ranks and for ranks that share one card.  NCCL with
 P > 1 across cards is written but has not been run.
 
-`make_production_mesh` (the TPU pod shape) is not ported here: it comes
-with the dry run (`launch/dryrun.py`), which the port does not have yet.
+`make_production_mesh` is the dry run's (`launch/dryrun.py`): the
+production 16 x 16 or 2 x 16 x 16 shape over a fake process group of 256
+or 512 ranks, this process rank 0.  Its `Mesh` carries the DTensor
+``DeviceMesh`` of the same grid (`Mesh.device_mesh`); no collective of a
+fake group moves data, and nothing is allocated.
 """
 from __future__ import annotations
 
+import math
 import os
 from typing import Any, Callable
 
@@ -52,6 +56,11 @@ class Mesh:
         self.link_bytes = {"weights": 0, "kv": 0}
         self.fetches = 0
         self.scratch: dict[tuple, torch.Tensor] = {}
+        self.device_mesh = None           # a fake mesh's DTensor DeviceMesh
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
 
     def group(self, axis: str):
         """The process group of this rank's line along `axis`."""
@@ -135,6 +144,75 @@ def make_dev_mesh(n_data: int = 1, n_model: int = 1) -> Mesh:
                 groups[axis] = g
     return Mesh(("data", "model"), (n_data, n_model), backend, groups,
                 {"data": d, "model": m})
+
+
+def fake_mesh(sizes: tuple[int, ...], axis_names: tuple[str, ...]) -> Mesh:
+    """A mesh of ``prod(sizes)`` ranks over a fake process group, this
+    process rank 0: the default group is made (or remade, when a fake group
+    of another size holds it), and the DTensor ``DeviceMesh`` of the grid
+    is built over it (device type "cpu", where the dry run's fake shards
+    live).  A group of another backend is left alone: making a fake mesh
+    then raises.
+
+    The batch axes ("pod", "data") are one dim of the DeviceMesh, named
+    "pod.data": every spec and hint names them together (`data_axes`), an
+    XLA collective over both is one collective, and DTensor's search over
+    placements grows as a power of the mesh's rank (a 3-D mesh makes a
+    train step's einsums take minutes)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    world = math.prod(sizes)
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(f"a fake mesh needs the default process group, which holds a "
+                               f"{dist.get_backend()!r} group")
+        if dist.get_world_size() != world:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+        _forget_meshes()
+    shape = dict(zip(axis_names, sizes))
+    batch = [a for a in axis_names if a in ("pod", "data")]
+    dims = ([".".join(batch)] if batch else []) + [a for a in axis_names if a not in batch]
+    dm = DeviceMesh("cpu", torch.arange(world).reshape(
+        [math.prod(shape[a] for a in d.split(".")) for d in dims]), mesh_dim_names=tuple(dims))
+    mesh = Mesh(axis_names, sizes, "fake",
+                {a: dm.get_group(mesh_dim(dims, a)) for a in axis_names},
+                {a: 0 for a in axis_names})
+    mesh.device_mesh = dm
+    return mesh
+
+
+def _forget_meshes() -> None:
+    """Drop DTensor's cached sharding plans: a plan keeps the DeviceMesh it
+    was made on, and a mesh of a new group equals the old one of the same
+    grid, so a cached plan would reach for the destroyed group's names."""
+    from torch.distributed.tensor import _redistribute, debug
+
+    for clear in (getattr(debug, "_clear_sharding_prop_cache", None),
+                  getattr(_redistribute, "clear_redistribute_planner_cache", None),
+                  getattr(getattr(_redistribute, "_gen_transform_infos", None),
+                          "cache_clear", None)):
+        if clear is not None:
+            clear()
+
+
+def mesh_dim(dim_names: tuple[str, ...], axis: str) -> int:
+    """The DeviceMesh dim that carries mesh axis `axis` (a merged dim is
+    named by its axes joined with ".")."""
+    for i, name in enumerate(dim_names):
+        if axis in name.split("."):
+            return i
+    raise ValueError(f"no DeviceMesh dim carries axis {axis!r}: {dim_names}")
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """Single pod: 16 x 16 = 256 ranks (data x model).  Multi-pod: 2 x 16 x
+    16 = 512 ranks with a leading pure-DP "pod" axis."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return fake_mesh(shape, axes)
 
 
 def data_axes(mesh: Mesh) -> tuple[str, ...]:

@@ -15,6 +15,10 @@ whose kv-head count is smaller than the model axis fall back to
 sequence(split-K)-sharded KV.  The one-process train driver applies none
 of them; they are the policy a multi-rank trainer places by.
 
+`named` turns a spec tree into DTensor placements on a mesh's
+``DeviceMesh`` (the dry run's fake production mesh), the counterpart of
+the reference's ``NamedSharding`` tree.
+
 Serving (`tiered_remote_spec`, `shard_tiered_params`, `remote_pool_spec`):
 local partitions and plain leaves replicate (every rank
 computes the whole batch and built them itself); each remote partition
@@ -26,6 +30,7 @@ rank: the divisibility fallback, fetched naively.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
@@ -33,7 +38,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.tiering import TieredTensor
 from repro_torch.launch.mesh import Mesh, axis_size, data_axes
-from repro_torch.tree import tree_map_with_path
+from repro_torch.tree import tree_map, tree_map_with_path
 
 # param-name classes
 _LAST_DIM_MODEL = {"wq", "wq_b", "wkv_b", "wi", "shared_wi", "z_proj",
@@ -165,6 +170,56 @@ def cache_specs(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh) -> Any:
         specs["k"] = spec
         specs["v"] = spec
     return specs
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec realized on a DTensor ``DeviceMesh``: one placement per mesh
+    dimension."""
+
+    mesh: Any
+    placements: tuple
+
+
+def placements(dim_names: tuple[str, ...], spec: tuple) -> tuple:
+    """DTensor placements of `spec` on a DeviceMesh whose dims are named
+    `dim_names` (`launch.mesh.fake_mesh`: "pod.data" carries both batch
+    axes): a tensor dim whose entry names an axis is ``Shard(dim)`` on the
+    mesh dim that carries it; an entry such as ("pod", "data") shards one
+    tensor dim over the dims of its axes, the first outermost (which
+    DTensor takes in mesh order, so the axes must come in that order; a
+    merged dim must be named whole); every other mesh dim is
+    ``Replicate()``.  ``()`` is replicated everywhere."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch.mesh import mesh_dim
+
+    out: list[Any] = [Replicate()] * len(dim_names)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx = sorted({mesh_dim(dim_names, a) for a in axes},
+                     key=[mesh_dim(dim_names, a) for a in axes].index)
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry!r} names mesh axes out of mesh order "
+                             f"{dim_names}")
+        for i in idx:
+            if sorted(a for a in axes if a in dim_names[i].split(".")) != \
+                    sorted(dim_names[i].split(".")):
+                raise ValueError(f"spec entry {entry!r} names part of mesh dim "
+                                 f"{dim_names[i]!r}")
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+def named(mesh: Mesh, spec_tree: Any) -> Any:
+    """Spec tree -> `NamedSharding` tree on `mesh.device_mesh`."""
+    dm = mesh.device_mesh
+    if dm is None:
+        raise ValueError(f"{mesh!r} has no DeviceMesh (launch.mesh.fake_mesh makes one)")
+    return tree_map(lambda spec: NamedSharding(dm, placements(dm.mesh_dim_names, spec)),
+                    spec_tree)
 
 
 def split_spec(shape: tuple[int, ...], axis: int, mesh: Mesh, axis_name: str) -> tuple:

@@ -15,9 +15,15 @@ the whole forward pass: `make_prefill_step` is the encoder's entry point.
 Where the reference's `input_specs` returns shape stand-ins, the port's
 draws real tensors from a `torch.Generator`.
 
-Not ported here: the dry run's ``grad_specs`` (a no-op without a mesh in
-the reference) and the ``eval_shape`` helpers (`cache_shapes`,
-`params_shapes`, `opt_shapes`).
+For the dry run (`launch.dryrun`): `params_shapes`, `cache_shapes` and
+`opt_shapes` build trees on the meta device (shapes and dtypes, no
+storage: the reference's ``eval_shape`` helpers) through the model's own
+constructors; `constrain_tree` redistributes a tree of DTensors to a spec
+tree's placements (a no-op on plain tensors, as the reference's is without
+a mesh); `make_train_step`'s ``grad_specs`` holds the gradients and the
+fp32 accumulator to them (ZeRO-1's reduce-scatter), and its ``loop`` runs
+the microbatch loop (by default every trip; the dry run traces one trip
+and counts it n times, the reference's scan).
 """
 from __future__ import annotations
 
@@ -57,29 +63,63 @@ def _value_and_grad(cfg: ModelConfig, params: Any, batch: dict[str, torch.Tensor
     return loss.detach(), grads
 
 
+def constrain_tree(tree: Any, spec_tree: Any) -> Any:
+    """Each DTensor leaf of `tree` redistributed to its spec's placements
+    (`sharding.placements` over its mesh's axis names); plain tensors and a
+    None `spec_tree` pass through, as the reference's
+    ``with_sharding_constraint`` does without a mesh."""
+    if spec_tree is None:
+        return tree
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.sharding import placements
+
+    def constrain(x, spec):
+        if not isinstance(x, DTensor):
+            return x
+        return x.redistribute(x.device_mesh, placements(x.device_mesh.mesh_dim_names, spec))
+
+    return tree_map(constrain, tree, spec_tree)
+
+
+def _every_trip(body: Callable[[int], Any], n: int) -> None:
+    for i in range(n):
+        body(i)
+
+
 def make_loss_and_grads(cfg: ModelConfig, num_microbatches: int = 1,
-                        remat: bool = True) -> Callable:
+                        remat: bool = True, grad_specs: Any = None,
+                        loop: Callable = _every_trip) -> Callable:
     """``fn(params, batch) -> (loss, grads)``, the train step before the
     optimizer.  With more than one microbatch, microbatch i takes rows {i,
     i + n, ...} (the reference's strided split, which keeps every data
     shard in every microbatch); their losses and fp32 gradients are summed
-    and scaled by 1/n."""
+    and scaled by 1/n.  ``loop(body, n)`` runs ``body(i)`` for the trips.
+    With `grad_specs` the gradients (one microbatch) or the fp32
+    accumulator (several) are held to those specs (`constrain_tree`)."""
     n = num_microbatches
 
     def loss_and_grads(params, batch):
         if n == 1:
-            return _value_and_grad(cfg, params, batch, remat)
+            loss, grads = _value_and_grad(cfg, params, batch, remat)
+            return loss, constrain_tree(grads, grad_specs)
         b = next(iter(batch.values())).shape[0]
         if b % n:
             raise ValueError(f"batch {b} does not split into {n} microbatches")
         loss = torch.zeros((), dtype=torch.float32, device=batch["labels"].device)
-        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                       params)
-        for i in range(n):
-            l, g = _value_and_grad(cfg, params, {k: v[i::n] for k, v in batch.items()}, remat)
+        acc = constrain_tree(tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                                      params), grad_specs)
+
+        def body(i):
+            nonlocal loss
+            mb = {k: v.reshape(b // n, n, *v.shape[1:])[:, i] for k, v in batch.items()}
+            l, g = _value_and_grad(cfg, params, mb, remat)
             loss = loss + l
+            # in place: a sharded accumulator takes its share of each
+            # gradient (ZeRO-1's reduce-scatter)
             tree_map(lambda a, gi: a.add_(gi.float()), acc, g)
-            del g
+
+        loop(body, n)
         inv = 1.0 / n
         return loss * inv, tree_map(lambda a: a.mul_(inv), acc)
 
@@ -91,10 +131,12 @@ def make_train_step(
     opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
     num_microbatches: int = 1,
     remat: bool = True,
+    grad_specs: Any = None,
+    loop: Callable = _every_trip,
 ) -> Callable:
     """``step(params, opt_state, batch) -> (loss, params, opt_state, gnorm)``;
     params and the moments are updated in place."""
-    loss_and_grads = make_loss_and_grads(cfg, num_microbatches, remat)
+    loss_and_grads = make_loss_and_grads(cfg, num_microbatches, remat, grad_specs, loop)
 
     def train_step(params, opt_state, batch):
         loss, grads = loss_and_grads(params, batch)
@@ -160,6 +202,25 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, generator: torch.Generator
                     "patches": embeddings(t_img, M.VISION_EMBED_DIM)}
         return {"tokens": tokens(t)}
     return {"tokens": tokens(1), "pos": t - 1}
+
+
+def params_shapes(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16) -> Any:
+    """The full-size param tree of `models.init_params` on the meta device,
+    in `dtype` (`analysis.surface.abstract_params`, cast)."""
+    from repro_torch.analysis.surface import abstract_params
+
+    return tree_map(lambda t: t.to(dtype), abstract_params(cfg))
+
+
+def cache_shapes(cfg: ModelConfig, shape: ShapeConfig,
+                 dtype: torch.dtype = torch.bfloat16) -> Any:
+    """`models.init_cache` at `shape` on the meta device."""
+    return M.init_cache(cfg, shape.global_batch, shape.seq_len, dtype=dtype, device="meta")
+
+
+def opt_shapes(params_tree: Any) -> Any:
+    """`optim.adamw.init` of a (meta) param tree."""
+    return adamw.init(params_tree)
 
 
 def pick_microbatches(cfg: ModelConfig, shape: ShapeConfig, n_data: int) -> int:

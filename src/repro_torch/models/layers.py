@@ -7,7 +7,9 @@ sort-and-gather MoE block and DeepSeek-V2's MLA.  Every function mirrors
 the reference's arithmetic and cast points (the rsqrt cast in `rmsnorm`,
 interleaved RoPE pairs, fp32 attention logits, fp32 router probabilities)
 so bf16 runs round where the reference does.  The reference's sharding
-hints have no counterpart here.
+hints are `hint`, at the same places: on a DTensor (the dry run's trace)
+it redistributes to the conventional layout, on a plain tensor it returns
+its argument, so every other path runs as before.
 
 Every function that consumes a tierable weight takes ``mm``: the plain
 per-tier product by default, the direct-access kernel when the serving
@@ -37,6 +39,45 @@ Params = dict[str, Any]
 # so the serving layer can inject the direct-access kernel
 # (`kernels.ops.tiered_matmul`) in place of the plain per-tier product.
 Matmul = Any
+
+
+# --------------------------------------------------------------------------
+# Sharding hints.  Left to itself a partitioner invents pathological
+# layouts for attention intermediates (sharding the head_dim contraction);
+# these pin the conventional layout: batch over (pod, data), heads / d_ff /
+# vocab over model.  A plain tensor (every path but the dry run's) and a
+# dim that does not divide pass through.
+# --------------------------------------------------------------------------
+def hint(x: torch.Tensor, *spec: str | None) -> torch.Tensor:
+    """spec entries: 'batch' | 'model' | None per dimension; on a DTensor
+    the named dims shard over the mesh and every other dim replicates (the
+    reference's ``with_sharding_constraint``)."""
+    if type(x) is torch.Tensor:
+        return x
+    mesh = getattr(x, "device_mesh", None)
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    # a DeviceMesh dim may carry several axes, its name joined with "."
+    names = [set(n.split(".")) for n in mesh.mesh_dim_names]
+    batch_dims = [i for i, n in enumerate(names) if n & {"pod", "data"}]
+    placements: list = [Replicate()] * len(names)
+    any_axis = False
+    for dim, (size, s) in enumerate(zip(x.shape, spec, strict=True)):
+        mdims = batch_dims if s == "batch" else [i for i, n in enumerate(names)
+                                                 if s == "model" and "model" in n]
+        n = 1
+        for i in mdims:
+            n *= mesh.size(i)
+        if not mdims or n == 1 or size % n:
+            continue
+        any_axis = True
+        for i in mdims:
+            placements[i] = Shard(dim)
+    if not any_axis:
+        return x
+    return x.redistribute(mesh, placements)
 
 
 # --------------------------------------------------------------------------
@@ -115,7 +156,9 @@ def qkv_project(cfg: ModelConfig, x: torch.Tensor, p: Params, mm: Matmul = matmu
         k_v = k_v + p["bkv"]
     k, v = torch.chunk(k_v, 2, dim=-1)
     b, t = x.shape[:2]
-    return q.reshape(b, t, hp, hd), k.reshape(b, t, kv, hd), v.reshape(b, t, kv, hd)
+    return (hint(q.reshape(b, t, hp, hd), "batch", None, "model", None),
+            hint(k.reshape(b, t, kv, hd), "batch", None, None, None),
+            hint(v.reshape(b, t, kv, hd), "batch", None, None, None))
 
 
 # Above this many query positions the full [Tq,Tk] score matrix is never
@@ -262,10 +305,10 @@ def attention_decode(
 # --------------------------------------------------------------------------
 def mlp_block(cfg: ModelConfig, x: torch.Tensor, p: Params, mm: Matmul = matmul) -> torch.Tensor:
     if cfg.mlp == "swiglu":
-        gate, up = torch.chunk(mm(x, p["wi"]), 2, dim=-1)
+        gate, up = torch.chunk(hint(mm(x, p["wi"]), "batch", None, "model"), 2, dim=-1)
         h = F.silu(gate) * up
     else:
-        h = mm(x, p["wi"])
+        h = hint(mm(x, p["wi"]), "batch", None, "model")
         if "bi" in p:
             h = h + p["bi"]
         h = F.gelu(h, approximate="tanh")
@@ -291,8 +334,10 @@ def _top_k(v: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 def _expert_ffn(buf: torch.Tensor, wi: torch.Tensor, wdown: torch.Tensor) -> torch.Tensor:
     """Per-expert SwiGLU FFN over a dispatch buffer [G,E,C,d] -> [G,E,C,d],
     one batched product per matrix over the experts."""
-    gate_h, up_h = torch.chunk(torch.einsum("gecd,edf->gecf", buf, wi), 2, dim=-1)
-    return torch.einsum("gecf,efd->gecd", F.silu(gate_h) * up_h, wdown)
+    gu = hint(torch.einsum("gecd,edf->gecf", buf, wi), None, "batch", None, "model")
+    gate_h, up_h = torch.chunk(gu, 2, dim=-1)
+    return hint(torch.einsum("gecf,efd->gecd", F.silu(gate_h) * up_h, wdown),
+                None, "batch", None, None)
 
 
 class DeviceCount:
@@ -419,13 +464,14 @@ def moe_block(
 
     xf_sorted = rows(xg, tok_sorted)
     buf = rows(xf_sorted, src_c.reshape(g, -1)).reshape(g, e, capacity, d)
-    buf = buf.masked_fill(~valid[..., None], 0)
+    buf = hint(buf.masked_fill(~valid[..., None], 0), None, "batch", None, None)
 
     wi, wdown = p["experts_wi"], p["experts_wdown"]
     if isinstance(wi, TieredTensor):
         ye = tiered_expert_ffn(buf, valid, wi, wdown, mm)
     else:
         ye = _expert_ffn(buf, wi, wdown)
+    ye = hint(ye, "batch", None, None, None)        # back to group-sharded for the combine
 
     # combine: gather sorted-slot outputs linearly, unsort, sum over k
     lin_idx = e_sorted * capacity + torch.clamp(slot, max=capacity - 1)   # [G,N*k]
@@ -454,7 +500,7 @@ def mla_project_q(cfg: ModelConfig, x: torch.Tensor, p: Params, mm: Matmul = mat
         q = mm(q_lat, p["wq_b"])
     else:
         q = mm(x, p["wq_b"])
-    q = q.reshape(b, t, h, nd + rd)
+    q = hint(q.reshape(b, t, h, nd + rd), "batch", None, "model", None)
     return q[..., :nd], q[..., nd:]
 
 

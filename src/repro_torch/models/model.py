@@ -328,7 +328,7 @@ def lm_head(cfg: ModelConfig, params: Params, x: torch.Tensor,
     x = (L.layernorm(x, params["final_w"], params["final_b"], cfg.norm_eps)
          if cfg.norm == "layernorm" else L.rmsnorm(x, params["final_w"], cfg.norm_eps))
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return mm(x, w)
+    return L.hint(mm(x, w), "batch", None, "model")
 
 
 # ==========================================================================
@@ -337,6 +337,7 @@ def lm_head(cfg: ModelConfig, params: Params, x: torch.Tensor,
 def _attn_mlp_layer(cfg: ModelConfig, x: torch.Tensor, lp: Params, positions: torch.Tensor,
                     causal: bool, mm: L.Matmul) -> torch.Tensor:
     """One attention (GQA or MLA) + FFN layer over the whole sequence."""
+    x = L.hint(x, "batch", None, None)
     hn = L.norm(cfg, x, lp, "ln1")
     attn = (L.mla_attention_block(cfg, hn, lp, positions, causal, mm=mm) if cfg.use_mla
             else L.attention_block(cfg, hn, lp, positions, causal, mm=mm))
@@ -374,6 +375,8 @@ def forward(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor],
                                       cfg.is_causal, mm=mm)
             h = shared_out(cfg, h, z, sp, mm)
         for lp in layers[start:min(start + every, cfg.n_layers)]:
+            if cfg.family == "ssm":
+                h = L.hint(h, "batch", None, None)
             if cfg.family in ("ssm", "hybrid"):
                 h = h + S.ssm_block(cfg, L.norm(cfg, h, lp, "ln1"), lp, mm=mm)[0]
             else:

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tiering import matmul
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import hint, rmsnorm
 
 CHUNK = 256
 
@@ -128,7 +128,9 @@ def ssd_decode_step(
 # --------------------------------------------------------------------------
 def _project_in(cfg: ModelConfig, x: torch.Tensor, p: dict, mm=matmul):
     """The separate z/x/BC/dt projections; `mm` is the tier-aware matmul."""
-    return mm(x, p["z_proj"]), mm(x, p["x_proj"]), mm(x, p["bc_proj"]), mm(x, p["dt_proj"])
+    return (hint(mm(x, p["z_proj"]), "batch", None, "model"),
+            hint(mm(x, p["x_proj"]), "batch", None, "model"),
+            mm(x, p["bc_proj"]), mm(x, p["dt_proj"]))
 
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -61,8 +61,10 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 def _slices(t: torch.Tensor) -> Iterator[torch.Tensor]:
     """Views of `t` along its leading axis of at most `CHUNK` elements each
-    (a whole row where one row is larger); a 0-d tensor whole."""
-    if t.dim() == 0 or t.numel() <= CHUNK:
+    (a whole row where one row is larger); a 0-d tensor whole, and a DTensor
+    whole (its shards are what a device holds; slicing a sharded axis would
+    gather it)."""
+    if t.dim() == 0 or t.numel() <= CHUNK or hasattr(t, "_local_tensor"):
         yield t
         return
     rows = max(1, CHUNK // max(1, t[0].numel()))
