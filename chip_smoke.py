@@ -22,7 +22,12 @@ runs, printing each result on its own line:
    `splitk_gemm_grouped` launches, experts without a valid slot skipped on
    the device, also held against the per-expert `splitk_gemm` loop it
    replaced), `splitk_gemm_grouped` alone (K splits, M tiles past 64 rows,
-   ragged N, one and no active expert), paged attention
+   ragged N, one and no active expert; first of all a weight box multicast
+   from pinned host memory to a cluster of 3; the cluster design at M 17,
+   64, 65, 192, 384 and 1100: clusters of 1, 1, 2, 3, 6 and two of 5; every
+   case launched twice, bitwise equal, its counted host bytes equal to the
+   tiling's; the launch geometry's shared memory against the kernel's own
+   count), paged attention
    at MLA's shape (128 heads over one kv head of 576, V read from K), at
    the dense variants' and LLaVA-NeXT-34B's (112 heads over 56, 48 over 8,
    32 over 2, 64 over 8) and at Zamba2's shared attention (32 heads over
@@ -49,7 +54,11 @@ runs, printing each result on its own line:
    both decode-attention kernels as the device time of their launch alone
    (the wrapper call and its host time beside it), at the served runs'
    shapes and at a long cache; the tensor-core `flash_prefill` beside the
-   FMA design; each with its remote GB/s or TFLOP/s;
+   FMA design; each with its remote GB/s or TFLOP/s; one Qwen3 layer's
+   remote experts at decode (M 1, 15 active) and at prefill (M 64, 192,
+   384, all 64 active): the cluster design beside the split-K design it
+   replaced, copy + bmm, plain and bound, the GB/s of unique bytes and
+   both designs' counted host bytes beside the tiling model;
 6. batch-split token parity: the same 2-layer fp32 model through prefill,
    `split_cache_batch` and greedy `tiered_decode_step`s (the paper's §5
    layout) must emit exactly the tokens of the plain `decode_step` path;
@@ -71,7 +80,11 @@ runs, printing each result on its own line:
    remote bytes per decode step, and a check of 2 `splitk_gemm_grouped`
    launches per MoE layer in every decode step); then the same traffic
    eager on the same engine: tokens and remote experts run in every step
-   equal, TPOT and the profiler's step beside the graphed run's;
+   equal, TPOT and the profiler's step beside the graphed run's; then one
+   request of 2048 prompt + 4 new tokens on an engine of one slot (48
+   layers): its prefill pass under the cluster and the split-K design
+   (time, counted expert bytes against the tiling model, logits within
+   5e-2), then served (TTFT, TPOT, tokens);
 13. MLA token parity: phase 3's check on a 1-layer full-width DeepSeek-V2
    in fp32 with dropless expert capacity;
 14. the MLA served run: DeepSeek-V2 at its published widths, 2 of 60
@@ -565,9 +578,12 @@ def expert_case(label, d, ff, e_loc, e_rem, dtype, gen, stats=None):
 def grouped_case(label, e, m, k, n, dtype, windows, gen, stats=None, active=None):
     """`splitk_gemm_grouped` alone against its plain version on the card
     (the stack in HBM for the check only): experts `active` (default every
-    other one) hold a count, the rest must come out zero."""
+    other one) hold a count, the rest must come out zero; a second launch
+    equal to the first bit for bit; and the device counter of host bytes
+    equal to what the tiling reads: each active expert's K x N weights once
+    per cluster of M tiles (`grouped_tiling(M).reads`)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.splitk_gemm import splitk_gemm_grouped
+    from repro_torch.kernels.splitk_gemm import grouped_tiling, splitk_gemm_grouped
 
     w_dev = (torch.randn((e, k, n), generator=gen, device="cuda") * 0.02).to(dtype)
     w = pinned_copy(w_dev)
@@ -575,16 +591,50 @@ def grouped_case(label, e, m, k, n, dtype, windows, gen, stats=None, active=None
     counts = torch.zeros(e, dtype=torch.int32, device="cuda")
     counts[list(range(0, e, 2)) if active is None else list(active)] = 1
     want = ref.splitk_gemm_grouped_ref(x, w_dev, counts)
+    tiling = grouped_tiling(m, dtype)
+    model = int((counts > 0).sum()) * k * n * x.element_size() * tiling.reads
+    hb = splitk_gemm_grouped.host_bytes
     for win in windows:
+        hb.reset()
         got = splitk_gemm_grouped(x, w, counts, window=win)
+        torch.cuda.synchronize()
+        counted = int(hb)
+        again = splitk_gemm_grouped(x, w, counts, window=win)
         torch.cuda.synchronize()
         rel, ab = rel_err(got, want)
         zeros = bool((got[counts == 0] == 0).all())
-        check(rel < TOL[dtype] and zeros and torch.isfinite(got.float()).all().item(),
+        check(rel < TOL[dtype] and zeros and torch.isfinite(got.float()).all().item()
+              and torch.equal(got, again) and counted == model,
               f"splitk_gemm_grouped {label} E={e} M={m} K={k} N={n} {str(dtype)[6:]} "
-              f"window={win}: max rel err {rel:.2e} (abs {ab:.2e}, bound {TOL[dtype]:.0e}), "
-              f"{int((counts > 0).sum())} active, skipped experts zero: {zeros}")
+              f"window={win}: {tiling.design} design (MB {tiling.mb}, clusters of "
+              f"{tiling.cluster}, M axis {tiling.grid_z}): max rel err {rel:.2e} (abs {ab:.2e}, "
+              f"bound {TOL[dtype]:.0e}), {int((counts > 0).sum())} active, skipped experts "
+              f"zero: {zeros}, second launch bitwise equal: {torch.equal(got, again)}, host "
+              f"bytes counted {counted} = tiling model {model} ({tiling.reads} read(s))")
         note_err(stats, rel, ab)
+
+
+def grouped_smem_case() -> None:
+    """`splitk_gemm.grouped_launch`'s ring stages and shared memory against
+    the kernel's own count (``dak_splitk_gemm_grouped_smem``), both designs,
+    at the grouped shapes the phases launch."""
+    from repro_torch.kernels.splitk_gemm import grouped_launch, grouped_smem_query
+
+    bad = []
+    cases = [(64, m, k, n, dt, w) for m in (1, 4, 16, 17, 64, 65, 192, 384, 513, 1100)
+             for k, n in ((2048, 1536), (768, 2048), (512, 64)) for w in (1, 2, 8)
+             for dt in (torch.bfloat16, torch.float32)]
+    for e, m, k, n, dt, w in cases:
+        for design in (None, "split-K"):
+            launch = grouped_launch(e, m, k, n, dt, window=w, sm_count=132, design=design)
+            own = grouped_smem_query(m, k, window=w, k_split=launch.k_split,
+                                     design=launch.tiling.design, dtype=dt)
+            if own != (launch.smem_bytes, launch.stages):
+                bad.append((m, k, n, str(dt)[6:], w, launch.tiling.design, own,
+                            (launch.smem_bytes, launch.stages)))
+    check(not bad, f"grouped_launch's shared memory and ring stages equal the kernel's own "
+                   f"count in {len(cases) * 2 - len(bad)} of {len(cases) * 2} launch "
+                   f"configurations {bad[:3]}")
 
 
 def tree_leaves(tree, prefix=""):
@@ -701,6 +751,8 @@ def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1)
     stats = {n: {"max_abs_err": 0.0, "max_rel_err": 0.0} for n in KERNELS}
     bf = torch.bfloat16
+    # first: a weight box multicast from mapped host memory to a cluster of 3
+    grouped_case("multicast", 2, 130, 128, 64, bf, (1,), gen)
     for name, (k, n_loc, n_rem) in GEMM_SHAPES.items():
         tiers = make_tier_pair(k, n_loc, n_rem, bf, gen)
         # M: decode batch, paged prefill (phase 4), batch-split prefill (phase 7)
@@ -795,6 +847,16 @@ def phase_kernels() -> dict:
         grouped_case("ragged N", 5, 24, 96, 72, dtype, (2,), gen)
         grouped_case("one active", 64, 1, 2048, 1536, dtype, (1,), gen, active=(63,))
         grouped_case("none active", 8, 3, 256, 128, dtype, (1,), gen, active=())
+    # the cluster design (bf16, M > 16) at prefill rows: clusters of 1, 1, 2,
+    # 3, 6, and two clusters of 5 tiles of 128; K splits with tickets, ragged
+    # N, one expert active, none
+    for m in (17, 64, 65, 192, 384, 1100):
+        grouped_case(f"cluster M={m}", 4, m, 768, 256, bf, (1, 2), gen, stats["splitk_gemm_grouped"])
+    grouped_case("cluster split-K", 2, 200, 1024, 64, bf, (1, 2), gen)
+    grouped_case("cluster ragged N", 5, 300, 96, 200, bf, (1, 2), gen)
+    grouped_case("cluster one active", 64, 192, 2048, 1536, bf, (1,), gen, active=(17,))
+    grouped_case("cluster none active", 8, 100, 256, 128, bf, (1,), gen, active=())
+    grouped_smem_case()
     f32 = torch.float32
     for dtype in (bf, f32):
         splitk_attn_case("full-width", 2, 2, 32, 32, 128, 512, (1, 255, 257, 512), dtype,
@@ -1096,6 +1158,79 @@ def phase_serve(arch: str = "llama2_7b", n_layers: int | None = None, n_req: int
             "steps": stats.decode_steps, "engine": eng}
 
 
+LONG_PROMPT = 2048          # prompt tokens of phase 12's long request (M = 192 an expert)
+
+
+def long_prompt_request() -> None:
+    """One Qwen3-30B-A3B request of `LONG_PROMPT` prompt + 4 new tokens at
+    its published widths and depth (48 layers, bf16, offload 0.5, page 16)
+    on an engine of one slot: the prefill pass alone under the wrapper's
+    grouped design (the cluster design at M = 192) and under the split-K
+    design it replaced, each with the host bytes the grouped launches
+    counted beside the tiling model (remote experts run x the bytes an
+    expert x the reads per expert), the logits of the two within the bf16
+    bound; then the request served, its TTFT and tokens."""
+    import repro_torch.configs as C
+    from repro_torch.kernels.splitk_gemm import _launch_grouped, grouped_tiling, splitk_gemm_grouped
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.serving import tiered_decode as TD
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = C.get("qwen3_moe_30b_a3b")
+    new_tokens = 4
+    t0 = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    eng = ServingEngine(cfg, M.layer_source(cfg, gen, dtype=torch.bfloat16, device="cuda"),
+                        max_batch=1, max_len=LONG_PROMPT + 16,
+                        global_offload_ratio=0.5, page_size=16, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    wi = eng.params["layers"]["experts_wi"]
+    per_expert = wi.remote[0, 0].nbytes + eng.params["layers"]["experts_wdown"].remote[0, 0].nbytes
+    prompt = np.random.default_rng(7).integers(0, cfg.vocab, LONG_PROMPT).astype(np.int32)
+    tokens = torch.as_tensor(prompt, device="cuda")[None]
+    m = L.expert_capacity(cfg, LONG_PROMPT)
+    hb, ran = splitk_gemm_grouped.host_bytes, L.tiered_expert_ffn.remote_experts
+    old_mm = TD.kernel_mm(eng.window)
+    old_mm.grouped = lambda x, w, counts: _launch_grouped(x, w, counts, eng.window, "split-K")
+    logits, line = {}, []
+    for design, mm in (("cluster", TD.kernel_mm(eng.window)), ("split-K", old_mm)):
+        hb.reset()
+        ran.reset()
+        torch.cuda.synchronize()
+        t1 = time.time()
+        logits[design], _ = M.prefill(cfg, eng.params, {"tokens": tokens}, max_len=eng.max_len,
+                                      mm=mm)
+        torch.cuda.synchronize()
+        sec = time.time() - t1
+        counted, experts = int(hb), int(ran)
+        model = experts * per_expert * grouped_tiling(m, torch.bfloat16, design=design).reads
+        check(counted == model,
+              f"long prompt, {design} design: host bytes counted {counted} = tiling model "
+              f"{experts} remote experts run x {per_expert} B x "
+              f"{grouped_tiling(m, torch.bfloat16, design=design).reads} read(s) = {model}")
+        line.append(f"{design} design {sec * 1e3:.1f} ms, expert bytes counted {counted} "
+                    f"({counted / 1e9:.3f} GB)")
+    rel, ab = rel_err(logits["cluster"], logits["split-K"])
+    check(rel < TOL[torch.bfloat16] and torch.isfinite(logits["cluster"].float()).all().item(),
+          f"long prompt: prefill logits of the cluster design within {TOL[torch.bfloat16]:.0e} of "
+          f"the split-K design's (max rel err {rel:.2e}, abs {ab:.2e})")
+    del logits
+    hb.reset()
+    req = Request(rid=0, prompt=prompt, max_new_tokens=new_tokens)
+    eng.submit(req)
+    stats = eng.run()
+    check(stats.served == 1 and len(req.out_tokens) == new_tokens
+          and all(0 <= t < cfg.vocab for t in req.out_tokens),
+          f"long prompt served: {len(req.out_tokens)} tokens {req.out_tokens}")
+    print(f"long prompt ({LONG_PROMPT} + {new_tokens} tokens, 48 layers, built in {build_s:.1f} "
+          f"s, M = {m} rows an expert, {wi.remote.shape[1]} remote experts a layer): prefill "
+          f"pass {' | '.join(line)} | served: TTFT {stats.ttfts[0] * 1e3:.1f} ms, TPOT "
+          f"{stats.tpot * 1e3:.1f} ms, expert bytes counted over the request {int(hb)} "
+          f"({int(hb) / 1e9:.3f} GB)")
+
+
 def serve_stepping(eng, cfg, n_req, prompt_len, new_tokens):
     """Serve `n_req` requests of `prompt_len` random tokens (seed 0) one
     engine step at a time, the wrapper counts reset first; returns the
@@ -1305,14 +1440,14 @@ def planner_shapes(ratio: float) -> dict:
             for name, (k, n_loc, n_rem) in GEMM_SHAPES.items()}
 
 
-def alternate(fns, flush) -> list[list[float]]:
-    """ROUNDS timings of each call in `fns`, in alternating order (forward
-    on even rounds, backward on odd), so the machine's drift falls on each
-    alike."""
+def alternate(fns, flush, n_rounds: int = ROUNDS, iters: int = 10) -> list[list[float]]:
+    """`n_rounds` timings (each the median of `iters` launches) of each call
+    in `fns`, in alternating order (forward on even rounds, backward on
+    odd), so the machine's drift falls on each alike."""
     rounds = [[] for _ in fns]
-    for r in range(ROUNDS):
+    for r in range(n_rounds):
         for i in (range(len(fns)) if r % 2 == 0 else range(len(fns) - 1, -1, -1)):
-            rounds[i].append(time_ms(fns[i], flush=flush))
+            rounds[i].append(time_ms(fns[i], iters=iters, flush=flush))
     return rounds
 
 
@@ -1539,7 +1674,85 @@ def time_grouped_experts(link, flush, gen, window) -> dict:
     print(f"  per Qwen3 decode step ({n_layers} MoE layers): splitk_gemm_grouped {out['ms']:.3f} "
           f"ms (per-expert loop {out['loop_ms']:.3f}, copy + bmm {out['library_ms']:.3f}) vs "
           f"bound {out['bound_ms']:.3f} ms")
+    time_grouped_prefill(w, w_dev, link, flush, gen, window)
     return out
+
+
+GROUPED_PREFILL_M = (64, 192, 384)   # expert rows of Qwen3 prompts of ~683, 2048 and 4096 tokens
+PREFILL_ROUNDS = 3                   # alternating rounds at these rows, 3 launches each
+
+
+def time_grouped_prefill(w, w_dev, link, flush, gen, window) -> None:
+    """One Qwen3-30B-A3B layer's remote experts at prefill (wi, then wdown,
+    all 64 active) at the rows `GROUPED_PREFILL_M`: `splitk_gemm_grouped`
+    (the cluster design), the split-K design it replaced (the wrapper's
+    private launch path), every expert copied into HBM + `torch.bmm`, the
+    plain version with both stacks in HBM, and the bound (each expert's
+    bytes once over the link); the device counter's host bytes of both
+    designs beside the tiling model (64 x the bytes an expert x the reads
+    per expert)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.splitk_gemm import _launch_grouped, grouped_tiling, splitk_gemm_grouped
+
+    bf, silu = torch.bfloat16, torch.nn.functional.silu
+    e, d, ff = w["wi"].shape[0], w["wi"].shape[1], w["wdown"].shape[1]
+    counts = torch.ones(e, dtype=torch.int32, device="cuda")
+    staged = {k: torch.empty_like(v) for k, v in w_dev.items()}
+    hb = splitk_gemm_grouped.host_bytes
+    per_expert = (d * 2 * ff + ff * d) * 2
+    rem_b = e * per_expert
+
+    def ffn(gmm, x, ws):
+        gate, up = torch.chunk(gmm(x, ws["wi"], counts), 2, -1)
+        return gmm(silu(gate) * up, ws["wdown"], counts)
+
+    def cluster(x):
+        return ffn(lambda a, b, c: splitk_gemm_grouped(a, b, c, window=window), x, w)
+
+    def split_k(x):
+        return ffn(lambda a, b, c: _launch_grouped(a, b, c, window, "split-K"), x, w)
+
+    def library(x):
+        for k in staged:
+            staged[k].copy_(w[k], non_blocking=True)
+        gate, up = torch.chunk(torch.bmm(x, staged["wi"]), 2, -1)
+        return torch.bmm(silu(gate) * up, staged["wdown"])
+
+    for m in GROUPED_PREFILL_M:
+        x = torch.randn((e, m, d), generator=gen, device="cuda").to(bf)
+        want = ffn(ref.splitk_gemm_grouped_ref, x, w_dev)
+        counted, model = {}, {}
+        for label, fn in (("cluster", cluster), ("split-K", split_k), ("library", library)):
+            hb.reset()
+            got = fn(x)
+            torch.cuda.synchronize()
+            rel, _ = rel_err(got, want)
+            check(rel < TOL[bf], f"Qwen3 remote experts at prefill M={m} ({label}): max rel err "
+                                 f"{rel:.2e}")
+            if label != "library":
+                counted[label] = int(hb)
+                model[label] = rem_b * grouped_tiling(m, bf, design=label).reads
+        check(counted == model,
+              f"host bytes counted at M={m}: cluster design {counted['cluster']} B, split-K "
+              f"design {counted['split-K']} B; tiling model {e} experts x {per_expert} B x "
+              f"reads = {model['cluster']} and {model['split-K']} B")
+        rounds = alternate([lambda: cluster(x), lambda: split_k(x), lambda: library(x)], flush,
+                           n_rounds=PREFILL_ROUNDS, iters=3)
+        t_new, t_old, t_lib = (statistics.median(v) for v in rounds)
+        t_plain = time_ms(lambda: ffn(ref.splitk_gemm_grouped_ref, x, w_dev), iters=3,
+                          flush=flush)
+        loc_b = (x.numel() + e * m * (2 * ff + ff + d)) * 2
+        b_ms, b_by = bound(loc_b, rem_b, 2 * e * m * (d * 2 * ff + ff * d), link, BF16_PEAK)
+        gbs = lambda ms: rem_b / (ms * 1e-3) / 1e9  # noqa: E731
+        print(f"  remote experts of one Qwen3-30B-A3B layer at prefill M={m} (all {e} active, "
+              f"{rem_b / 1e6:.2f} MB unique, wi + wdown), medians of {PREFILL_ROUNDS} "
+              f"alternating rounds: splitk_gemm_grouped (cluster design) {t_new:.4f} ms "
+              f"({gbs(t_new):.2f} GB/s unique, host bytes {counted['cluster']}) | split-K design "
+              f"{t_old:.4f} ms ({gbs(t_old):.2f} GB/s unique, host bytes {counted['split-K']}) | "
+              f"copy + bmm {t_lib:.4f} ms ({gbs(t_lib):.2f} GB/s) | plain {t_plain:.4f} ms | "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        del x
+    del staged
 
 
 def per_step(t: dict, n_layers: int) -> dict:
@@ -3926,6 +4139,9 @@ def main(argv: list[str] | None = None) -> int:
         phase_parity("qwen3_moe_30b_a3b", n_layers=2, dropless=True)
     if start(12, "MoE served run, Qwen3-30B-A3B (48 layers, bf16), offload 0.5, page 16"):
         add_launches(launches, phase_serve("qwen3_moe_30b_a3b")["launches"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        long_prompt_request()
     if start(13, "MLA token parity, 1-layer full-width DeepSeek-V2, fp32, dropless, "
                  "offload 0.5, page 4"):
         phase_parity("deepseek_v2_236b", n_layers=1, dropless=True)

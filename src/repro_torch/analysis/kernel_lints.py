@@ -25,6 +25,13 @@ statically for every (family, offload ratio) the engine can serve:
   permutation of the tiles and splits, and so is the paged kernel's
   host-first slot order.
 
+The grouped remote-expert entry (`splitk_gemm.splitk_gemm_grouped`) gets
+all three at the served plan's decode rows and at a prefill's: its ring
+and barriers within the limit (DAK101), its 3-D maps' boxes and strides
+(DAK102: the cluster design's swizzled box row is 128 bytes), and a grid
+that covers N x K exactly and every M row in one CTA, with an M axis of
+whole clusters of at most 8 (DAK103).
+
 Checks take plain launch descriptors, so seeded-violation fixtures can
 feed broken geometry without a card.
 """
@@ -70,6 +77,30 @@ class GemmLaunch:
     box_n: int = splitk_gemm.DECODE_BN
     box_k: int = splitk_gemm.DECODE_BK
     grid: int | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedGemmLaunch:
+    """Geometry of one ``splitk_gemm_grouped`` launch over ``e`` experts, x
+    [E, M, K] and w [E, K, N].  ``design`` None is the wrapper's choice
+    (`splitk_gemm.grouped_tiling`); the geometry fields left None are the
+    kernel's own (`splitk_gemm.grouped_launch`): ``mb`` rows an M tile,
+    ``cluster`` CTAs a cluster, ``grid`` (N tiles x splits, E, M tiles),
+    ``k_split`` rows of K a CTA, ``box`` the weight box (columns, rows)."""
+    name: str
+    e: int
+    m: int
+    k: int
+    n: int
+    window: int = splitk_gemm.DEFAULT_WINDOW
+    dtype_bytes: int = 2
+    aligned: bool = True
+    design: str | None = None
+    mb: int | None = None
+    cluster: int | None = None
+    grid: tuple[int, int, int] | None = None
+    k_split: int | None = None
+    box: tuple[int, int] | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,6 +218,61 @@ def check_gemm_launch(launch: GemmLaunch, hw: HardwareSpec, *,
             f"(want {want}: OOB or dead blocks)"))
     order = splitk_gemm.host_first_order(n_loc_tiles, n_rem_tiles, splits)
     out.extend(check_order_permutation(order, (n_loc_tiles + n_rem_tiles) * splits, where=site))
+    return out
+
+
+def check_grouped_launch(launch: GroupedGemmLaunch, hw: HardwareSpec, *,
+                         where: str = "kernel") -> list[Finding]:
+    site = f"{where}.grouped[{launch.name}]"
+    e, m, k, n, db = launch.e, launch.m, launch.k, launch.n, launch.dtype_bytes
+    if min(e, m, k, n, launch.window) < 1:
+        return [Finding("DAK102", site, f"degenerate launch (E={e}, M={m}, K={k}, N={n}, "
+                                        f"window={launch.window})")]
+    try:
+        own = splitk_gemm.grouped_launch(e, m, k, n, _dtype_name(db), window=launch.window,
+                                         sm_count=splitk_gemm.sm_count(hw),
+                                         design=launch.design)
+    except ValueError as exc:
+        return [Finding("DAK102", site, str(exc))]
+    t = own.tiling
+    mb = launch.mb or t.mb
+    c = launch.cluster or t.cluster
+    ks = launch.k_split or own.k_split
+    bn, bk = launch.box or own.box
+    # DAK102: both designs read x and the experts through 3-D tensor maps
+    bad = [f"{lbl}={v} elements ({v * db} B)" for lbl, v in (("K", k), ("N", n)) if v * db % 16]
+    if not launch.aligned:
+        bad.append("a base not 16-byte aligned")
+    if not (1 <= min(bn, bk, mb) and max(bn, bk, mb) <= splitk_gemm.TMA_BOX_MAX):
+        bad.append(f"boxes {bn} x {bk} and {bk} x {mb} beyond 1..{splitk_gemm.TMA_BOX_MAX} a side")
+    if t.design == "cluster" and (bn * db != 128 or bk * db != 128):
+        bad.append(f"rows of {bn * db} and {bk * db} B, not the 128 B a 128-byte swizzle "
+                   "needs")
+    if ks < 1 or ks % bk:
+        bad.append(f"k_split={ks} not a multiple of the box's {bk} rows")
+    if bad:
+        return [Finding("DAK102", site,
+                        f"the grouped {t.design} design's tensor maps cannot take "
+                        f"{', '.join(bad)}")]
+    # DAK101: the ring with its full and empty barriers, and a cut ring
+    out = _smem_finding(site, own.smem_bytes, hw)
+    out.extend(_clamp_finding(site, launch.window, own.wanted, own.stages, own.cut))
+    # DAK103: N x K covered exactly, every M row in one CTA, whole clusters
+    n_tiles, splits, m_tiles = -(-n // bn), -(-k // ks), -(-m // mb)
+    grid = launch.grid or own.grid
+    gz = grid[2]
+    problems = []
+    if grid[:2] != (n_tiles * splits, e):
+        problems.append(f"grid {grid[:2]} is not (N tiles {n_tiles} x splits {splits}, "
+                        f"E={e}) for N={n} in boxes of {bn} and K={k} in splits of {ks}")
+    if not 1 <= c <= splitk_gemm.CLUSTER_MAX or gz % c:
+        problems.append(f"M axis {gz} is not whole clusters of {c} (at most "
+                        f"{splitk_gemm.CLUSTER_MAX})")
+    if not m_tiles <= gz < m_tiles + c:
+        problems.append(f"M axis {gz} for {m_tiles} tiles of {mb} rows: rows of M={m} "
+                        f"{'left out' if gz < m_tiles else 'in dead clusters'}")
+    if problems:
+        out.append(Finding("DAK103", site, "; ".join(problems)))
     return out
 
 
@@ -413,7 +499,7 @@ def describe_launches(
     paged decode attention and, for GQA, the batch-split attention and
     flash_prefill launches implied by the KV page plan.  Expert stacks
     split along the expert axis run the grouped entry, which takes no
-    tuned knob, and are not described."""
+    tuned knob (`describe_grouped_launches`)."""
     window = max(1, plan.window.n_inflight)
     dt = _dtype_name(dtype_bytes)
     gemms: list[GemmLaunch] = []
@@ -478,19 +564,59 @@ def describe_launches(
     return gemms, attns, prefills
 
 
+def describe_grouped_launches(
+        cfg, plan: TieringPlan, shapes: dict[str, tuple[int, ...]], *,
+        align: int, batch: int, prefill_tokens: int | None = None,
+        dtype_bytes: int = 4) -> list[GroupedGemmLaunch]:
+    """The grouped remote-expert launches the engine makes for every expert
+    stack the plan splits along the expert axis: at decode, M the expert
+    capacity of one group of ``batch`` tokens, and, given
+    ``prefill_tokens``, at the prefill of one such prompt (the engine
+    prefills one request at a time), each at the plan's window."""
+    from repro_torch.models.layers import expert_capacity
+
+    window = max(1, plan.window.n_inflight)
+    mesh_div = (plan.mesh.n_devices
+                if plan.mesh is not None and plan.mesh.n_devices > 1 else 1)
+    rows = {"decode": batch}
+    if prefill_tokens:
+        rows["prefill"] = prefill_tokens
+    out = []
+    for od in plan.registry:
+        ratio = plan.op_ratios.get(od.op, 0.0)
+        shape = shapes.get(od.path_str)
+        if ratio <= 0.0 or shape is None or od.axis % len(shape) != len(shape) - 3:
+            continue
+        align_eff = math.lcm(od.align if od.align is not None else align, mesh_div)
+        e_rem = tiering.split_sizes(shape[-3], ratio, align_eff)[1]
+        if e_rem == 0:
+            continue
+        for phase, tokens in rows.items():
+            out.append(GroupedGemmLaunch(
+                name=f"{od.path_str}@{phase}", e=e_rem, m=expert_capacity(cfg, tokens),
+                k=shape[-2], n=shape[-1], window=window, dtype_bytes=dtype_bytes))
+    return out
+
+
 def check_kernels(cfg, plan: TieringPlan, hw: HardwareSpec,
                   shapes: dict[str, tuple[int, ...]], *,
                   align: int, batch: int = 4, max_len: int = 256,
                   where: str = "kernel", tuner: Any = None,
                   dtype_bytes: int = 4) -> list[Finding]:
     """All kernel lints for one (cfg, plan) point of the matrix.  With a
-    ``tuner`` the launch descriptors carry its tuned knobs."""
+    ``tuner`` the launch descriptors carry its tuned knobs.  The grouped
+    remote-expert launches are checked at decode and at a prefill of
+    ``max_len`` tokens, the longest whole prompt."""
     out = check_alignment_invariants(plan, shapes, align=align, where=where)
     gemms, attns, prefills = describe_launches(
         cfg, plan, shapes, align=align, batch=batch, max_len=max_len,
         dtype_bytes=dtype_bytes, tuner=tuner, hw=hw)
     for g in gemms:
         out.extend(check_gemm_launch(g, hw, where=where))
+    for g in describe_grouped_launches(cfg, plan, shapes, align=align, batch=batch,
+                                       prefill_tokens=max_len,
+                                       dtype_bytes=dtype_bytes):
+        out.extend(check_grouped_launch(g, hw, where=where))
     for a in attns:
         out.extend(check_attn_launch(a, hw, where=where))
     for p in prefills:

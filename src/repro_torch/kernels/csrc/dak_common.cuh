@@ -1,7 +1,8 @@
 // Shared helpers for the direct-access kernels: cp.async (Ampere+ async
 // global->shared copies, 16 bytes per thread, zero-filled past the source
-// size), element conversion, and the check that a remote-tier pointer is
-// pinned host memory mapped into the device's address space.
+// size), tensor-core fragments (ldmatrix, mma.sync), element conversion,
+// and the check that a remote-tier pointer is pinned host memory mapped
+// into the device's address space.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -41,6 +42,31 @@ __device__ __forceinline__ void cp_async_wait(int n) {
 }
 
 #define DAK_MAX_WINDOW 8
+
+// Tensor-core fragments: four 8x8 matrices of 16-bit elements from shared
+// memory, matrix i's eight row addresses (16 bytes each) given by lanes
+// 8i .. 8i + 7; `_trans` transposes each matrix on the way.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
+
+// d[16x8] += a[16x16] (row) * b[16x8] (col), bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }

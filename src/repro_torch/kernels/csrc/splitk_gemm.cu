@@ -60,15 +60,48 @@
 // memory whose routed-slot count is > 0.  The reference computes this block
 // with an XLA einsum (src/repro/models/layers.py, `moe_block`), no Pallas
 // kernel; here a plain product would stage the experts in HBM, so the block
-// is one launch of the split-K decode design over (N tile x K split,
-// expert, M tile), the weights and x read through 3-D tensor maps over the
-// stacks.  Bound: bytes, the active experts' weights over the host link.
-// A CTA whose expert's count is 0 returns before it issues a load, so a
-// launch reads no more host memory than one launch per active expert
-// would, and the counts never leave the device (a CUDA graph can hold the
-// step).  Inactive experts are not packed to the front: their CTAs retire
-// at once.  M is cut into tiles of up to 64 rows (MB up to 64), each tile
-// re-reading its expert's weights.
+// is one launch over (N tile x K split, expert, M tile), the weights and x
+// read through 3-D tensor maps over the stacks.  Bound: bytes, the active
+// experts' weights over the host link.  A CTA whose expert's count is 0
+// returns before it issues a load, so a launch reads no more host memory
+// than one launch per active expert would, and the counts never leave the
+// device (a CUDA graph can hold the step).  Inactive experts are not packed
+// to the front: their CTAs retire at once.  Two designs, split by M and
+// dtype (as flash_prefill.cu splits by dtype):
+//  * Split-K (M <= 16 in bf16, every decode step; every M in fp32, the
+//    parity runs): the split-K decode design above, plain FMA, M cut into
+//    tiles of up to 64 rows, each tile re-reading its expert's weights.
+//    At M = 1 it reads at the kernel-read cap.
+//  * Cluster (bf16, M > 16: prefill, where M = an expert's capacity, ~192
+//    rows for a 2048-token Qwen3 prompt): one thread-block cluster of C
+//    CTAs per (expert, N tile, K split), laid along M, one M tile of MB =
+//    64 rows each (128 once 8 tiles of 64 no longer cover M); the tiles
+//    spread evenly over the fewest clusters of C <= 8 (the portable
+//    cluster size), the grid's M axis padded to whole clusters.  Each
+//    weight box (64 K rows x 64 columns, 8 KB) crosses the host link once
+//    per cluster: the leader (rank 0) reads it with a TMA load multicast
+//    to every CTA's ring, completing on each CTA's mbarrier, so a read
+//    serves up to 8 x MB rows (512 or 1024) instead of MB.  Each CTA reads
+//    its own x rows from HBM through its own map.  A stage is refilled only
+//    once every consumer warp of the cluster has freed it: the leader's
+//    empty barrier counts the cluster's warps (remote arrivals through
+//    mapa), a peer's its own, for its x rows.  A cluster barrier before
+//    any CTA exits keeps multicast writes and remote arrivals out of
+//    retired CTAs.  Products on tensor cores, mma.sync m16n8k16 (bf16 in,
+//    fp32 accumulate), fed by ldmatrix / ldmatrix.trans from boxes written
+//    with TMA's 128-byte swizzle, so the 8 rows of every ldmatrix phase hit
+//    8 distinct banks; four (MB 64) or eight warps of 16 rows each, and one
+//    producer warp.  mma.sync rather than wgmma: the products take a small
+//    share of a host-bound launch (2 x 192 x 2048 x 1536 FLOPs an expert
+//    against 9.4 MB over the link), and the fragments are the ones
+//    flash_prefill.cu already runs.  One issuer per cluster would cut the
+//    remote bytes in flight by C, so the ring holds C x `window` 4 KB boxes
+//    (two stages at least), the split-K design's bytes in flight per remote
+//    CTA.  Padding CTAs take part in every barrier and store nothing.
+// Both designs: K splits with an fp32 workspace reduced by the last CTA of
+// a tile in split order (bitwise repeatable), and a device int64 counter of
+// the remote bytes requested: each CTA that reads weights adds its boxes'
+// in-bounds bytes once, at its end (a cluster's leader for the cluster).
 #include "tma.cuh"
 
 namespace {
@@ -436,17 +469,26 @@ int dispatch_decode(const void* x, const void* wl, const void* wr, void* y, floa
 }
 
 // ---------------------------------------------------------------------------
-// Grouped remote experts: the split-K decode design over an expert stack.
+// Grouped remote experts, split-K design (M <= 16 in bf16; every M in fp32):
+// the split-K decode design over an expert stack.
 // ---------------------------------------------------------------------------
-constexpr int GROUPED_MAX_MB = 64;   // rows of an M tile of the grouped design
+constexpr int GROUPED_MAX_MB = 64;   // rows of an M tile of the split-K grouped design
+
+// In-bounds bytes of the remote boxes one CTA reads: its K rows x its tile's
+// columns (the host-byte counter's unit).
+__device__ __forceinline__ unsigned long long box_bytes(int k_rows, int col0, int bn, int N,
+                                                        int elem) {
+  const int cols = N - col0 < bn ? N - col0 : bn;
+  return (unsigned long long)k_rows * (unsigned long long)cols * (unsigned long long)elem;
+}
 
 template <typename T, int MB>
 __global__ void __launch_bounds__(DTHREADS) splitk_gemm_grouped_kernel(
     __grid_constant__ const CUtensorMap x_map,   // x [E, M, K], box DBK x MB x 1
     __grid_constant__ const CUtensorMap w_map,   // w [E, K, N] (mapped host), box DBN x DBK x 1
     const int* __restrict__ counts, T* __restrict__ y, float* __restrict__ ws,
-    int* __restrict__ tickets, int E, int M, int K, int N, int n_tiles, int splits,
-    int k_split, int stages) {
+    int* __restrict__ tickets, unsigned long long* __restrict__ host_bytes, int E, int M, int K,
+    int N, int n_tiles, int splits, int k_split, int stages) {
   const int e = blockIdx.y;
   if (counts[e] == 0) return;                 // no routed slot: none of its weights is read
   extern __shared__ __align__(128) unsigned char smem[];   // [stages][stage], bars
@@ -494,6 +536,8 @@ __global__ void __launch_bounds__(DTHREADS) splitk_gemm_grouped_kernel(
     __syncthreads();                            // every thread is done with the stage
     if (i + stages < n_ld) issue(i + stages);
   }
+  if (tid == 0 && host_bytes != nullptr)
+    atomicAdd(host_bytes, box_bytes(k_end - k_begin, col0, DBN, N, (int)sizeof(T)));
 
   const int col = col0 + tid;
   const int rows = M - m0 < MB ? M - m0 : MB;
@@ -531,9 +575,18 @@ __global__ void __launch_bounds__(DTHREADS) splitk_gemm_grouped_kernel(
   if (tid == 0) *ticket = 0;                    // ready for the next launch
 }
 
+// Rows of an M tile of the split-K grouped design: the power of two >= M,
+// up to GROUPED_MAX_MB.
+inline int grouped_mb(int M) {
+  int mb = 1;
+  while (mb < M && mb < GROUPED_MAX_MB) mb *= 2;
+  return mb;
+}
+
 template <typename T, int MB>
 int launch_grouped(const T* x, const T* w, const int* counts, T* y, float* ws, int* tickets,
-                   int E, int M, int K, int N, int window, int k_split, cudaStream_t stream) {
+                   unsigned long long* host_bytes, int E, int M, int K, int N, int window,
+                   int k_split, cudaStream_t stream) {
   constexpr int ELEM = sizeof(T);
   CUtensorMap x_map{}, w_map{};
   const uint64_t x_dims[3] = {(uint64_t)K, (uint64_t)M, (uint64_t)E};
@@ -552,33 +605,319 @@ int launch_grouped(const T* x, const T* w, const int* counts, T* y, float* ws, i
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(n_tiles * splits, E, m_tiles);
-  kern<<<grid, DTHREADS, smem, stream>>>(x_map, w_map, counts, y, ws, tickets, E, M, K, N,
-                                         n_tiles, splits, k_split, stages);
+  kern<<<grid, DTHREADS, smem, stream>>>(x_map, w_map, counts, y, ws, tickets, host_bytes, E, M,
+                                         K, N, n_tiles, splits, k_split, stages);
   return cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_grouped(const void* x, const void* w, const int* counts, void* y, float* ws,
-                     int* tickets, int E, int M, int K, int N, int window, int k_split,
-                     cudaStream_t stream) {
-  constexpr int EPC = 16 / sizeof(T);
-  // tensor maps need 16-byte aligned bases and row pitches
-  if (k_split % DBK || K % EPC || N % EPC || !aligned16(x) || !aligned16(w) ||
-      (k_split < K && (ws == nullptr || tickets == nullptr)))
-    return DAK_ERR_BAD_ARGUMENT;
+                     int* tickets, unsigned long long* host_bytes, int E, int M, int K, int N,
+                     int window, int k_split, cudaStream_t stream) {
+  if (k_split % DBK) return DAK_ERR_BAD_ARGUMENT;
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   T* yt = static_cast<T*>(y);
-#define DAK_GROUPED(MB) \
-  launch_grouped<T, MB>(xt, wt, counts, yt, ws, tickets, E, M, K, N, window, k_split, stream)
-  if (M <= 1) return DAK_GROUPED(1);
-  if (M <= 2) return DAK_GROUPED(2);
-  if (M <= 4) return DAK_GROUPED(4);
-  if (M <= 8) return DAK_GROUPED(8);
-  if (M <= 16) return DAK_GROUPED(16);
-  if (M <= 32) return DAK_GROUPED(32);
-  return DAK_GROUPED(GROUPED_MAX_MB);
+#define DAK_GROUPED(MB)                                                                  \
+  case MB:                                                                               \
+    return launch_grouped<T, MB>(xt, wt, counts, yt, ws, tickets, host_bytes, E, M, K, N, \
+                                 window, k_split, stream);
+  switch (grouped_mb(M)) {
+    DAK_GROUPED(1)
+    DAK_GROUPED(2)
+    DAK_GROUPED(4)
+    DAK_GROUPED(8)
+    DAK_GROUPED(16)
+    DAK_GROUPED(32)
+    DAK_GROUPED(GROUPED_MAX_MB)
+  }
 #undef DAK_GROUPED
+  return DAK_ERR_BAD_ARGUMENT;
+}
+
+// ---------------------------------------------------------------------------
+// Grouped remote experts, cluster design (bf16, M > 16): each weight box
+// crosses the host link once per cluster of M tiles, multicast into every
+// CTA of the cluster; products on tensor cores.
+// ---------------------------------------------------------------------------
+constexpr int CBN = 64;               // columns of a weight box: 128-byte rows in bf16
+constexpr int CBK = 64;               // rows of a weight box, and the K of a ring stage
+constexpr int CLUSTER_MAX = 8;        // the portable cluster size
+constexpr uint32_t CW_BYTES = CBK * CBN * 2;       // one weight box, 8 KB
+constexpr uint32_t SPLIT_K_BOX = DBK * DBN * 2;    // the split-K design's bf16 box, 4 KB
+constexpr int C_ALIGN = 1024;         // a 128-byte-swizzled box lands 1024-byte aligned
+constexpr size_t CSMEM_MAX = 232448;  // dynamic shared memory a CTA may opt into (227 KB)
+typedef __nv_bfloat16 bf16;
+
+template <int MB>
+struct ClusterTile {
+  static constexpr int WARPS = MB / 16;               // consumer warps, 16 rows each
+  static constexpr int THREADS = 32 * (WARPS + 1);    // and one producer warp
+  static constexpr uint32_t X_BYTES = MB * CBK * 2;   // x rows of a stage
+  static constexpr uint32_t STAGE = CW_BYTES + X_BYTES;
+  static_assert(STAGE % C_ALIGN == 0, "every box of the ring stays 1024-byte aligned");
+};
+
+// The M tile and the cluster of a cluster-design launch: MB = 64 while 8
+// tiles of 64 cover M, else 128; the tiles spread evenly over the fewest
+// clusters of at most CLUSTER_MAX CTAs, the last padded to a whole cluster.
+inline int cluster_mb(int M) { return (M + 63) / 64 <= CLUSTER_MAX ? 64 : 128; }
+inline int cluster_size(int m_tiles) {
+  const int clusters = (m_tiles + CLUSTER_MAX - 1) / CLUSTER_MAX;
+  return (m_tiles + clusters - 1) / clusters;
+}
+
+// Ring stages of a cluster-design launch: the split-K design keeps `window`
+// 4 KB boxes in flight per remote CTA; a cluster of `csize` CTAs has one
+// issuer, so its ring holds csize x as many bytes (two stages at least),
+// no more than a CTA's split has loads, within CSMEM_MAX.
+template <int MB>
+int cluster_stages(int K, int window, int k_split, int csize) {
+  const int n_ld = ((k_split < K ? k_split : K) + CBK - 1) / CBK;
+  int stages = (int)(((long long)csize * window * SPLIT_K_BOX + CW_BYTES - 1) / CW_BYTES);
+  if (stages < 2) stages = 2;
+  if (stages > n_ld) stages = n_ld;
+  const int cap = (int)((CSMEM_MAX - C_ALIGN) / (ClusterTile<MB>::STAGE + 2 * sizeof(uint64_t)));
+  return stages < cap ? stages : cap;
+}
+
+// Dynamic shared memory of a cluster-design launch: the alignment slack,
+// the ring, and a full and an empty mbarrier a stage.
+template <int MB>
+size_t cluster_smem(int stages) {
+  return (size_t)C_ALIGN + (size_t)stages * (ClusterTile<MB>::STAGE + 2 * sizeof(uint64_t));
+}
+
+// Byte offset of the 16-byte piece `piece` of row `row` in a box of
+// 128-byte rows written with the 128-byte swizzle.
+__device__ __forceinline__ uint32_t swizzled(int row, int piece) {
+  return (uint32_t)(row * 128 + ((piece ^ (row & 7)) << 4));
+}
+
+template <int MB>
+__global__ void __launch_bounds__(ClusterTile<MB>::THREADS) grouped_cluster_kernel(
+    __grid_constant__ const CUtensorMap x_map,   // x [E, M, K], box CBK x MB x 1, swizzled
+    __grid_constant__ const CUtensorMap w_map,   // w [E, K, N] (mapped host), box CBN x CBK x 1
+    const int* __restrict__ counts, bf16* __restrict__ y, float* __restrict__ ws,
+    int* __restrict__ tickets, unsigned long long* __restrict__ host_bytes, int E, int M, int K,
+    int N, int n_tiles, int splits, int k_split, int stages) {
+  using Tile = ClusterTile<MB>;
+  const int e = blockIdx.y;
+  if (counts[e] == 0) return;   // the whole cluster returns: it holds one expert
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((C_ALIGN - (smem_u32(smem_raw) & (C_ALIGN - 1))) & (C_ALIGN - 1));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + (size_t)stages * Tile::STAGE);
+  uint64_t* empty = full + stages;
+  __shared__ bool last;
+
+  const uint32_t rank = cluster_ctarank(), csize = cluster_nctarank();
+  const int tile = (int)blockIdx.x % n_tiles, split = (int)blockIdx.x / n_tiles;
+  const int m0 = (int)blockIdx.z * MB, col0 = tile * CBN;
+  const bool has_rows = m0 < M;   // the last cluster's padding CTAs hold none
+  const int k_begin = split * k_split;
+  const int k_end = k_begin + k_split < K ? k_begin + k_split : K;
+  const int n_ld = (k_end - k_begin + CBK - 1) / CBK;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      // the leader refills a stage once every consumer warp of the cluster is
+      // done with it, a peer once its own are (for its x rows)
+      mbar_init(&empty[s], rank == 0 ? csize * Tile::WARPS : Tile::WARPS);
+    }
+    mbar_fence_init();
+  }
+  cluster_sync();   // every barrier of the cluster is set before any copy lands
+
+  if (warp == Tile::WARPS) {
+    // Producer: this CTA's x rows from HBM; the leader (rank 0) also reads
+    // each weight box once, over the host link, into every CTA's ring.
+    if (lane == 0) {
+      const uint32_t tx = CW_BYTES + (has_rows ? Tile::X_BYTES : 0);
+      const uint16_t mask = (uint16_t)((1u << csize) - 1);
+      for (int i = 0; i < n_ld; ++i) {
+        const int s = i % stages;
+        if (i >= stages) mbar_wait(&empty[s], ((i / stages) + 1) & 1);
+        unsigned char* st = smem + (size_t)s * Tile::STAGE;
+        const int k0 = k_begin + i * CBK;
+        mbar_expect_tx(&full[s], tx);
+        if (has_rows) tma_load_3d(st + CW_BYTES, &x_map, k0, m0, e, &full[s]);
+        if (rank == 0) tma_load_3d_multicast(st, &w_map, col0, k0, e, &full[s], mask);
+      }
+    }
+    __syncwarp();
+  } else {
+    // Consumers: warp w owns rows m0 + 16w .. + 15 and all CBN columns.
+    float acc[CBN / 8][4];
+#pragma unroll
+    for (int n = 0; n < CBN / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    const bool mine = m0 + warp * 16 < M;   // a warp past M only frees stages
+    const int a_row = warp * 16 + lane % 16;
+    for (int i = 0; i < n_ld; ++i) {
+      const int s = i % stages;
+      mbar_wait(&full[s], (i / stages) & 1);
+      const unsigned char* w_s = smem + (size_t)s * Tile::STAGE;   // [CBK][CBN]
+      const unsigned char* x_s = w_s + CW_BYTES;                     // [MB][CBK]
+      if (mine) {
+#pragma unroll
+        for (int kk = 0; kk < CBK / 16; ++kk) {
+          uint32_t a[4];
+          ldmatrix_x4(a, x_s + swizzled(a_row, kk * 2 + lane / 16));
+          const int b_row = kk * 16 + ((lane / 8) % 2) * 8 + lane % 8;
+#pragma unroll
+          for (int np = 0; np < CBN / 16; ++np) {
+            uint32_t b[4];   // K rows kk*16 + [0, 16), columns np*16 + [0, 8) and [8, 16)
+            ldmatrix_x4_trans(b, w_s + swizzled(b_row, np * 2 + lane / 16));
+            mma_bf16(acc[2 * np], a, b[0], b[1]);
+            mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(&empty[s]);
+        if (rank != 0) mbar_arrive_cluster(&empty[s], 0);
+      }
+    }
+    if (mine) {
+      // fragment (row g, columns 2 t4, 2 t4 + 1) and row g + 8
+      const int g = lane / 4, t4 = lane % 4;
+      const size_t split_off = (size_t)split * E * M * N;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + warp * 16 + g + 8 * h;
+        if (row >= M) continue;
+        const size_t base = ((size_t)e * M + row) * N;
+#pragma unroll
+        for (int n = 0; n < CBN / 8; ++n) {
+          const int col = col0 + n * 8 + 2 * t4;
+          if (col >= N) continue;   // N is a multiple of 8: col + 1 < N too
+          if (splits == 1)
+            *reinterpret_cast<__nv_bfloat162*>(y + base + col) =
+                __floats2bfloat162_rn(acc[n][2 * h], acc[n][2 * h + 1]);
+          else
+            *reinterpret_cast<float2*>(ws + split_off + base + col) =
+                make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+        }
+      }
+    }
+  }
+  cluster_sync();   // no multicast write or remote arrival lands in a retired CTA
+  if (rank == 0 && tid == 0 && host_bytes != nullptr)
+    atomicAdd(host_bytes, box_bytes(k_end - k_begin, col0, CBN, N, 2));
+  if (!has_rows || splits == 1) return;
+
+  // one split of a tile: the last to arrive adds the partials in split order
+  int* ticket = tickets + ((size_t)e * gridDim.z + blockIdx.z) * n_tiles + tile;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(ticket, 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int rows = M - m0 < MB ? M - m0 : MB;
+  const size_t split_stride = (size_t)E * M * N;
+  for (int idx = tid; idx < rows * CBN; idx += Tile::THREADS) {
+    const int col = col0 + idx % CBN;
+    if (col >= N) continue;
+    const size_t at = ((size_t)e * M + m0 + idx / CBN) * N + col;
+    float sum = 0.f;
+    for (int s = 0; s < splits; ++s) sum += __ldcg(ws + s * split_stride + at);
+    y[at] = __float2bfloat16(sum);
+  }
+  if (tid == 0) *ticket = 0;                    // ready for the next launch
+}
+
+template <int MB>
+int launch_grouped_cluster(const bf16* x, const bf16* w, const int* counts, bf16* y, float* ws,
+                           int* tickets, unsigned long long* host_bytes, int E, int M, int K,
+                           int N, int window, int k_split, cudaStream_t stream) {
+  CUtensorMap x_map{}, w_map{};
+  const uint64_t x_dims[3] = {(uint64_t)K, (uint64_t)M, (uint64_t)E};
+  const uint64_t x_pitch[2] = {(uint64_t)K * 2, (uint64_t)M * K * 2};
+  const uint32_t x_box[3] = {CBK, MB, 1};
+  if (int err = dak_encode(&x_map, x, 2, 3, x_dims, x_pitch, x_box, CU_TENSOR_MAP_SWIZZLE_128B))
+    return err;
+  const uint64_t w_dims[3] = {(uint64_t)N, (uint64_t)K, (uint64_t)E};
+  const uint64_t w_pitch[2] = {(uint64_t)N * 2, (uint64_t)K * N * 2};
+  const uint32_t w_box[3] = {CBN, CBK, 1};
+  if (int err = dak_encode(&w_map, w, 2, 3, w_dims, w_pitch, w_box, CU_TENSOR_MAP_SWIZZLE_128B))
+    return err;
+  const int n_tiles = (N + CBN - 1) / CBN, m_tiles = (M + MB - 1) / MB;
+  const int csize = cluster_size(m_tiles);
+  const int grid_z = (m_tiles + csize - 1) / csize * csize;
+  const int splits = (K + k_split - 1) / k_split;
+  const int stages = cluster_stages<MB>(K, window, k_split, csize);
+  const size_t smem = cluster_smem<MB>(stages);
+  auto kern = grouped_cluster_kernel<MB>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_tiles * splits, E, grid_z);
+  cfg.blockDim = dim3(ClusterTile<MB>::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = csize;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, x_map, w_map, counts, y, ws, tickets, host_bytes, E, M, K, N,
+                         n_tiles, splits, k_split, stages);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+int dispatch_grouped_cluster(const void* x, const void* w, const int* counts, void* y, float* ws,
+                             int* tickets, unsigned long long* host_bytes, int E, int M, int K,
+                             int N, int window, int k_split, cudaStream_t stream) {
+  if (k_split % CBK) return DAK_ERR_BAD_ARGUMENT;
+  const bf16* xt = static_cast<const bf16*>(x);
+  const bf16* wt = static_cast<const bf16*>(w);
+  bf16* yt = static_cast<bf16*>(y);
+  return cluster_mb(M) == 64
+             ? launch_grouped_cluster<64>(xt, wt, counts, yt, ws, tickets, host_bytes, E, M, K, N,
+                                          window, k_split, stream)
+             : launch_grouped_cluster<128>(xt, wt, counts, yt, ws, tickets, host_bytes, E, M, K,
+                                           N, window, k_split, stream);
+}
+
+// The ring stages and dynamic shared memory of a grouped launch of these
+// arguments, by the launch's own arithmetic and tile choice.
+template <typename T>
+void grouped_smem_query(int M, int K, int window, int k_split, int design, long long* bytes,
+                        int* stages) {
+  if (design == 1) {
+    const int mb = cluster_mb(M);
+    const int csize = cluster_size((M + mb - 1) / mb);
+    if (mb == 64) {
+      *stages = cluster_stages<64>(K, window, k_split, csize);
+      *bytes = (long long)cluster_smem<64>(*stages);
+    } else {
+      *stages = cluster_stages<128>(K, window, k_split, csize);
+      *bytes = (long long)cluster_smem<128>(*stages);
+    }
+    return;
+  }
+#define DAK_QUERY(MB)                                    \
+  case MB:                                               \
+    *stages = decode_stages<T, MB>(K, window, k_split);  \
+    *bytes = (long long)decode_smem<T, MB>(*stages);     \
+    return;
+  switch (grouped_mb(M)) {
+    DAK_QUERY(1)
+    DAK_QUERY(2)
+    DAK_QUERY(4)
+    DAK_QUERY(8)
+    DAK_QUERY(16)
+    DAK_QUERY(32)
+    DAK_QUERY(GROUPED_MAX_MB)
+  }
+#undef DAK_QUERY
 }
 
 // The ring stages and dynamic shared memory a dak_splitk_gemm launch of
@@ -649,29 +988,61 @@ extern "C" int dak_splitk_gemm(const void* x, const void* w_local, const void* w
 
 // Grouped remote experts: y[e] = x[e] @ w_remote[e] for every e in [0, E)
 // with counts[e] > 0 (x [E, M, K] and y [E, M, N] on the device, w_remote
-// [E, K, N] mapped host or device memory, counts [E] int32 on the device).  Rows of
-// experts whose count is 0 are not written: the caller zeroes y.  k_split
-// is a multiple of 32 rows; K and N multiples of 16 bytes and x and
-// w_remote 16-byte aligned; when k_split < K, `workspace` holds
-// ceil(K / k_split) * E * M * N floats and `tickets` E * ceil(M / MB) *
-// ceil(N / 64) zeroed ints, MB the power of two >= M up to 64.  Returns 0,
-// a cudaError_t, or a DAK_ERR_* code.
+// [E, K, N] mapped host or device memory, counts [E] int32 on the device).
+// Rows of experts whose count is 0 are not written: the caller zeroes y.
+// `design` 0 is the split-K design (any M, either dtype; k_split a multiple
+// of 32 rows, M tiles of MB rows, MB the power of two >= M up to 64), 1 the
+// cluster design (bfloat16 only; k_split a multiple of 64 rows; M tiles of
+// 64 rows while 8 cover M, else 128, in clusters of up to 8 along M, the
+// grid's M axis padded to whole clusters).  K and N are multiples of 16
+// bytes and x and w_remote 16-byte aligned; when k_split < K, `workspace`
+// holds ceil(K / k_split) * E * M * N floats and `tickets` E * (the grid's
+// M tiles) * ceil(N / 64) zeroed ints.  `host_bytes`, if not null, is a
+// device int64 to which every CTA that reads the weights adds the bytes of
+// w_remote it read (a cluster's weights counted once).  Returns 0, a
+// cudaError_t, or a DAK_ERR_* code.
 extern "C" int dak_splitk_gemm_grouped(const void* x, const void* w_remote, const void* counts,
                                        void* y, int E, int M, int K, int N, int window,
-                                       int k_split, void* workspace, void* tickets, int dtype,
-                                       void* stream) {
+                                       int k_split, void* workspace, void* tickets,
+                                       void* host_bytes, int design, int dtype, void* stream) {
+  const int elem = dtype == 0 ? 4 : 2;
+  // tensor maps need 16-byte aligned bases and row pitches
   if (E <= 0 || M <= 0 || K <= 0 || N <= 0 || window < 1 || k_split <= 0 ||
-      counts == nullptr || (dtype != 0 && dtype != 1))
+      counts == nullptr || (dtype != 0 && dtype != 1) || (design != 0 && design != 1) ||
+      (design == 1 && dtype != 1) || (K * elem) % 16 || (N * elem) % 16 || !aligned16(x) ||
+      (k_split < K && (workspace == nullptr || tickets == nullptr)))
     return DAK_ERR_BAD_ARGUMENT;
   const void* w = nullptr;
   if (const int e = dak_remote_ptr(w_remote, &w)) return e;
+  if (!aligned16(w)) return DAK_ERR_BAD_ARGUMENT;
   const int* c = static_cast<const int*>(counts);
   float* ws = static_cast<float*>(workspace);
   int* tk = static_cast<int*>(tickets);
+  unsigned long long* hb = static_cast<unsigned long long*>(host_bytes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? dispatch_grouped<float>(x, w, c, y, ws, tk, E, M, K, N, window, k_split, s)
-                    : dispatch_grouped<__nv_bfloat16>(x, w, c, y, ws, tk, E, M, K, N, window,
-                                                      k_split, s);
+  if (design == 1)
+    return dispatch_grouped_cluster(x, w, c, y, ws, tk, hb, E, M, K, N, window, k_split, s);
+  return dtype == 0 ? dispatch_grouped<float>(x, w, c, y, ws, tk, hb, E, M, K, N, window,
+                                              k_split, s)
+                    : dispatch_grouped<__nv_bfloat16>(x, w, c, y, ws, tk, hb, E, M, K, N,
+                                                      window, k_split, s);
+}
+
+// What a dak_splitk_gemm_grouped launch with these arguments would hold:
+// its ring stages and its dynamic shared memory in bytes.  Launches
+// nothing; `splitk_gemm.grouped_launch` is checked against it.  Returns 0
+// or DAK_ERR_BAD_ARGUMENT.
+extern "C" int dak_splitk_gemm_grouped_smem(int M, int K, int window, int k_split, int design,
+                                            int dtype, long long* bytes, int* stages) {
+  if (M <= 0 || K <= 0 || window < 1 || k_split <= 0 || (design != 0 && design != 1) ||
+      (dtype != 0 && dtype != 1) || (design == 1 && dtype != 1) ||
+      k_split % (design == 1 ? CBK : DBK) || bytes == nullptr || stages == nullptr)
+    return DAK_ERR_BAD_ARGUMENT;
+  if (dtype == 0)
+    grouped_smem_query<float>(M, K, window, k_split, design, bytes, stages);
+  else
+    grouped_smem_query<__nv_bfloat16>(M, K, window, k_split, design, bytes, stages);
+  return 0;
 }
 
 // What a dak_splitk_gemm launch with these arguments would hold: its ring

@@ -1,7 +1,9 @@
 // Hopper bulk-copy helpers shared by the direct-access kernels: mbarriers
 // that count bytes, 1-D bulk copies (cp.async.bulk) and 2- to 4-D tensor
 // copies (TMA, cp.async.bulk.tensor) from global memory into shared memory,
-// and the host-side encoding of tensor maps.  Global memory here includes
+// a 3-D tensor copy multicast to the CTAs of a thread-block cluster, the
+// cluster's barrier and remote mbarrier arrivals, and the host-side
+// encoding of tensor maps.  Global memory here includes
 // pinned host memory mapped into the device: under unified addressing a
 // bulk or tensor copy reads it over the host link like any other address.
 //
@@ -105,6 +107,53 @@ __device__ __forceinline__ void tma_load_4d(void* smem_dst, const CUtensorMap* t
       : "memory");
 }
 
+// The box of a 3-D map at (c0, c1, c2) into shared memory at the same
+// CTA-relative offset in every CTA of the cluster whose bit is set in
+// `cta_mask` (bit r is cluster rank r), read from global memory once; the
+// bytes complete on the mbarrier at `bar`'s offset in each of those CTAs.
+__device__ __forceinline__ void tma_load_3d_multicast(void* smem_dst, const CUtensorMap* tmap,
+                                                      int c0, int c1, int c2, uint64_t* bar,
+                                                      uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5, %6}], [%2], %3;\n" ::"r"(smem_u32(smem_dst)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(smem_u32(bar)), "h"(cta_mask), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// Every thread of every CTA of the cluster arrives, then waits for all;
+// shared-memory writes and mbarrier arrivals before it are visible after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// One arrival on the mbarrier at `bar`'s offset in the shared memory of
+// cluster rank `cta`.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+
 typedef CUresult (*dak_encode_tiled_fn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                         const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                         const cuuint32_t*, CUtensorMapInterleave,
@@ -113,11 +162,14 @@ typedef CUresult (*dak_encode_tiled_fn)(CUtensorMap*, CUtensorMapDataType, cuuin
 
 // A tensor of `rank` (2..5) dimensions of 2- or 4-byte elements, dims[0]
 // innermost and contiguous, dimension i > 0 `pitch_bytes[i - 1]` bytes
-// apart, read in boxes of box[0] x ... with no swizzle; bytes past the
-// bounds are filled with zeros.  Returns 0 or DAK_ERR_TENSOR_MAP.
+// apart, read in boxes of box[0] x ...; bytes past the bounds are filled
+// with zeros.  With CU_TENSOR_MAP_SWIZZLE_128B (a box row of 128 bytes, a
+// destination aligned to 1024 bytes) the 16-byte piece j of box row r
+// lands at piece j ^ (r % 8) of that row.  Returns 0 or DAK_ERR_TENSOR_MAP.
 static inline int dak_encode(CUtensorMap* map, const void* base, int elem_bytes, int rank,
                              const uint64_t* dims, const uint64_t* pitch_bytes,
-                             const uint32_t* box) {
+                             const uint32_t* box,
+                             CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   static dak_encode_tiled_fn encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -147,7 +199,7 @@ static inline int dak_encode(CUtensorMap* map, const void* base, int elem_bytes,
     if (i + 1 < rank) st[i] = pitch_bytes[i];
   }
   const CUresult r = encode(map, type, rank, const_cast<void*>(base), d, st, bx, es,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : DAK_ERR_TENSOR_MAP;
 }

@@ -19,9 +19,12 @@ and what the design does about that.  Two designs, one launch each:
   multiples or aligned): one CTA per 64 columns walks all of K.
 
 A third entry, :func:`splitk_gemm_grouped`, runs a remote MoE expert
-stack ``[E, K, N]``: one launch of the split-K decode design over every
-expert, each CTA reading the routed-slot count of its expert on the device
-and returning before any load when it is 0.
+stack ``[E, K, N]`` in one launch over every expert, each CTA reading the
+routed-slot count of its expert on the device and returning before any
+load when it is 0; :func:`grouped_tiling` says which of its two designs
+takes M rows (split-K at M <= 16 in bf16 and at every M in fp32, the
+cluster design with TMA multicast and tensor cores at M > 16 in bf16) and
+how often each active expert's weights cross the host link.
 
 All designs stop at the rate at which kernels can read pinned host memory
 over PCIe: 30-33 GB/s at most on some H100 machines measured, 0.58-0.70x
@@ -38,12 +41,14 @@ launches the kernel or raises.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.device_count import DeviceCount
 from repro_torch.kernels.ref import splitk_gemm_grouped_ref, splitk_gemm_ref
 from repro_torch.kernels.sink import direct_access
 
@@ -53,7 +58,11 @@ DECODE_MAX_M = 16           # rows the decode design takes in one tile
 DECODE_BN = 64              # its tile columns (csrc/splitk_gemm.cu DBN)
 DECODE_BK = 32              # rows of one of its loads (DBK)
 REMOTE_CTAS_PER_SM = 1      # remote CTAs a split aims for, per SM
-GROUPED_MAX_M = 64          # rows of an M tile of the grouped entry (GROUPED_MAX_MB)
+GROUPED_MAX_M = 64          # rows of an M tile of the grouped split-K design (GROUPED_MAX_MB)
+CLUSTER_BN = CLUSTER_BK = 64    # the grouped cluster design's weight box (CBN x CBK, 8 KB)
+CLUSTER_MAX = 8             # CTAs of a cluster at most (the portable cluster size)
+CLUSTER_SMEM_MAX = 232448   # its ring's cap: the dynamic shared memory a CTA may opt into
+CLUSTER_ALIGN = 1024        # its swizzled boxes' alignment (C_ALIGN): slack in shared memory
 DSMEM_MAX = 200 * 1024      # the split-K ring's cap in shared memory (DSMEM_MAX)
 WHOLE_K_BN, WHOLE_K_BK = 64, 32      # the whole-K design's tile columns and chunk rows (BN, BK)
 MAX_WINDOW = 8              # DAK_MAX_WINDOW (dak_common.cuh): the whole-K ring's stages,
@@ -72,20 +81,20 @@ def sm_count(hw) -> int:
     return _PROFILE_SM_COUNT.get(hw.name, _PROFILE_SM_COUNT["h100_sxm"])
 
 
-def decode_k_split(n_loc: int, n_rem: int, k: int, sm_count: int) -> int:
+def decode_k_split(n_loc: int, n_rem: int, k: int, sm_count: int, bk: int = DECODE_BK) -> int:
     """Rows of K each CTA of the split-K decode design reads, in both tiers.
 
-    The largest multiple of DECODE_BK that still gives at least
-    ``REMOTE_CTAS_PER_SM * sm_count`` remote CTAs (tiles of DECODE_BN
-    columns times splits), or one load per CTA where K is too short for
-    that; a remote tier that already has that many tiles gets one split
-    covering K.  The local tier's tiles decide when the remote tier is
-    empty.  Splits start at multiples of DECODE_BK and the last one ends
-    at K."""
+    The largest multiple of ``bk`` (a load's rows, DECODE_BK) that still
+    gives at least ``REMOTE_CTAS_PER_SM * sm_count`` remote CTAs (tiles of
+    DECODE_BN columns times splits), or one load per CTA where K is too
+    short for that; a remote tier that already has that many tiles gets one
+    split covering K.  The local tier's tiles decide when the remote tier
+    is empty.  Splits start at multiples of ``bk`` and the last one ends at
+    K."""
     tiles = max(1, -(-(n_rem or n_loc) // DECODE_BN))
-    loads = -(-k // DECODE_BK)
+    loads = -(-k // bk)
     want = -(-REMOTE_CTAS_PER_SM * sm_count // tiles)
-    return max(1, loads // want) * DECODE_BK
+    return max(1, loads // want) * bk
 
 
 def elem_bytes(dtype) -> int:
@@ -124,15 +133,20 @@ def ring_stages(m: int, k: int, *, window: int, k_split: int, dtype) -> tuple[in
     ``k_split`` > 0 is the split-K design, 0 whole K."""
     window = max(1, int(window))
     if k_split > 0:
-        stage = _stage_bytes(_decode_mb(m), elem_bytes(dtype))
-        max_ld = -(-min(k_split, k) // DECODE_BK)
-        stages = max(1, min(window, max_ld))
-        if stages * stage > DSMEM_MAX:
-            return DSMEM_MAX // stage, "DSMEM_MAX"
-    else:
-        stages = min(window, -(-k // WHOLE_K_BK))
-        if stages > MAX_WINDOW:
-            return MAX_WINDOW, "MAX_WINDOW"
+        return _split_k_ring(_decode_mb(m), k, window, k_split, elem_bytes(dtype))
+    stages = min(window, -(-k // WHOLE_K_BK))
+    if stages > MAX_WINDOW:
+        return MAX_WINDOW, "MAX_WINDOW"
+    return stages, (None if stages == window else "loads")
+
+
+def _split_k_ring(mb: int, k: int, window: int, k_split: int, elem: int) -> tuple[int, str | None]:
+    """Ring stages of a split-K launch (plain or grouped) of M tiles of `mb`
+    rows, and what cut `window` (`decode_stages` in the kernel)."""
+    stage = _stage_bytes(mb, elem)
+    stages = max(1, min(window, -(-min(k_split, k) // DECODE_BK)))
+    if stages * stage > DSMEM_MAX:
+        return DSMEM_MAX // stage, "DSMEM_MAX"
     return stages, (None if stages == window else "loads")
 
 
@@ -320,6 +334,127 @@ def splitk_gemm(x: torch.Tensor, w_local: torch.Tensor, w_remote: torch.Tensor,
 splitk_gemm.launches = 0   # kernel launches since the count was last reset
 
 
+@dataclasses.dataclass(frozen=True)
+class GroupedTiling:
+    """How a `splitk_gemm_grouped` launch cuts M rows (``csrc/splitk_gemm.cu``
+    `grouped_mb`, `cluster_mb`, `cluster_size`).  ``design`` is "split-K"
+    (FMA, M tiles of ``mb`` rows up to 64, each reading its expert's
+    weights) or "cluster" (tensor cores; clusters of ``cluster`` CTAs
+    along M, one tile of ``mb`` rows each, sharing every weight box by TMA
+    multicast).  ``grid_z`` is the grid's M axis: the tiles padded to whole
+    clusters."""
+    design: str
+    mb: int
+    cluster: int
+    m_tiles: int
+    grid_z: int
+
+    @property
+    def reads(self) -> int:
+        """Times each active expert's weights cross the host link: once per
+        cluster of M tiles."""
+        return self.grid_z // self.cluster
+
+
+def grouped_tiling(m: int, dtype, *, design: str | None = None) -> GroupedTiling:
+    """The M tiling of a grouped launch of M rows in `dtype`: the wrapper's
+    design (split-K where M <= 16 or the dtype is fp32, else the cluster
+    design) unless ``design`` names one.  Split-K takes M tiles of the
+    power of two >= M up to 64 rows; the cluster design tiles of 64 rows
+    while 8 of them cover M, else 128, spread evenly over the fewest
+    clusters of at most 8, so bf16 at M <= 8 x MB (512 rows, 1024 past
+    that) reads each expert once."""
+    if design is None:
+        design = "cluster" if elem_bytes(dtype) == 2 and m > DECODE_MAX_M else "split-K"
+    if design == "split-K":
+        mb = next(b for b in (1, 2, 4, 8, 16, 32, GROUPED_MAX_M) if m <= b or b == GROUPED_MAX_M)
+        tiles = -(-m // mb)
+        return GroupedTiling(design, mb, 1, tiles, tiles)
+    if design != "cluster" or elem_bytes(dtype) != 2:
+        raise ValueError(f"grouped designs are 'split-K' and 'cluster' (bfloat16 only), got "
+                         f"{design!r} for {dtype}")
+    mb = 64 if -(-m // 64) <= CLUSTER_MAX else 128
+    tiles = -(-m // mb)
+    clusters = -(-tiles // CLUSTER_MAX)
+    c = -(-tiles // clusters)
+    return GroupedTiling(design, mb, c, tiles, clusters * c)
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedLaunch:
+    """The whole geometry of one `splitk_gemm_grouped` launch, by the
+    kernel's arithmetic: its M tiling, K split, grid (N tiles x splits,
+    experts, M tiles), threads a CTA, weight box (columns x K rows), the
+    ring stages ``window`` asks for, those it runs and what cut them (as
+    `ring_stages` says), dynamic shared memory, and the tickets and
+    workspace floats the wrapper allocates."""
+    tiling: GroupedTiling
+    k_split: int
+    splits: int
+    n_tiles: int
+    grid: tuple[int, int, int]
+    threads: int
+    box: tuple[int, int]
+    wanted: int
+    stages: int
+    cut: str | None
+    smem_bytes: int
+    tickets: int
+    workspace: int
+
+
+def grouped_launch(e: int, m: int, k: int, n: int, dtype, *, window: int, sm_count: int,
+                   design: str | None = None) -> GroupedLaunch:
+    """What `splitk_gemm_grouped` launches for x [E, M, K] and w [E, K, N]
+    of `dtype` at `window` on a card of `sm_count` SMs (``design`` as in
+    `grouped_tiling`)."""
+    window = max(1, int(window))
+    t = grouped_tiling(m, dtype, design=design)
+    elem = elem_bytes(dtype)
+    # K splits as for one operand as wide as every expert's tiles together
+    k_split = decode_k_split(0, e * -(-n // DECODE_BN) * DECODE_BN, k, sm_count,
+                             DECODE_BK if t.design == "split-K" else CLUSTER_BK)
+    if t.design == "split-K":
+        bn, bk, threads = DECODE_BN, DECODE_BK, DECODE_BN
+        wanted = window
+        stages, cut = _split_k_ring(t.mb, k, window, k_split, elem)
+        smem = stages * (_stage_bytes(t.mb, elem) + 8)
+    else:
+        bn, bk, threads = CLUSTER_BN, CLUSTER_BK, 32 * (t.mb // 16 + 1)
+        stage = (bk * bn + t.mb * bk) * elem
+        loads = -(-min(k_split, k) // bk)
+        # the split-K design's `window` boxes in flight a CTA, C times over
+        wanted = max(2, -(-t.cluster * window * DECODE_BK * DECODE_BN // (bk * bn)))
+        cap = (CLUSTER_SMEM_MAX - CLUSTER_ALIGN) // (stage + 16)
+        stages, cut = wanted, None
+        if stages > loads:
+            stages, cut = loads, "loads"
+        if stages > cap:
+            stages, cut = cap, "CLUSTER_SMEM_MAX"
+        smem = CLUSTER_ALIGN + stages * (stage + 16)   # slack, ring, a full and an empty mbarrier
+    splits = -(-k // k_split)
+    n_tiles = -(-n // bn)
+    return GroupedLaunch(
+        tiling=t, k_split=k_split, splits=splits, n_tiles=n_tiles,
+        grid=(n_tiles * splits, e, t.grid_z), threads=threads, box=(bn, bk), wanted=wanted,
+        stages=stages, cut=cut, smem_bytes=smem,
+        tickets=e * t.grid_z * n_tiles if k_split < k else 0,
+        workspace=splits * e * m * n if k_split < k else 0)
+
+
+def grouped_smem_query(m: int, k: int, *, window: int, k_split: int, design: str,
+                       dtype) -> tuple[int, int]:
+    """The kernel's own count for a grouped launch: ``(dynamic shared
+    memory bytes, ring stages)`` from ``dak_splitk_gemm_grouped_smem``.
+    Needs the card."""
+    return _build.smem_query("splitk_gemm", "dak_splitk_gemm_grouped_smem", m, k,
+                             max(1, int(window)), k_split, _GROUPED_DESIGNS[design],
+                             0 if elem_bytes(dtype) == 4 else 1)
+
+
+_GROUPED_DESIGNS = {"split-K": 0, "cluster": 1}
+
+
 def _check_grouped_operands(x: torch.Tensor, w_remote: torch.Tensor,
                             counts: torch.Tensor) -> None:
     if x.dtype not in _DTYPES:
@@ -348,6 +483,35 @@ def _check_grouped_operands(x: torch.Tensor, w_remote: torch.Tensor,
                          f"K={k}, N={w_remote.shape[2]} of {x.dtype}")
 
 
+def _launch_grouped(x: torch.Tensor, w_remote: torch.Tensor, counts: torch.Tensor,
+                    window: int, design: str | None = None) -> torch.Tensor:
+    """One grouped launch on checked CUDA operands (a non-empty output) in
+    the design `grouped_tiling` picks, or in ``design`` where given: the
+    wrapper passes None; "split-K" at M > 16 is the design the cluster
+    design replaced, kept reachable here to measure the two against each
+    other.  Allocates the output and, for more than one split, the
+    workspace and tickets; adds the weight bytes read to
+    ``splitk_gemm_grouped.host_bytes``."""
+    e, m, k = x.shape
+    n = w_remote.shape[2]
+    launch = grouped_launch(e, m, k, n, x.dtype, window=window,
+                            sm_count=_sm_count(x.device.index), design=design)
+    y = torch.zeros((e, m, n), dtype=x.dtype, device=x.device)
+    stream = _build.stream_handle(x.device)
+    ws, tickets = None, None
+    if launch.workspace:
+        ws = torch.empty(launch.workspace, dtype=torch.float32, device=x.device)
+        tickets = _tickets(x.device, stream, launch.tickets)
+    host_bytes = splitk_gemm_grouped.host_bytes.total(x.device)
+    rc = _build.load().libs["splitk_gemm"].dak_splitk_gemm_grouped(
+        x.data_ptr(), w_remote.data_ptr(), counts.data_ptr(), y.data_ptr(), e, m, k, n,
+        max(1, int(window)), launch.k_split, 0 if ws is None else ws.data_ptr(),
+        0 if tickets is None else tickets.data_ptr(), host_bytes.data_ptr(),
+        _GROUPED_DESIGNS[launch.tiling.design], _DTYPES[x.dtype], stream)
+    _build.check(rc, "splitk_gemm_grouped")
+    return y
+
+
 @direct_access(lambda x, w_remote, counts, **_: splitk_gemm_grouped_ref(x, w_remote, counts))
 def splitk_gemm_grouped(x: torch.Tensor, w_remote: torch.Tensor, counts: torch.Tensor,
                         *, window: int = DEFAULT_WINDOW) -> torch.Tensor:
@@ -360,32 +524,24 @@ def splitk_gemm_grouped(x: torch.Tensor, w_remote: torch.Tensor, counts: torch.T
     ``w_remote`` is the pinned remote expert stack, read in place: one
     launch for all experts, an expert whose count is 0 reading none of its
     weights, and the counts never coming back to the host, so a CUDA graph
-    can hold the call.  Any M; rows are cut into tiles of up to 64."""
+    can hold the call.  Any M: up to 16 rows (decode) and in fp32 the
+    split-K design cuts M into tiles of up to 64 rows, each reading its
+    expert's weights; past 16 rows in bf16 (prefill) the cluster design
+    reads each weight box once per cluster of up to 8 M tiles of 64 or 128
+    rows (`grouped_tiling`).  ``host_bytes`` (a `DeviceCount`) counts the
+    weight bytes the launches read over the host link, on the device."""
     if x.device.type == "cpu":
         return splitk_gemm_grouped_ref(x, w_remote, counts)
     if x.device.type != "cuda":
         raise ValueError(f"splitk_gemm_grouped runs on cpu or cuda tensors, got {x.device}")
     _check_grouped_operands(x, w_remote, counts)
-    e, m, k = x.shape
-    n = w_remote.shape[2]
-    y = torch.zeros((e, m, n), dtype=x.dtype, device=x.device)
-    if y.numel() == 0:
-        return y
-    n_tiles = -(-n // DECODE_BN)
-    # splits as for one operand as wide as every expert's tiles together
-    k_split = decode_k_split(0, e * n_tiles * DECODE_BN, k, _sm_count(x.device.index))
-    stream = _build.stream_handle(x.device)
-    ws, tickets = None, None
-    if k_split < k:
-        ws = torch.empty(-(-k // k_split) * e * m * n, dtype=torch.float32, device=x.device)
-        tickets = _tickets(x.device, stream, e * -(-m // GROUPED_MAX_M) * n_tiles)
-    rc = _build.load().libs["splitk_gemm"].dak_splitk_gemm_grouped(
-        x.data_ptr(), w_remote.data_ptr(), counts.data_ptr(), y.data_ptr(), e, m, k, n,
-        max(1, int(window)), k_split, 0 if ws is None else ws.data_ptr(),
-        0 if tickets is None else tickets.data_ptr(), _DTYPES[x.dtype], stream)
-    _build.check(rc, "splitk_gemm_grouped")
+    if x.shape[0] * x.shape[1] * w_remote.shape[2] == 0:
+        return torch.zeros((*x.shape[:2], w_remote.shape[2]), dtype=x.dtype, device=x.device)
+    y = _launch_grouped(x, w_remote, counts, window)
     splitk_gemm_grouped.launches += 1
     return y
 
 
 splitk_gemm_grouped.launches = 0   # kernel launches since the count was last reset
+# weight bytes the grouped launches read over the host link, counted on the device
+splitk_gemm_grouped.host_bytes = DeviceCount()

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tiering import TieredTensor, matmul
+from repro_torch.kernels.device_count import DeviceCount
 from repro_torch.kernels.ref import splitk_gemm_grouped_ref
 
 Params = dict[str, Any]
@@ -340,34 +341,6 @@ def _expert_ffn(buf: torch.Tensor, wi: torch.Tensor, wdown: torch.Tensor) -> tor
                 None, "batch", None, None)
 
 
-class DeviceCount:
-    """A count kept on the devices it is added from, one int64 each: a
-    captured decode step adds to it on every replay, and nothing inside a
-    step reads it back.  ``int()`` reads it (a sync) and `reset` zeroes it
-    in place, so a captured add keeps its target."""
-
-    def __init__(self) -> None:
-        self._totals: dict[torch.device, torch.Tensor] = {}
-
-    def add(self, n: torch.Tensor) -> None:
-        if n.device.type == "meta":       # an abstract trace (the lint) counts nothing
-            return
-        total = self._totals.get(n.device)
-        if total is None:
-            if n.is_cuda and torch.cuda.is_current_stream_capturing():
-                raise RuntimeError("a DeviceCount must be allocated before a CUDA graph "
-                                   "capture; warm the step up on the capturing stream first")
-            total = self._totals[n.device] = torch.zeros((), dtype=torch.int64, device=n.device)
-        total.add_(n)
-
-    def reset(self) -> None:
-        for total in self._totals.values():
-            total.zero_()
-
-    def __int__(self) -> int:
-        return sum(int(total) for total in self._totals.values())
-
-
 def tiered_expert_ffn(buf: torch.Tensor, valid: torch.Tensor, wi: TieredTensor,
                       wdown: TieredTensor, mm: Matmul = matmul) -> torch.Tensor:
     """`_expert_ffn` over expert stacks split across tiers along the expert
@@ -411,6 +384,17 @@ def tiered_expert_ffn(buf: torch.Tensor, valid: torch.Tensor, wi: TieredTensor,
 tiered_expert_ffn.remote_experts = DeviceCount()
 
 
+def expert_capacity(cfg: ModelConfig, n: int, capacity_factor: float | None = None) -> int:
+    """Dispatch slots per expert for a group of `n` tokens in `moe_block`:
+    the rows each expert's FFN (and the grouped remote-expert GEMM) takes,
+    ``n * top_k * cf / n_experts`` rounded, at least 1 and at most every
+    pair of the group.  A prefill of T tokens is one group of T; a decode
+    step one group of the batch."""
+    cf = cfg.moe_capacity_factor if capacity_factor is None else capacity_factor
+    pairs = n * cfg.top_k
+    return min(pairs, max(1, int(round(pairs * cf / cfg.n_experts))))
+
+
 def moe_block(
     cfg: ModelConfig,
     x: torch.Tensor,
@@ -429,10 +413,9 @@ def moe_block(
     `tiered_expert_ffn`; the shared experts go through ``mm``."""
     b, t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    cf = cfg.moe_capacity_factor if capacity_factor is None else capacity_factor
     g = b if t > 1 else 1                                         # groups
     n = (b * t) // g                                              # tokens/group
-    capacity = min(n * k, max(1, int(round(n * k * cf / e))))
+    capacity = expert_capacity(cfg, n, capacity_factor)
     dev = x.device
 
     xg = x.reshape(g, n, d)

@@ -26,7 +26,7 @@ kernel and per small op.
   step.
 * The kernel wrappers count their launches only while Python runs, so a
   capture records how far each count moved and every replay adds that.
-  Counts kept on the device (`models.layers.DeviceCount`, the remote
+  Counts kept on the device (`kernels.device_count.DeviceCount`, the remote
   experts run) are added by the graph itself.
 * On the CPU there is no graph: a :class:`StepGraph` runs the same step
   over the same fixed buffers eagerly, so buckets, counters and staging

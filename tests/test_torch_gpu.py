@@ -28,7 +28,12 @@ from repro_torch.kernels.splitk_flashattn import (
     scatter_rows_ref,
     splitk_flashattn,
 )
-from repro_torch.kernels.splitk_gemm import splitk_gemm, splitk_gemm_grouped
+from repro_torch.kernels.splitk_gemm import (
+    _launch_grouped,
+    grouped_tiling,
+    splitk_gemm,
+    splitk_gemm_grouped,
+)
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.serving import tiered_decode as TD
@@ -347,12 +352,17 @@ def test_tiered_expert_ffn_matches_plain(cuda_device, dtype, rows):
 
 
 # id: E, M, K, N, active experts; the wrapper picks K splits (tickets) for
-# few tiles and cuts M into tiles of 64 rows
+# few tiles; M <= 16 and fp32 take the split-K design (M tiles of up to 64
+# rows), bf16 past 16 rows the cluster design (clusters of 1, 2, 3, 6 and
+# two of 5 M tiles of 128 rows)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("e,m,k,n,active", [
     (4, 1, 256, 128, (1, 3)), (3, 5, 512, 64, (0, 1, 2)), (6, 24, 96, 72, (5,)),
     (4, 150, 256, 192, (0, 2)), (64, 1, 2048, 1536, (7, 40)), (5, 3, 128, 64, ()),
-], ids=["split-K", "M5", "ragged-N", "M-tiles", "qwen3", "none-active"])
+    (3, 65, 512, 64, (0, 2)), (3, 384, 256, 128, (1,)), (2, 1100, 128, 64, (0, 1)),
+    (5, 300, 96, 200, (4,)), (4, 192, 256, 128, ()),
+], ids=["split-K", "M5", "ragged-N", "M-tiles", "qwen3", "none-active", "cluster-2",
+        "cluster-6", "clusters-of-5", "cluster-ragged-N", "cluster-none-active"])
 @pytest.mark.parametrize("window", [1, 2])
 def test_splitk_gemm_grouped_matches_plain(cuda_device, dtype, e, m, k, n, active, window):
     gen = torch.Generator(device=cuda_device).manual_seed(e * m + k)
@@ -361,10 +371,13 @@ def test_splitk_gemm_grouped_matches_plain(cuda_device, dtype, e, m, k, n, activ
     counts = torch.zeros(e, dtype=torch.int32, device=cuda_device)
     counts[list(active)] = 2
     before = splitk_gemm_grouped.launches
+    splitk_gemm_grouped.host_bytes.reset()
     got = splitk_gemm_grouped(x, _pinned(w_dev), counts, window=window)
     torch.cuda.synchronize()
     assert splitk_gemm_grouped.launches == before + 1
     assert rel_err(got, tref.splitk_gemm_grouped_ref(x, w_dev, counts)) < TOL[dtype]
+    reads = grouped_tiling(m, dtype).reads
+    assert int(splitk_gemm_grouped.host_bytes) == len(active) * k * n * ELEM_BYTES[dtype] * reads
     assert torch.equal(got[counts == 0], torch.zeros_like(got[counts == 0]))
     # a serving mesh's remote experts, gathered on the card: the same bits
     assert torch.equal(splitk_gemm_grouped(x, w_dev, counts, window=window), got)
@@ -372,6 +385,30 @@ def test_splitk_gemm_grouped_matches_plain(cuda_device, dtype, e, m, k, n, activ
         splitk_gemm_grouped(x, w_dev.cpu(), counts)          # unpinned host memory
     with pytest.raises(ValueError, match="int32"):
         splitk_gemm_grouped(x, _pinned(w_dev), counts.long())
+
+
+@pytest.mark.parametrize("m", [17, 192, 384, 1100])
+def test_grouped_cluster_design_reads_once_per_cluster(cuda_device, m):
+    """The cluster design against the split-K design it replaced at M > 16
+    (bf16, both through the wrapper's private launch path): the same
+    products within the bf16 bound, and the host bytes counted once per
+    cluster of M tiles against once per 64-row tile."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m)
+    e, k, n = 4, 512, 128
+    x = torch.randn((e, m, k), generator=gen, device=cuda_device).to(torch.bfloat16)
+    w = _pinned((torch.randn((e, k, n), generator=gen, device=cuda_device) * 0.05)
+                .to(torch.bfloat16))
+    counts = torch.tensor([1, 0, 3, 1], dtype=torch.int32, device=cuda_device)
+    hb = splitk_gemm_grouped.host_bytes
+    got = {}
+    for design in ("cluster", "split-K"):
+        hb.reset()
+        got[design] = _launch_grouped(x, w, counts, 1, design)
+        torch.cuda.synchronize()
+        assert int(hb) == 3 * k * n * 2 * grouped_tiling(m, torch.bfloat16, design=design).reads
+    assert rel_err(got["cluster"], got["split-K"]) < TOL[torch.bfloat16]
+    assert grouped_tiling(m, torch.bfloat16).reads < grouped_tiling(
+        m, torch.bfloat16, design="split-K").reads or m <= 64
 
 
 def test_k_only_pinned_paged_cache(cuda_device):

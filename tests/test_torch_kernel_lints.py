@@ -109,6 +109,47 @@ def test_dak103_fires_on_grid_coverage_and_schedules():
         == {"DAK103"}
 
 
+def test_grouped_lints_pass_on_the_qwen3_plan_and_fire_on_broken_geometry():
+    """The grouped remote-expert launches of Qwen3-30B-A3B's served plan at
+    offload 0.5, at decode and at 2048- and 4096-token prefills (expert rows
+    1, 192, 384), are clean in bf16 and fp32; each rule fires on a geometry
+    broken on purpose."""
+    cfg = TC.get("qwen3_moe_30b_a3b")
+    shapes = KL.operand_shapes(cfg)
+    plan = TE.plan(cfg, TWorkload(batch=4, seq_len=256, phase="decode"), H100_SXM,
+                   global_ratio=0.5, kv_page_size=16)
+    for tokens in (2048, 4096):
+        launches = KL.describe_grouped_launches(cfg, plan, shapes, align=128, batch=4,
+                                                prefill_tokens=tokens, dtype_bytes=2)
+        assert [(g.name, g.e, g.m) for g in launches] == [
+            ("layers/experts_wi@decode", 64, 1), ("layers/experts_wi@prefill", 64, tokens // 2048 * 192),
+            ("layers/experts_wdown@decode", 64, 1),
+            ("layers/experts_wdown@prefill", 64, tokens // 2048 * 192)]
+        for db in (2, 4):
+            for g in launches:
+                assert KL.check_grouped_launch(dataclasses.replace(g, dtype_bytes=db),
+                                               H100_SXM) == [], g
+        assert KL.check_kernels(cfg, plan, H100_SXM, shapes, align=128, dtype_bytes=2,
+                                max_len=tokens) == []
+    wi = KL.GroupedGemmLaunch("wi", e=64, m=384, k=2048, n=1536, window=1)
+    assert G.grouped_tiling(384, BF).cluster == 6
+    # DAK101: a window whose ring of 6 x 64 / 2 stages passes 227 KiB
+    fs = KL.check_grouped_launch(dataclasses.replace(wi, window=64), H100_SXM)
+    assert _rules(fs) == {"DAK101"} and "CLUSTER_SMEM_MAX" in fs[0].detail
+    # DAK102: rows off 16 bytes, an unaligned base, an unswizzlable box, a K
+    # split off the box, the cluster design in fp32
+    for bad in (dict(n=1532), dict(aligned=False), dict(box=(32, 64)), dict(k_split=96),
+                dict(dtype_bytes=4, design="cluster")):
+        assert _rules(KL.check_grouped_launch(dataclasses.replace(wi, **bad), H100_SXM)) \
+            == {"DAK102"}, bad
+    # DAK103: a cluster past 8, an M axis not of whole clusters, rows left
+    # out, a dead cluster, N tiles missing
+    for bad in (dict(cluster=12, grid=(24, 64, 12)), dict(grid=(24, 64, 7)),
+                dict(mb=32), dict(grid=(24, 64, 12)), dict(grid=(23, 64, 6))):
+        assert _rules(KL.check_grouped_launch(dataclasses.replace(wi, **bad), H100_SXM)) \
+            == {"DAK103"}, bad
+
+
 def _same(port, ref) -> None:
     assert [(f.rule, f.where, f.detail) for f in port] == \
         [(f.rule, f.where, f.detail) for f in ref]

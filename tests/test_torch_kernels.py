@@ -24,10 +24,13 @@ from repro_torch.kernels.splitk_flashattn import (
     splitk_flashattn,
 )
 from repro_torch.kernels.splitk_gemm import (
+    CLUSTER_MAX,
     DECODE_BK,
     DECODE_BN,
     REMOTE_CTAS_PER_SM,
     decode_k_split,
+    grouped_launch,
+    grouped_tiling,
     splitk_gemm,
 )
 from torch_helpers import FP32_TOL, rel_err
@@ -200,6 +203,52 @@ def test_decode_k_split_covers_k_and_fills_the_card(k, n_loc, n_rem, sms):
     assert ctas >= min(REMOTE_CTAS_PER_SM * sms, tiles * loads)
     if tiles >= REMOTE_CTAS_PER_SM * sms:
         assert len(bounds) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("m", [1, 16, 17, 64, 65, 192, 384, 513, 1100])
+def test_grouped_tiling_reads_each_expert_once_per_cluster(m, dtype):
+    """The grouped entry's M tiling: M <= 16 and fp32 keep the split-K
+    tiling (M tiles of the power of two >= M up to 64, each reading its
+    expert); bf16 past 16 rows takes clusters of at most 8 tiles of 64 rows
+    (128 past 512), which read each expert once up to 8 x MB rows; every
+    row is in one tile and the grid's M axis is whole clusters."""
+    t = grouped_tiling(m, dtype)
+    assert t.m_tiles == -(-m // t.mb) and t.m_tiles <= t.grid_z < t.m_tiles + t.cluster
+    assert t.grid_z % t.cluster == 0 and 1 <= t.cluster <= CLUSTER_MAX
+    if m <= 16 or dtype == torch.float32:
+        mb = min(64, 1 << (m - 1).bit_length())
+        assert (t.design, t.mb, t.cluster, t.grid_z) == ("split-K", mb, 1, -(-m // mb))
+        assert t.reads == -(-m // 64) if m > 64 else t.reads == 1
+    else:
+        assert t.design == "cluster" and t.mb == (64 if m <= 512 else 128)
+        assert t.reads == -(-m // (CLUSTER_MAX * t.mb))
+        assert (t.reads == 1) == (m <= CLUSTER_MAX * t.mb)
+        old = grouped_tiling(m, dtype, design="split-K")
+        assert old.reads == -(-m // 64)
+
+
+def test_grouped_launch_geometry_matches_hand_worked_numbers():
+    """One Qwen3 layer's remote wi (64 experts, K 2048, N 1536) at a
+    2048-token prefill (M 192) and at decode (M 1), window 1, 132 SMs."""
+    bf = torch.bfloat16
+    g = grouped_launch(64, 192, 2048, 1536, bf, window=1, sm_count=132)
+    # clusters of 3 tiles of 64 rows; 24 x 64 tiles >= 132: one split
+    assert (g.tiling.cluster, g.grid, g.threads, g.box) == (3, (24, 64, 3), 160, (64, 64))
+    # ring: 3 x 1 x 4 KB in flight = 1.5 boxes of 8 KB -> 2 stages of
+    # (8192 + 64*64*2) B, two mbarriers each, 1024 B of alignment slack
+    assert (g.wanted, g.stages, g.cut) == (2, 2, None)
+    assert g.smem_bytes == 1024 + 2 * (8192 + 8192 + 16)
+    assert g.tickets == g.workspace == 0
+    d = grouped_launch(64, 1, 2048, 1536, bf, window=1, sm_count=132)
+    assert (d.tiling.design, d.grid, d.threads, d.box, d.stages) == \
+        ("split-K", (24, 64, 1), 64, (64, 32), 1)
+    # one stage of (32 * 64 + 1 * 32) * 2 = 4160 B, rounded to 128 B, and its mbarrier
+    assert d.smem_bytes == 4224 + 8
+    # few tiles: K splits of 64 rows with tickets per (expert, M tile, N tile)
+    s = grouped_launch(3, 300, 512, 64, bf, window=2, sm_count=132)
+    assert (s.k_split, s.splits, s.grid, s.tickets) == (64, 8, (8, 3, 5), 3 * 5 * 1)
+    assert s.workspace == 8 * 3 * 300 * 64
 
 
 @pytest.mark.parametrize("lib,fn", [(lib, fn) for lib, fns in _build._SIGNATURES.items()

@@ -85,8 +85,14 @@ def test_bridge_carries_the_moe_tree(weights):
 
 
 @pytest.mark.parametrize("cf", [None, float(JCFG.n_experts)], ids=["cf1.5", "dropless"])
-@pytest.mark.parametrize("b,t", [(2, 7), (5, 1)], ids=["prefill", "decode"])
+@pytest.mark.parametrize("b,t", [(2, 7), (5, 1), (2, 200)],
+                         ids=["prefill", "decode", "prefill-past-64-rows"])
 def test_moe_block_matches_reference(weights, cf, b, t):
+    """At prefill-past-64-rows each group's capacity passes 64 rows (75 at
+    cf 1.5, 400 dropless), the rows that take the grouped GEMM's cluster
+    design in bf16 on the card."""
+    if t == 200:
+        assert TL.expert_capacity(TCFG, t, cf) > 64
     jlp, tlp = _layer0(weights)
     x = np.random.default_rng(b * 10 + t).normal(size=(b, t, JCFG.d_model)).astype(np.float32)
     want = JL.moe_block(JCFG, jnp.asarray(x), jlp, capacity_factor=cf)
@@ -123,7 +129,8 @@ def test_moe_block_with_tied_router_logits(weights):
     assert rel_err(got, want) < FP32_TOL
 
 
-@pytest.mark.parametrize("b,t", [(2, 9), (4, 1)], ids=["prefill", "decode"])
+@pytest.mark.parametrize("b,t", [(2, 9), (4, 1), (2, 200)],
+                         ids=["prefill", "decode", "prefill-past-64-rows"])
 def test_tiered_expert_skip_matches_all_experts(weights, b, t):
     """The expert stack split 4|4 across tiers: the skip path (the remote
     block one grouped product per matrix, experts without a valid slot
