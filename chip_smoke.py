@@ -281,6 +281,12 @@ DECODE_BATCH = 4
 ROUNDS = 10                 # alternating rounds of the decode GEMM comparison (phase 5)
 SERVE_OFFLOAD = 0.4         # launch/serve.py's default --offload-ratio
 PREFILL_LEN = 128           # prompt length of the paged served run (phase 4)
+# rows of phase 2's dense cluster-design checks: one tile (17, 64), clusters
+# of 2 and 3 tiles of 64, then of 128-row tiles, one cluster to three
+CLUSTER_GEMM_M = (17, 64, 65, 128, 129, 704, 1100, 2000, 2052)
+# phase 5's prefill rows (a chunk's tail of one M tile, then 128, 512 and 2048)
+# and their alternating rounds
+PREFILL_GEMM_M = {64: 3, 128: 3, 512: 3, 2048: 1}
 SPLIT_PROMPT_LEN = 256      # prompt length of the batch-split served run (phase 7)
 PAGED_LENS = (150, 144, 139, 158)        # the paged served run's late-step lengths (phase 5)
 PAGED_LONG_LENS = (2000, 1937, 2048, 1985)   # a long cache: 122-128 pages per slot
@@ -410,6 +416,11 @@ def pinned_copy(t: torch.Tensor) -> torch.Tensor:
     return host
 
 
+def sm_count() -> int:
+    """SMs of the card, which the wrappers aim their K splits at."""
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def make_tier_pair(k, n_loc, n_rem, dtype, gen):
     wl = (torch.randn((k, n_loc), generator=gen, device="cuda") * 0.02).to(dtype)
     wr_dev = (torch.randn((k, n_rem), generator=gen, device="cuda") * 0.02).to(dtype)
@@ -417,19 +428,38 @@ def make_tier_pair(k, n_loc, n_rem, dtype, gen):
 
 
 def gemm_case(label, m, k, n_loc, n_rem, dtype, windows, gen, stats=None, tiers=None):
+    """`splitk_gemm` against its plain version on the card (the remote tier in
+    HBM for the check only) at each window, in the design the wrapper picks
+    (`gemm_tiling`): a second launch equal to the first bit for bit, the
+    remote tier as a device buffer (a serving mesh's placement) giving the
+    same bits, and the device counter of host bytes equal to the tiling
+    model (the remote tier once per cluster of M tiles)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.splitk_gemm import splitk_gemm
+    from repro_torch.kernels.splitk_gemm import gemm_tiling, splitk_gemm
 
     wl, wr, wr_dev = tiers if tiers is not None else make_tier_pair(k, n_loc, n_rem, dtype, gen)
     x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
     want = ref.splitk_gemm_ref(x, wl, wr_dev)
+    t = gemm_tiling(m, k, n_loc, n_rem, dtype, sm_count=sm_count())
+    model = wr.numel() * x.element_size() * t.reads
+    hb = splitk_gemm.host_bytes
     for w in windows:
+        hb.reset()
         got = splitk_gemm(x, wl, wr, window=w)
         torch.cuda.synchronize()
+        counted = int(hb)
+        again = splitk_gemm(x, wl, wr, window=w)
+        on_card = splitk_gemm(x, wl, wr_dev, window=w) if n_rem else again
+        torch.cuda.synchronize()
         rel, ab = rel_err(got, want)
-        check(rel < TOL[dtype] and torch.isfinite(got.float()).all().item(),
+        same = torch.equal(got, again) and torch.equal(got, on_card)
+        check(rel < TOL[dtype] and torch.isfinite(got.float()).all().item() and same
+              and counted == model,
               f"splitk_gemm {label} M={m} K={k} N={n_loc}|{n_rem} {str(dtype)[6:]} "
-              f"window={w}: max rel err {rel:.2e} (abs {ab:.2e}, bound {TOL[dtype]:.0e})")
+              f"window={w}: {t.design} design (MB {t.mb}, clusters of {t.cluster}, {t.splits} "
+              f"split(s)): max rel err {rel:.2e} (abs {ab:.2e}, bound {TOL[dtype]:.0e}), again "
+              f"and remote tier on the card bitwise equal: {same}, host bytes counted "
+              f"{counted} = tiling model {model} ({t.reads} read(s))")
         note_err(stats, rel, ab)
 
 
@@ -753,6 +783,17 @@ def phase_kernels() -> dict:
     bf = torch.bfloat16
     # first: a weight box multicast from mapped host memory to a cluster of 3
     grouped_case("multicast", 2, 130, 128, 64, bf, (1,), gen)
+    # then the dense cluster design (bf16, M > 16) at its smallest: one M
+    # tile and no multicast (17, 64), clusters of 2, 3, 6 (704), 6 x 2
+    # (1100: 9 tiles of 128 in two clusters of 5), 8 x 2 (2000) and 6 x 3
+    # (2052); ragged tiers of 136 | 200 columns and K 320 (a 64-row box
+    # past K); either tier empty; K splits with tickets (a narrow tier)
+    for m in CLUSTER_GEMM_M:
+        gemm_case("cluster", m, 320, 136, 200, bf, (1, 2), gen, stats["splitk_gemm"])
+    for m in (17, 129, 2000):
+        gemm_case("cluster empty-local", m, 512, 0, 256, bf, (1, 2), gen)
+        gemm_case("cluster empty-remote", m, 512, 256, 0, bf, (1, 2), gen)
+        gemm_case("cluster split-K", m, 4096, 64, 128, bf, (1, 2), gen)
     for name, (k, n_loc, n_rem) in GEMM_SHAPES.items():
         tiers = make_tier_pair(k, n_loc, n_rem, bf, gen)
         # M: decode batch, paged prefill (phase 4), batch-split prefill (phase 7)
@@ -1067,7 +1108,10 @@ def phase_serve(arch: str = "llama2_7b", n_layers: int | None = None, n_req: int
               f"(local tier on the card)" if experts else "expert stacks tiered")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    passes = count_prefill_passes(eng)
     reqs, decode, wall = serve_stepping(eng, cfg, n_req, prompt_len, new_tokens)
+    prefill_counted = sum(c for _, c in passes)
+    prefill_model = sum(dense_prefill_model(eng.params, n)[0] for n, _ in passes)
     stats = eng.stats
     launches = {"splitk_gemm": splitk_gemm.launches,
                 "splitk_gemm_grouped": splitk_gemm_grouped.launches,
@@ -1105,6 +1149,15 @@ def phase_serve(arch: str = "llama2_7b", n_layers: int | None = None, n_req: int
           f"them {shared_step / 1e9:.3f} the shared blocks, re-read by each of "
           f"{len(groups)} groups) + {mean('experts') * expert_bytes / 1e9:.3f} remote experts + "
           f"{kv_step / 1e9:.4f} KV{bytes_part}")
+    rows = sorted({n for n, _ in passes})
+    print(f"remote weight bytes of the {len(passes)} prefill passes ({rows} rows), counted "
+          f"on the device (`splitk_gemm.host_bytes`): {prefill_counted} B "
+          f"({prefill_counted / 1e9:.3f} GB) | tiling model of the column-split layer weights "
+          f"and lm_head {prefill_model} B")
+    if cfg.family in ("dense", "vlm"):
+        check(prefill_counted == prefill_model,
+              f"prefill's remote weight bytes counted {prefill_counted} = tiling model "
+              f"{prefill_model}")
     if pc is not None:
         print(f"kv pages: local hwm {stats.local_pages_hwm}/{pc.n_local}, remote hwm "
               f"{stats.remote_pages_hwm}/{pc.n_remote}, spills {stats.spills}")
@@ -1169,9 +1222,20 @@ def long_prompt_request() -> None:
     design it replaced, each with the host bytes the grouped launches
     counted beside the tiling model (remote experts run x the bytes an
     expert x the reads per expert), the logits of the two within the bf16
-    bound; then the request served, its TTFT and tokens."""
+    bound; then under the whole-K design that the dense cluster design
+    replaced (the attention projections; the wrapper's private launch path),
+    its logits within the same bound; each pass with the dense remote bytes
+    `splitk_gemm` counted beside their tiling model; then the request
+    served, its TTFT and tokens."""
     import repro_torch.configs as C
-    from repro_torch.kernels.splitk_gemm import _launch_grouped, grouped_tiling, splitk_gemm_grouped
+    from repro_torch.core.tiering import TieredTensor
+    from repro_torch.kernels.splitk_gemm import (
+        _launch,
+        _launch_grouped,
+        grouped_tiling,
+        splitk_gemm,
+        splitk_gemm_grouped,
+    )
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
     from repro_torch.serving import tiered_decode as TD
@@ -1194,28 +1258,47 @@ def long_prompt_request() -> None:
     hb, ran = splitk_gemm_grouped.host_bytes, L.tiered_expert_ffn.remote_experts
     old_mm = TD.kernel_mm(eng.window)
     old_mm.grouped = lambda x, w, counts: _launch_grouped(x, w, counts, eng.window, "split-K")
+    new_mm = TD.kernel_mm(eng.window)
+
+    def whole_k_mm(a, w):        # the dense whole-K design; experts as the wrapper runs them
+        if not isinstance(w, TieredTensor):
+            return new_mm(a, w)
+        y = _launch(a.reshape(-1, a.shape[-1]).contiguous(), w.local, w.remote, eng.window, 0)
+        return y.reshape(*a.shape[:-1], y.shape[-1])
+
+    whole_k_mm.grouped = new_mm.grouped
+    dense_hb = splitk_gemm.host_bytes
     logits, line = {}, []
-    for design, mm in (("cluster", TD.kernel_mm(eng.window)), ("split-K", old_mm)):
+    for label, mm, design, dense_ks in (("cluster", new_mm, "cluster", None),
+                                        ("split-K", old_mm, "split-K", None),
+                                        ("dense whole-K", whole_k_mm, "cluster", 0)):
         hb.reset()
+        dense_hb.reset()
         ran.reset()
         torch.cuda.synchronize()
         t1 = time.time()
-        logits[design], _ = M.prefill(cfg, eng.params, {"tokens": tokens}, max_len=eng.max_len,
-                                      mm=mm)
+        logits[label], _ = M.prefill(cfg, eng.params, {"tokens": tokens}, max_len=eng.max_len,
+                                     mm=mm)
         torch.cuda.synchronize()
         sec = time.time() - t1
-        counted, experts = int(hb), int(ran)
+        counted, experts, dense = int(hb), int(ran), int(dense_hb)
         model = experts * per_expert * grouped_tiling(m, torch.bfloat16, design=design).reads
-        check(counted == model,
-              f"long prompt, {design} design: host bytes counted {counted} = tiling model "
+        dense_model, dense_reads = dense_prefill_model(eng.params, LONG_PROMPT, k_split=dense_ks)
+        check(counted == model and dense == dense_model,
+              f"long prompt, {label}: expert bytes counted {counted} = tiling model "
               f"{experts} remote experts run x {per_expert} B x "
-              f"{grouped_tiling(m, torch.bfloat16, design=design).reads} read(s) = {model}")
-        line.append(f"{design} design {sec * 1e3:.1f} ms, expert bytes counted {counted} "
-                    f"({counted / 1e9:.3f} GB)")
-    rel, ab = rel_err(logits["cluster"], logits["split-K"])
-    check(rel < TOL[torch.bfloat16] and torch.isfinite(logits["cluster"].float()).all().item(),
-          f"long prompt: prefill logits of the cluster design within {TOL[torch.bfloat16]:.0e} of "
-          f"the split-K design's (max rel err {rel:.2e}, abs {ab:.2e})")
+              f"{grouped_tiling(m, torch.bfloat16, design=design).reads} read(s) = {model}; "
+              f"dense bytes counted {dense} = tiling model {dense_model} (attention projections "
+              f"read {dense_reads} time(s), lm_head once)")
+        line.append(f"{label} {sec * 1e3:.1f} ms, expert bytes counted {counted} "
+                    f"({counted / 1e9:.3f} GB), dense bytes counted {dense} "
+                    f"({dense / 1e9:.3f} GB)")
+    for old in ("split-K", "dense whole-K"):
+        rel, ab = rel_err(logits["cluster"], logits[old])
+        check(rel < TOL[torch.bfloat16] and torch.isfinite(logits["cluster"].float()).all().item(),
+              f"long prompt: prefill logits of the cluster designs within "
+              f"{TOL[torch.bfloat16]:.0e} of the {old} design's (max rel err {rel:.2e}, abs "
+              f"{ab:.2e})")
     del logits
     hb.reset()
     req = Request(rid=0, prompt=prompt, max_new_tokens=new_tokens)
@@ -1226,7 +1309,7 @@ def long_prompt_request() -> None:
           f"long prompt served: {len(req.out_tokens)} tokens {req.out_tokens}")
     print(f"long prompt ({LONG_PROMPT} + {new_tokens} tokens, 48 layers, built in {build_s:.1f} "
           f"s, M = {m} rows an expert, {wi.remote.shape[1]} remote experts a layer): prefill "
-          f"pass {' | '.join(line)} | served: TTFT {stats.ttfts[0] * 1e3:.1f} ms, TPOT "
+          f"pass under the {' | '.join(line)} | served: TTFT {stats.ttfts[0] * 1e3:.1f} ms, TPOT "
           f"{stats.tpot * 1e3:.1f} ms, expert bytes counted over the request {int(hb)} "
           f"({int(hb) / 1e9:.3f} GB)")
 
@@ -1531,14 +1614,10 @@ def time_decode_gemm(shapes, window, gen, flush, link, label) -> dict:
 
 
 def phase_timing(card: dict, window: int) -> dict:
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.splitk_gemm import splitk_gemm
-
     link = card["link_bw"]
     scratch = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     flush = scratch.zero_
     gen = torch.Generator(device="cuda").manual_seed(3)
-    bf = torch.bfloat16
     n_layers = 32
     print(f"timing on {card['name']} (power limit {card['power']}), CUDA events, "
           f"L2 flushed before each launch, median of 10; window {window} unless noted")
@@ -1548,28 +1627,8 @@ def phase_timing(card: dict, window: int) -> dict:
     # wq, wo and wdown have 26 remote tiles
     time_decode_gemm(planner_shapes(SERVE_OFFLOAD), window, gen, flush, link,
                      f"offload {SERVE_OFFLOAD} (planner)")
-    # prefill (M = PREFILL_LEN): the whole-K design, one m-tile
-    for name, (k, n_loc, n_rem) in GEMM_SHAPES.items():
-        wl, wr, wr_dev = make_tier_pair(k, n_loc, n_rem, bf, gen)
-        x = torch.randn((PREFILL_LEN, k), generator=gen, device="cuda").to(bf)
-        t = {w: time_ms(lambda w=w: splitk_gemm(x, wl, wr, window=w), flush=flush)
-             for w in (1, 2, 4)}
-        t_plain = time_ms(lambda: ref.splitk_gemm_ref(x, wl, wr_dev), flush=flush)
-
-        def prefetch(x=x, wl=wl, wr=wr, wr_dev=wr_dev):
-            return prefetch_cublas(x, wl, wr, wr_dev)
-
-        t_lib = time_ms(prefetch, flush=flush)
-        loc_b = (x.numel() + wl.numel() + PREFILL_LEN * (n_loc + n_rem)) * 2
-        rem_b = wr.numel() * 2
-        b_ms, b_by = bound(loc_b, rem_b, 2 * PREFILL_LEN * k * (n_loc + n_rem), link,
-                           BF16_PEAK)
-        gbs = lambda ms: rem_b / (ms * 1e-3) / 1e9  # noqa: E731
-        print(f"  splitk_gemm {name} M={PREFILL_LEN} K={k} N={n_loc}|{n_rem} bf16: kernel "
-              f"{t[window]:.4f} ms (windows 1/2/4: {t[1]:.4f}/{t[2]:.4f}/{t[4]:.4f}), remote "
-              f"{gbs(t[window]):.2f} GB/s | plain {t_plain:.4f} ms | bound {b_ms:.4f} ms "
-              f"({b_by}) | prefetch+cuBLAS {t_lib:.4f} ms ({gbs(t_lib):.2f} GB/s)")
-        del wl, wr, wr_dev
+    # prefill: the cluster design beside the whole-K design it replaced
+    time_prefill_gemm(link, flush, gen, window)
     # decode attention at the served runs' late-step shapes, then at a long
     # cache
     step["paged_attention"] = per_step(time_paged_attention(
@@ -1586,6 +1645,77 @@ def phase_timing(card: dict, window: int) -> dict:
     step["flash_prefill"] = time_flash_prefill(flush, gen)
     step["splitk_gemm_grouped"] = time_grouped_experts(link, flush, gen, window)
     return step
+
+
+def time_prefill_gemm(link, flush, gen, window) -> None:
+    """llama2-7b's projections at offload 0.5 at the prefill rows of
+    `PREFILL_GEMM_M`: `splitk_gemm` (the cluster design), the whole-K design
+    it replaced (the wrapper's private launch path), prefetch + cuBLAS, the
+    plain version with both tiers in HBM and the bound (the remote tier once
+    over the link), in alternating rounds (fewer at 2048 rows); each line
+    with the GB/s of unique remote bytes, both designs' counted host bytes
+    (`splitk_gemm.host_bytes`) beside the tiling model, and the cluster
+    design's workspace; then the sums per prefill (32 layers + lm_head)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.splitk_gemm import _launch, gemm_tiling, splitk_gemm
+
+    bf, hb = torch.bfloat16, splitk_gemm.host_bytes
+    for m, n_rounds in PREFILL_GEMM_M.items():
+        total = dict(new=0.0, old=0.0, lib=0.0, plain=0.0, bound=0.0)
+        for name, (k, n_loc, n_rem) in GEMM_SHAPES.items():
+            wl, wr, wr_dev = make_tier_pair(k, n_loc, n_rem, bf, gen)
+            x = torch.randn((m, k), generator=gen, device="cuda").to(bf)
+            count = 1 if name == "lm_head" else 32
+            want = ref.splitk_gemm_ref(x, wl, wr_dev)
+            rem_b = wr.numel() * 2
+            counted, model = {}, {}
+            for design, fn, ks in (("cluster", lambda: splitk_gemm(x, wl, wr, window=window),
+                                    None),
+                                   ("whole-K", lambda: _launch(x, wl, wr, window, 0), 0)):
+                hb.reset()
+                got = fn()
+                torch.cuda.synchronize()
+                counted[design] = int(hb)
+                tiling = gemm_tiling(m, k, n_loc, n_rem, bf, sm_count=sm_count(), k_split=ks)
+                model[design] = rem_b * tiling.reads
+                rel, _ = rel_err(got, want)
+                check(rel < TOL[bf] and tiling.design == design,
+                      f"splitk_gemm {design} design {name} M={m}: max rel err {rel:.2e}")
+                if design == "cluster":
+                    t = tiling
+                del got
+            check(counted == model,
+                  f"host bytes counted {name} M={m}: cluster design {counted['cluster']} B, "
+                  f"whole-K design {counted['whole-K']} B; tiling model {model}")
+
+            def prefetch(x=x, wl=wl, wr=wr, wr_dev=wr_dev):
+                return prefetch_cublas(x, wl, wr, wr_dev)
+
+            rounds = alternate([lambda: splitk_gemm(x, wl, wr, window=window),
+                                lambda: _launch(x, wl, wr, window, 0), prefetch], flush,
+                               n_rounds=n_rounds, iters=3 if m >= 2048 else 5)
+            t_new, t_old, t_lib = (statistics.median(v) for v in rounds)
+            t_plain = time_ms(lambda: ref.splitk_gemm_ref(x, wl, wr_dev), iters=3, flush=flush)
+            loc_b = (x.numel() + wl.numel() + m * (n_loc + n_rem)) * 2
+            b_ms, b_by = bound(loc_b, rem_b, 2 * m * k * (n_loc + n_rem), link, BF16_PEAK)
+            gbs = lambda ms: rem_b / (ms * 1e-3) / 1e9  # noqa: E731
+            print(f"  splitk_gemm prefill {name} M={m} K={k} N={n_loc}|{n_rem} bf16, medians of "
+                  f"{n_rounds} alternating rounds: cluster design {t_new:.4f} ms "
+                  f"({gbs(t_new):.2f} GB/s unique; MB {t.mb}, clusters of {t.cluster}, "
+                  f"{t.splits} split(s), workspace {t.workspace * 4} B) | whole-K design "
+                  f"{t_old:.4f} ms ({gbs(t_old):.2f} GB/s unique) | prefetch+cuBLAS "
+                  f"{t_lib:.4f} ms | plain {t_plain:.4f} ms | bound {b_ms:.4f} ms ({b_by}) | "
+                  f"host bytes counted: cluster {counted['cluster']} ({t.reads} read(s)), "
+                  f"whole-K {counted['whole-K']} ({model['whole-K'] // rem_b} reads) = tiling "
+                  f"model")
+            for key, ms in (("new", t_new), ("old", t_old), ("lib", t_lib), ("plain", t_plain),
+                            ("bound", b_ms)):
+                total[key] += count * ms
+            del wl, wr, wr_dev, x, want
+        print(f"  per prefill of {m} rows (32 layers + lm_head at M={m}): cluster design "
+              f"{total['new']:.1f} ms | whole-K design {total['old']:.1f} ms | prefetch+cuBLAS "
+              f"{total['lib']:.1f} ms | plain {total['plain']:.1f} ms | bound "
+              f"{total['bound']:.1f} ms")
 
 
 QWEN3_EXPERTS = dict(d=2048, ff=768, e_rem=64, layers=48)   # offload 0.5
@@ -2322,11 +2452,44 @@ VLM_PATCHES, VLM_TEXT = 576, 128         # phase 26: one image's patches, then t
 LLAVA_PEAK_LIMIT = 40e9     # device bytes LLaVA-NeXT-34B may peak at (70.6 GB of bf16 weights)
 
 
-def gemm_reads(m: int) -> int:
-    """How often `splitk_gemm` reads each weight tile for an M-row input:
-    the whole-K design once per M tile (16, 64 or 128 rows by M,
-    `csrc/splitk_gemm.cu` `dispatch`), the split-K decode design once."""
-    return 1 if m <= 64 else -(-m // 128)
+def dense_prefill_model(params, rows: int, top_rows: int = 1,
+                        k_split: int | None = None) -> tuple[int, list[int]]:
+    """Remote weight bytes that one pass of `rows` rows reads through
+    `splitk_gemm`, by the tiling model (`splitk_gemm.gemm_tiling`): each
+    column-split layer weight's remote tier once per cluster of M tiles in
+    the wrapper's design (`k_split` 0: the whole-K design, once per M tile),
+    the top-level ones (lm_head) as `top_rows` rows read them (a decoder's
+    prefill runs lm_head on its last row alone).  Returns the bytes and the
+    reads of the layer weights."""
+    from repro_torch.core.tiering import TieredTensor
+    from repro_torch.kernels.splitk_gemm import gemm_tiling
+
+    def reads(w, m):
+        return gemm_tiling(m, w.local.shape[-2], w.local.shape[-1], w.remote.shape[-1],
+                           w.remote.dtype, sm_count=sm_count(), k_split=k_split).reads
+
+    layer = [w for w in params["layers"].values()
+             if isinstance(w, TieredTensor) and w.axis == -1 and w.remote.numel()]
+    top = [w for w in params.values() if isinstance(w, TieredTensor) and w.remote.numel()]
+    total = (sum(w.remote.nbytes * reads(w, rows) for w in layer)
+             + sum(w.remote.nbytes * reads(w, top_rows) for w in top))
+    return total, sorted({reads(w, rows) for w in layer})
+
+
+def count_prefill_passes(eng) -> list[tuple[int, int]]:
+    """Wrap `eng`'s prefill pass so that each appends (rows, the remote bytes
+    `splitk_gemm.host_bytes` counted during it) to the list returned."""
+    from repro_torch.kernels.splitk_gemm import splitk_gemm
+
+    passes, run = [], eng._run_prefill_chunk
+
+    def counted(slot, ps, n):
+        before = int(splitk_gemm.host_bytes)
+        run(slot, ps, n)
+        passes.append((n, int(splitk_gemm.host_bytes) - before))
+
+    eng._run_prefill_chunk = counted
+    return passes
 
 
 def column_split_remote(params) -> tuple[int, int]:
@@ -2411,10 +2574,11 @@ def phase_frontend_serve() -> None:
     scheduler with chunks of `SLO_CHUNK` tokens.  All 12 requests arrive at
     t=0 in both runs, the 8 batch ones first.  One engine serves both runs
     (it is idle between them, each run with a fresh scheduler and stats).
-    The remote weight bytes of prefill are modeled from the passes' rows
-    (`EngineStats.prefill_passes`), not counted: the column-split layer
-    weights `gemm_reads(M)` times for M rows, the split lm_head once (it
-    reads the last row)."""
+    The remote weight bytes of prefill are counted on the device
+    (`splitk_gemm.host_bytes`, read around each pass) beside the tiling
+    model of the passes' rows (`dense_prefill_model`: the column-split layer
+    weights once per cluster of M tiles, the split lm_head once, on the last
+    row)."""
     import repro_torch.configs as C
     from repro_torch.frontend.scheduler import get_scheduler
     from repro_torch.models import model as M
@@ -2431,7 +2595,9 @@ def phase_frontend_serve() -> None:
           f"remote of {BURST_NEW_TOKENS + BURST['batch'][3]}-token slots; remote weights "
           f"{layer_rem / 1e9:.3f} GB in the layers + {top_rem / 1e9:.3f} GB lm_head")
     tokens = {}
+    counted_passes = count_prefill_passes(eng)
     for name, chunk in (("fcfs", None), ("slo", SLO_CHUNK)):
+        counted_passes.clear()
         eng.scheduler = get_scheduler(name, **({"chunk_tokens": chunk} if chunk else {}))
         eng.stats = EngineStats()
         batch, inter = burst_requests(cfg, np.random.default_rng(0))
@@ -2444,7 +2610,9 @@ def phase_frontend_serve() -> None:
         wall = time.time() - t0
         tokens[name] = {r.rid: r.out_tokens for r in batch + inter}
         passes = stats.prefill_passes
-        read = sum(layer_rem * gemm_reads(n) + top_rem for n in passes)
+        models = [dense_prefill_model(eng.params, n) for n in passes]
+        read = sum(b for b, _ in models)
+        counted = sum(c for _, c in counted_passes)
         rep = stats.slo_report()
         print(f"  {name}{f' (chunk {chunk})' if chunk else ' (whole prompts)'}: served "
               f"{stats.served}/12 in {wall:.2f} s | "
@@ -2456,9 +2624,13 @@ def phase_frontend_serve() -> None:
             print(f"    {cls}: n={r['requests']} wall TTFT p50 {r['ttft_p50'] * 1e3:.1f} ms "
                   f"p95 {r['ttft_p95'] * 1e3:.1f} ms | queue p95 "
                   f"{r['queue_delay_p95'] * 1e3:.1f} ms | preemptions {r['preemptions']}")
-        print(f"    remote weight bytes of prefill, modeled from the passes' rows: "
-              f"{read / 1e9:.3f} GB, {read / max(1, sum(passes)) / 1e6:.3f} MB per prefill token "
-              f"(the layers' tiles read {sorted({gemm_reads(n) for n in passes})} times a pass)")
+        print(f"    remote weight bytes of prefill, counted on the device: {counted} B "
+              f"({counted / 1e9:.3f} GB), {counted / max(1, sum(passes)) / 1e6:.3f} MB per "
+              f"prefill token; tiling model of the passes' rows {read} B (the layers' tiles read "
+              f"{sorted({r for _, rs in models for r in rs})} times a pass)")
+        check(counted == read and [n for n, _ in counted_passes] == passes,
+              f"{name}: prefill's remote bytes counted {counted} = tiling model {read} over "
+              f"{len(passes)} passes")
         check(stats.served == 12 and all(len(t) == BURST_NEW_TOKENS
                                          for t in tokens[name].values()),
               f"{name}: every request served with {BURST_NEW_TOKENS} tokens")
@@ -2530,8 +2702,10 @@ def phase_encoder() -> None:
                               dtype=torch.bfloat16, device="cuda")
     step = steps.make_prefill_step(cfg, mm=TD.kernel_mm(1))
     torch.cuda.reset_peak_memory_stats()
-    logits, _ = step(params, batch)             # warm-up
+    splitk_gemm.host_bytes.reset()
+    logits, _ = step(params, batch)             # warm-up, its remote bytes counted
     torch.cuda.synchronize()
+    counted = int(splitk_gemm.host_bytes)
     times, n0 = [], splitk_gemm.launches
     for _ in range(3):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2544,15 +2718,19 @@ def phase_encoder() -> None:
     peak = torch.cuda.max_memory_allocated() - base
     ms = statistics.median(times)
     rows = HUBERT_CLIPS * HUBERT_FRAMES
-    whole_k = (layer_rem + top_rem) * gemm_reads(rows)
+    model, reads = dense_prefill_model(params, rows, top_rows=rows)
+    whole_k, _ = dense_prefill_model(params, rows, top_rows=rows, k_split=0)
     print(f"  forward of {HUBERT_CLIPS} x {HUBERT_FRAMES} frames: median {ms:.2f} ms over 3 "
           f"(runs {', '.join(f'{t:.2f}' for t in times)}), "
           f"{rows * 1e3 / ms:.0f} frames/s | splitk_gemm {per_fwd:.0f} launches a forward | "
-          f"remote bytes once {w_remote / 1e9:.3f} GB, read by the whole-K design (modeled "
-          f"from its tiling) {whole_k / 1e9:.3f} GB ({gemm_reads(rows)} M tiles of {rows} rows), "
-          f"{whole_k / (ms * 1e-3) / 1e9:.1f} GB/s if the forward were only that read | "
+          f"remote bytes once {w_remote / 1e9:.3f} GB, counted on the device a forward "
+          f"{counted} B ({counted / 1e9:.3f} GB; tiling model {model} B, {reads} read(s) of "
+          f"{rows} rows; the whole-K design's tiling {whole_k / 1e9:.3f} GB), "
+          f"{counted / (ms * 1e-3) / 1e9:.1f} GB/s if the forward were only that read | "
           f"peak device memory {peak / 1e9:.3f} GB vs weights {(w_local + w_remote) / 1e9:.3f} "
           f"GB")
+    check(counted == model, f"encoder forward: remote bytes counted {counted} = tiling model "
+                            f"{model}")
     check(tuple(logits.shape) == (HUBERT_CLIPS, HUBERT_FRAMES, cfg.vocab)
           and bool(torch.isfinite(logits).all()), "encoder logits finite, [4, 500, 504]")
     check(per_fwd == cfg.n_layers * 5 + 1,
@@ -2622,18 +2800,23 @@ def vlm_patch_prefill(eng) -> None:
     layer_rem, top_rem = column_split_remote(eng.params)
     step = steps.make_prefill_step(cfg, mm=TD.kernel_mm(eng.window))
     torch.cuda.synchronize()
+    splitk_gemm.host_bytes.reset()
     n0, t0 = splitk_gemm.launches, time.time()
     logits, cache = step(eng.params, batch)
     torch.cuda.synchronize()
     ms = (time.time() - t0) * 1e3
-    read = layer_rem * gemm_reads(rows) + top_rem
+    counted = int(splitk_gemm.host_bytes)
+    read, reads = dense_prefill_model(eng.params, rows)
+    whole_k, _ = dense_prefill_model(eng.params, rows, k_split=0)
     print(f"  prefill of {VLM_PATCHES} patches + {VLM_TEXT} tokens: {ms:.1f} ms, "
-          f"{splitk_gemm.launches - n0} splitk_gemm launches, remote weight bytes (modeled "
-          f"from the tiling) {read / 1e9:.3f} GB ({layer_rem / 1e9:.3f} GB of layers read {gemm_reads(rows)} "
-          f"times + lm_head {top_rem / 1e9:.3f} once), {read / (ms * 1e-3) / 1e9:.1f} GB/s if the "
-          f"prefill were only that read; "
+          f"{splitk_gemm.launches - n0} splitk_gemm launches, remote weight bytes counted on "
+          f"the device {counted} B ({counted / 1e9:.3f} GB; tiling model {read} B: "
+          f"{layer_rem / 1e9:.3f} GB of layers read {reads} time(s) + lm_head "
+          f"{top_rem / 1e9:.3f} once; the whole-K design's tiling {whole_k / 1e9:.3f} GB), "
+          f"{counted / (ms * 1e-3) / 1e9:.1f} GB/s if the prefill were only that read; "
           f"peak device memory since serving began {torch.cuda.max_memory_allocated() / 1e9:.3f}"
           f" GB")
+    check(counted == read, f"patch prefill: remote bytes counted {counted} = tiling model {read}")
     check(tuple(logits.shape) == (1, 1, cfg.vocab) and bool(torch.isfinite(logits).all())
           and tuple(cache["k"].shape[:3]) == (cfg.n_layers, 1, rows),
           f"patch prefill logits finite and the cache holds {rows} positions")

@@ -17,13 +17,16 @@ statically for every (family, offload ratio) the engine can serve:
 - DAK102: the TMA rules the kernels assume where they read through tensor
   maps: 16-byte aligned bases, row strides of 16-byte multiples, box
   extents of at most 256 elements, a ``k_split`` that is a multiple of
-  DECODE_BK, M <= 16 for the split-K design (`splitk_gemm.decode_shapes_ok`,
-  the precondition `_decode_operands_ok` checks on tensors), and tiers
-  that conserve the split dimension.
+  DECODE_BK, M <= 16 for the split-K design (`splitk_gemm.decode_shapes_ok`)
+  and bf16 past 16 rows, a ``k_split`` of whole 64-row boxes and 128-byte
+  swizzled box rows for the cluster design (`splitk_gemm.cluster_shapes_ok`;
+  both with the aligned bases `_operands_aligned` checks on tensors), and
+  tiers that conserve the split dimension.
 - DAK103: grid coverage: the split-K grid ``(n_rem_tiles + n_loc_tiles) x
-  splits`` covers N and K exactly, the host-first CTA order is a
-  permutation of the tiles and splits, and so is the paged kernel's
-  host-first slot order.
+  splits`` covers N and K exactly, the cluster grid does so with every M
+  row in one CTA and an M axis of whole clusters of at most 8, the
+  host-first CTA order is a permutation of the tiles and splits, and so is
+  the paged kernel's host-first slot order.
 
 The grouped remote-expert entry (`splitk_gemm.splitk_gemm_grouped`) gets
 all three at the served plan's decode rows and at a prefill's: its ring
@@ -61,10 +64,15 @@ SMEM_OPTIN_BYTES = 232448   # dynamic shared memory one CTA may opt into on sm_9
 @dataclasses.dataclass(frozen=True)
 class GemmLaunch:
     """Geometry of one ``splitk_gemm`` launch.  ``k_split`` > 0 is the
-    split-K decode design (rows of K per CTA), 0 whole K.  ``aligned``
-    says the operands' bases are 16-byte aligned; ``box_n`` x ``box_k``
-    is the weight box a split-K load reads; ``grid`` is a recorded CTA
-    count (None: the kernel's own)."""
+    split-K decode design (M <= 16) or the cluster design (past 16 rows),
+    with that many rows of K per CTA, 0 whole K.  ``aligned`` says the
+    operands' bases are 16-byte aligned; ``box_n`` x ``box_k`` is the
+    weight box a load reads (None: the design's own, 64 x 32 for split-K
+    and 64 x 64 for the cluster design); ``grid`` is a recorded CTA count,
+    or for the cluster design the recorded grid (x, y, z) (None: the
+    kernel's own); ``mb`` and ``cluster`` a recorded M tile and cluster
+    size of the cluster design (None: the kernel's own,
+    `splitk_gemm.gemm_tiling`)."""
     name: str
     m: int
     k: int
@@ -74,9 +82,11 @@ class GemmLaunch:
     window: int = splitk_gemm.DEFAULT_WINDOW
     dtype_bytes: int = 4
     aligned: bool = True
-    box_n: int = splitk_gemm.DECODE_BN
-    box_k: int = splitk_gemm.DECODE_BK
-    grid: int | None = None
+    box_n: int | None = None
+    box_k: int | None = None
+    grid: int | tuple[int, int, int] | None = None
+    mb: int | None = None
+    cluster: int | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,18 +186,22 @@ def check_gemm_launch(launch: GemmLaunch, hw: HardwareSpec, *,
                         f"k_split={ks} is not 0 or a multiple of DECODE_BK="
                         f"{splitk_gemm.DECODE_BK}: splits start at load boundaries")]
     out: list[Finding] = []
+    if ks > 0 and m > splitk_gemm.DECODE_MAX_M and launch.dtype_bytes == 2:
+        return _check_cluster_gemm(launch, hw, site)
     if ks > 0:
         # DAK102: the split-K design reads every operand through a tensor map
         db = launch.dtype_bytes
+        box_n = launch.box_n or splitk_gemm.DECODE_BN
+        box_k = launch.box_k or splitk_gemm.DECODE_BK
         bad = [f"{lbl}={v} elements ({v * db} B)" for lbl, v in
                (("K", k), ("N_loc", n_loc), ("N_rem", n_rem)) if v * db % 16]
         if m > splitk_gemm.DECODE_MAX_M:
-            bad.append(f"M={m} > {splitk_gemm.DECODE_MAX_M}")
+            bad.append(f"M={m} > {splitk_gemm.DECODE_MAX_M} in {_dtype_name(db)} (the cluster "
+                       "design takes bfloat16 only)")
         if not launch.aligned:
             bad.append("a base not 16-byte aligned")
-        if max(launch.box_n, launch.box_k) > splitk_gemm.TMA_BOX_MAX or \
-                min(launch.box_n, launch.box_k) < 1:
-            bad.append(f"box {launch.box_n} x {launch.box_k} beyond "
+        if max(box_n, box_k) > splitk_gemm.TMA_BOX_MAX or min(box_n, box_k) < 1:
+            bad.append(f"box {box_n} x {box_k} beyond "
                        f"{splitk_gemm.TMA_BOX_MAX} elements a side")
         if bad:
             out.append(Finding(
@@ -218,6 +232,64 @@ def check_gemm_launch(launch: GemmLaunch, hw: HardwareSpec, *,
             f"(want {want}: OOB or dead blocks)"))
     order = splitk_gemm.host_first_order(n_loc_tiles, n_rem_tiles, splits)
     out.extend(check_order_permutation(order, (n_loc_tiles + n_rem_tiles) * splits, where=site))
+    return out
+
+
+def _check_cluster_gemm(launch: GemmLaunch, hw: HardwareSpec, site: str) -> list[Finding]:
+    """DAK101-103 of a `splitk_gemm` launch in the cluster design (bf16, M >
+    16, ``k_split`` > 0): its maps' swizzled boxes, its ring with its full
+    and empty barriers, and a grid of whole clusters along M that covers N
+    x K and every M row exactly, in host-first order."""
+    m, k, n_loc, n_rem, ks = launch.m, launch.k, launch.n_loc, launch.n_rem, launch.k_split
+    db = 2
+    own = splitk_gemm.gemm_tiling(m, k, n_loc, n_rem, "bfloat16", k_split=ks)
+    bn = launch.box_n or splitk_gemm.CLUSTER_BN
+    bk = launch.box_k or splitk_gemm.CLUSTER_BK
+    mb = launch.mb or own.mb
+    c = launch.cluster or own.cluster
+    # DAK102: x and both tiers through 128-byte swizzled tensor maps
+    bad = [f"{lbl}={v} elements ({v * db} B)" for lbl, v in
+           (("K", k), ("N_loc", n_loc), ("N_rem", n_rem)) if v * db % 16]
+    if not launch.aligned:
+        bad.append("a base not 16-byte aligned")
+    if not (1 <= min(bn, bk, mb) and max(bn, bk, mb) <= splitk_gemm.TMA_BOX_MAX):
+        bad.append(f"boxes {bn} x {bk} and {bk} x {mb} beyond 1..{splitk_gemm.TMA_BOX_MAX} a side")
+    if bn * db != 128 or bk * db != 128:
+        bad.append(f"rows of {bn * db} and {bk * db} B, not the 128 B a 128-byte swizzle needs")
+    if ks % bk:
+        bad.append(f"k_split={ks} not a multiple of the box's {bk} rows")
+    if bad:
+        return [Finding("DAK102", site, f"the cluster design's tensor maps cannot take "
+                                        f"{', '.join(bad)}")]
+    # DAK101: the ring with its full and empty barriers, and a cut ring
+    wanted, stages, cut = splitk_gemm._cluster_ring(mb, c, k, launch.window, ks)
+    out = _smem_finding(site, splitk_gemm._cluster_smem(mb, stages), hw)
+    out.extend(_clamp_finding(site, launch.window, wanted, stages, cut))
+    # DAK103: N x K covered exactly, every M row in one CTA, whole clusters
+    tiles = -(-n_loc // bn) + -(-n_rem // bn)
+    splits, m_tiles = -(-k // ks), -(-m // mb)
+    rows = -(-m_tiles // c)
+    grid = launch.grid or own.grid
+    problems = []
+    if isinstance(grid, int) or len(grid) != 3 or grid[1] != 1 or grid[0] % (tiles * splits):
+        problems.append(f"grid {grid} is not (tiles {tiles} x splits {splits} x cluster rows, "
+                        f"1, C) for N={n_loc}+{n_rem} in boxes of {bn} and K={k} in splits of "
+                        f"{ks}")
+    else:
+        rows, cz = grid[0] // (tiles * splits), grid[2]
+        if not 1 <= c <= splitk_gemm.CLUSTER_MAX or cz != c:
+            problems.append(f"clusters of {cz} CTAs along z for C={c} (at most "
+                            f"{splitk_gemm.CLUSTER_MAX})")
+        if not m_tiles <= rows * cz < m_tiles + cz:
+            problems.append(f"M axis of {rows} cluster row(s) x {cz} for {m_tiles} tiles of {mb} "
+                            f"rows: rows of M={m} "
+                            f"{'left out' if rows * cz < m_tiles else 'in dead clusters'}")
+    if not splits * ks >= k > (splits - 1) * ks:
+        problems.append(f"{splits} splits of {ks} rows do not cover K={k} exactly")
+    if problems:
+        out.append(Finding("DAK103", site, "; ".join(problems)))
+    order = splitk_gemm.host_first_order(-(-n_loc // bn), -(-n_rem // bn), splits * rows)
+    out.extend(check_order_permutation(order, tiles * splits * rows, where=site))
     return out
 
 
@@ -490,12 +562,14 @@ def describe_launches(
         cfg, plan: TieringPlan, shapes: dict[str, tuple[int, ...]], *,
         align: int, batch: int, max_len: int,
         dtype_bytes: int = 4, tuner: Any = None, hw: HardwareSpec = H100_SXM,
+        prefill_tokens: int | None = None,
 ) -> tuple[list[GemmLaunch], list[AttnLaunch], list[PrefillLaunch]]:
     """Replay the serving engine's kernel launches statically: every
     column-split operand the plan tiers reaches ``splitk_gemm`` (M =
-    ``batch``, the decode step's rows; either tier may be empty), in the
-    wrapper's own design (its split from ``hw``'s SM count) or, with a
-    ``tuner``, the tuned one; plus the
+    ``batch``, the decode step's rows, and, given ``prefill_tokens``, the
+    rows of one such prompt's prefill, named ``<path>@prefill``; either
+    tier may be empty), in the wrapper's own design (its split from
+    ``hw``'s SM count) or, with a ``tuner``, the tuned one; plus the
     paged decode attention and, for GQA, the batch-split attention and
     flash_prefill launches implied by the KV page plan.  Expert stacks
     split along the expert axis run the grouped entry, which takes no
@@ -517,15 +591,19 @@ def describe_launches(
         n_loc, n_rem = tiering.split_sizes(dim, ratio, align_eff)
         if n_rem == 0:
             continue  # untiered: a plain product
-        k_split = splitk_gemm.default_k_split(batch, k, n_loc, n_rem, dtype_bytes,
-                                              splitk_gemm.sm_count(hw))
-        gwin = window
-        if tuner is not None and n_loc and n_rem:
-            tuned = tuner.best_gemm(batch, k, n_loc, n_rem, dt)
-            if tuned is not None:
-                k_split, gwin = tuned["k_split"], tuned["window"]
-        gemms.append(GemmLaunch(name=od.path_str, m=batch, k=k, n_loc=n_loc, n_rem=n_rem,
-                                k_split=k_split, window=gwin, dtype_bytes=dtype_bytes))
+        rows = {od.path_str: batch}
+        if prefill_tokens:
+            rows[f"{od.path_str}@prefill"] = prefill_tokens
+        for name, m in rows.items():
+            k_split = splitk_gemm.default_k_split(m, k, n_loc, n_rem, dtype_bytes,
+                                                  splitk_gemm.sm_count(hw))
+            gwin = window
+            if tuner is not None and n_loc and n_rem:
+                tuned = tuner.best_gemm(m, k, n_loc, n_rem, dt)
+                if tuned is not None:
+                    k_split, gwin = tuned["k_split"], tuned["window"]
+            gemms.append(GemmLaunch(name=name, m=m, k=k, n_loc=n_loc, n_rem=n_rem,
+                                    k_split=k_split, window=gwin, dtype_bytes=dtype_bytes))
 
     attns: list[AttnLaunch] = []
     prefills: list[PrefillLaunch] = []
@@ -604,13 +682,13 @@ def check_kernels(cfg, plan: TieringPlan, hw: HardwareSpec,
                   where: str = "kernel", tuner: Any = None,
                   dtype_bytes: int = 4) -> list[Finding]:
     """All kernel lints for one (cfg, plan) point of the matrix.  With a
-    ``tuner`` the launch descriptors carry its tuned knobs.  The grouped
-    remote-expert launches are checked at decode and at a prefill of
-    ``max_len`` tokens, the longest whole prompt."""
+    ``tuner`` the launch descriptors carry its tuned knobs.  The tiered
+    GEMMs and the grouped remote-expert launches are checked at decode and
+    at a prefill of ``max_len`` tokens, the longest whole prompt."""
     out = check_alignment_invariants(plan, shapes, align=align, where=where)
     gemms, attns, prefills = describe_launches(
         cfg, plan, shapes, align=align, batch=batch, max_len=max_len,
-        dtype_bytes=dtype_bytes, tuner=tuner, hw=hw)
+        dtype_bytes=dtype_bytes, tuner=tuner, hw=hw, prefill_tokens=max_len)
     for g in gemms:
         out.extend(check_gemm_launch(g, hw, where=where))
     for g in describe_grouped_launches(cfg, plan, shapes, align=align, batch=batch,

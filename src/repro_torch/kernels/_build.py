@@ -47,7 +47,7 @@ _LLP, _IP = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)
 # hold in shared memory (and its ring stages), by the launch's own arithmetic.
 _SIGNATURES = {
     "splitk_gemm": {
-        "dak_splitk_gemm": [_P] * 4 + [_I] * 6 + [_P, _P, _I, _P],
+        "dak_splitk_gemm": [_P] * 4 + [_I] * 6 + [_P, _P, _P, _I, _P],
         "dak_splitk_gemm_grouped": [_P] * 4 + [_I] * 6 + [_P, _P, _P, _I, _I, _P],
         "dak_splitk_gemm_grouped_smem": [_I] * 6 + [_LLP, _IP],
         "dak_splitk_gemm_smem": [_I] * 5 + [_LLP, _IP],

@@ -17,8 +17,10 @@ winner.  The candidates:
 * ``splitk_gemm``: ``{"k_split": 0 | a multiple of DECODE_BK, "window":
   1..8}``: whole K, or the split-K design at the wrapper's default split,
   twice, four times or half of it (kept within ``[DECODE_BK, K]``), each
-  at ring depths 1 to 8.  The SM count behind the default split comes
-  from the profile (`splitk_gemm.sm_count`).
+  at ring depths 1 to 8; at bf16 past 16 rows, where the cluster design
+  takes the extents, its splits alone (multiples of CLUSTER_BK, at most
+  CLUSTER_MAX_SPLITS of them), never whole K.  The SM count behind the
+  default split comes from the profile (`splitk_gemm.sm_count`).
 * ``paged_splitk_flashattn`` and ``splitk_flashattn``: ``{"slots": w}``
   for ``w`` in `SLOT_CANDIDATES`; as in the reference, the tuned value
   caps the step's window and never changes results.
@@ -171,20 +173,20 @@ class Autotuner:
     def _gemm_cost(self, m, k, n_loc, n_rem, k_split, window, db) -> float:
         """max(host stream, HBM stream, compute) + pipeline fill.  Each
         stream pays an issue cost per transfer (one DECODE_BN x DECODE_BK
-        TMA box per split-K load, one 32-row chunk per whole-K stage),
-        amortized over the ring's stages and the CTAs of the tier that run
-        at once (one per SM at most).  The split-K design adds its fp32
-        partial sums, written and read back through HBM; whole K re-reads
-        each weight once per M tile."""
+        TMA box per split-K load, one 32-row chunk per whole-K stage, one
+        64 x 64 box per cluster load), amortized over the ring's stages and
+        the issuers of the tier that run at once (one per SM at most; a
+        cluster has one).  K splits add their fp32 partial sums, written
+        and read back through HBM; each weight crosses its link once per
+        cluster of M tiles (`splitk_gemm.gemm_tiling`): once for split-K,
+        once per M tile for whole K."""
         hw, sm = self.hw, G.sm_count(self.hw)
         stages, _ = G.ring_stages(m, k, window=window, k_split=k_split, dtype=db)
-        if k_split > 0:
-            splits, m_tiles = -(-k // k_split), 1
-            partial_bytes = 2 * splits * m * (n_loc + n_rem) * 4 if splits > 1 else 0
-        else:
-            splits, m_tiles = 1, -(-m // G._whole_k_bm(m))
-            partial_bytes = 0
-        loads = -(-k // G.DECODE_BK)             # transfers a tile's CTAs issue, all splits
+        t = G.gemm_tiling(m, k, n_loc, n_rem, db, sm_count=sm, k_split=k_split)
+        splits, m_tiles = t.splits, t.reads
+        partial_bytes = 2 * t.workspace * 4
+        # transfers a tile's CTAs issue, all splits
+        loads = -(-k // (G.CLUSTER_BK if t.design == "cluster" else G.DECODE_BK))
         rem_tiles, loc_tiles = -(-n_rem // G.DECODE_BN), -(-n_loc // G.DECODE_BN)
         rem_ctas, loc_ctas = rem_tiles * splits * m_tiles, loc_tiles * splits * m_tiles
         t_host = t_hbm_issue = 0.0
@@ -234,7 +236,20 @@ class Autotuner:
         """The GEMM's design candidates: 0 (whole K), then, where the
         split-K design takes the extents, the wrapper's default split, its
         half, double and quadruple, each a multiple of DECODE_BK within
-        ``[DECODE_BK, K]`` (K rounded up to DECODE_BK: one split)."""
+        ``[DECODE_BK, K]`` (K rounded up to DECODE_BK: one split).  Where
+        the cluster design takes them (bf16 past 16 rows) its candidates
+        replace whole K: the wrapper's split, its half, double and
+        quadruple, multiples of CLUSTER_BK within ``[CLUSTER_BK, K]``
+        that cut K into at most CLUSTER_MAX_SPLITS splits."""
+        if G.cluster_shapes_ok(m, k, n_loc, n_rem, db):
+            base = G.cluster_k_split(m, k, n_loc, n_rem, G.sm_count(self.hw))
+            top = -(-k // G.CLUSTER_BK) * G.CLUSTER_BK
+            out = []
+            for ks in (base, base // 2, base * 2, base * 4):
+                ks = min(max(G.CLUSTER_BK, ks // G.CLUSTER_BK * G.CLUSTER_BK), top)
+                if ks not in out and -(-k // ks) <= G.CLUSTER_MAX_SPLITS:
+                    out.append(ks)
+            return out
         out = [0]
         if G.decode_shapes_ok(m, k, n_loc, n_rem, db):
             base = G.decode_k_split(n_loc, n_rem, k, G.sm_count(self.hw))

@@ -13,10 +13,10 @@
 // H100 machines measured, kernels read pinned host memory at 30-33 GB/s at
 // most, whatever the copy form, CTA count, bytes in flight or row width,
 // 0.58-0.70x the copy engine's 45-54 GB/s on the same buffer; on others at
-// ~50 GB/s, 0.95x the copy engine (chip_smoke.py --phases 1,9).  Both
-// designs below run at that cap.
+// ~50 GB/s, 0.95x the copy engine (chip_smoke.py --phases 1,9).  The
+// split-K decode design below runs at that cap.
 //
-// Split-K decode (M <= 16; `k_split` > 0).
+// Split-K decode (`k_split` > 0, M <= 16: every decode step).
 //  * Direct access: every remote tile reads its weight straight from the
 //    mapped host pointer into shared memory, never staging the remote tier
 //    in HBM.  Each output tile reads only its home tier.
@@ -46,14 +46,32 @@
 //    the partials in split order 0, 1, ... and writes y, so the result
 //    does not depend on scheduling and the GEMM stays one launch.
 //  * Plain FMA into fp32 registers, one output column per thread.
-// Whole K (`k_split` == 0: prefill, and decode operands a tensor map cannot
-// describe): one CTA per (m-tile, 64 columns), remote tiles first, each
-// walking all of K through a `window`-deep cp.async ring of 32-row chunks.
-// BM = 64 or 128 covers a whole-prompt prefill of up to that many tokens in
-// one m-tile; longer prompts re-read the weight ceil(M/128) times.  Plain
-// FMA into fp32 registers.
+// Cluster (`k_split` > 0, M > 16, bf16: every prefill, chunk and encoder
+// forward of the served dtype): the design of the grouped experts' cluster
+// entry below, over the two tiers.  One thread-block cluster of C CTAs per
+// (tier tile of 64 columns, K split), laid along M, each CTA one M tile of
+// MB = 64 rows (128 once 8 tiles of 64 no longer cover M); the tiles spread
+// evenly over the fewest clusters of C <= 8, the last padded to a whole
+// cluster.  Each weight box (64 K rows x 64 columns, 8 KB) is read once per
+// cluster, the leader multicasting it into every CTA's ring, so a box of
+// the remote tier crosses the host link once per 8 x MB rows (512 or 1024)
+// where whole K read it once per 128.  Products on tensor cores.  Remote
+// clusters come first in block order (host-first), and clusters never
+// straddle tiers.  The portable cluster size of 8, not H100's non-portable
+// 16: a 2048-row prompt then reads the remote tier twice, and the launch
+// needs no occupancy query that could refuse a 16-CTA cluster at the ring
+// sizes the window asks for.  K splits put about one remote CTA on each SM
+// (the split-K decode design's aim), at most CLUSTER_MAX_SPLITS of them, so
+// the fp32 workspace stays within 4 x the output's elements.
+// Whole K (`k_split` == 0: fp32 at every M > 16, and operands a tensor map
+// cannot describe; split by dtype as flash_prefill.cu splits): one CTA per
+// (m-tile, 64 columns), remote tiles first, each walking all of K through a
+// `window`-deep cp.async ring of 32-row chunks, so an input of M rows reads
+// the weight ceil(M / BM) times (BM = 16, 64 or 128).  Plain FMA into fp32
+// registers.
 // Ragged M, N and K edges are masked (TMA and cp.async zero-fill); a tier
-// may be empty.
+// may be empty.  Every design adds the remote bytes it reads to a device
+// int64 counter (below).
 //
 // Grouped remote experts (`dak_splitk_gemm_grouped`): y[e] = x[e] @ w[e] for
 // every expert e of a remote MoE expert stack [E, K, N] in mapped host
@@ -73,41 +91,46 @@
 //    tiles of up to 64 rows, each tile re-reading its expert's weights.
 //    At M = 1 it reads at the kernel-read cap.
 //  * Cluster (bf16, M > 16: prefill, where M = an expert's capacity, ~192
-//    rows for a 2048-token Qwen3 prompt): one thread-block cluster of C
-//    CTAs per (expert, N tile, K split), laid along M, one M tile of MB =
-//    64 rows each (128 once 8 tiles of 64 no longer cover M); the tiles
-//    spread evenly over the fewest clusters of C <= 8 (the portable
-//    cluster size), the grid's M axis padded to whole clusters.  Each
-//    weight box (64 K rows x 64 columns, 8 KB) crosses the host link once
-//    per cluster: the leader (rank 0) reads it with a TMA load multicast
-//    to every CTA's ring, completing on each CTA's mbarrier, so a read
-//    serves up to 8 x MB rows (512 or 1024) instead of MB.  Each CTA reads
-//    its own x rows from HBM through its own map.  A stage is refilled only
-//    once every consumer warp of the cluster has freed it: the leader's
-//    empty barrier counts the cluster's warps (remote arrivals through
-//    mapa), a peer's its own, for its x rows.  A cluster barrier before
-//    any CTA exits keeps multicast writes and remote arrivals out of
-//    retired CTAs.  Products on tensor cores, mma.sync m16n8k16 (bf16 in,
-//    fp32 accumulate), fed by ldmatrix / ldmatrix.trans from boxes written
-//    with TMA's 128-byte swizzle, so the 8 rows of every ldmatrix phase hit
-//    8 distinct banks; four (MB 64) or eight warps of 16 rows each, and one
-//    producer warp.  mma.sync rather than wgmma: the products take a small
-//    share of a host-bound launch (2 x 192 x 2048 x 1536 FLOPs an expert
-//    against 9.4 MB over the link), and the fragments are the ones
-//    flash_prefill.cu already runs.  One issuer per cluster would cut the
-//    remote bytes in flight by C, so the ring holds C x `window` 4 KB boxes
-//    (two stages at least), the split-K design's bytes in flight per remote
-//    CTA.  Padding CTAs take part in every barrier and store nothing.
-// Both designs: K splits with an fp32 workspace reduced by the last CTA of
-// a tile in split order (bitwise repeatable), and a device int64 counter of
-// the remote bytes requested: each CTA that reads weights adds its boxes'
-// in-bounds bytes once, at its end (a cluster's leader for the cluster).
+//    rows for a 2048-token Qwen3 prompt): one cluster per (expert, N tile,
+//    K split), tiled along M as the dense cluster design is.
+// The cluster designs, dense and grouped, run one body (`cluster_tile`).
+// Each weight box crosses the host link once per cluster: the leader (rank
+// 0) reads it with a TMA load multicast to every CTA's ring, completing on
+// each CTA's mbarrier.  Each CTA reads its own x rows from HBM through its
+// own map.  A stage is refilled only once every consumer warp of the
+// cluster has freed it: the leader's empty barrier counts the cluster's
+// warps (remote arrivals through mapa), a peer's its own, for its x rows.
+// A cluster barrier before any CTA exits keeps multicast writes and remote
+// arrivals out of retired CTAs.  Products on tensor cores, mma.sync
+// m16n8k16 (bf16 in, fp32 accumulate), fed by ldmatrix / ldmatrix.trans
+// from boxes written with TMA's 128-byte swizzle, so the 8 rows of every
+// ldmatrix phase hit 8 distinct banks; four (MB 64) or eight warps of 16
+// rows each, and one producer warp.  mma.sync rather than wgmma: the
+// products take a small share of a host-bound launch (2 x 192 x 2048 x 1536
+// FLOPs an expert against 9.4 MB over the link), and the fragments are the
+// ones flash_prefill.cu already runs.  One issuer per cluster would cut the
+// remote bytes in flight by C, so the ring holds C x `window` 4 KB boxes
+// (two stages at least), the split-K design's bytes in flight per remote
+// CTA.  Padding CTAs take part in every barrier and store nothing.
+// Every design: K splits with an fp32 workspace reduced by the last CTA of
+// a tile in split order (bitwise repeatable), tickets per (M tile, N tile),
+// and a device int64 counter of the remote bytes requested: each CTA that
+// reads remote weights adds its boxes' in-bounds bytes once, at its end (a
+// cluster's leader for the cluster).
 #include "tma.cuh"
 
 namespace {
 
+// In-bounds bytes of the remote boxes one CTA reads: its K rows x its tile's
+// columns (the host-byte counter's unit).
+__device__ __forceinline__ unsigned long long box_bytes(int k_rows, int col0, int bn, int N,
+                                                        int elem) {
+  const int cols = N - col0 < bn ? N - col0 : bn;
+  return (unsigned long long)k_rows * (unsigned long long)cols * (unsigned long long)elem;
+}
+
 // ---------------------------------------------------------------------------
-// Whole-K tiles (prefill, and decode operands a tensor map cannot describe).
+// Whole-K tiles (fp32 prefill, and operands a tensor map cannot describe).
 // ---------------------------------------------------------------------------
 constexpr int BN = 64;
 constexpr int BK = 32;
@@ -122,7 +145,8 @@ __global__ void __launch_bounds__(THREADS) splitk_gemm_kernel(
     const T* __restrict__ wl,   // [K, n_loc] device
     const T* __restrict__ wr,   // [K, n_rem] mapped host
     T* __restrict__ y,          // [M, n_loc + n_rem] device
-    int M, int K, int n_loc, int n_rem, int n_rem_tiles, int stages) {
+    unsigned long long* __restrict__ host_bytes, int M, int K, int n_loc, int n_rem,
+    int n_rem_tiles, int stages) {
   constexpr int RM = BM / ROW_GROUPS;   // output rows per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* xs = reinterpret_cast<T*>(smem_raw);   // [stages][BM][BK]
@@ -207,6 +231,8 @@ __global__ void __launch_bounds__(THREADS) splitk_gemm_kernel(
     if (kk + stages < n_k) load_stage(kk + stages, slot);
     cp_async_commit();
   }
+  if (remote && tid == 0 && host_bytes != nullptr)
+    atomicAdd(host_bytes, box_bytes(K, col0, BN, n_rem, (int)sizeof(T)));
 
 #pragma unroll
   for (int r = 0; r < RM; ++r) {
@@ -244,8 +270,8 @@ size_t whole_k_smem(int stages) {
 }
 
 template <typename T, int BM, bool VEC>
-int launch(const T* x, const T* wl, const T* wr, T* y, int M, int K, int n_loc,
-           int n_rem, int stages, cudaStream_t stream) {
+int launch(const T* x, const T* wl, const T* wr, T* y, unsigned long long* host_bytes, int M,
+           int K, int n_loc, int n_rem, int stages, cudaStream_t stream) {
   const int n_loc_tiles = (n_loc + BN - 1) / BN, n_rem_tiles = (n_rem + BN - 1) / BN;
   const size_t smem = whole_k_smem<T, BM>(stages);
   auto kern = splitk_gemm_kernel<T, BM, VEC>;
@@ -255,14 +281,15 @@ int launch(const T* x, const T* wl, const T* wr, T* y, int M, int K, int n_loc,
     if (e != cudaSuccess) return e;
   }
   dim3 grid(n_loc_tiles + n_rem_tiles, (M + BM - 1) / BM);
-  kern<<<grid, THREADS, smem, stream>>>(x, wl, wr, y, M, K, n_loc, n_rem,
+  kern<<<grid, THREADS, smem, stream>>>(x, wl, wr, y, host_bytes, M, K, n_loc, n_rem,
                                         n_rem_tiles, stages);
   return cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* x, const void* wl, const void* wr, void* y, int M, int K,
-             int n_loc, int n_rem, int stages, cudaStream_t stream) {
+int dispatch(const void* x, const void* wl, const void* wr, void* y,
+             unsigned long long* host_bytes, int M, int K, int n_loc, int n_rem, int stages,
+             cudaStream_t stream) {
   constexpr int EPC = 16 / sizeof(T);
   const bool vec = K % EPC == 0 && n_loc % EPC == 0 && n_rem % EPC == 0 &&
                    aligned16(x) && aligned16(wl) && aligned16(wr);
@@ -270,16 +297,17 @@ int dispatch(const void* x, const void* wl, const void* wr, void* y, int M, int 
   const T* wlt = static_cast<const T*>(wl);
   const T* wrt = static_cast<const T*>(wr);
   T* yt = static_cast<T*>(y);
+  unsigned long long* hb = host_bytes;
   switch (whole_k_bm(M)) {
     case 16:
-      return vec ? launch<T, 16, true>(xt, wlt, wrt, yt, M, K, n_loc, n_rem, stages, stream)
-                 : launch<T, 16, false>(xt, wlt, wrt, yt, M, K, n_loc, n_rem, stages, stream);
+      return vec ? launch<T, 16, true>(xt, wlt, wrt, yt, hb, M, K, n_loc, n_rem, stages, stream)
+                 : launch<T, 16, false>(xt, wlt, wrt, yt, hb, M, K, n_loc, n_rem, stages, stream);
     case 64:
-      return vec ? launch<T, 64, true>(xt, wlt, wrt, yt, M, K, n_loc, n_rem, stages, stream)
-                 : launch<T, 64, false>(xt, wlt, wrt, yt, M, K, n_loc, n_rem, stages, stream);
+      return vec ? launch<T, 64, true>(xt, wlt, wrt, yt, hb, M, K, n_loc, n_rem, stages, stream)
+                 : launch<T, 64, false>(xt, wlt, wrt, yt, hb, M, K, n_loc, n_rem, stages, stream);
     default:
-      return vec ? launch<T, 128, true>(xt, wlt, wrt, yt, M, K, n_loc, n_rem, stages, stream)
-                 : launch<T, 128, false>(xt, wlt, wrt, yt, M, K, n_loc, n_rem, stages, stream);
+      return vec ? launch<T, 128, true>(xt, wlt, wrt, yt, hb, M, K, n_loc, n_rem, stages, stream)
+                 : launch<T, 128, false>(xt, wlt, wrt, yt, hb, M, K, n_loc, n_rem, stages, stream);
   }
 }
 
@@ -326,9 +354,9 @@ __global__ void __launch_bounds__(DTHREADS) splitk_gemm_decode_kernel(
     __grid_constant__ const CUtensorMap x_map,    // x [M, K], box DBK x MB
     __grid_constant__ const CUtensorMap wl_map,   // w_local [K, n_loc], box DBN x DBK
     __grid_constant__ const CUtensorMap wr_map,   // w_remote [K, n_rem] (mapped host)
-    T* __restrict__ y, float* __restrict__ ws, int* __restrict__ tickets, int M, int K,
-    int n_loc, int n_rem, int n_loc_tiles, int n_rem_tiles, int splits, int k_split,
-    int stages) {
+    T* __restrict__ y, float* __restrict__ ws, int* __restrict__ tickets,
+    unsigned long long* __restrict__ host_bytes, int M, int K, int n_loc, int n_rem,
+    int n_loc_tiles, int n_rem_tiles, int splits, int k_split, int stages) {
   extern __shared__ __align__(128) unsigned char smem[];   // [stages][stage], bars
   constexpr uint32_t STAGE = stage_bytes<T, MB>();
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + stages * STAGE);
@@ -380,6 +408,8 @@ __global__ void __launch_bounds__(DTHREADS) splitk_gemm_decode_kernel(
     __syncthreads();                            // every thread is done with the stage
     if (i + stages < n_ld) issue(i + stages);
   }
+  if (remote && tid == 0 && host_bytes != nullptr)
+    atomicAdd(host_bytes, box_bytes(k_end - k_begin, col0, DBN, n_rem, (int)sizeof(T)));
 
   const int col = col0 + tid;
   const int ldy = n_loc + n_rem;
@@ -417,8 +447,9 @@ __global__ void __launch_bounds__(DTHREADS) splitk_gemm_decode_kernel(
 }
 
 template <typename T, int MB>
-int launch_decode(const T* x, const T* wl, const T* wr, T* y, float* ws, int* tickets, int M,
-                  int K, int n_loc, int n_rem, int window, int k_split, cudaStream_t stream) {
+int launch_decode(const T* x, const T* wl, const T* wr, T* y, float* ws, int* tickets,
+                  unsigned long long* host_bytes, int M, int K, int n_loc, int n_rem, int window,
+                  int k_split, cudaStream_t stream) {
   constexpr int ELEM = sizeof(T);
   CUtensorMap x_map{}, wl_map{}, wr_map{};
   // a tier that is empty gets a map of one box of x (never read)
@@ -437,15 +468,15 @@ int launch_decode(const T* x, const T* wl, const T* wr, T* y, float* ws, int* ti
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   kern<<<(n_rem_tiles + n_loc_tiles) * splits, DTHREADS, smem, stream>>>(
-      x_map, wl_map, wr_map, y, ws, tickets, M, K, n_loc, n_rem, n_loc_tiles, n_rem_tiles, splits,
-      k_split, stages);
+      x_map, wl_map, wr_map, y, ws, tickets, host_bytes, M, K, n_loc, n_rem, n_loc_tiles,
+      n_rem_tiles, splits, k_split, stages);
   return cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_decode(const void* x, const void* wl, const void* wr, void* y, float* ws,
-                    int* tickets, int M, int K, int n_loc, int n_rem, int window, int k_split,
-                    cudaStream_t stream) {
+                    int* tickets, unsigned long long* host_bytes, int M, int K, int n_loc,
+                    int n_rem, int window, int k_split, cudaStream_t stream) {
   constexpr int EPC = 16 / sizeof(T);
   // tensor maps need 16-byte aligned bases and row pitches
   if (M > 16 || k_split % DBK || K % EPC || n_loc % EPC || n_rem % EPC || !aligned16(x) ||
@@ -457,7 +488,8 @@ int dispatch_decode(const void* x, const void* wl, const void* wr, void* y, floa
   const T* wrt = static_cast<const T*>(wr);
   T* yt = static_cast<T*>(y);
 #define DAK_DECODE(MB) \
-  launch_decode<T, MB>(xt, wlt, wrt, yt, ws, tickets, M, K, n_loc, n_rem, window, k_split, stream)
+  launch_decode<T, MB>(xt, wlt, wrt, yt, ws, tickets, host_bytes, M, K, n_loc, n_rem, window, \
+                       k_split, stream)
   switch (decode_mb(M)) {
     case 1: return DAK_DECODE(1);
     case 2: return DAK_DECODE(2);
@@ -473,14 +505,6 @@ int dispatch_decode(const void* x, const void* wl, const void* wr, void* y, floa
 // the split-K decode design over an expert stack.
 // ---------------------------------------------------------------------------
 constexpr int GROUPED_MAX_MB = 64;   // rows of an M tile of the split-K grouped design
-
-// In-bounds bytes of the remote boxes one CTA reads: its K rows x its tile's
-// columns (the host-byte counter's unit).
-__device__ __forceinline__ unsigned long long box_bytes(int k_rows, int col0, int bn, int N,
-                                                        int elem) {
-  const int cols = N - col0 < bn ? N - col0 : bn;
-  return (unsigned long long)k_rows * (unsigned long long)cols * (unsigned long long)elem;
-}
 
 template <typename T, int MB>
 __global__ void __launch_bounds__(DTHREADS) splitk_gemm_grouped_kernel(
@@ -694,17 +718,26 @@ __device__ __forceinline__ uint32_t swizzled(int row, int piece) {
   return (uint32_t)(row * 128 + ((piece ^ (row & 7)) << 4));
 }
 
+// One CTA's share of a cluster-design tile: the C CTAs of a cluster hold C
+// M tiles of MB rows over the same CBN columns of one weight matrix and the
+// same K split [k_begin, k_end); this CTA's tile starts at row m0 (rows past
+// M are padding: the CTA joins every barrier and stores nothing).  x_map
+// reads this CTA's rows of matrix `e` of x; the leader (rank 0) reads each
+// weight box of matrix `e` of w_map once and multicasts it into every CTA's
+// ring.  Row r, column c of the tile's output is y[r * ld + c] (columns in
+// [0, N)); with K splits the partials go to ws[split * split_stride + r * ld
+// + c] and the last of the tile's splits to arrive on `ticket` adds them in
+// split order.  The leader adds its weight boxes' in-bounds bytes to
+// `host_bytes` (if not null) once, at the end.  Both cluster entry points,
+// the dense GEMM's and the grouped experts', run this body.
 template <int MB>
-__global__ void __launch_bounds__(ClusterTile<MB>::THREADS) grouped_cluster_kernel(
-    __grid_constant__ const CUtensorMap x_map,   // x [E, M, K], box CBK x MB x 1, swizzled
-    __grid_constant__ const CUtensorMap w_map,   // w [E, K, N] (mapped host), box CBN x CBK x 1
-    const int* __restrict__ counts, bf16* __restrict__ y, float* __restrict__ ws,
-    int* __restrict__ tickets, unsigned long long* __restrict__ host_bytes, int E, int M, int K,
-    int N, int n_tiles, int splits, int k_split, int stages) {
+__device__ __forceinline__ void cluster_tile(unsigned char* smem_raw, const CUtensorMap* x_map,
+                                             const CUtensorMap* w_map, int e, int m0, int M,
+                                             int col0, int N, int k_begin, int k_end,
+                                             int stages, int split, int splits, bf16* y,
+                                             float* ws, size_t ld, size_t split_stride,
+                                             int* ticket, unsigned long long* host_bytes) {
   using Tile = ClusterTile<MB>;
-  const int e = blockIdx.y;
-  if (counts[e] == 0) return;   // the whole cluster returns: it holds one expert
-  extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((C_ALIGN - (smem_u32(smem_raw) & (C_ALIGN - 1))) & (C_ALIGN - 1));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + (size_t)stages * Tile::STAGE);
@@ -712,11 +745,7 @@ __global__ void __launch_bounds__(ClusterTile<MB>::THREADS) grouped_cluster_kern
   __shared__ bool last;
 
   const uint32_t rank = cluster_ctarank(), csize = cluster_nctarank();
-  const int tile = (int)blockIdx.x % n_tiles, split = (int)blockIdx.x / n_tiles;
-  const int m0 = (int)blockIdx.z * MB, col0 = tile * CBN;
   const bool has_rows = m0 < M;   // the last cluster's padding CTAs hold none
-  const int k_begin = split * k_split;
-  const int k_end = k_begin + k_split < K ? k_begin + k_split : K;
   const int n_ld = (k_end - k_begin + CBK - 1) / CBK;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
@@ -743,8 +772,8 @@ __global__ void __launch_bounds__(ClusterTile<MB>::THREADS) grouped_cluster_kern
         unsigned char* st = smem + (size_t)s * Tile::STAGE;
         const int k0 = k_begin + i * CBK;
         mbar_expect_tx(&full[s], tx);
-        if (has_rows) tma_load_3d(st + CW_BYTES, &x_map, k0, m0, e, &full[s]);
-        if (rank == 0) tma_load_3d_multicast(st, &w_map, col0, k0, e, &full[s], mask);
+        if (has_rows) tma_load_3d(st + CW_BYTES, x_map, k0, m0, e, &full[s]);
+        if (rank == 0) tma_load_3d_multicast(st, w_map, col0, k0, e, &full[s], mask);
       }
     }
     __syncwarp();
@@ -784,21 +813,20 @@ __global__ void __launch_bounds__(ClusterTile<MB>::THREADS) grouped_cluster_kern
     if (mine) {
       // fragment (row g, columns 2 t4, 2 t4 + 1) and row g + 8
       const int g = lane / 4, t4 = lane % 4;
-      const size_t split_off = (size_t)split * E * M * N;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = m0 + warp * 16 + g + 8 * h;
         if (row >= M) continue;
-        const size_t base = ((size_t)e * M + row) * N;
 #pragma unroll
         for (int n = 0; n < CBN / 8; ++n) {
           const int col = col0 + n * 8 + 2 * t4;
           if (col >= N) continue;   // N is a multiple of 8: col + 1 < N too
+          const size_t at = (size_t)row * ld + col;
           if (splits == 1)
-            *reinterpret_cast<__nv_bfloat162*>(y + base + col) =
+            *reinterpret_cast<__nv_bfloat162*>(y + at) =
                 __floats2bfloat162_rn(acc[n][2 * h], acc[n][2 * h + 1]);
           else
-            *reinterpret_cast<float2*>(ws + split_off + base + col) =
+            *reinterpret_cast<float2*>(ws + split * split_stride + at) =
                 make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
         }
       }
@@ -810,7 +838,6 @@ __global__ void __launch_bounds__(ClusterTile<MB>::THREADS) grouped_cluster_kern
   if (!has_rows || splits == 1) return;
 
   // one split of a tile: the last to arrive adds the partials in split order
-  int* ticket = tickets + ((size_t)e * gridDim.z + blockIdx.z) * n_tiles + tile;
   __threadfence();
   __syncthreads();
   if (tid == 0) last = atomicAdd(ticket, 1) == splits - 1;
@@ -818,11 +845,10 @@ __global__ void __launch_bounds__(ClusterTile<MB>::THREADS) grouped_cluster_kern
   if (!last) return;
   __threadfence();
   const int rows = M - m0 < MB ? M - m0 : MB;
-  const size_t split_stride = (size_t)E * M * N;
   for (int idx = tid; idx < rows * CBN; idx += Tile::THREADS) {
     const int col = col0 + idx % CBN;
     if (col >= N) continue;
-    const size_t at = ((size_t)e * M + m0 + idx / CBN) * N + col;
+    const size_t at = (size_t)(m0 + idx / CBN) * ld + col;
     float sum = 0.f;
     for (int s = 0; s < splits; ++s) sum += __ldcg(ws + s * split_stride + at);
     y[at] = __float2bfloat16(sum);
@@ -830,32 +856,85 @@ __global__ void __launch_bounds__(ClusterTile<MB>::THREADS) grouped_cluster_kern
   if (tid == 0) *ticket = 0;                    // ready for the next launch
 }
 
+// Grid (N tiles x splits, E, M tiles padded to whole clusters), clusters
+// along z.  A cluster holds one expert, so it returns whole when the
+// expert's count is 0.
 template <int MB>
-int launch_grouped_cluster(const bf16* x, const bf16* w, const int* counts, bf16* y, float* ws,
-                           int* tickets, unsigned long long* host_bytes, int E, int M, int K,
-                           int N, int window, int k_split, cudaStream_t stream) {
-  CUtensorMap x_map{}, w_map{};
-  const uint64_t x_dims[3] = {(uint64_t)K, (uint64_t)M, (uint64_t)E};
-  const uint64_t x_pitch[2] = {(uint64_t)K * 2, (uint64_t)M * K * 2};
-  const uint32_t x_box[3] = {CBK, MB, 1};
-  if (int err = dak_encode(&x_map, x, 2, 3, x_dims, x_pitch, x_box, CU_TENSOR_MAP_SWIZZLE_128B))
-    return err;
-  const uint64_t w_dims[3] = {(uint64_t)N, (uint64_t)K, (uint64_t)E};
-  const uint64_t w_pitch[2] = {(uint64_t)N * 2, (uint64_t)K * N * 2};
-  const uint32_t w_box[3] = {CBN, CBK, 1};
-  if (int err = dak_encode(&w_map, w, 2, 3, w_dims, w_pitch, w_box, CU_TENSOR_MAP_SWIZZLE_128B))
-    return err;
-  const int n_tiles = (N + CBN - 1) / CBN, m_tiles = (M + MB - 1) / MB;
-  const int csize = cluster_size(m_tiles);
-  const int grid_z = (m_tiles + csize - 1) / csize * csize;
-  const int splits = (K + k_split - 1) / k_split;
-  const int stages = cluster_stages<MB>(K, window, k_split, csize);
+__global__ void __launch_bounds__(ClusterTile<MB>::THREADS) grouped_cluster_kernel(
+    __grid_constant__ const CUtensorMap x_map,   // x [E, M, K], box CBK x MB x 1, swizzled
+    __grid_constant__ const CUtensorMap w_map,   // w [E, K, N] (mapped host), box CBN x CBK x 1
+    const int* __restrict__ counts, bf16* __restrict__ y, float* __restrict__ ws,
+    int* __restrict__ tickets, unsigned long long* __restrict__ host_bytes, int E, int M, int K,
+    int N, int n_tiles, int splits, int k_split, int stages) {
+  const int e = blockIdx.y;
+  if (counts[e] == 0) return;   // the whole cluster returns: it holds one expert
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int tile = (int)blockIdx.x % n_tiles, split = (int)blockIdx.x / n_tiles;
+  const int k_begin = split * k_split;
+  const int k_end = k_begin + k_split < K ? k_begin + k_split : K;
+  const size_t at = (size_t)e * M * N;
+  cluster_tile<MB>(smem_raw, &x_map, &w_map, e, (int)blockIdx.z * MB, M, tile * CBN, N, k_begin,
+                   k_end, stages, split, splits, y + at, ws == nullptr ? nullptr : ws + at, N,
+                   (size_t)E * M * N,
+                   tickets + ((size_t)e * gridDim.z + blockIdx.z) * n_tiles + tile, host_bytes);
+}
+
+// Grid (cluster units, 1, C), clusters along z: unit u is (tile, split,
+// cluster row) with tiles fastest, the remote tier's units first (host-first
+// order), and the CTA of rank r in cluster row q holds M tile q * C + r.
+template <int MB>
+__global__ void __launch_bounds__(ClusterTile<MB>::THREADS) splitk_gemm_cluster_kernel(
+    __grid_constant__ const CUtensorMap x_map,    // x [1, M, K], box CBK x MB x 1, swizzled
+    __grid_constant__ const CUtensorMap wl_map,   // w_local [1, K, n_loc], box CBN x CBK x 1
+    __grid_constant__ const CUtensorMap wr_map,   // w_remote [1, K, n_rem] (mapped host)
+    bf16* __restrict__ y, float* __restrict__ ws, int* __restrict__ tickets,
+    unsigned long long* __restrict__ host_bytes, int M, int K, int n_loc, int n_rem,
+    int n_loc_tiles, int n_rem_tiles, int splits, int k_split, int rows, int stages) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int csize = (int)gridDim.z;
+  const int n_rem_units = n_rem_tiles * splits * rows;
+  const bool remote = (int)blockIdx.x < n_rem_units;
+  const int u = remote ? (int)blockIdx.x : (int)blockIdx.x - n_rem_units;
+  const int n_tiles = remote ? n_rem_tiles : n_loc_tiles;
+  const int tile = u % n_tiles, split = (u / n_tiles) % splits, row = u / (n_tiles * splits);
+  const int m_tile = row * csize + (int)blockIdx.z;
+  const int k_begin = split * k_split;
+  const int k_end = k_begin + k_split < K ? k_begin + k_split : K;
+  const int ldy = n_loc + n_rem;
+  const int out0 = remote ? n_loc : 0;   // the tier's first output column
+  const int slot = remote ? tile : n_rem_tiles + tile;
+  cluster_tile<MB>(smem_raw, &x_map, remote ? &wr_map : &wl_map, 0, m_tile * MB, M, tile * CBN,
+                   remote ? n_rem : n_loc, k_begin, k_end, stages, split, splits, y + out0,
+                   ws == nullptr ? nullptr : ws + out0, ldy, (size_t)M * ldy,
+                   tickets == nullptr ? nullptr : tickets + (size_t)slot * rows * csize + m_tile,
+                   remote ? host_bytes : nullptr);
+}
+
+// The maps of a cluster-design launch: x [E, M, K] in boxes of CBK x MB rows
+// and w [E, K, N] in boxes of CBN x CBK, both 128-byte swizzled.
+int cluster_x_map(CUtensorMap* map, const void* x, int E, int M, int K, int mb) {
+  const uint64_t dims[3] = {(uint64_t)K, (uint64_t)M, (uint64_t)E};
+  const uint64_t pitch[2] = {(uint64_t)K * 2, (uint64_t)M * K * 2};
+  const uint32_t box[3] = {CBK, (uint32_t)mb, 1};
+  return dak_encode(map, x, 2, 3, dims, pitch, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+int cluster_w_map(CUtensorMap* map, const void* w, int E, int K, int N) {
+  const uint64_t dims[3] = {(uint64_t)N, (uint64_t)K, (uint64_t)E};
+  const uint64_t pitch[2] = {(uint64_t)N * 2, (uint64_t)K * N * 2};
+  const uint32_t box[3] = {CBN, CBK, 1};
+  return dak_encode(map, w, 2, 3, dims, pitch, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// One launch of `kern` in clusters of `csize` CTAs along z.  Returns 0 or the
+// cudaError_t of the attribute, the launch or the launch's check.
+template <int MB, typename... Params, typename... Args>
+int launch_clusters(void (*kern)(Params...), dim3 grid, int csize, int stages,
+                    cudaStream_t stream, Args... args) {
   const size_t smem = cluster_smem<MB>(stages);
-  auto kern = grouped_cluster_kernel<MB>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_tiles * splits, E, grid_z);
+  cfg.gridDim = grid;
   cfg.blockDim = dim3(ClusterTile<MB>::THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -866,10 +945,26 @@ int launch_grouped_cluster(const bf16* x, const bf16* w, const int* counts, bf16
   attr[0].val.clusterDim.z = csize;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kern, x_map, w_map, counts, y, ws, tickets, host_bytes, E, M, K, N,
-                         n_tiles, splits, k_split, stages);
+  e = cudaLaunchKernelEx(&cfg, kern, args...);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+template <int MB>
+int launch_grouped_cluster(const bf16* x, const bf16* w, const int* counts, bf16* y, float* ws,
+                           int* tickets, unsigned long long* host_bytes, int E, int M, int K,
+                           int N, int window, int k_split, cudaStream_t stream) {
+  CUtensorMap x_map{}, w_map{};
+  if (int err = cluster_x_map(&x_map, x, E, M, K, MB)) return err;
+  if (int err = cluster_w_map(&w_map, w, E, K, N)) return err;
+  const int n_tiles = (N + CBN - 1) / CBN, m_tiles = (M + MB - 1) / MB;
+  const int csize = cluster_size(m_tiles);
+  const int grid_z = (m_tiles + csize - 1) / csize * csize;
+  const int splits = (K + k_split - 1) / k_split;
+  const int stages = cluster_stages<MB>(K, window, k_split, csize);
+  return launch_clusters<MB>(grouped_cluster_kernel<MB>, dim3(n_tiles * splits, E, grid_z),
+                             csize, stages, stream, x_map, w_map, counts, y, ws, tickets,
+                             host_bytes, E, M, K, N, n_tiles, splits, k_split, stages);
 }
 
 int dispatch_grouped_cluster(const void* x, const void* w, const int* counts, void* y, float* ws,
@@ -886,23 +981,71 @@ int dispatch_grouped_cluster(const void* x, const void* w, const int* counts, vo
                                            N, window, k_split, stream);
 }
 
+template <int MB>
+int launch_cluster(const bf16* x, const bf16* wl, const bf16* wr, bf16* y, float* ws,
+                   int* tickets, unsigned long long* host_bytes, int M, int K, int n_loc,
+                   int n_rem, int window, int k_split, cudaStream_t stream) {
+  CUtensorMap x_map{}, wl_map{}, wr_map{};
+  if (int err = cluster_x_map(&x_map, x, 1, M, K, MB)) return err;
+  // an empty tier gets the other tier's map (never read: it has no cluster)
+  if (int err = n_loc ? cluster_w_map(&wl_map, wl, 1, K, n_loc)
+                      : cluster_w_map(&wl_map, wr, 1, K, n_rem))
+    return err;
+  if (int err = n_rem ? cluster_w_map(&wr_map, wr, 1, K, n_rem)
+                      : cluster_w_map(&wr_map, wl, 1, K, n_loc))
+    return err;
+  const int n_loc_tiles = (n_loc + CBN - 1) / CBN, n_rem_tiles = (n_rem + CBN - 1) / CBN;
+  const int m_tiles = (M + MB - 1) / MB;
+  const int csize = cluster_size(m_tiles);
+  const int rows = (m_tiles + csize - 1) / csize;
+  const int splits = (K + k_split - 1) / k_split;
+  const int stages = cluster_stages<MB>(K, window, k_split, csize);
+  return launch_clusters<MB>(splitk_gemm_cluster_kernel<MB>,
+                             dim3((n_loc_tiles + n_rem_tiles) * splits * rows, 1, csize), csize,
+                             stages, stream, x_map, wl_map, wr_map, y, ws, tickets, host_bytes, M,
+                             K, n_loc, n_rem, n_loc_tiles, n_rem_tiles, splits, k_split, rows,
+                             stages);
+}
+
+int dispatch_cluster(const void* x, const void* wl, const void* wr, void* y, float* ws,
+                     int* tickets, unsigned long long* host_bytes, int M, int K, int n_loc,
+                     int n_rem, int window, int k_split, cudaStream_t stream) {
+  // tensor maps need 16-byte aligned bases and row pitches
+  if (M <= 16 || k_split % CBK || K % 8 || n_loc % 8 || n_rem % 8 || !aligned16(x) ||
+      (n_loc && !aligned16(wl)) || (n_rem && !aligned16(wr)) ||
+      (k_split < K && (ws == nullptr || tickets == nullptr)))
+    return DAK_ERR_BAD_ARGUMENT;
+  const bf16* xt = static_cast<const bf16*>(x);
+  const bf16* wlt = static_cast<const bf16*>(wl);
+  const bf16* wrt = static_cast<const bf16*>(wr);
+  bf16* yt = static_cast<bf16*>(y);
+  return cluster_mb(M) == 64
+             ? launch_cluster<64>(xt, wlt, wrt, yt, ws, tickets, host_bytes, M, K, n_loc, n_rem,
+                                  window, k_split, stream)
+             : launch_cluster<128>(xt, wlt, wrt, yt, ws, tickets, host_bytes, M, K, n_loc, n_rem,
+                                   window, k_split, stream);
+}
+
 // The ring stages and dynamic shared memory of a grouped launch of these
 // arguments, by the launch's own arithmetic and tile choice.
+// The ring stages and dynamic shared memory of a cluster-design launch of
+// M rows, dense or grouped.
+void cluster_smem_query(int M, int K, int window, int k_split, long long* bytes, int* stages) {
+  const int mb = cluster_mb(M);
+  const int csize = cluster_size((M + mb - 1) / mb);
+  if (mb == 64) {
+    *stages = cluster_stages<64>(K, window, k_split, csize);
+    *bytes = (long long)cluster_smem<64>(*stages);
+  } else {
+    *stages = cluster_stages<128>(K, window, k_split, csize);
+    *bytes = (long long)cluster_smem<128>(*stages);
+  }
+}
+
 template <typename T>
 void grouped_smem_query(int M, int K, int window, int k_split, int design, long long* bytes,
                         int* stages) {
-  if (design == 1) {
-    const int mb = cluster_mb(M);
-    const int csize = cluster_size((M + mb - 1) / mb);
-    if (mb == 64) {
-      *stages = cluster_stages<64>(K, window, k_split, csize);
-      *bytes = (long long)cluster_smem<64>(*stages);
-    } else {
-      *stages = cluster_stages<128>(K, window, k_split, csize);
-      *bytes = (long long)cluster_smem<128>(*stages);
-    }
-    return;
-  }
+  if (design == 1) return cluster_smem_query(M, K, window, k_split, bytes, stages);
 #define DAK_QUERY(MB)                                    \
   case MB:                                               \
     *stages = decode_stages<T, MB>(K, window, k_split);  \
@@ -924,6 +1067,8 @@ void grouped_smem_query(int M, int K, int window, int k_split, int design, long 
 // these arguments uses, by the launch's own arithmetic and tile choice.
 template <typename T>
 void smem_query(int M, int K, int window, int k_split, long long* bytes, int* stages) {
+  if (k_split > 0 && M > 16)   // the cluster design (bf16)
+    return cluster_smem_query(M, K, window, k_split, bytes, stages);
   if (k_split > 0) {
 #define DAK_QUERY(MB)                                     \
   {                                                       \
@@ -951,19 +1096,28 @@ void smem_query(int M, int K, int window, int k_split, long long* bytes, int* st
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  w_remote must be mapped host memory or
-// device memory (dak_remote_ptr) when n_rem > 0.  k_split > 0 takes the split-K decode design (M <= 16,
-// k_split a multiple of 32 rows; K, n_loc and n_rem multiples of 16 bytes and
+// device memory (dak_remote_ptr) when n_rem > 0.  The design follows from M,
+// k_split and dtype:
+//  * k_split > 0 and M <= 16: the split-K decode design (k_split a multiple
+//    of 32 rows);
+//  * k_split > 0 and M > 16: the cluster design, bfloat16 only (k_split a
+//    multiple of 64 rows; M tiles of 64 rows while 8 cover M, else 128, in
+//    clusters of up to 8 along M);
+//  * k_split == 0: whole K (either dtype, any operands).
+// Both tensor-map designs take K, n_loc and n_rem multiples of 16 bytes and
 // 16-byte aligned operands; when k_split < K, `workspace` holds
-// ceil(K / k_split) * M * (n_loc + n_rem) floats and `tickets`
-// ceil(n_loc / 64) + ceil(n_rem / 64) zeroed ints); k_split == 0 the
-// whole-K design.  Returns 0, a cudaError_t, or a
-// DAK_ERR_* code.
+// ceil(K / k_split) * M * (n_loc + n_rem) floats and `tickets` (the M
+// tiles, padded to whole clusters, of the cluster design; 1 for split-K)
+// x (ceil(n_loc / 64) + ceil(n_rem / 64)) zeroed ints.  `host_bytes`, if not
+// null, is a device int64 to which every CTA that reads w_remote adds the
+// in-bounds bytes it read, once (a cluster's leader for the cluster).
+// Returns 0, a cudaError_t, or a DAK_ERR_* code.
 extern "C" int dak_splitk_gemm(const void* x, const void* w_local, const void* w_remote,
                                void* y, int M, int K, int n_loc, int n_rem, int window,
-                               int k_split, void* workspace, void* tickets, int dtype,
-                               void* stream) {
+                               int k_split, void* workspace, void* tickets, void* host_bytes,
+                               int dtype, void* stream) {
   if (M <= 0 || K <= 0 || n_loc < 0 || n_rem < 0 || n_loc + n_rem <= 0 || window < 1 ||
-      k_split < 0 || (dtype != 0 && dtype != 1))
+      k_split < 0 || (dtype != 0 && dtype != 1) || (k_split > 0 && M > 16 && dtype != 1))
     return DAK_ERR_BAD_ARGUMENT;
   const void* wr = nullptr;
   if (n_rem > 0) {
@@ -972,17 +1126,19 @@ extern "C" int dak_splitk_gemm(const void* x, const void* w_local, const void* w
   }
   const void* wl = n_loc > 0 ? w_local : nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k_split > 0) {
-    float* ws = static_cast<float*>(workspace);
-    int* tk = static_cast<int*>(tickets);
-    return dtype == 0 ? dispatch_decode<float>(x, wl, wr, y, ws, tk, M, K, n_loc, n_rem, window,
-                                               k_split, s)
-                      : dispatch_decode<__nv_bfloat16>(x, wl, wr, y, ws, tk, M, K, n_loc, n_rem,
-                                                       window, k_split, s);
-  }
+  float* ws = static_cast<float*>(workspace);
+  int* tk = static_cast<int*>(tickets);
+  unsigned long long* hb = static_cast<unsigned long long*>(host_bytes);
+  if (k_split > 0 && M > 16)
+    return dispatch_cluster(x, wl, wr, y, ws, tk, hb, M, K, n_loc, n_rem, window, k_split, s);
+  if (k_split > 0)
+    return dtype == 0 ? dispatch_decode<float>(x, wl, wr, y, ws, tk, hb, M, K, n_loc, n_rem,
+                                               window, k_split, s)
+                      : dispatch_decode<__nv_bfloat16>(x, wl, wr, y, ws, tk, hb, M, K, n_loc,
+                                                       n_rem, window, k_split, s);
   const int stages = whole_k_stages(K, window);
-  return dtype == 0 ? dispatch<float>(x, wl, wr, y, M, K, n_loc, n_rem, stages, s)
-                    : dispatch<__nv_bfloat16>(x, wl, wr, y, M, K, n_loc, n_rem, stages, s);
+  return dtype == 0 ? dispatch<float>(x, wl, wr, y, hb, M, K, n_loc, n_rem, stages, s)
+                    : dispatch<__nv_bfloat16>(x, wl, wr, y, hb, M, K, n_loc, n_rem, stages, s);
 }
 
 
@@ -1047,13 +1203,14 @@ extern "C" int dak_splitk_gemm_grouped_smem(int M, int K, int window, int k_spli
 
 // What a dak_splitk_gemm launch with these arguments would hold: its ring
 // stages and its dynamic shared memory in bytes (`k_split` > 0 the split-K
-// design, which takes M <= 16; 0 whole K).  Launches nothing; the
-// wrappers' shared-memory footprints are checked against it.  Returns 0 or
-// DAK_ERR_BAD_ARGUMENT.
+// design at M <= 16 and the cluster design, bfloat16 only, past that; 0
+// whole K).  Launches nothing; the wrappers' shared-memory footprints are
+// checked against it.  Returns 0 or DAK_ERR_BAD_ARGUMENT.
 extern "C" int dak_splitk_gemm_smem(int M, int K, int window, int k_split, int dtype,
                                     long long* bytes, int* stages) {
-  if (M <= 0 || K <= 0 || window < 1 || k_split < 0 || (k_split > 0 && (M > 16 || k_split % DBK)) ||
-      (dtype != 0 && dtype != 1) || bytes == nullptr || stages == nullptr)
+  if (M <= 0 || K <= 0 || window < 1 || k_split < 0 || (k_split > 0 && M <= 16 && k_split % DBK) ||
+      (k_split > 0 && M > 16 && (dtype != 1 || k_split % CBK)) || (dtype != 0 && dtype != 1) ||
+      bytes == nullptr || stages == nullptr)
     return DAK_ERR_BAD_ARGUMENT;
   if (dtype == 0)
     smem_query<float>(M, K, window, k_split, bytes, stages);

@@ -6,17 +6,29 @@ column-partitioned between the local tier (HBM) and the remote tier
 (``csrc/splitk_gemm.cu``) reads every output tile's weight straight from
 the tile's home tier into a ``window``-deep shared-memory ring, remote
 tiles first, and accumulates in fp32; its head note says what bounds it
-and what the design does about that.  Two designs, one launch each:
+and what the design does about that.  Three designs, split by M and dtype,
+one launch each (:func:`gemm_tiling` says which takes a launch):
 
-* split-K decode (M <= 16, operands a tensor map can describe): both
-  tiers split along K into :func:`decode_k_split` rows per CTA, each load
-  one TMA box of 32 rows of a 64-column tile; partial sums go to a
-  workspace this wrapper allocates and are added in split order by the
-  last CTA of each tile (the ticket counters are kept per device and
-  stream, zero between launches).  A remote tier of 132 tiles or more
-  takes one split, which needs neither;
-* whole K (prefill, and decode operands whose rows are not 16-byte
-  multiples or aligned): one CTA per 64 columns walks all of K.
+* split-K decode (M <= 16, operands a tensor map can describe; every
+  decode step): both tiers split along K into :func:`decode_k_split` rows
+  per CTA, each load one TMA box of 32 rows of a 64-column tile; partial
+  sums go to a workspace this wrapper allocates and are added in split
+  order by the last CTA of each tile (the ticket counters are kept per
+  device and stream, zero between launches).  A remote tier of 132 tiles
+  or more takes one split, which needs neither;
+* cluster (bf16 at M > 16, operands a tensor map can describe; every
+  prefill, chunk and encoder forward of the served dtype): clusters of up
+  to 8 CTAs along M share each 64 x 64 weight box by TMA multicast, so
+  the remote tier crosses the host link once per cluster of M tiles
+  (once up to 512 rows, twice at 2048) instead of once per 128 rows, and
+  the products run on tensor cores; K splits as the decode design aims
+  them, at most :data:`CLUSTER_MAX_SPLITS`;
+* whole K (fp32 at M > 16, and operands whose rows are not 16-byte
+  multiples or aligned): one CTA per (M tile of up to 128 rows, 64
+  columns) walks all of K, re-reading the weight once per M tile.
+
+Every design adds the remote bytes it reads to :attr:`splitk_gemm.host_bytes`,
+a count kept on the device.
 
 A third entry, :func:`splitk_gemm_grouped`, runs a remote MoE expert
 stack ``[E, K, N]`` in one launch over every expert, each CTA reading the
@@ -59,8 +71,10 @@ DECODE_BN = 64              # its tile columns (csrc/splitk_gemm.cu DBN)
 DECODE_BK = 32              # rows of one of its loads (DBK)
 REMOTE_CTAS_PER_SM = 1      # remote CTAs a split aims for, per SM
 GROUPED_MAX_M = 64          # rows of an M tile of the grouped split-K design (GROUPED_MAX_MB)
-CLUSTER_BN = CLUSTER_BK = 64    # the grouped cluster design's weight box (CBN x CBK, 8 KB)
+CLUSTER_BN = CLUSTER_BK = 64    # the cluster designs' weight box (CBN x CBK, 8 KB)
 CLUSTER_MAX = 8             # CTAs of a cluster at most (the portable cluster size)
+CLUSTER_MAX_SPLITS = 4      # K splits of the dense cluster design at most: its fp32
+                            # workspace within 4 x the output's elements (8 x its bf16 bytes)
 CLUSTER_SMEM_MAX = 232448   # its ring's cap: the dynamic shared memory a CTA may opt into
 CLUSTER_ALIGN = 1024        # its swizzled boxes' alignment (C_ALIGN): slack in shared memory
 DSMEM_MAX = 200 * 1024      # the split-K ring's cap in shared memory (DSMEM_MAX)
@@ -113,25 +127,86 @@ def _decode_mb(m: int) -> int:
 
 
 def _whole_k_bm(m: int) -> int:
-    """Rows of a whole-K M tile: 16, 64 or 128 (the dispatch on M)."""
+    """Rows of a whole-K M tile: 16, 64 or 128 (the dispatch on M).  Whole
+    K takes fp32 at every M > 16 and operands no tensor map can describe;
+    bf16 past 16 rows runs the cluster design (`_cluster_mb`)."""
     return 16 if m <= 16 else 64 if m <= 64 else 128
+
+
+def _cluster_mb(m: int) -> int:
+    """Rows of a cluster-design M tile: 64 while 8 tiles of 64 cover M, else
+    128 (``cluster_mb`` in the kernel, the dense and grouped entries alike)."""
+    return 64 if -(-m // 64) <= CLUSTER_MAX else 128
+
+
+def _cluster_size(m_tiles: int) -> int:
+    """CTAs of a cluster: the M tiles spread evenly over the fewest clusters
+    of at most CLUSTER_MAX (``cluster_size``)."""
+    clusters = -(-m_tiles // CLUSTER_MAX)
+    return -(-m_tiles // clusters)
+
+
+def _cluster_ring(mb: int, c: int, k: int, window: int,
+                  k_split: int) -> tuple[int, int, str | None]:
+    """``(wanted, stages, cut)`` of a cluster-design ring (``cluster_stages``):
+    the split-K design's ``window`` 4 KB boxes in flight per CTA, C times
+    over, in 8 KB weight boxes, two stages at least; cut to the loads a
+    CTA's split has ("loads") and to the shared memory a CTA may opt into
+    ("CLUSTER_SMEM_MAX")."""
+    stage = _cluster_stage_bytes(mb)
+    loads = -(-min(k_split, k) // CLUSTER_BK)
+    wanted = max(2, -(-c * window * DECODE_BK * DECODE_BN // (CLUSTER_BK * CLUSTER_BN)))
+    stages, cut = wanted, None
+    if stages > loads:
+        stages, cut = loads, "loads"
+    cap = (CLUSTER_SMEM_MAX - CLUSTER_ALIGN) // (stage + 16)
+    if stages > cap:
+        stages, cut = cap, "CLUSTER_SMEM_MAX"
+    return wanted, stages, cut
+
+
+def _cluster_stage_bytes(mb: int) -> int:
+    """One cluster-design ring stage in bf16: a CBK x CBN weight box and MB
+    rows of CBK columns of x."""
+    return (CLUSTER_BK * CLUSTER_BN + mb * CLUSTER_BK) * 2
+
+
+def _cluster_smem(mb: int, stages: int) -> int:
+    """Dynamic shared memory of a cluster-design launch: the 1024-byte
+    alignment slack, the ring, and a full and an empty mbarrier a stage."""
+    return CLUSTER_ALIGN + stages * (_cluster_stage_bytes(mb) + 16)
 
 
 def decode_shapes_ok(m: int, k: int, n_loc: int, n_rem: int, elem: int) -> bool:
     """Whether the split-K decode design takes these extents: M <= 16 and
     rows of 16-byte multiples (bases must also be 16-byte aligned, which
-    only tensors can tell: `_decode_operands_ok`)."""
-    return (m <= DECODE_MAX_M and k * elem % 16 == 0 and n_loc * elem % 16 == 0
-            and n_rem * elem % 16 == 0)
+    only tensors can tell: `_operands_aligned`)."""
+    return m <= DECODE_MAX_M and _rows_ok(k, n_loc, n_rem, elem)
+
+
+def cluster_shapes_ok(m: int, k: int, n_loc: int, n_rem: int, elem: int) -> bool:
+    """Whether the cluster design takes these extents: bf16, M > 16 and
+    rows of 16-byte multiples (and 16-byte aligned bases)."""
+    return elem == 2 and m > DECODE_MAX_M and _rows_ok(k, n_loc, n_rem, elem)
+
+
+def _rows_ok(k: int, n_loc: int, n_rem: int, elem: int) -> bool:
+    return k * elem % 16 == 0 and n_loc * elem % 16 == 0 and n_rem * elem % 16 == 0
 
 
 def ring_stages(m: int, k: int, *, window: int, k_split: int, dtype) -> tuple[int, str | None]:
     """The ring stages a launch runs with, as the kernel computes them, and
-    what cut the requested ``window`` (None if nothing did): "loads" (a
-    CTA has fewer loads than the window), "DSMEM_MAX" (the split-K ring's
-    shared-memory cap) or "MAX_WINDOW" (the whole-K cap of 8).
-    ``k_split`` > 0 is the split-K design, 0 whole K."""
+    what cut the ring it asks for (None if nothing did): "loads" (a CTA
+    has fewer loads than that), "DSMEM_MAX" (the split-K ring's
+    shared-memory cap), "CLUSTER_SMEM_MAX" (the cluster ring's) or
+    "MAX_WINDOW" (the whole-K cap of 8).  ``k_split`` > 0 is the split-K
+    design at M <= 16 and the cluster design past that (whose ring asks
+    for C x ``window`` 4 KB boxes, `_cluster_ring`), 0 whole K."""
     window = max(1, int(window))
+    if k_split > 0 and m > DECODE_MAX_M:
+        mb = _cluster_mb(m)
+        _, stages, cut = _cluster_ring(mb, _cluster_size(-(-m // mb)), k, window, k_split)
+        return stages, cut
     if k_split > 0:
         return _split_k_ring(_decode_mb(m), k, window, k_split, elem_bytes(dtype))
     stages = min(window, -(-k // WHOLE_K_BK))
@@ -160,15 +235,20 @@ def smem_footprint_bytes(m: int, k: int, n_loc: int, n_rem: int, *, window: int,
                          k_split: int, dtype) -> int:
     """Dynamic shared memory of one `splitk_gemm` launch, by the kernel's
     own arithmetic, clamps included (``csrc/splitk_gemm.cu``
-    `decode_smem`, `whole_k_smem`): ``stages * (STAGE + 8)`` for the
-    split-K design (``k_split`` > 0; a ring stage and its mbarrier), and
-    ``stages * (BM*BK + BK*BN) * elem`` for whole K (``k_split`` 0).  The
-    tiers' widths change the grid, not a CTA's footprint.  Counterpart of
-    the reference's ``vmem_footprint_bytes``; the kernel lint DAK101 holds
-    it against the per-CTA shared-memory limit."""
+    `decode_smem`, `cluster_smem`, `whole_k_smem`): ``stages * (STAGE +
+    8)`` for the split-K design (``k_split`` > 0 at M <= 16; a ring stage
+    and its mbarrier), ``1024 + stages * (STAGE + 16)`` for the cluster
+    design (``k_split`` > 0 past 16 rows; alignment slack, a stage and its
+    full and empty mbarriers) and ``stages * (BM*BK + BK*BN) * elem`` for
+    whole K (``k_split`` 0).  The tiers' widths change the grid, not a
+    CTA's footprint.  Counterpart of the reference's
+    ``vmem_footprint_bytes``; the kernel lint DAK101 holds it against the
+    per-CTA shared-memory limit."""
     del n_loc, n_rem
     stages, _ = ring_stages(m, k, window=window, k_split=k_split, dtype=dtype)
     elem = elem_bytes(dtype)
+    if k_split > 0 and m > DECODE_MAX_M:
+        return _cluster_smem(_cluster_mb(m), stages)
     if k_split > 0:
         return stages * (_stage_bytes(_decode_mb(m), elem) + 8)
     return stages * (_whole_k_bm(m) * WHOLE_K_BK + WHOLE_K_BK * WHOLE_K_BN) * elem
@@ -195,12 +275,96 @@ def host_first_order(n_loc_tiles: int, n_rem_tiles: int, splits: int = 1) -> np.
 
 
 def default_k_split(m: int, k: int, n_loc: int, n_rem: int, elem: int, sm_count: int) -> int:
-    """The wrapper's own design choice for operands that a tensor map can
-    describe: the split-K design at `decode_k_split` for M <= 16 and rows
-    of 16-byte multiples, else whole K (0)."""
+    """The wrapper's own design choice for operands on 16-byte aligned
+    bases: the split-K design at `decode_k_split` for M <= 16, the cluster
+    design at `cluster_k_split` for bf16 past that (rows of 16-byte
+    multiples both), else whole K (0)."""
     if decode_shapes_ok(m, k, n_loc, n_rem, elem):
         return decode_k_split(n_loc, n_rem, k, sm_count)
+    if cluster_shapes_ok(m, k, n_loc, n_rem, elem):
+        return cluster_k_split(m, k, n_loc, n_rem, sm_count)
     return 0
+
+
+def cluster_k_split(m: int, k: int, n_loc: int, n_rem: int, sm_count: int) -> int:
+    """Rows of K each CTA of the cluster design reads, in both tiers: K
+    split evenly, in multiples of CLUSTER_BK, into the fewest splits that
+    give ``REMOTE_CTAS_PER_SM * sm_count`` remote CTAs (tiles of
+    CLUSTER_BN columns x M tiles padded to whole clusters x splits), at
+    most CLUSTER_MAX_SPLITS and no more than K has loads.  The local tier's
+    tiles decide when the remote tier is empty."""
+    mb = _cluster_mb(m)
+    m_tiles = -(-m // mb)
+    c = _cluster_size(m_tiles)
+    ctas = max(1, -(-(n_rem or n_loc) // CLUSTER_BN)) * -(-m_tiles // c) * c
+    loads = -(-k // CLUSTER_BK)
+    splits = min(CLUSTER_MAX_SPLITS, loads, -(-REMOTE_CTAS_PER_SM * sm_count // ctas))
+    return -(-loads // splits) * CLUSTER_BK
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmTiling:
+    """How one `splitk_gemm` launch cuts its work (``csrc/splitk_gemm.cu``
+    `dak_splitk_gemm`).  ``design`` is "split-K" (M <= 16; one M tile of
+    ``mb`` rows up to 16), "cluster" (bf16 past 16 rows; clusters of
+    ``cluster`` CTAs along M, one tile of ``mb`` = 64 or 128 rows each,
+    sharing every weight box by TMA multicast) or "whole-K" (M tiles of
+    ``mb`` = 16, 64 or 128 rows, each reading its weights).  ``grid_z`` is
+    the M tiles padded to whole clusters; ``k_split`` the rows of K a CTA
+    reads (0: whole K) in ``splits`` splits; ``grid`` the launch's CTAs
+    (x, y, z): (tiles x splits, 1, 1) for split-K, (tiles, M tiles, 1) for
+    whole K and (tiles x splits x cluster rows, 1, C) for the cluster
+    design, whose clusters lie along z.  ``workspace`` and ``tickets`` are
+    the fp32 partial sums and ticket counters the wrapper allocates (0
+    with one split)."""
+    design: str
+    mb: int
+    cluster: int
+    m_tiles: int
+    grid_z: int
+    k_split: int
+    splits: int
+    grid: tuple[int, int, int]
+    workspace: int
+    tickets: int
+
+    @property
+    def reads(self) -> int:
+        """Times the remote tier crosses the host link: once per cluster of
+        M tiles (once per M tile for whole K, once for split-K)."""
+        return self.grid_z // self.cluster
+
+
+def gemm_tiling(m: int, k: int, n_loc: int, n_rem: int, dtype, *, sm_count: int = 132,
+                aligned: bool = True, k_split: int | None = None) -> GemmTiling:
+    """The tiling of a `splitk_gemm` launch of x [M, K] against tiers of
+    ``n_loc`` and ``n_rem`` columns in `dtype` on a card of `sm_count` SMs,
+    as the wrapper picks it (``aligned``: the operands' bases are 16-byte
+    aligned) or, given ``k_split``, as that knob picks it: 0 whole K, > 0
+    split-K at M <= 16 and the cluster design past that.  The counterpart
+    of `grouped_tiling`; `reads` is what ``splitk_gemm.host_bytes`` counts
+    a launch, in units of the remote tier."""
+    elem = elem_bytes(dtype)
+    if k_split is None:
+        k_split = default_k_split(m, k, n_loc, n_rem, elem, sm_count) if aligned else 0
+    bn = DECODE_BN
+    tiles = -(-n_loc // bn) + -(-n_rem // bn)
+    if k_split == 0:
+        mb = _whole_k_bm(m)
+        m_tiles = -(-m // mb)
+        return GemmTiling("whole-K", mb, 1, m_tiles, m_tiles, 0, 1, (tiles, m_tiles, 1), 0, 0)
+    splits = -(-k // k_split)
+    workspace = splits * m * (n_loc + n_rem) if splits > 1 else 0
+    if m <= DECODE_MAX_M:
+        return GemmTiling("split-K", _decode_mb(m), 1, 1, 1, k_split, splits,
+                          (tiles * splits, 1, 1), workspace, tiles if workspace else 0)
+    mb = _cluster_mb(m)
+    m_tiles = -(-m // mb)
+    c = _cluster_size(m_tiles)
+    grid_z = -(-m_tiles // c) * c
+    return GemmTiling("cluster", mb, c, m_tiles, grid_z, k_split, splits,
+                      (tiles * splits * (grid_z // c), 1, c), workspace,
+                      tiles * grid_z if workspace else 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -232,36 +396,38 @@ def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
     return t
 
 
-def _decode_operands_ok(x: torch.Tensor, w_local: torch.Tensor, w_remote: torch.Tensor) -> bool:
-    """Whether the split-K decode design takes the operands: M <= 16 and a
-    tensor map can describe every operand (16-byte aligned bases and rows a
-    multiple of 16 bytes)."""
-    return (decode_shapes_ok(x.shape[0], x.shape[1], w_local.shape[1], w_remote.shape[1],
-                             x.element_size())
-            and all(t.data_ptr() % 16 == 0 for t in (x, w_local, w_remote) if t.numel()))
+def _operands_aligned(x: torch.Tensor, w_local: torch.Tensor, w_remote: torch.Tensor) -> bool:
+    """Whether every non-empty operand's base is 16-byte aligned, as a
+    tensor map needs (the rows' widths are `gemm_tiling`'s to check)."""
+    return all(t.data_ptr() % 16 == 0 for t in (x, w_local, w_remote) if t.numel())
 
 
 def _launch(x: torch.Tensor, w_local: torch.Tensor, w_remote: torch.Tensor, window: int,
             k_split: int) -> torch.Tensor:
     """One launch of the kernel on checked CUDA operands (M >= 1) with the
     design given: ``k_split`` 0 is the whole-K design, > 0 the split-K
-    decode design with that many rows of K per CTA.  Allocates the output
-    and, for more than one split, the workspace and tickets."""
+    decode design (M <= 16) or the cluster design (past 16 rows, bf16) with
+    that many rows of K per CTA.  Allocates the output and, for more than
+    one split, the workspace and tickets; adds the remote bytes read to
+    ``splitk_gemm.host_bytes``.  ``k_split`` 0 at bf16 past 16 rows is the
+    whole-K design that the cluster design replaced, kept reachable here to
+    measure the two against each other; the wrapper's own choice never
+    takes it where the cluster design takes the operands."""
     m, k = x.shape
     n_loc, n_rem = w_local.shape[1], w_remote.shape[1]
+    t = gemm_tiling(m, k, n_loc, n_rem, x.dtype, k_split=k_split)
     y = torch.empty((m, n_loc + n_rem), dtype=x.dtype, device=x.device)
     stream = _build.stream_handle(x.device)
     ws, tickets = None, None
-    if 0 < k_split < k:
-        ws = torch.empty(-(-k // k_split) * m * (n_loc + n_rem), dtype=torch.float32,
-                         device=x.device)
-        tickets = _tickets(x.device, stream,
-                           -(-n_loc // DECODE_BN) + -(-n_rem // DECODE_BN))
+    if t.workspace:
+        ws = torch.empty(t.workspace, dtype=torch.float32, device=x.device)
+        tickets = _tickets(x.device, stream, t.tickets)
+    host_bytes = splitk_gemm.host_bytes.total(x.device)
     rc = _build.load().libs["splitk_gemm"].dak_splitk_gemm(
         x.data_ptr(), w_local.data_ptr(), w_remote.data_ptr(), y.data_ptr(),
         m, k, n_loc, n_rem, max(1, int(window)), k_split,
         0 if ws is None else ws.data_ptr(), 0 if tickets is None else tickets.data_ptr(),
-        _DTYPES[x.dtype], stream)
+        host_bytes.data_ptr(), _DTYPES[x.dtype], stream)
     _build.check(rc, "splitk_gemm")
     return y
 
@@ -302,11 +468,16 @@ def splitk_gemm(x: torch.Tensor, w_local: torch.Tensor, w_remote: torch.Tensor,
     is the number of loads each CTA keeps in flight (the depth of its
     shared-memory ring, capped by shared memory); it never changes the
     result.  ``k_split`` picks the design: None the wrapper's own choice
-    (split-K at `decode_k_split` where the decode design takes the
-    operands, else whole K), 0 whole K, and a positive multiple of
-    DECODE_BK the split-K design with that many rows of K per CTA, refused
-    where that design cannot take the operands.  The plain CPU version
-    ignores both knobs."""
+    (`gemm_tiling`: split-K at `decode_k_split` for M <= 16, the cluster
+    design at `cluster_k_split` for bf16 past that, where a tensor map
+    takes the operands, else whole K), 0 whole K, and a positive multiple
+    of DECODE_BK the split-K design (M <= 16) or, a multiple of
+    CLUSTER_BK, the cluster design (bf16 past 16 rows) with that many rows
+    of K per CTA, refused where that design cannot take the operands.  The
+    engine and the autotuner never pass 0 where the cluster design takes
+    the operands.  ``host_bytes`` (a `DeviceCount`) counts the remote
+    bytes the launches read over the host link, on the device.  The plain
+    CPU version ignores both knobs."""
     if k_split is not None and (k_split < 0 or k_split % DECODE_BK):
         raise ValueError(f"k_split must be 0 (whole K) or a positive multiple of {DECODE_BK}, "
                          f"got {k_split}")
@@ -319,19 +490,28 @@ def splitk_gemm(x: torch.Tensor, w_local: torch.Tensor, w_remote: torch.Tensor,
     n_loc, n_rem = w_local.shape[1], w_remote.shape[1]
     if m == 0:
         return torch.empty((0, n_loc + n_rem), dtype=x.dtype, device=x.device)
-    decode_ok = _decode_operands_ok(x, w_local, w_remote)
+    aligned = _operands_aligned(x, w_local, w_remote)
     if k_split is None:
-        k_split = decode_k_split(n_loc, n_rem, k, _sm_count(x.device.index)) if decode_ok else 0
-    elif k_split > 0 and not decode_ok:
-        raise ValueError(f"k_split={k_split} asks for the split-K decode design, which takes "
-                         f"M <= {DECODE_MAX_M} and 16-byte rows and bases only; got M={m}, "
-                         f"K={k}, N_loc={n_loc}, N_rem={n_rem} of {x.dtype}")
+        k_split = gemm_tiling(m, k, n_loc, n_rem, x.dtype, sm_count=_sm_count(x.device.index),
+                              aligned=aligned).k_split
+    elif k_split > 0:
+        elem = x.element_size()
+        takes = decode_shapes_ok if m <= DECODE_MAX_M else cluster_shapes_ok
+        if not (aligned and takes(m, k, n_loc, n_rem, elem)) or (
+                m > DECODE_MAX_M and k_split % CLUSTER_BK):
+            raise ValueError(
+                f"k_split={k_split} asks for the split-K decode design (M <= {DECODE_MAX_M}) or "
+                f"the cluster design (bfloat16 past {DECODE_MAX_M} rows, k_split a multiple of "
+                f"{CLUSTER_BK}), which take 16-byte rows and bases only; got M={m}, K={k}, "
+                f"N_loc={n_loc}, N_rem={n_rem} of {x.dtype}")
     y = _launch(x, w_local, w_remote, window, k_split)
     splitk_gemm.launches += 1
     return y
 
 
 splitk_gemm.launches = 0   # kernel launches since the count was last reset
+# remote bytes the launches read over the host link, counted on the device
+splitk_gemm.host_bytes = DeviceCount()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -373,11 +553,10 @@ def grouped_tiling(m: int, dtype, *, design: str | None = None) -> GroupedTiling
     if design != "cluster" or elem_bytes(dtype) != 2:
         raise ValueError(f"grouped designs are 'split-K' and 'cluster' (bfloat16 only), got "
                          f"{design!r} for {dtype}")
-    mb = 64 if -(-m // 64) <= CLUSTER_MAX else 128
+    mb = _cluster_mb(m)
     tiles = -(-m // mb)
-    clusters = -(-tiles // CLUSTER_MAX)
-    c = -(-tiles // clusters)
-    return GroupedTiling(design, mb, c, tiles, clusters * c)
+    c = _cluster_size(tiles)
+    return GroupedTiling(design, mb, c, tiles, -(-tiles // c) * c)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -421,17 +600,8 @@ def grouped_launch(e: int, m: int, k: int, n: int, dtype, *, window: int, sm_cou
         smem = stages * (_stage_bytes(t.mb, elem) + 8)
     else:
         bn, bk, threads = CLUSTER_BN, CLUSTER_BK, 32 * (t.mb // 16 + 1)
-        stage = (bk * bn + t.mb * bk) * elem
-        loads = -(-min(k_split, k) // bk)
-        # the split-K design's `window` boxes in flight a CTA, C times over
-        wanted = max(2, -(-t.cluster * window * DECODE_BK * DECODE_BN // (bk * bn)))
-        cap = (CLUSTER_SMEM_MAX - CLUSTER_ALIGN) // (stage + 16)
-        stages, cut = wanted, None
-        if stages > loads:
-            stages, cut = loads, "loads"
-        if stages > cap:
-            stages, cut = cap, "CLUSTER_SMEM_MAX"
-        smem = CLUSTER_ALIGN + stages * (stage + 16)   # slack, ring, a full and an empty mbarrier
+        wanted, stages, cut = _cluster_ring(t.mb, t.cluster, k, window, k_split)
+        smem = _cluster_smem(t.mb, stages)
     splits = -(-k // k_split)
     n_tiles = -(-n // bn)
     return GroupedLaunch(

@@ -23,6 +23,7 @@ from repro_torch.analysis.kernel_lints import check_autotune_table
 from repro_torch.core.hardware import H100_SXM
 from repro_torch.core.hardware import TPU_V5E as T_TPU
 from repro_torch.kernels import autotune as TA
+from repro_torch.kernels import splitk_gemm as G
 from repro_torch.models import model as TM
 from repro_torch.serving.engine import Request as TRequest
 from repro_torch.serving.engine import ServingEngine as TEngine
@@ -130,8 +131,13 @@ def test_every_winner_passes_the_hopper_lints(hw):
     gemm = [e for e in entries if e["op"] == "splitk_gemm"]
     assert {e["config"]["window"] for e in gemm} <= set(TA.WINDOW_CANDIDATES)
     assert all(e["config"]["k_split"] % 32 == 0 for e in gemm)
-    # M > 16 has no split-K candidate
-    assert all(e["config"]["k_split"] == 0 for e in gemm if e["shape"][0] > 16)
+    # M > 16 has no split-K candidate: fp32 takes whole K, bf16 the cluster
+    # design (whole 64-row boxes), never whole K
+    assert all(e["config"]["k_split"] == 0 for e in gemm
+               if e["shape"][0] > 16 and e["dtype"] == "float32")
+    assert all(e["config"]["k_split"] > 0 and e["config"]["k_split"] % G.CLUSTER_BK == 0
+               for e in gemm if e["shape"][0] > 16 and e["dtype"] == "bfloat16")
+    assert any(e["shape"][0] > 16 and e["dtype"] == "bfloat16" for e in gemm)
     # a hand-edited window past the split-K ring's shared-memory cap is refused
     bad = dict(gemm[0], config={"k_split": 4096, "window": 64}, dtype="float32")
     assert {f.rule for f in check_autotune_table([bad])} == {"DAK101"}
@@ -175,3 +181,21 @@ def test_autotune_keys_and_counters_equal_the_jax_engine():
           7, new_tokens=4, jit_step=True, tuner=tt, device="cpu")
     assert set(tt.table) == set(jt.table) and len(tt.table) >= 5
     assert tt.counters() == jt.counters()
+
+
+@pytest.mark.parametrize("m,reads", [(512, 1), (2048, 2)])
+def test_gemm_cost_reads_the_remote_tier_once_per_cluster(m, reads):
+    """At bf16 past 16 rows the candidates are the cluster design's splits
+    alone, whose modeled cost reads the remote tier once per cluster of M
+    tiles (`gemm_tiling(...).reads`), where whole K read it once per M tile
+    of 128 rows: the costs stand about in the ratio of the reads."""
+    tuner = TA.Autotuner(H100_SXM)
+    shape = (m, 4096, 11008, 11008)
+    splits = tuner.gemm_k_splits(*shape, 2)
+    assert splits and 0 not in splits and all(ks % G.CLUSTER_BK == 0 for ks in splits)
+    assert [G.gemm_tiling(*shape, 2, k_split=ks).reads for ks in splits] == [reads] * len(splits)
+    whole_reads = G.gemm_tiling(*shape, 2, k_split=0).reads
+    assert whole_reads == m // 128
+    ratio = tuner._gemm_cost(*shape, 0, 2, 2) / tuner._gemm_cost(*shape, splits[0], 2, 2)
+    assert 0.9 * whole_reads / reads < ratio < 1.1 * whole_reads / reads
+    assert tuner.best_gemm(*shape, "bfloat16")["k_split"] in splits

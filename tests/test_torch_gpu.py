@@ -30,6 +30,7 @@ from repro_torch.kernels.splitk_flashattn import (
 )
 from repro_torch.kernels.splitk_gemm import (
     _launch_grouped,
+    gemm_tiling,
     grouped_tiling,
     splitk_gemm,
     splitk_gemm_grouped,
@@ -66,18 +67,29 @@ def test_pinned_tier_is_mapped_host_memory(cuda_device):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n_loc,n_rem", [(4, 256, 128, 128), (33, 200, 136, 72),
-                                             (5, 100, 0, 30), (7, 64, 64, 0)])
+                                             (5, 100, 0, 30), (7, 64, 64, 0),
+                                             (129, 320, 136, 200), (704, 320, 0, 200),
+                                             (2000, 320, 136, 0)])
 @pytest.mark.parametrize("window", [1, 2, 4])
 def test_splitk_gemm_matches_plain(cuda_device, dtype, m, k, n_loc, n_rem, window):
+    """Every design (bf16 past 16 rows the cluster design) against the plain
+    version; a second launch bitwise equal, and the host bytes counted equal
+    to the tiling model (`gemm_tiling(...).reads` remote tiers)."""
     gen = torch.Generator(device=cuda_device).manual_seed(m * k)
     x = torch.randn((m, k), generator=gen, device=cuda_device).to(dtype)
     wl = torch.randn((k, n_loc), generator=gen, device=cuda_device).to(dtype)
     wr_dev = torch.randn((k, n_rem), generator=gen, device=cuda_device).to(dtype)
+    wr = _pinned(wr_dev)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    tiling = gemm_tiling(m, k, n_loc, n_rem, dtype, sm_count=sms)
     before = splitk_gemm.launches
-    got = splitk_gemm(x, wl, _pinned(wr_dev), window=window)
+    splitk_gemm.host_bytes.reset()
+    got = splitk_gemm(x, wl, wr, window=window)
     torch.cuda.synchronize()
     assert splitk_gemm.launches == before + 1
+    assert int(splitk_gemm.host_bytes) == tiling.reads * wr.nbytes
     assert rel_err(got, tref.splitk_gemm_ref(x, wl, wr_dev)) < TOL[dtype]
+    assert torch.equal(splitk_gemm(x, wl, wr, window=window), got)
     if n_rem:
         # a serving mesh's remote tier, gathered on the card: the same bits
         assert torch.equal(splitk_gemm(x, wl, wr_dev, window=window), got)
@@ -1050,7 +1062,8 @@ def _tuned_gemm_cases():
     from repro_torch.kernels.autotune import Autotuner
 
     tuner, out = Autotuner(), []
-    for m, k, n_loc, n_rem in ((4, 4096, 256, 256), (1, 1024, 128, 640), (16, 2048, 0, 512)):
+    for m, k, n_loc, n_rem in ((4, 4096, 256, 256), (1, 1024, 128, 640), (16, 2048, 0, 512),
+                               (33, 512, 128, 128)):
         for ks in tuner.gemm_k_splits(m, k, n_loc, n_rem, 2):
             out.extend((m, k, n_loc, n_rem, ks, w) for w in (1, 2, 8))
     out.extend((33, 512, 128, 128, 0, w) for w in (1, 3, 8))
@@ -1065,6 +1078,10 @@ def test_splitk_gemm_tuned_knobs_match_plain(cuda_device, dtype, m, k, n_loc, n_
     x = torch.randn((m, k), generator=gen, device=cuda_device).to(dtype)
     wl = torch.randn((k, n_loc), generator=gen, device=cuda_device).to(dtype)
     wr_dev = torch.randn((k, n_rem), generator=gen, device=cuda_device).to(dtype)
+    if k_split and m > 16 and dtype == torch.float32:
+        with pytest.raises(ValueError, match="cluster design"):   # bfloat16 only
+            splitk_gemm(x, wl, _pinned(wr_dev), window=window, k_split=k_split)
+        return
     got = splitk_gemm(x, wl, _pinned(wr_dev), window=window, k_split=k_split)
     torch.cuda.synchronize()
     assert rel_err(got, tref.splitk_gemm_ref(x, wl, wr_dev)) < TOL[dtype]
@@ -1084,10 +1101,10 @@ def test_gemm_smem_footprint_equals_the_kernels_count(cuda_device, dtype):
     from repro_torch.kernels import splitk_gemm as G
 
     checked = 0
-    for m in (1, 3, 4, 16, 33, 128):
+    for m in (1, 3, 4, 16, 33, 128, 700, 2000):
         for k in (40, 4096, 11008):
-            for k_split in (0, 32, 800, 4096):
-                if k_split and m > G.DECODE_MAX_M:
+            for k_split in (0, 32, 64, 800, 832, 4096):
+                if k_split and m > G.DECODE_MAX_M and (dtype == torch.float32 or k_split % 64):
                     continue
                 for window in (1, 2, 8, 9, 64):
                     want = G.smem_query(m, k, window=window, k_split=k_split, dtype=dtype)

@@ -264,3 +264,51 @@ def test_footprints_match_hand_worked_numbers():
     assert FP.smem_footprint_bytes(128, dtype=F32) == (3 * 64 * 129 + 64 * 65 + 192) * 4
     assert FP.smem_footprint_bytes(80, dtype=BF) == 384 * 136 * 2
     assert FP.smem_footprint_bytes(256, dtype=F32) == 214784 <= KL.SMEM_OPTIN_BYTES
+
+
+@pytest.mark.parametrize("arch", TC.ARCH_IDS)
+def test_prefill_gemm_lints_clean_for_every_served_config(arch):
+    """Every tiered column-split GEMM of every config id at offload 0.5, at
+    the prefill of 128, 704 and 2048 tokens in bf16, is a clean cluster
+    launch (DAK101-103): no served shape falls to whole K, whose rows a
+    tensor map could not describe."""
+    cfg = TC.get(arch)
+    shapes = KL.operand_shapes(cfg)
+    align = 32 if cfg.d_model < 1024 else 128
+    plan = TE.plan(cfg, TWorkload(batch=4, seq_len=256, phase="decode"), H100_SXM,
+                   global_ratio=0.5, kv_page_size=16)
+    for tokens in (128, 704, 2048):
+        gemms, _, _ = KL.describe_launches(cfg, plan, shapes, align=align, batch=4, max_len=256,
+                                           dtype_bytes=2, prefill_tokens=tokens)
+        prefill = [g for g in gemms if g.name.endswith("@prefill")]
+        assert len(prefill) == len(gemms) // 2 and prefill
+        assert [g.name for g in prefill if g.k_split == 0] == []     # none keeps whole K
+        for g in prefill:
+            assert g.m == tokens and KL.check_gemm_launch(g, H100_SXM) == [], g
+            t = G.gemm_tiling(g.m, g.k, g.n_loc, g.n_rem, BF, k_split=g.k_split)
+            assert t.design == "cluster" and t.reads == -(-tokens // 1024)
+
+
+def test_cluster_gemm_lints_fire_on_broken_geometry():
+    """llama2-7b's wi at offload 0.5 and 2048 rows: 16 M tiles of 128 in two
+    clusters of 8, one K split; each rule fires on a geometry broken on
+    purpose."""
+    wi = KL.GemmLaunch("wi", m=2048, k=4096, n_loc=11008, n_rem=11008, k_split=4096, window=2,
+                       dtype_bytes=2)
+    assert G.gemm_tiling(2048, 4096, 11008, 11008, BF).grid == (344 * 2, 1, 8)
+    assert KL.check_gemm_launch(wi, H100_SXM) == []
+    # DAK101: a window whose ring of 8 x 64 / 2 stages of 24 KB passes 227 KiB
+    fs = KL.check_gemm_launch(dataclasses.replace(wi, window=64), H100_SXM)
+    assert _rules(fs) == {"DAK101"} and "CLUSTER_SMEM_MAX" in fs[0].detail
+    # DAK102: rows off 16 bytes, an unaligned base, a box row of 64 B (no
+    # 128-byte swizzle), a K split off the 64-row box
+    for bad in (dict(n_rem=11004), dict(aligned=False), dict(box_n=32), dict(k_split=96)):
+        assert _rules(KL.check_gemm_launch(dataclasses.replace(wi, **bad), H100_SXM)) \
+            == {"DAK102"}, bad
+    # DAK103: a cluster past 8, N tiles missing, rows left out, a dead
+    # cluster row, splits that leave K uncovered
+    for bad in (dict(cluster=12, grid=(688, 1, 12), window=1), dict(grid=(687, 1, 8)),
+                dict(grid=(344, 1, 8)), dict(grid=(344 * 3, 1, 8)), dict(grid=688),
+                dict(mb=64)):
+        assert _rules(KL.check_gemm_launch(dataclasses.replace(wi, **bad), H100_SXM)) \
+            == {"DAK103"}, bad

@@ -25,12 +25,15 @@ from repro_torch.kernels.splitk_flashattn import (
 )
 from repro_torch.kernels.splitk_gemm import (
     CLUSTER_MAX,
+    CLUSTER_MAX_SPLITS,
     DECODE_BK,
     DECODE_BN,
     REMOTE_CTAS_PER_SM,
     decode_k_split,
+    gemm_tiling,
     grouped_launch,
     grouped_tiling,
+    smem_footprint_bytes,
     splitk_gemm,
 )
 from torch_helpers import FP32_TOL, rel_err
@@ -45,7 +48,7 @@ def _gemm_inputs(m, k, n, ratio, seed, align=128):
     return x, jw, tw
 
 
-@pytest.mark.parametrize("m,k,n", [(32, 128, 256), (130, 384, 640)])
+@pytest.mark.parametrize("m,k,n", [(32, 128, 256), (130, 384, 640), (300, 128, 256)])
 @pytest.mark.parametrize("ratio", [0.0, 0.25, 0.5, 1.0])
 def test_tiered_matmul_matches_reference(m, k, n, ratio):
     x, jw, tw = _gemm_inputs(m, k, n, ratio, seed=m + k + n)
@@ -249,6 +252,65 @@ def test_grouped_launch_geometry_matches_hand_worked_numbers():
     s = grouped_launch(3, 300, 512, 64, bf, window=2, sm_count=132)
     assert (s.k_split, s.splits, s.grid, s.tickets) == (64, 8, (8, 3, 5), 3 * 5 * 1)
     assert s.workspace == 8 * 3 * 300 * 64
+
+
+@pytest.mark.parametrize("rows", ["16-byte", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("m", [1, 16, 17, 64, 65, 128, 129, 513, 704, 2000, 2052])
+def test_gemm_tiling_reads_the_remote_tier_once_per_cluster(m, dtype, rows):
+    """The wrapper's design by M, dtype and operands (`gemm_tiling`): M <=
+    16 takes split-K (one read); fp32 past that, and rows no tensor map
+    can describe (N_rem 11002), take whole K, reading the weights once per M
+    tile as before (ceil(M / 128) past 64 rows); bf16 past 16 rows the
+    cluster design, once per cluster of up to 8 M tiles, on a grid of whole
+    clusters and a workspace within CLUSTER_MAX_SPLITS copies of y."""
+    k, n_loc, n_rem = 4096, 11008, 11008 if rows == "16-byte" else 11002
+    t = gemm_tiling(m, k, n_loc, n_rem, dtype, sm_count=H100_SMS)
+    if m <= 16 and rows == "16-byte":
+        assert (t.design, t.reads, t.k_split) == \
+            ("split-K", 1, decode_k_split(n_loc, n_rem, k, H100_SMS))
+    elif dtype == torch.bfloat16 and rows == "16-byte":
+        assert t.design == "cluster" and 1 <= t.cluster <= CLUSTER_MAX
+        assert t.mb == (64 if m <= 512 else 128) and t.m_tiles == -(-m // t.mb)
+        assert t.reads == -(-t.m_tiles // CLUSTER_MAX) and t.grid_z % t.cluster == 0
+        assert t.m_tiles <= t.grid_z < t.m_tiles + t.cluster
+        assert t.grid == (344 * t.splits * t.reads, 1, t.cluster)
+        assert t.k_split % 64 == 0 and t.splits == -(-k // t.k_split) <= CLUSTER_MAX_SPLITS
+    else:
+        assert t.design == "whole-K" and t.k_split == 0 and t.workspace == 0
+        assert t.reads == (1 if m <= 64 else -(-m // 128))
+    assert t.workspace <= CLUSTER_MAX_SPLITS * m * (n_loc + n_rem)
+    # bases off 16 bytes keep whole K at every M; a narrow remote tier takes
+    # the most splits, its workspace at the cap
+    assert gemm_tiling(m, k, n_loc, n_rem, dtype, aligned=False).design == "whole-K"
+    narrow = gemm_tiling(m, k, 0, 64, dtype, sm_count=H100_SMS)
+    if narrow.design == "cluster":
+        assert narrow.splits == CLUSTER_MAX_SPLITS
+        assert narrow.workspace == CLUSTER_MAX_SPLITS * m * 64
+
+
+def test_gemm_tiling_geometry_matches_hand_worked_numbers():
+    """llama2-7b's wi at offload 0.5 (K 4096, N 11008 | 11008) on 132 SMs."""
+    bf = torch.bfloat16
+    t = gemm_tiling(2048, 4096, 11008, 11008, bf, sm_count=132)
+    # 2048 rows: 16 tiles of 128 (8 of 64 no longer cover M) in 2 clusters
+    # of 8; 172 remote tiles x 16 M tiles >= 132 CTAs: one split
+    assert (t.design, t.mb, t.cluster, t.m_tiles, t.grid_z, t.reads) == \
+        ("cluster", 128, 8, 16, 16, 2)
+    assert (t.k_split, t.splits, t.grid, t.workspace, t.tickets) == \
+        (4096, 1, (344 * 2, 1, 8), 0, 0)
+    # ring at window 1: 8 x 1 x 4 KB in flight = 4 boxes of 8 KB -> 4 stages
+    # of (8192 + 128 * 64 * 2) B, two mbarriers each, 1024 B of slack
+    assert smem_footprint_bytes(2048, 4096, 11008, 11008, window=1, k_split=4096,
+                                dtype=bf) == 1024 + 4 * (8192 + 16384 + 16)
+    # the remote tier crosses the link twice, where whole K read it 16 times
+    assert gemm_tiling(2048, 4096, 11008, 11008, bf, k_split=0).reads == 16
+    # wq at 128 rows: 2 tiles of 64 in one cluster; 32 remote tiles x 2 CTAs
+    # = 64 CTAs a split -> 3 splits of 22 boxes (1408 rows), tickets per
+    # (M tile, N tile) and a workspace of 3 copies of y
+    q = gemm_tiling(128, 4096, 2048, 2048, bf, sm_count=132)
+    assert (q.mb, q.cluster, q.k_split, q.splits, q.grid) == (64, 2, 1408, 3, (192, 1, 2))
+    assert (q.tickets, q.workspace) == (64 * 2, 3 * 128 * 4096)
 
 
 @pytest.mark.parametrize("lib,fn", [(lib, fn) for lib, fns in _build._SIGNATURES.items()
