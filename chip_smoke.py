@@ -463,7 +463,8 @@ def gemm_case(label, m, k, n_loc, n_rem, dtype, windows, gen, stats=None, tiers=
         note_err(stats, rel, ab)
 
 
-def paged_inputs(b, h, kh, hd, ps, mp, p_loc, p_rem, lens, dtype, gen, alias_v=False):
+def paged_inputs(b, h, kh, hd, ps, mp, p_loc, p_rem, lens, dtype, gen, alias_v=False,
+                 tiers="mixed"):
     def pool(p):
         return torch.randn((p + 1, ps, kh, hd), generator=gen, device="cuda").to(dtype)
 
@@ -481,33 +482,58 @@ def paged_inputs(b, h, kh, hd, ps, mp, p_loc, p_rem, lens, dtype, gen, alias_v=F
             pools[key] = t
     q = torch.randn((b, h, hd), generator=gen, device="cuda").to(dtype)
     rng = np.random.default_rng(b * 1000 + mp)
-    tier = rng.integers(0, 2, size=(b, mp))
+    tier = {"mixed": rng.integers(0, 2, size=(b, mp)), "local": np.zeros((b, mp), np.int64),
+            "remote": np.ones((b, mp), np.int64)}[tiers]
     table = np.where(tier > 0, rng.integers(0, p_rem, size=(b, mp)),
                      rng.integers(0, p_loc, size=(b, mp)))
     as_dev = lambda a: torch.tensor(np.asarray(a, np.int32), device="cuda")  # noqa: E731
     return q, pools, pools_dev, as_dev(table), as_dev(tier), as_dev(lens)
 
 
+def paged_model_bytes(design, tier, lens, ps, h, kh, hd, elem) -> int:
+    """`paged_reads` for a launch of `design` (a `PagedDesign`)."""
+    from repro_torch.kernels.splitk_flashattn import paged_reads
+
+    return paged_reads(np.asarray(tier), np.asarray(lens), ps, h, kh, hd, elem,
+                       alias=design.alias, heads_per_cta=design.heads_per_cta,
+                       cluster=design.cluster)
+
+
 def attn_case(label, b, h, kh, hd, ps, mp, p_loc, p_rem, lens, dtype, windows, gen,
-              scale=None, alias_v=False, stats=None):
+              scale=None, alias_v=False, stats=None, tiers="mixed"):
+    """Paged attention through the wrapper against the plain version at
+    each window: within the bound, zeros for lens 0, a second launch
+    bitwise equal, and the remote bytes counted on the card
+    (`paged_splitk_flashattn.host_bytes`) equal to `paged_reads` for the
+    design the launch took."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.splitk_flashattn import launch_design, paged_splitk_flashattn
 
     q, pools, pools_dev, table, tier, lens_t = paged_inputs(
-        b, h, kh, hd, ps, mp, p_loc, p_rem, lens, dtype, gen, alias_v)
+        b, h, kh, hd, ps, mp, p_loc, p_rem, lens, dtype, gen, alias_v, tiers)
     want = ref.paged_flashattn_ref(q, pools_dev["k_local"], pools_dev["v_local"],
                                    pools_dev["k_remote"], pools_dev["v_remote"],
                                    table, tier, lens_t, scale=scale)
+    hb = paged_splitk_flashattn.host_bytes
     for w in windows:
+        design = launch_design(q, pools["k_local"], pools["v_local"], pools["k_remote"],
+                               pools["v_remote"], table, w)
+        model = paged_model_bytes(design, tier.cpu(), lens, ps, h, kh, hd, q.element_size())
+        hb.reset()
         got = ops.paged_decode_attention(q, pools, table, tier, lens_t, window=w, scale=scale)
         torch.cuda.synchronize()
+        counted = int(hb)
+        same = torch.equal(ops.paged_decode_attention(q, pools, table, tier, lens_t, window=w,
+                                                      scale=scale), got)
         rel, ab = rel_err(got, want)
         zeros_ok = all(bool((got[i] == 0).all()) for i, n in enumerate(lens) if n == 0)
-        check(rel < TOL[dtype] and zeros_ok,
-              f"paged_attention {label} B={b} H={h} Kh={kh} hd={hd} page={ps} "
-              f"lens={list(lens)} {str(dtype)[6:]} window={w}"
-              f"{' scale=' + str(scale) if scale else ''}{' V=K' if alias_v else ''}: "
-              f"max rel err {rel:.2e} (abs {ab:.2e}, bound {TOL[dtype]:.0e}), "
-              f"zero rows for lens 0: {zeros_ok}")
+        check(rel < TOL[dtype] and zeros_ok and same and counted == model,
+              f"paged_attention {label} B={b} H={h} Kh={kh} hd={hd} page={ps} MP={mp} "
+              f"lens={list(lens)} {tiers} {str(dtype)[6:]} window={w}"
+              f"{' scale=' + str(scale) if scale else ''}{' V=K' if alias_v else ''}, "
+              f"{design.name} design ({design.stages} stages): max rel err {rel:.2e} (abs "
+              f"{ab:.2e}, bound {TOL[dtype]:.0e}), zero rows for lens 0: {zeros_ok}, again "
+              f"bitwise equal: {same}, host bytes counted {counted} = model {model}")
         note_err(stats, rel, ab)
 
 
@@ -848,13 +874,33 @@ def phase_kernels() -> dict:
               windows=(1, 2), gen=gen, h=4, kh=2, hd=30, ps=4)
     attn_case("long cache", b=DECODE_BATCH, mp=128, p_loc=300, p_rem=300, lens=PAGED_LONG_LENS,
               dtype=bf, windows=(1, 2, 4), gen=gen, stats=stats["paged_attention"], **full)
-    # DeepSeek-V2's MLA decode: 128 heads over one latent kv head (hd 576 by
-    # element loads), V read from the K pool, scale (nd + rd)**-0.5
+    # DeepSeek-V2's MLA decode: 128 heads over one latent kv head of 576, V
+    # read from the K pool, scale (nd + rd)**-0.5; bf16 takes the cluster
+    # design (one cluster of 8 blocks of 16 heads a slot), fp32 the
+    # head-group design (element loads)
+    mla = dict(kh=1, hd=576, ps=16, scale=192 ** -0.5, gen=gen)
     for dtype in (bf, torch.float32):
-        attn_case("mla", b=DECODE_BATCH, h=128, kh=1, hd=576, ps=16, mp=10, p_loc=20, p_rem=20,
-                  lens=(150, 0, 37, 160), dtype=dtype, windows=(1, 2), gen=gen,
-                  scale=192 ** -0.5, alias_v=True,
-                  stats=stats["paged_attention"] if dtype == bf else None)
+        attn_case("mla", b=DECODE_BATCH, h=128, mp=10, p_loc=20, p_rem=20,
+                  lens=(150, 0, 37, 160), dtype=dtype, windows=(1, 2, 4), alias_v=True,
+                  stats=stats["paged_attention"] if dtype == bf else None, **mla)
+    # the cluster design's other cases: one block (G 8, V its own pool; G
+    # 16), two clusters of 5 a slot (G 144), every page local or remote,
+    # lengths 0, 1, 16 and 17, a long cache of up to 128 pages a slot
+    attn_case("mla G=8", b=2, h=8, mp=12, p_loc=20, p_rem=20, lens=(180, 33), dtype=bf,
+              windows=(1, 2, 4), **mla)
+    attn_case("mla G=16", b=3, h=16, mp=10, p_loc=20, p_rem=20, lens=(150, 0, 37), dtype=bf,
+              windows=(1, 2, 4), alias_v=True, **mla)
+    attn_case("mla G=144", b=2, h=144, mp=10, p_loc=20, p_rem=20, lens=(150, 17), dtype=bf,
+              windows=(1, 2, 4), alias_v=True, **mla)
+    for tiers, pools, lens in (("local", (40, 4), (160, 1, 16)),
+                               ("remote", (4, 40), (17, 0, 150))):
+        attn_case(f"mla all-{tiers}", b=3, h=128, mp=10, p_loc=pools[0], p_rem=pools[1],
+                  lens=lens, dtype=bf, windows=(1, 2, 4), alias_v=True, tiers=tiers, **mla)
+    attn_case("mla edge lens", b=DECODE_BATCH, h=128, mp=10, p_loc=20, p_rem=20,
+              lens=(0, 1, 16, 17), dtype=bf, windows=(1, 2, 4), alias_v=True, **mla)
+    attn_case("mla long cache", b=DECODE_BATCH, h=128, mp=128, p_loc=300, p_rem=300,
+              lens=PAGED_LONG_LENS, dtype=bf, windows=(1, 2, 4), alias_v=True,
+              stats=stats["paged_attention"], **mla)
     # the dense variants' decode shapes: OPT-30B (56 heads padded to 112 over
     # 56 kv heads), Qwen2.5-14B (48 over 8), ChatGLM3-6B and StarCoder2-3B
     # (32 over 2, a group of 16 split across CTAs); LLaVA-NeXT-34B (56 heads
@@ -1161,6 +1207,7 @@ def phase_serve(arch: str = "llama2_7b", n_layers: int | None = None, n_req: int
     if pc is not None:
         print(f"kv pages: local hwm {stats.local_pages_hwm}/{pc.n_local}, remote hwm "
               f"{stats.remote_pages_hwm}/{pc.n_remote}, spills {stats.spills}")
+        design = kv_read_check(eng, cfg, decode, kv_layers, page_bytes)
     print(f"weights: {w_local / 1e9:.3f} GB local + {w_remote / 1e9:.3f} GB remote | "
           f"pinned host bytes {pinned} ({pinned / 1e9:.3f} GB) | peak device memory "
           f"during serving {peak} ({peak / 1e9:.3f} GB) vs total weights {total_w / 1e9:.3f} GB")
@@ -1203,12 +1250,59 @@ def phase_serve(arch: str = "llama2_7b", n_layers: int | None = None, n_req: int
               f"{total_w / 1e9:.3f} GB of weights")
     check(eng.graphed and eng.compile_count > 0,
           f"decode steps graphed by default ({eng.compile_count} buckets)")
-    profile_decode_steps(eng, cfg, np.random.default_rng(1), prompt_len)
+    traced = profile_decode_steps(eng, cfg, np.random.default_rng(1), prompt_len)
+    if pc is not None:
+        traced_attention(traced, kv_layers, design)
     if experts:
         eager_beside(eng, cfg, reqs, decode, n_req, prompt_len, new_tokens,
                      static_remote + kv_step, expert_bytes)
     return {"launches": launches, "tpot_ms": stats.tpot * 1e3,
             "steps": stats.decode_steps, "engine": eng}
+
+
+def kv_read_check(eng, cfg, decode, kv_layers, page_bytes):
+    """The remote KV bytes paged attention loaded in each served decode step
+    that admitted nothing, counted on the device, against `paged_reads` over
+    the page tiers and lengths each step attended, for the design the
+    engine's launches take; printed beside the bytes if each remote page in
+    use were read once.  Returns that design."""
+    from repro_torch.analysis.kernel_lints import _attention_shape
+    from repro_torch.kernels.splitk_flashattn import paged_design
+
+    pc = eng.pcache
+    h, kh, hd = _attention_shape(cfg)
+    design = paged_design(DECODE_BATCH, h, kh, hd, pc.page_size, pc.table.shape[1],
+                          window=eng.window, dtype=torch.bfloat16, alias_v=pc.kv_names == ("k",))
+    model = [kv_layers * paged_model_bytes(design, *s["attended"], pc.page_size, h, kh, hd, 2)
+             for s in decode]
+    counted = [s["kv_bytes"] for s in decode]
+    n = max(1, len(decode))
+    once = sum(s["kv_pages"] for s in decode) * page_bytes * kv_layers / n
+    print(f"remote KV bytes paged attention loaded per decode step that admitted nothing, "
+          f"counted on the device (`paged_splitk_flashattn.host_bytes`): {sum(counted) / n:.1f} "
+          f"B (model {sum(model) / n:.1f} B; {design.name} design, clusters of "
+          f"{design.cluster}, {design.heads_per_cta} heads a CTA) | each remote page in use "
+          f"read once: {once:.1f} B")
+    check(counted == model,
+          f"remote KV bytes counted in each of {len(decode)} decode steps equal the model of the "
+          f"{design.name} design ({sum(counted)} B in all)")
+    return design
+
+
+def traced_attention(traced: dict, kv_layers: int, design) -> None:
+    """Paged attention's device time a step in the profiler trace of the
+    served decode steps, by kernel; the cluster design's kernel where the
+    engine's launches take it."""
+    attn = {k: v for k, v in traced.get("kernel_ms", {}).items() if "paged_attn" in k}
+    if not traced:
+        print("  paged attention a step: not measured (the profiler recorded no device time)")
+        return
+    print(f"  paged attention in the traced decode steps: {sum(attn.values()):.3f} ms a step "
+          f"({kv_layers} launches a step): " + "; ".join(f"{k[:70]} {v:.3f} ms"
+                                                     for k, v in attn.items()))
+    want = "paged_attn_cluster_kernel" if design.name == "cluster" else "paged_attn_kernel<"
+    check(bool(attn) and all(want in k for k in attn),
+          f"the traced paged attention ran the {design.name} design's kernel only")
 
 
 LONG_PROMPT = 2048          # prompt tokens of phase 12's long request (M = 192 an expert)
@@ -1318,7 +1412,9 @@ def serve_stepping(eng, cfg, n_req, prompt_len, new_tokens):
     """Serve `n_req` requests of `prompt_len` random tokens (seed 0) one
     engine step at a time, the wrapper counts reset first; returns the
     requests, each decode step that admitted nothing (launches, remote
-    experts run, remote KV pages attended) and the wall time."""
+    experts run, remote KV pages attended, the remote KV bytes paged
+    attention counted on the device and the page tiers and lengths the step
+    attended) and the wall time."""
     from repro_torch.kernels.splitk_flashattn import paged_splitk_flashattn, scatter_rows
     from repro_torch.kernels.splitk_gemm import splitk_gemm, splitk_gemm_grouped
     from repro_torch.models import layers as L
@@ -1332,6 +1428,9 @@ def serve_stepping(eng, cfg, n_req, prompt_len, new_tokens):
     splitk_gemm.launches = splitk_gemm_grouped.launches = 0
     paged_splitk_flashattn.launches = scatter_rows.launches = 0
     L.tiered_expert_ffn.remote_experts.reset()
+    kv_bytes = paged_splitk_flashattn.host_bytes
+    kv_bytes.reset()
+    kv_total = kv_bytes.total(torch.device("cuda", torch.cuda.current_device()))
     decode = []                                # the steps that admitted nothing
     t0 = time.time()
     while eng.scheduler.waiting or any(r is not None for r in eng.active):
@@ -1339,14 +1438,20 @@ def serve_stepping(eng, cfg, n_req, prompt_len, new_tokens):
                   paged_splitk_flashattn.launches, int(L.tiered_expert_ffn.remote_experts),
                   len(eng.stats.ttfts), eng.stats.decode_steps)
         kv_pages = remote_kv_pages(eng)
+        kv_before = kv_total.clone()           # on the device: no sync inside the run
         eng.step()
         if eng.stats.decode_steps > before[5] and len(eng.stats.ttfts) == before[4]:
+            staged = eng._inputs._staging if eng.pcache is not None else None
             decode.append({"gemm": splitk_gemm.launches - before[0],
                            "grouped": splitk_gemm_grouped.launches - before[1],
                            "attn": paged_splitk_flashattn.launches - before[2],
                            "experts": int(L.tiered_expert_ffn.remote_experts) - before[3],
-                           "kv_pages": kv_pages})
+                           "kv_pages": kv_pages, "kv_bytes": kv_total - kv_before,
+                           "attended": None if staged is None else
+                           (staged["tier"].copy(), staged["attn_lens"].copy())})
     torch.cuda.synchronize()
+    for s in decode:
+        s["kv_bytes"] = int(s["kv_bytes"])
     return reqs, decode, time.time() - t0
 
 
@@ -1472,7 +1577,8 @@ def trace_device(step, steps: int, what: str) -> dict:
         print(f"    {self_us(e) / 1e3 / steps:9.3f} ms per step  {e.count // steps:5d} calls per "
               f"step  {e.key[:100]}")
     return {"traced_ms": wall_us / steps / 1e3, "busy_ms": busy / steps / 1e3,
-            "busy_share": busy / wall_us}
+            "busy_share": busy / wall_us,
+            "kernel_ms": {e.key: self_us(e) / 1e3 / steps for e in rows}}
 
 
 # ---------------------------------------------------------------------------
@@ -1634,6 +1740,10 @@ def phase_timing(card: dict, window: int) -> dict:
     step["paged_attention"] = per_step(time_paged_attention(
         "served", PAGED_LENS, 10, link, flush, gen, window), n_layers)
     time_paged_attention("long cache", PAGED_LONG_LENS, 128, link, flush, gen, window)
+    # DeepSeek-V2's MLA decode (phase 14) at the same lengths: 128 heads over
+    # one latent kv head of 576 (kv_lora 512 + rope 64), V the K pool
+    time_paged_attention("mla", PAGED_LENS, 10, link, flush, gen, window, h=128, kh=1,
+                         hd=576, scale=192 ** -0.5, alias_v=True)
     step["splitk_flashattn"] = per_step(time_splitk_attention(
         "served", 512, SPLIT_KV_LEN, link, flush, gen, window), n_layers)
     time_splitk_attention("long cache", 2048, 2048, link, flush, gen, window)
@@ -1905,14 +2015,16 @@ def host_ms(fn, iters=50) -> float:
     return t * 1e3
 
 
-def paged_timing_inputs(lens, mp, gen):
-    """Paged operands at B = len(lens), H = Kh = 32, hd 128, page 16, bf16,
-    whose pools hold exactly the pages the slots use, each once (plus the
-    sink): every page of the byte count is read from its tier once, and the
-    library yardstick copies only the remote pages in use.  Returns q, the
-    kernel's pools, their device copies, table, tier, lens, and the local
-    and remote bytes of the pages in use."""
-    b, ps, kh, hd = len(lens), 16, 32, 128
+def paged_timing_inputs(lens, mp, gen, h=32, kh=32, hd=128, alias_v=False):
+    """Paged operands at B = len(lens), H = `h`, Kh = `kh`, `hd`, page 16,
+    bf16, whose pools hold exactly the pages the slots use, each once (plus
+    the sink): every page of the byte count is read from its tier once, and
+    the library yardstick copies only the remote pages in use.  With
+    `alias_v` the V pools are the K pools (MLA's latent pages): a page is K
+    and V at once.  Returns q, the kernel's pools, their device copies,
+    table, tier, lens, and the local and remote bytes of the pages in
+    use."""
+    b, ps = len(lens), 16
     rng = np.random.default_rng(b * 1000 + mp)
     tier = rng.integers(0, 2, size=(b, mp))
     used = np.arange(mp)[None, :] < np.asarray([-(-n // ps) for n in lens])[:, None]
@@ -1926,12 +2038,15 @@ def paged_timing_inputs(lens, mp, gen):
     def pool(p):
         return torch.randn((p + 1, ps, kh, hd), generator=gen, device="cuda").to(torch.bfloat16)
 
-    pools_dev = {f"{kv}_{name}": pool(n_pages[t]) for kv in ("k", "v")
-                 for name, t in (("local", 0), ("remote", 1))}
-    pools = {k: (pinned_copy(v) if k.endswith("remote") else v) for k, v in pools_dev.items()}
-    q = torch.randn((b, 32, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    pools_dev = {f"k_{name}": pool(n_pages[t]) for name, t in (("local", 0), ("remote", 1))}
+    for name, t in (("local", 0), ("remote", 1)):
+        pools_dev[f"v_{name}"] = pools_dev[f"k_{name}"] if alias_v else pool(n_pages[t])
+    pools = {k: v for k, v in pools_dev.items() if k.endswith("local")}
+    pools["k_remote"] = pinned_copy(pools_dev["k_remote"])
+    pools["v_remote"] = pools["k_remote"] if alias_v else pinned_copy(pools_dev["v_remote"])
+    q = torch.randn((b, h, hd), generator=gen, device="cuda").to(torch.bfloat16)
     as_dev = lambda a: torch.tensor(np.asarray(a, np.int32), device="cuda")  # noqa: E731
-    page_bytes = ps * kh * hd * 2 * 2                     # K + V of one page, all kv heads
+    page_bytes = ps * kh * hd * 2 * (1 if alias_v else 2)   # K (+ V) of one page, all kv heads
     return (q, pools, pools_dev, as_dev(table), as_dev(tier), as_dev(lens),
             n_pages[0] * page_bytes, n_pages[1] * page_bytes)
 
@@ -1946,67 +2061,123 @@ def attention_line(name, label, shape, t, t_wrap, t_host, t_plain, t_lib, b_ms, 
           f"library {t_lib:.4f} ms ({gbs(t_lib):.2f} GB/s) | remote bytes {rem_b}")
 
 
-def paged_timing_case(lens, mp, gen):
+def paged_timing_case(lens, mp, gen, h=32, kh=32, hd=128, scale=None, alias_v=False):
     """The paged kernel's operands at `lens` (paged_timing_inputs), the
     plain version's output, and the prepared launch at windows 1, 2, 4."""
     from repro_torch.kernels.ref import paged_flashattn_ref
     from repro_torch.kernels.splitk_flashattn import _paged_launch
 
-    q, pools, pools_dev, table, tier, lens_t, loc_b, rem_b = paged_timing_inputs(lens, mp, gen)
+    q, pools, pools_dev, table, tier, lens_t, loc_b, rem_b = paged_timing_inputs(
+        lens, mp, gen, h, kh, hd, alias_v)
     want = paged_flashattn_ref(q, pools_dev["k_local"], pools_dev["v_local"],
-                               pools_dev["k_remote"], pools_dev["v_remote"], table, tier, lens_t)
+                               pools_dev["k_remote"], pools_dev["v_remote"], table, tier, lens_t,
+                               scale=scale)
     prep = {w: _paged_launch(q, pools["k_local"], pools["v_local"], pools["k_remote"],
-                             pools["v_remote"], table, tier, lens_t, w, None) for w in (1, 2, 4)}
+                             pools["v_remote"], table, tier, lens_t, w, scale)
+            for w in (1, 2, 4)}
     return q, pools, pools_dev, table, tier, lens_t, loc_b, rem_b, want, prep
 
 
-def time_paged_attention(label, lens, mp, link, flush, gen, window) -> dict:
-    """The paged kernel at B = len(lens), H = Kh = 32, hd 128, page 16,
+def time_paged_attention(label, lens, mp, link, flush, gen, window, h=32, kh=32, hd=128,
+                         scale=None, alias_v=False) -> dict:
+    """The paged kernel at B = len(lens), H = `h`, Kh = `kh`, `hd`, page 16,
     `lens`: device time of its launch alone (windows 1/2/4), the wrapper
     call, plain and library (remote pool copy + page gather + SDPA) times;
-    per launch."""
+    per launch.  Where the wrapper takes the cluster design (bf16 above hd
+    256), the head-group design it replaced is timed beside it, through the
+    wrapper's private launch, in alternating rounds with the library call;
+    each design's counted remote bytes (`paged_splitk_flashattn.host_bytes`)
+    beside `paged_reads`."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import paged_flashattn_ref
-    from repro_torch.kernels.splitk_flashattn import _launch_paged
+    from repro_torch.kernels.splitk_flashattn import (
+        _launch_paged,
+        _paged_launch,
+        launch_design,
+        paged_splitk_flashattn,
+    )
 
     bf = torch.bfloat16
     q, pools, pools_dev, table, tier, lens_t, loc_b, rem_b, want, prep = paged_timing_case(
-        lens, mp, gen)
-    lib = paged_prefetch_sdpa(q, pools, table, tier, lens_t)
-    for design, got in (("kernel", _launch_paged(prep[window])), ("library yardstick", lib())):
+        lens, mp, gen, h, kh, hd, scale, alias_v)
+    args = (q, pools["k_local"], pools["v_local"], pools["k_remote"], pools["v_remote"], table)
+    design = launch_design(*args, window)
+    designs = {design.name: prep}
+    if design.name == "cluster":
+        designs["head-group"] = {w: _paged_launch(*args, tier, lens_t, w, scale, "head-group")
+                                 for w in (1, 2, 4)}
+    lib = paged_prefetch_sdpa(q, pools, table, tier, lens_t, scale)
+    hb = paged_splitk_flashattn.host_bytes
+    counted, model = {}, {}
+    for name, p in designs.items():
+        hb.reset()
+        got = _launch_paged(p[window])
+        torch.cuda.synchronize()
+        counted[name] = int(hb)
+        model[name] = paged_model_bytes(launch_design(*args, window, None if name == design.name
+                                                      else name),
+                                        tier.cpu(), lens, 16, h, kh, hd, 2)
         rel, _ = rel_err(got, want)
-        check(rel < TOL[bf], f"paged attention {design} {label}: max rel err {rel:.2e}")
+        check(rel < TOL[bf] and counted[name] == model[name],
+              f"paged attention {name} design {label}: max rel err {rel:.2e}, host bytes "
+              f"counted {counted[name]} = model {model[name]}")
+    rel, _ = rel_err(lib(), want)
+    check(rel < TOL[bf], f"paged attention library yardstick {label}: max rel err {rel:.2e}")
     t = {w: time_ms(lambda w=w: _launch_paged(prep[w]), flush=flush) for w in (1, 2, 4)}
 
     def wrapper():
-        return ops.paged_decode_attention(q, pools, table, tier, lens_t, window=window)
+        return ops.paged_decode_attention(q, pools, table, tier, lens_t, window=window,
+                                          scale=scale)
 
     t_wrap, t_host = time_ms(wrapper, flush=flush), host_ms(wrapper)
     t_plain = time_ms(lambda: paged_flashattn_ref(
         q, pools_dev["k_local"], pools_dev["v_local"], pools_dev["k_remote"],
-        pools_dev["v_remote"], table, tier, lens_t), flush=flush)
+        pools_dev["v_remote"], table, tier, lens_t, scale=scale), flush=flush)
     t_lib = time_ms(lib, flush=flush)
     loc_b += q.numel() * 2 * 2                      # q read, out written
-    flops = 4 * sum(lens) * 32 * 128
+    flops = 4 * sum(lens) * h * hd
     b_ms, b_by = bound(loc_b, rem_b, flops, link, BF16_PEAK)
-    attention_line("paged_attention", label, f"B={len(lens)} H=32 Kh=32 hd=128 page=16 "
-                   f"lens={list(lens)} MP={mp}", t, t_wrap, t_host, t_plain, t_lib, b_ms, b_by,
-                   rem_b, window)
-    del q, pools, pools_dev, prep
+    shape = (f"B={len(lens)} H={h} Kh={kh} hd={hd} page=16 lens={list(lens)} MP={mp}"
+             f"{' V=K' if alias_v else ''}")
+    attention_line("paged_attention", label, shape, t, t_wrap, t_host, t_plain, t_lib, b_ms,
+                   b_by, rem_b, window)
+    print(f"    {design.name} design (the wrapper's): {design.stages} stages at window "
+          f"{window}, clusters of {design.cluster}, {design.heads_per_cta} heads a CTA; host "
+          f"bytes counted a launch {counted[design.name]} = model {model[design.name]}, "
+          f"{counted[design.name] / max(1, rem_b):.2f}x the remote pages in use")
+    if "head-group" in designs and design.name != "head-group":
+        old = designs["head-group"]
+        t_old = {w: time_ms(lambda w=w: _launch_paged(old[w]), flush=flush) for w in (1, 2, 4)}
+        rounds = alternate([lambda: _launch_paged(prep[window]),
+                            lambda: _launch_paged(old[window]), lib], flush)
+        new_ms, old_ms, lib_ms = (statistics.median(v) for v in rounds)
+        wins = sum(a < b for a, b in zip(rounds[0], rounds[1]))
+        print(f"    replaced head-group design: {t_old[window]:.4f} ms (windows 1/2/4: "
+              f"{t_old[1]:.4f}/{t_old[2]:.4f}/{t_old[4]:.4f}), host bytes counted a launch "
+              f"{counted['head-group']} = model {model['head-group']}, "
+              f"{counted['head-group'] / max(1, rem_b):.2f}x the remote pages in use | window "
+              f"{window}, medians of {ROUNDS} alternating rounds: cluster {new_ms:.4f} ms, "
+              f"head-group {old_ms:.4f} ms ({old_ms / new_ms:.1f}x), library {lib_ms:.4f} ms; "
+              f"cluster faster in {wins} | bound {b_ms:.4f} ms: cluster at "
+              f"{new_ms / b_ms:.1f}x it")
+        t[window], t_lib = new_ms, lib_ms
+    del q, pools, pools_dev, prep, designs
     return dict(ms=t[window], wrapper_ms=t_wrap, host_ms=t_host, plain_ms=t_plain,
                 bound_ms=b_ms, library_ms=t_lib, remote_bytes=rem_b,
                 t_bytes=max(loc_b / HBM_BW, rem_b / link), t_ops=flops / BF16_PEAK)
 
 
-def paged_prefetch_sdpa(q, pools, table, tier, lens):
+def paged_prefetch_sdpa(q, pools, table, tier, lens, scale=None):
     """The library yardstick of paged attention: copy the remote page pool
-    into HBM (one copy each for K and V, the whole pool), gather every
-    slot's pages by its page table, then one scaled_dot_product_attention
-    call with a length mask.  Returns the call to time."""
+    into HBM (one copy each for K and V, the whole pool; one when the V pool
+    is the K pool), gather every slot's pages by its page table, then one
+    scaled_dot_product_attention call with `scale` and a length mask.
+    Returns the call to time."""
     import torch.nn.functional as F
 
+    alias = pools["v_remote"] is pools["k_remote"] and pools["v_local"] is pools["k_local"]
     k_rem = torch.empty_like(pools["k_remote"], device="cuda")
-    v_rem = torch.empty_like(pools["v_remote"], device="cuda")
+    v_rem = k_rem if alias else torch.empty_like(pools["v_remote"], device="cuda")
     b, mp = table.shape
     ps, kh, hd = pools["k_local"].shape[1:]
     h = q.shape[1]
@@ -2018,14 +2189,18 @@ def paged_prefetch_sdpa(q, pools, table, tier, lens):
         pages = torch.where(sel, remote[idx.clamp(max=remote.shape[0] - 1)],
                             local[idx.clamp(max=local.shape[0] - 1)])
         kv = pages.reshape(b, mp * ps, kh, hd).transpose(1, 2)
+        if kh == 1:                                # one kv head under every query head
+            return kv.expand(b, h, mp * ps, hd)
         return kv.repeat(1, h // kh, 1, 1)         # group-major: q head h reads h % Kh
 
     def run():
         k_rem.copy_(pools["k_remote"], non_blocking=True)
-        v_rem.copy_(pools["v_remote"], non_blocking=True)
-        return F.scaled_dot_product_attention(
-            q[:, :, None], gather(pools["k_local"], k_rem), gather(pools["v_local"], v_rem),
-            attn_mask=mask)[:, :, 0]
+        if not alias:
+            v_rem.copy_(pools["v_remote"], non_blocking=True)
+        k = gather(pools["k_local"], k_rem)
+        v = k if alias else gather(pools["v_local"], v_rem)
+        return F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
+                                              scale=scale)[:, :, 0]
 
     return run
 
@@ -3469,17 +3644,15 @@ def surface_lints(tuner, card) -> None:
                   if e.op == "paged_splitk_flashattn" and e.config}
     attn_cfgs.add(("batch", 32, 32, 128, A.CHUNK, -(-SPLIT_KV_LEN // A.CHUNK), 1))   # phase 7
     for kind, h, kh, hd, chunk, n, w in sorted(attn_cfgs):
-        box = A._box_bytes(chunk, hd, 2)
-        stages = A.ring_stages(w, 2 * box, n)[0]
         if kind == "paged":
             want = A.paged_smem_query(DECODE_BATCH, h, kh, hd, chunk, n, window=w,
                                       dtype=torch.bfloat16)
-            got = (A.paged_smem_footprint_bytes(DECODE_BATCH, h, kh, hd, chunk, n, window=w,
-                                                dtype=torch.bfloat16), stages)
+            d = A.paged_design(DECODE_BATCH, h, kh, hd, chunk, n, window=w, dtype=torch.bfloat16)
+            got = (d.smem, d.stages)
         else:
             want = A.smem_query(h, kh, hd, chunk * n, window=w, dtype=torch.bfloat16)
-            got = (A.smem_footprint_bytes(h, kh, hd, chunk * n, window=w,
-                                          dtype=torch.bfloat16), stages)
+            got = (A.smem_footprint_bytes(h, kh, hd, chunk * n, window=w, dtype=torch.bfloat16),
+                   A.ring_stages(w, 2 * A._box_bytes(chunk, hd, 2), n)[0])
         if got != want:
             bad.append(((kind, h, kh, hd, chunk, n, w), got, want))
     for dtype in (torch.bfloat16, torch.float32):

@@ -121,7 +121,9 @@ class AttnLaunch:
     slot, ``batch`` slots) or "batch" (batch-split caches; ``chunk`` =
     CHUNK rows, ``n_chunks`` = chunks of the attended length).  ``tma``
     says the launch reads through tensor maps (None: as the kernel
-    decides from the shapes, with aligned bases)."""
+    decides from the shapes, with aligned bases).  ``alias_v``: the V
+    pools are the K pools (MLA's latent pages), which the paged cluster
+    design loads once for both."""
     name: str
     kind: str
     h: int
@@ -133,6 +135,7 @@ class AttnLaunch:
     dtype_bytes: int = 4
     batch: int = 4
     tma: bool | None = None
+    alias_v: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -350,11 +353,14 @@ def check_grouped_launch(launch: GroupedGemmLaunch, hw: HardwareSpec, *,
 
 def _attn_tma(launch: AttnLaunch) -> bool:
     """Whether the kernel reads this launch through tensor maps (aligned
-    bases assumed): rows of 16-byte multiples and hd within a box."""
-    ok = launch.hd * launch.dtype_bytes % 16 == 0 and launch.hd <= splitk_gemm.TMA_BOX_MAX
+    bases assumed): rows of 16-byte multiples and hd within a box, or, for
+    the paged cluster design (bf16 above hd 256), within boxes of 64
+    columns."""
+    rows_ok = launch.hd * launch.dtype_bytes % 16 == 0
     if launch.kind == "paged":
-        ok = ok and launch.chunk <= splitk_gemm.TMA_BOX_MAX
-    return ok
+        return rows_ok and launch.chunk <= splitk_gemm.TMA_BOX_MAX and (
+            launch.hd <= splitk_gemm.TMA_BOX_MAX or launch.dtype_bytes == 2)
+    return rows_ok and launch.hd <= splitk_gemm.TMA_BOX_MAX
 
 
 def check_attn_launch(launch: AttnLaunch, hw: HardwareSpec, *,
@@ -384,16 +390,17 @@ def check_attn_launch(launch: AttnLaunch, hw: HardwareSpec, *,
         return out
     db = launch.dtype_bytes
     if launch.kind == "paged":
-        fp = splitk_flashattn.paged_smem_footprint_bytes(
+        design = splitk_flashattn.paged_design(
             launch.batch, launch.h, launch.kh, launch.hd, launch.chunk, launch.n_chunks,
-            window=launch.window, dtype=db)
+            window=launch.window, dtype=db, alias_v=launch.alias_v)
+        fp, stages, cut = design.smem, design.stages, design.cut
     else:
         fp = splitk_flashattn.smem_footprint_bytes(
             launch.h, launch.kh, launch.hd, launch.chunk * launch.n_chunks,
             window=launch.window, dtype=db)
+        box = splitk_flashattn._box_bytes(launch.chunk, launch.hd, launch.dtype_bytes)
+        stages, cut = splitk_flashattn.ring_stages(launch.window, 2 * box, launch.n_chunks)
     out.extend(_smem_finding(site, fp, hw))
-    box = splitk_flashattn._box_bytes(launch.chunk, launch.hd, launch.dtype_bytes)
-    stages, cut = splitk_flashattn.ring_stages(launch.window, 2 * box, launch.n_chunks)
     out.extend(_clamp_finding(site, launch.window, launch.window + 1, stages, cut))
     return out
 
@@ -619,7 +626,8 @@ def describe_launches(
         attns.append(AttnLaunch(
             name="paged_decode", kind="paged", h=h, kh=kh, hd=hd,
             chunk=kp.page_size, n_chunks=max_pages, window=paged_window,
-            dtype_bytes=dtype_bytes, batch=batch))
+            dtype_bytes=dtype_bytes, batch=batch,
+            alias_v=bool(getattr(cfg, "use_mla", False))))
         if not getattr(cfg, "use_mla", False):
             batch_window = window
             if tuner is not None:

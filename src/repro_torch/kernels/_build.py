@@ -53,9 +53,9 @@ _SIGNATURES = {
         "dak_splitk_gemm_smem": [_I] * 5 + [_LLP, _IP],
     },
     "paged_flashattn": {
-        "dak_paged_attention": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _I, _I, _P],
+        "dak_paged_attention": [_P] * 10 + [_I] * 8 + [ctypes.c_float] + [_I] * 4 + [_P],
         "dak_scatter_rows": [_P] * 5 + [_I] * 6 + [_P],
-        "dak_paged_attention_smem": [_I] * 8 + [_LLP, _IP],
+        "dak_paged_attention_smem": [_I] * 9 + [_LLP, _IP],
     },
     "splitk_flashattn": {
         "dak_splitk_attention": [_P] * 6 + [_I] * 9 + [_P],

@@ -203,14 +203,23 @@ class Autotuner:
         fill = stages * (HOST_ISSUE_S if rem_ctas else HBM_ISSUE_S)
         return max(t_host, t_hbm, t_compute) + fill
 
-    def _attn_cost(self, h, kh, hd, chunk, n_chunks, b_rem_frac, db, window) -> float:
+    @staticmethod
+    def _attn_stages(kind, h, kh, hd, chunk, n_chunks, window, db) -> int:
+        """The ring an attention launch runs: the paged kernel's design's
+        (`splitk_flashattn.paged_design`, separate K and V pools, the lints'
+        batch of 4), the batch-split kernel's `ring_stages`."""
+        if kind == "paged":
+            return A.paged_design(4, h, kh, hd, chunk, n_chunks, window=window,
+                                  dtype=db).stages
+        return A.ring_stages(window, 2 * A._box_bytes(chunk, hd, db), n_chunks)[0]
+
+    def _attn_cost(self, kind, h, kh, hd, chunk, n_chunks, b_rem_frac, db, window) -> float:
         """Streamed K/V chunks, split across tiers by the remote fraction:
         two boxes (K and V) per page or chunk, their issue cost amortized
         over the loads the ring keeps in flight (its stages less the one
         being folded in)."""
         hw = self.hw
-        box = A._box_bytes(chunk, hd, db)
-        stages, _ = A.ring_stages(window, 2 * box, n_chunks)
+        stages = self._attn_stages(kind, h, kh, hd, chunk, n_chunks, window, db)
         inflight = max(1, stages - 1)
         kv_bytes = 2.0 * n_chunks * chunk * kh * hd * db
         rem = kv_bytes * b_rem_frac
@@ -293,18 +302,18 @@ class Autotuner:
 
     def _slots_sweep(self, kind, h, kh, hd, chunk, n_chunks, rem_frac, dtype):
         db = G.elem_bytes(dtype)
-        box = A._box_bytes(chunk, hd, db)
 
         def candidates():
             seen = set()
             for slots in SLOT_CANDIDATES:
-                stages, _ = A.ring_stages(slots, 2 * box, n_chunks)
+                stages = self._attn_stages(kind, h, kh, hd, chunk, n_chunks, slots, db)
                 if stages in seen:
                     continue
                 seen.add(stages)
                 if self._attn_ok(kind, h, kh, hd, chunk, n_chunks, slots, db):
                     yield ({"slots": slots},
-                           self._attn_cost(h, kh, hd, chunk, n_chunks, rem_frac, db, slots))
+                           self._attn_cost(kind, h, kh, hd, chunk, n_chunks, rem_frac, db,
+                                           slots))
 
         return self._best(candidates())
 

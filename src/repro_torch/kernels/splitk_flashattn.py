@@ -6,7 +6,12 @@ Hopper, in both of the reference's layouts.
   from HBM, remote pages straight from pinned, device-mapped host memory),
   slots holding remote pages first.  CUDA kernel ``csrc/paged_flashattn.cu``;
   counterpart of the reference's ``_paged_kernel``.  The serving engine's
-  decode step runs it.
+  decode step runs it.  Two designs (`paged_design`): bf16 above hd 256
+  (MLA's latent pages) the cluster design, in which each page crosses into
+  shared memory once per cluster of 16-head blocks (TMA multicast) and the
+  products run on tensor cores; everything else the head-group design.
+  ``paged_splitk_flashattn.host_bytes`` counts the remote page bytes the
+  launches load, on the device (`paged_reads` is its model).
 * :func:`splitk_flashattn` — the paper's batch-split layout: requests
   ``[0, B_loc)`` attend a local cache in HBM and ``[B_loc, B)`` a remote
   cache in pinned host memory, every request over the same ``kv_len``
@@ -15,9 +20,10 @@ Hopper, in both of the reference's layouts.
   ``csrc/splitk_flashattn.cu``; counterpart of the reference's ``_kernel``.
   The batch-split ``serving.tiered_decode.tiered_decode_step`` runs it.
 
-In both kernels one CTA per (sequence, query-head group, kv head) reads its
-pages or chunks by TMA through a ``window + 1``-stage shared-memory ring and
-keeps a warp-level fp32 online softmax over group-major GQA heads.  Each
+In the batch-split kernel and the paged head-group design one CTA per
+(sequence, query-head group, kv head) reads its pages or chunks by TMA
+through a ``window + 1``-stage shared-memory ring and keeps a warp-level fp32
+online softmax over group-major GQA heads.  Each
 kernel's head note says what bounds it and what the design does about that.
 Under a serving mesh the remote pools and caches are the remote tier
 gathered into fixed buffers on the card, which both kernels read as they read
@@ -34,9 +40,10 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.device_count import DeviceCount
 from repro_torch.kernels.ref import paged_flashattn_ref, splitk_flashattn_ref
 from repro_torch.kernels.sink import direct_access
-from repro_torch.kernels.splitk_gemm import MAX_WINDOW, elem_bytes
+from repro_torch.kernels.splitk_gemm import CLUSTER_MAX, MAX_WINDOW, elem_bytes
 
 DEFAULT_WINDOW = 2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -44,6 +51,17 @@ MAX_HEAD_DIM = 1024         # the widest hd the kernels take (its q and acc live
 RING_MAX = 96 * 1024        # the K/V ring's cap in shared memory (decode_attn.cuh RING_MAX)
 CHUNK = 32                  # rows of one batch-split load (splitk_flashattn.cu CHUNK)
 _WARPS = 4                  # warps of a CTA (decode_attn.cuh THREADS / 32)
+# The paged cluster design (paged_flashattn.cu CL_*): 16 query heads a CTA,
+# boxes of 64 columns (128-byte swizzled rows), box slots of page rows
+# rounded up to 16 keys, a 1024-byte aligned layout, the partial scores of
+# 4 warps in two buffers, and a CTA's opt-in shared memory less its static
+# slot index.
+CLUSTER_HEADS = 16
+CLUSTER_COLS = 64
+CLUSTER_KEYS = 16
+CLUSTER_ALIGN = 1024
+CLUSTER_RED = 2 * _WARPS * 32 * 8 * 4
+CLUSTER_SMEM_MAX = 232448 - 128
 
 
 def _dims_per_lane(hd: int) -> int:
@@ -84,18 +102,113 @@ def _launch_smem(stages: int, box: int, dpl: int, hpw: int, extra: int) -> int:
     return max(stages * 2 * box, merge) + stages * 8 + extra
 
 
-def paged_smem_footprint_bytes(b: int, h: int, kh: int, hd: int, page_size: int,
-                               max_pages: int, *, window: int, dtype) -> int:
-    """Dynamic shared memory of one `paged_splitk_flashattn` launch, by the
-    kernel's arithmetic (``csrc/paged_flashattn.cu`` `paged_smem`): a ring
-    of K and V page boxes (`ring_stages` over ``max_pages``), or the warps'
-    merge scratch that reuses it if larger, one mbarrier a stage, and the
-    slot's page list and the remote flags, ``(max_pages + b)`` ints.
-    Counterpart of the reference's ``paged_vmem_footprint_bytes``."""
+class PagedDesign(NamedTuple):
+    """How a `paged_splitk_flashattn` launch runs (``csrc/paged_flashattn.cu``
+    `dispatch_attn`).  ``name`` is "cluster" (bf16 above hd 256, pools a
+    tensor map describes: 16-head blocks in clusters of ``cluster`` CTAs,
+    each page read once per cluster) or "head-group" (one CTA per
+    ``heads_per_cta`` query heads of a kv head, each reading every page);
+    ``alias`` says V is taken from the K stage (the cluster design with the
+    K pools passed as V); ``stages`` the ring, ``cut`` what cut the
+    ``window + 1`` asked for (None, "MAX_WINDOW", "RING_MAX", "SMEM_MAX" or
+    "chunks"); ``smem`` the dynamic shared memory in bytes."""
+
+    name: str
+    heads_per_cta: int
+    cluster: int
+    alias: bool
+    stages: int
+    cut: str | None
+    smem: int
+
+
+def _cluster_ring(b: int, hd: int, page_size: int, max_pages: int, window: int,
+                  alias: bool) -> tuple[int, str | None, int]:
+    """``(stages, cut, smem)`` of a cluster-design launch (`cluster_stages`,
+    `cluster_smem`): ``min(window, MAX_WINDOW) + 1`` stages, cut to what
+    CLUSTER_SMEM_MAX holds beside the alignment slack, Q (16 rows x the
+    boxes of a row), the partial scores and ``(max_pages + b)`` ints, and
+    to the slot's pages; 0 stages if not one fits.  A stage is ceil(hd /
+    64) boxes, each a slot of page rows rounded up to 16 keys x 128 B, for
+    K and (unless V is the K pool) V, with a full and an empty mbarrier."""
+    window = max(1, int(window))
+    stages, cut = min(window, MAX_WINDOW) + 1, ("MAX_WINDOW" if window > MAX_WINDOW else None)
+    boxes = -(-hd // CLUSTER_COLS)
+    fixed = CLUSTER_ALIGN + boxes * CLUSTER_HEADS * 128 + CLUSTER_RED + (max_pages + b) * 4
+    slot = -(-page_size // CLUSTER_KEYS) * CLUSTER_KEYS * 128
+    per = boxes * slot * (1 if alias else 2) + 16
+    fit = max(0, CLUSTER_SMEM_MAX - fixed) // per
+    if stages > fit:
+        stages, cut = fit, "SMEM_MAX"
+    if stages > max_pages:
+        stages, cut = max_pages, cut or "chunks"
+    return stages, cut, fixed + stages * per
+
+
+def _cluster_ctas(g: int) -> int:
+    """CTAs of a cluster-design cluster: ceil(G / 16) head blocks spread
+    evenly over the fewest clusters of at most CLUSTER_MAX."""
+    blocks = -(-g // CLUSTER_HEADS)
+    clusters = -(-blocks // CLUSTER_MAX)
+    return -(-blocks // clusters)
+
+
+def paged_design(b: int, h: int, kh: int, hd: int, page_size: int, max_pages: int, *,
+                 window: int, dtype, alias_v: bool = False, aligned: bool = True,
+                 design: str | None = None) -> PagedDesign:
+    """The design a launch with these extents takes, as the kernel's
+    dispatch picks it: the cluster design for bf16 above hd 256 whose pools
+    a tensor map describes (hd a multiple of 8, pages of at most 256 rows,
+    ``aligned`` 16-byte bases) and whose ring fits one stage, else the
+    head-group design.  ``alias_v``: the V pools are the K pools.
+    ``design="head-group"`` asks for the head-group design whatever the
+    extents (the wrapper's private launch, kept to time the two)."""
+    elem = elem_bytes(dtype)
+    if design is None and elem == 2 and hd > 256 and hd % 8 == 0 and page_size <= 256 \
+            and aligned:
+        stages, cut, smem = _cluster_ring(b, hd, page_size, max_pages, window, alias_v)
+        if stages >= 1:
+            return PagedDesign("cluster", CLUSTER_HEADS, _cluster_ctas(h // kh), alias_v,
+                               stages, cut, smem)
     dpl = _dims_per_lane(hd)
-    box = _box_bytes(page_size, hd, elem_bytes(dtype))
-    stages, _ = ring_stages(window, 2 * box, max_pages)
-    return _launch_smem(stages, box, dpl, _heads_per_cta(dpl, h, kh), (max_pages + b) * 4)
+    hpw = _heads_per_cta(dpl, h, kh)
+    box = _box_bytes(page_size, hd, elem)
+    stages, cut = ring_stages(window, 2 * box, max_pages)
+    return PagedDesign("head-group", hpw, 1, False, stages, cut,
+                       _launch_smem(stages, box, dpl, hpw, (max_pages + b) * 4))
+
+
+def paged_smem_footprint_bytes(b: int, h: int, kh: int, hd: int, page_size: int,
+                               max_pages: int, *, window: int, dtype,
+                               alias_v: bool = False) -> int:
+    """Dynamic shared memory of one `paged_splitk_flashattn` launch with
+    aligned operands, by the kernel's arithmetic (``csrc/paged_flashattn.cu``
+    `cluster_smem` or `paged_smem`, `paged_design`): the cluster design's
+    alignment slack, Q, ring of page boxes, partial scores, two mbarriers a
+    stage and ``(max_pages + b)`` ints; or the head-group design's ring of K
+    and V page boxes (`ring_stages` over ``max_pages``), or the warps' merge
+    scratch that reuses it if larger, one mbarrier a stage, and the slot's
+    page list and the remote flags, ``(max_pages + b)`` ints.  Counterpart
+    of the reference's ``paged_vmem_footprint_bytes``."""
+    return paged_design(b, h, kh, hd, page_size, max_pages, window=window, dtype=dtype,
+                        alias_v=alias_v).smem
+
+
+def paged_reads(tier, lens, page_size: int, h: int, kh: int, hd: int, elem: int, *,
+                alias: bool, heads_per_cta: int, cluster: int) -> int:
+    """The remote page bytes a paged launch loads over the host link, the
+    model ``paged_splitk_flashattn.host_bytes`` counts: every in-use remote
+    page of every slot (pages up to ``ceil(lens / page)``, within the
+    table's width), for each kv head, once per reader of it (a cluster of
+    ``cluster`` CTAs of ``heads_per_cta`` heads each reads it once, so
+    ``ceil(G / (heads_per_cta * cluster))`` readers of G = H / Kh heads),
+    K and V (V alone when ``alias``: taken from the K stage)."""
+    tier, lens = np.asarray(tier), np.asarray(lens)
+    mp = tier.shape[1]
+    used = np.minimum(-(-lens // page_size), mp)
+    n_rem = int(((tier > 0) & (np.arange(mp)[None, :] < used[:, None])).sum())
+    readers = -(-(h // kh) // (heads_per_cta * cluster))
+    return n_rem * kh * readers * (1 if alias else 2) * page_size * hd * elem
 
 
 def smem_footprint_bytes(h: int, kh: int, hd: int, kv_len: int, *, window: int,
@@ -112,12 +225,13 @@ def smem_footprint_bytes(h: int, kh: int, hd: int, kv_len: int, *, window: int,
 
 
 def paged_smem_query(b: int, h: int, kh: int, hd: int, page_size: int, max_pages: int, *,
-                     window: int, dtype) -> tuple[int, int]:
-    """The paged kernel's own count: ``(dynamic shared memory bytes, ring
-    stages)`` from ``dak_paged_attention_smem``.  Needs the card."""
+                     window: int, dtype, alias_v: bool = False) -> tuple[int, int]:
+    """The paged kernel's own count for aligned operands: ``(dynamic shared
+    memory bytes, ring stages)`` from ``dak_paged_attention_smem``.  Needs
+    the card."""
     return _build.smem_query("paged_flashattn", "dak_paged_attention_smem", b, h, kh, hd,
                              page_size, max_pages, max(1, int(window)),
-                             0 if elem_bytes(dtype) == 4 else 1)
+                             0 if elem_bytes(dtype) == 4 else 1, int(alias_v))
 
 
 def smem_query(h: int, kh: int, hd: int, kv_len: int, *, window: int,
@@ -146,19 +260,46 @@ class Launch(NamedTuple):
     args: tuple
 
 
+def pools_alias(k_loc, v_loc, k_rem, v_rem) -> bool:
+    """Whether the V pools are the K pools (a K-only cache, MLA's latent
+    pages): the cluster design then takes V from the K stage."""
+    return v_loc.data_ptr() == k_loc.data_ptr() and v_rem.data_ptr() == k_rem.data_ptr()
+
+
+def launch_design(q, k_loc, v_loc, k_rem, v_rem, table, window: int,
+                  design: str | None = None) -> PagedDesign:
+    """`paged_design` for checked CUDA operands, their alignment and aliasing
+    read from the tensors."""
+    b, h, hd = q.shape
+    _, ps, kh, _ = k_loc.shape
+    return paged_design(b, h, kh, hd, ps, table.shape[1], window=window, dtype=q.dtype,
+                        alias_v=pools_alias(k_loc, v_loc, k_rem, v_rem),
+                        aligned=all(t.data_ptr() % 16 == 0
+                                    for t in (q, k_loc, v_loc, k_rem, v_rem)),
+                        design=design)
+
+
 def _paged_launch(q, k_loc, v_loc, k_rem, v_rem, table, tier, lens, window: int,
-                  scale: float | None) -> Launch:
+                  scale: float | None, design: str | None = None) -> Launch:
     """The paged kernel's arguments for checked CUDA operands (B >= 1), with
-    the output allocated."""
+    the output allocated and the remote bytes counted into
+    ``paged_splitk_flashattn.host_bytes``.  ``design`` None is the kernel's
+    own dispatch (`paged_design`); "head-group" is the design the cluster
+    design replaced at bf16 above hd 256, kept reachable here to measure
+    the two against each other; the wrapper never asks for it."""
+    if design not in (None, "head-group"):
+        raise ValueError(f"design must be None or 'head-group', got {design!r}")
     b, h, hd = q.shape
     _, ps, kh, _ = k_loc.shape
     out = torch.empty_like(q)
     sc = (hd ** -0.5) if scale is None else float(scale)
+    host_bytes = paged_splitk_flashattn.host_bytes.total(q.device)
     return Launch(out, (
         q.data_ptr(), k_loc.data_ptr(), v_loc.data_ptr(), k_rem.data_ptr(), v_rem.data_ptr(),
         table.data_ptr(), tier.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        b, h, kh, hd, ps, table.shape[1], k_loc.shape[0], k_rem.shape[0], sc,
-        max(1, int(window)), _DTYPES[q.dtype], _build.stream_handle(q.device)))
+        host_bytes.data_ptr(), b, h, kh, hd, ps, table.shape[1], k_loc.shape[0],
+        k_rem.shape[0], sc, max(1, int(window)), int(pools_alias(k_loc, v_loc, k_rem, v_rem)),
+        0 if design is None else 1, _DTYPES[q.dtype], _build.stream_handle(q.device)))
 
 
 def _launch_paged(launch: Launch) -> torch.Tensor:
@@ -226,9 +367,12 @@ def paged_splitk_flashattn(
 ) -> torch.Tensor:
     """Paged tiered flash-decode -> [B, H, hd] in q's dtype.  lens == 0
     slots give zeros; ``scale`` overrides ``hd**-0.5``; passing the K pools
-    as the V pools reads V from them.  ``window`` (>= 1) is the number of
-    page loads each CTA keeps in flight and never changes the result.  On
-    the card hd <= 1024."""
+    as the V pools reads V from them (the cluster design loads each page
+    once for both).  ``window`` (>= 1) is the number of page loads each CTA
+    or cluster keeps in flight and never changes the result.  On the card
+    hd <= 1024, the design is `paged_design`'s, and ``host_bytes`` (a
+    `DeviceCount`) counts the remote page bytes the launches load, on the
+    device (`paged_reads`).  A launch the card refuses raises."""
     if q.device.type == "cpu":
         return paged_flashattn_ref(q, k_pages_local, v_pages_local, k_pages_remote,
                                    v_pages_remote, table, tier, lens, scale=scale)
@@ -270,6 +414,8 @@ def paged_splitk_flashattn(
 
 
 paged_splitk_flashattn.launches = 0   # kernel launches since the count was last reset
+# remote page bytes the launches loaded over the host link, counted on the device
+paged_splitk_flashattn.host_bytes = DeviceCount()
 
 
 def _check_cache(name: str, t: torch.Tensor, like: torch.Tensor) -> None:

@@ -122,9 +122,10 @@ def test_ratio_bucket_equals_the_reference():
 def test_every_winner_passes_the_hopper_lints(hw):
     tuner = _swept(hw)
     entries = [e.to_json() for e in tuner.table.values()]
-    # MLA's fp32 pages of 16 x 576 leave the ring one stage under RING_MAX at
-    # any window (DAK101 names the clamp), so no candidate wins: a negative
-    # entry, and the engine keeps its own window there
+    # MLA's fp32 pages of 16 x 576 leave the head-group design's ring one
+    # stage under RING_MAX at any window (DAK101 names the clamp), so no
+    # candidate wins: a negative entry, and the engine keeps its own window
+    # there; bf16 runs the cluster design, whose ring fits
     assert [(e["shape"], e["dtype"]) for e in entries if e["config"] is None] == \
         [([128, 1, 576, 16, 10], "float32")]
     assert tuner.validate() == [] and check_autotune_table(entries) == []

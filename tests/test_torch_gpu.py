@@ -23,6 +23,10 @@ from repro_torch.core.tiering import TieredTensor
 from repro_torch.kernels import _build, flash_prefill, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.splitk_flashattn import (
+    _launch_paged,
+    _paged_launch,
+    launch_design,
+    paged_reads,
     paged_splitk_flashattn,
     scatter_rows,
     scatter_rows_ref,
@@ -119,9 +123,23 @@ PAGED_CASES = {
     "hd576": (2, 8, 1, 576, 16, 12, (20, 20), (180, 33), "mixed", None, False),
     "hd1024": (2, 2, 2, 1024, 16, 6, (10, 10), (90, 16), "mixed", None, False),
     # DeepSeek-V2's MLA decode: 128 heads over one latent kv head of width
-    # kv_lora 512 + rope 64, V read from the K pool, scale (nd + rd)**-0.5
+    # kv_lora 512 + rope 64, V read from the K pool, scale (nd + rd)**-0.5;
+    # bf16 runs the cluster design (blocks of 16 heads, clusters of up to 8
+    # a slot): one block (G 16), one cluster of 8 (G 128), two clusters of 5
+    # (G 144), every page local or remote, lengths 0, 1, 16 and 17, a long
+    # cache
     "mla-full-width": (4, 128, 1, 576, 16, 10, (20, 20), (150, 0, 37, 160), "mixed",
                        192 ** -0.5, True),
+    "mla-g16": (3, 16, 1, 576, 16, 10, (20, 20), (150, 0, 37), "mixed", 192 ** -0.5, True),
+    "mla-g144": (2, 144, 1, 576, 16, 10, (20, 20), (150, 17), "mixed", 192 ** -0.5, True),
+    "mla-all-local": (3, 128, 1, 576, 16, 10, (40, 4), (160, 1, 16), "local", 192 ** -0.5,
+                      True),
+    "mla-all-remote": (3, 128, 1, 576, 16, 10, (4, 40), (17, 0, 150), "remote", 192 ** -0.5,
+                       True),
+    "mla-edge-lens": (4, 128, 1, 576, 16, 10, (20, 20), (0, 1, 16, 17), "mixed", 192 ** -0.5,
+                      True),
+    "mla-long": (2, 128, 1, 576, 16, 128, (300, 300), (2048, 1937), "mixed", 192 ** -0.5,
+                 True),
     # the dense variants' decode shapes: OPT-30B (56 heads padded to 112 over
     # 56 kv heads), Qwen2.5-14B (48 padded heads over 8), ChatGLM3-6B and
     # StarCoder2-3B (32 over 2: a group of 16, split across CTAs)
@@ -165,15 +183,27 @@ def test_paged_attention_matches_plain(cuda_device, case, dtype, window):
     """Paged attention at small and full width (H = Kh = 32, hd 128, page
     16), lengths 0, 1, 16 and 17 and long caches (up to 2048), every page
     local or every page remote, GQA, V read from the K pool, a `scale`
-    override, hd 30 and hd above 256 (element loads); one launch per call,
-    zeros for lens 0, and the same bits on a second launch."""
+    override, hd 30 and hd above 256 (bf16: the cluster design; fp32:
+    element loads), MLA's 128 heads and 16, 144; one launch per call, zeros
+    for lens 0, the same bits on a second launch, and the remote bytes
+    counted on the card equal to `paged_reads` for the design launched."""
     q, pools, pools_dev, table, tier, lens_t, lens, scale = _paged_case(case, dtype, cuda_device)
+    design = launch_design(q, pools["k_local"], pools["v_local"], pools["k_remote"],
+                           pools["v_remote"], table, window)
+    b, h, hd = q.shape
+    _, ps, kh, _ = pools["k_local"].shape
+    model = paged_reads(tier.cpu().numpy(), np.asarray(lens), ps, h, kh, hd, ELEM_BYTES[dtype],
+                        alias=design.alias, heads_per_cta=design.heads_per_cta,
+                        cluster=design.cluster)
+    assert design.name == ("cluster" if dtype == torch.bfloat16 and hd > 256 else "head-group")
     before = paged_splitk_flashattn.launches
+    paged_splitk_flashattn.host_bytes.reset()
     got = ops.paged_decode_attention(q, pools, table, tier, lens_t, window=window, scale=scale)
     again = ops.paged_decode_attention(q, pools, table, tier, lens_t, window=window,
                                        scale=scale)
     torch.cuda.synchronize()
     assert paged_splitk_flashattn.launches == before + 2
+    assert int(paged_splitk_flashattn.host_bytes) == 2 * model
     want = tref.paged_flashattn_ref(q, pools_dev["k_local"], pools_dev["v_local"],
                                     pools_dev["k_remote"], pools_dev["v_remote"],
                                     table, tier, lens_t, scale=scale)
@@ -205,6 +235,37 @@ def test_paged_attention_gathered_remote_pools_on_card(cuda_device, case, dtype)
         with pytest.raises(ValueError, match="pinned host memory"):
             ops.paged_decode_attention(q, {**gathered, "k_remote": bad, "v_remote": bad},
                                        table, tier, lens_t, scale=scale)
+
+
+@pytest.mark.parametrize("case", ["mla-full-width", "mla-g144", "mla-all-remote", "hd576"])
+def test_mla_cluster_design_reads_each_page_once_per_cluster(cuda_device, case):
+    """The cluster design against the head-group design it replaced at bf16
+    above hd 256 (both through the wrapper's private launch): the same
+    attention within the bf16 bound, and the remote bytes counted once per
+    cluster (V from the K stage when the pools alias) against once per CTA
+    and per K and V box."""
+    q, pools, _, table, tier, lens_t, lens, scale = _paged_case(case, torch.bfloat16,
+                                                                 cuda_device)
+    args = (q, pools["k_local"], pools["v_local"], pools["k_remote"], pools["v_remote"], table)
+    b, h, hd = q.shape
+    _, ps, kh, _ = pools["k_local"].shape
+    got, counted, model = {}, {}, {}
+    for design in (None, "head-group"):
+        d = launch_design(*args, 2, design)
+        model[d.name] = paged_reads(tier.cpu().numpy(), np.asarray(lens), ps, h, kh, hd, 2,
+                                    alias=d.alias, heads_per_cta=d.heads_per_cta,
+                                    cluster=d.cluster)
+        paged_splitk_flashattn.host_bytes.reset()
+        got[d.name] = _launch_paged(_paged_launch(*args, tier, lens_t, 2, scale, design))
+        torch.cuda.synchronize()
+        counted[d.name] = int(paged_splitk_flashattn.host_bytes)
+    assert counted == model and set(counted) == {"cluster", "head-group"}
+    assert rel_err(got["cluster"], got["head-group"]) < TOL[torch.bfloat16]
+    # MLA's 128 heads: each remote page 256 times (128 CTAs x K and V) against
+    # once; G heads in ceil(G / 128) clusters in general
+    g, loads = h // kh, 1 if PAGED_CASES[case][-1] else 2
+    assert counted["cluster"] > 0
+    assert counted["head-group"] * loads * -(-g // 128) == counted["cluster"] * 2 * g
 
 
 def test_scatter_rows_into_a_gathered_remote_pool(cuda_device):
@@ -1120,12 +1181,14 @@ def test_gemm_smem_footprint_equals_the_kernels_count(cuda_device, dtype):
 def test_attention_smem_footprints_equal_the_kernels_counts(cuda_device, dtype):
     from repro_torch.kernels import splitk_flashattn as A
 
-    for case, (b, h, kh, hd, ps, mp, *_rest) in PAGED_CASES.items():
+    for case, (b, h, kh, hd, ps, mp, *_rest, alias_v) in PAGED_CASES.items():
         for window in (1, 2, 4, 8, 16):
-            stages, _ = A.ring_stages(window, 2 * A._box_bytes(ps, hd, ELEM_BYTES[dtype]), mp)
-            want = A.paged_smem_query(b, h, kh, hd, ps, mp, window=window, dtype=dtype)
+            d = A.paged_design(b, h, kh, hd, ps, mp, window=window, dtype=dtype, alias_v=alias_v)
+            want = A.paged_smem_query(b, h, kh, hd, ps, mp, window=window, dtype=dtype,
+                                      alias_v=alias_v)
             assert (A.paged_smem_footprint_bytes(b, h, kh, hd, ps, mp, window=window,
-                                                 dtype=dtype), stages) == want, (case, window)
+                                                 dtype=dtype, alias_v=alias_v),
+                    d.stages) == want, (case, window)
     for h, kh, hd, kv_len in ((32, 32, 128, 288), (32, 8, 128, 2000), (8, 1, 576, 70),
                               (4, 2, 30, 5), (2, 2, 1024, 100)):
         for window in (1, 2, 8, 12):

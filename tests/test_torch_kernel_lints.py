@@ -245,10 +245,21 @@ def test_footprints_match_hand_worked_numbers():
     # smaller), 2 mbarriers, (10 pages + 4 slots) ints
     assert A.paged_smem_footprint_bytes(4, 32, 32, 128, 16, 10, window=1, dtype=BF) \
         == 16384 + 16 + 56
-    # MLA bf16, 576 wide: a 18432-B box, 36864 a stage; RING_MAX 98304 fits 2
-    assert A.paged_smem_footprint_bytes(4, 128, 1, 576, 16, 10, window=4, dtype=BF) \
-        == 2 * 36864 + 16 + 56
-    assert A.ring_stages(4, 36864, 10) == (2, "RING_MAX")
+    # MLA bf16, 576 wide (paged_flashattn.cu cluster_smem): 9 boxes of 64
+    # columns, each a slot of 16 rows x 128 B; V taken from the K pool, so a
+    # stage is 9 * 2048 = 18432 B; window 4 -> 5 stages, each with a full and
+    # an empty mbarrier, beside 1024 B of alignment slack, Q (9 * 2048), the
+    # partial scores (2 buffers x 4 warps x 32 lanes x 8 floats) and (10
+    # pages + 4 slots) ints
+    assert A.paged_smem_footprint_bytes(4, 128, 1, 576, 16, 10, window=4, dtype=BF,
+                                        alias_v=True) \
+        == 1024 + 18432 + 8192 + 56 + 5 * (18432 + 16)
+    # a separate V pool doubles a stage to 36864 B: 227 KB less 128 B holds 5
+    mla = A.paged_design(4, 128, 1, 576, 16, 10, window=8, dtype=BF)
+    assert (mla.name, mla.cluster, mla.stages, mla.cut) == ("cluster", 8, 5, "SMEM_MAX")
+    # fp32 keeps the head-group design: a 36864-B box, 73728 a stage of K and
+    # V; RING_MAX 98304 fits 1
+    assert A.ring_stages(4, 2 * 36864, 10) == (1, "RING_MAX")
     # a GQA group at hd 128 (DPL 4: up to 8 heads a CTA): the merge scratch,
     # 4 warps * 8 heads * (32*4 + 2) floats = 16640 B, outgrows a ring of 2
     # stages of two 256-B boxes (pages of 1 bf16 row)
