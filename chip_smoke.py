@@ -17,7 +17,10 @@ runs, printing each result on its own line:
    remote operand in pinned host memory, at the main paths' decode and
    prefill shapes and windows {1, 2, 4}, plus edge cases; bound: 2e-4
    relative error in fp32, 5e-2 in bf16 (the reference's own tolerances),
-   taken per query row for flash_prefill; also the expert FFN at
+   taken per query row for flash_prefill (its wgmma design at hd 64 and
+   128, T 1 to 2048, causal and full, GQA and H = Kh, Tq != Tk; hd 32, 96,
+   256 and a misaligned view on the mma.sync design; every case launched
+   twice, bitwise equal); also the expert FFN at
    Qwen3-30B-A3B's and DeepSeek-V2's widths (the remote block through two
    `splitk_gemm_grouped` launches, experts without a valid slot skipped on
    the device, also held against the per-expert `splitk_gemm` loop it
@@ -53,8 +56,10 @@ runs, printing each result on its own line:
    and at the planner's split for launch/serve.py's default offload 0.4;
    both decode-attention kernels as the device time of their launch alone
    (the wrapper call and its host time beside it), at the served runs'
-   shapes and at a long cache; the tensor-core `flash_prefill` beside the
-   FMA design; each with its remote GB/s or TFLOP/s; one Qwen3 layer's
+   shapes and at a long cache; `flash_prefill` in bf16 at five shapes (hd
+   128 T 128 and 2048, GQA, hd 64, full): the wgmma design beside the
+   mma.sync design it replaced, plain and SDPA in alternating rounds; each
+   with its remote GB/s or TFLOP/s; one Qwen3 layer's
    remote experts at decode (M 1, 15 active) and at prefill (M 64, 192,
    384, all 64 active): the cluster design beside the split-K design it
    replaced, copy + bmm, plain and bound, the GB/s of unique bytes and
@@ -66,7 +71,8 @@ runs, printing each result on its own line:
    0.5, 4 requests (2 local + 2 remote cache rows) of 256 prompt + 32 new
    tokens — launches per step, pinned remote rows, peak device memory, TPOT;
 8. `flash_prefill` (off the serving path, as in the reference) through its
-   entry point at llama2-7b prefill shape, once per layer;
+   entry point at llama2-7b prefill shape, once per layer, every launch
+   the wgmma design;
 9. only when asked (``--phases 1,9``), the host-link read probe: a
    read-only measurement kernel (``csrc/host_probe.cu``, on no path) over
    64 MiB of pinned host memory, swept over copy form (16-byte cp.async,
@@ -259,6 +265,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import importlib
 import json
 import math
 import os
@@ -295,6 +302,13 @@ KERNELS = ("splitk_gemm", "splitk_gemm_grouped", "paged_attention", "splitk_flas
            "flash_prefill")
 OPT30B_PEAK_LIMIT = 40e9    # device bytes OPT-30B may peak at (70.5 GB of bf16 weights)
 ZAMBA2_PARITY_LAYERS = 12   # two groups of 6: both shared blocks run (phases 2 and 20)
+# phase 5's flash_prefill shapes (B, H, Kh, T, hd, causal), all bf16; the
+# kernels line reports PREFILL_REPORTED
+PREFILL_TIMING = ((4, 32, 32, 128, 128, True), (4, 32, 32, 2048, 128, True),
+                  (4, 32, 8, 2048, 128, True), (4, 16, 16, 2048, 64, True),
+                  (4, 32, 32, 2048, 128, False))
+PREFILL_REPORTED = (4, 32, 32, 2048, 128, True)
+PREFILL_CHECK_T = (1, 63, 64, 65, 127, 128, 129, 1000, 2048)   # phase 2's wgmma-design rows
 
 FAILURES: list[str] = []
 
@@ -781,24 +795,38 @@ def splitk_attn_case(label, b_loc, b_rem, h, kh, hd, s, kv_lens, dtype, windows,
             note_err(stats, rel, ab)
 
 
-def prefill_case(label, b, h, kh, t, hd, dtype, gen, stats=None):
+def prefill_case(label, b, h, kh, t, hd, dtype, gen, stats=None, tk=None, offset=0):
+    """flash_prefill causal and full against plain, per query row, with a
+    second launch bitwise equal; the design the wrapper took is printed.
+    ``offset`` > 0 views every operand one element into its storage (off
+    16-byte alignment)."""
     from repro_torch.kernels import flash_prefill, ref
 
-    q = torch.randn((b, h, t, hd), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((b, kh, t, hd), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((b, kh, t, hd), generator=gen, device="cuda").to(dtype)
+    FP = importlib.import_module("repro_torch.kernels.flash_prefill")
+    tk = t if tk is None else tk
+
+    def operand(heads, rows):
+        n = b * heads * rows * hd
+        flat = torch.randn(n + offset, generator=gen, device="cuda").to(dtype)
+        return flat[offset:].view(b, heads, rows, hd)
+
+    q, k, v = operand(h, t), operand(kh, tk), operand(kh, tk)
+    which = FP.design(hd, dtype, FP._aligned(q, k, v))
     for causal in (True, False):
         want = ref.flash_prefill_ref(q, k, v, causal)
         got = flash_prefill(q, k, v, causal=causal)
+        again = flash_prefill(q, k, v, causal=causal)
         torch.cuda.synchronize()
         # per query row: causal row 0 is v[0] (values near 4) while late rows
         # average thousands of keys (near 0.05), so one global scale would
         # hide wrong late rows
         rel, ab = row_rel_err(got, want)
-        check(rel < TOL[dtype] and torch.isfinite(got.float()).all().item(),
-              f"flash_prefill {label} B={b} H={h} Kh={kh} T={t} hd={hd} "
-              f"{'causal' if causal else 'full'} {str(dtype)[6:]}: max rel err per query row "
-              f"{rel:.2e} (abs {ab:.2e}, bound {TOL[dtype]:.0e})")
+        same = torch.equal(got, again)
+        check(rel < TOL[dtype] and torch.isfinite(got.float()).all().item() and same,
+              f"flash_prefill {label} ({which} design) B={b} H={h} Kh={kh} Tq={t} Tk={tk} "
+              f"hd={hd} {'causal' if causal else 'full'} {str(dtype)[6:]}: max rel err per "
+              f"query row {rel:.2e} (abs {ab:.2e}, bound {TOL[dtype]:.0e}), again "
+              f"{'bitwise equal' if same else 'DIFFERENT'}")
         note_err(stats, rel, ab)
     del q, k, v, want
 
@@ -963,6 +991,18 @@ def phase_kernels() -> dict:
     prefill_case("gqa", 2, 8, 2, 512, 64, f32, gen)
     prefill_case("ragged", 2, 4, 2, 100, 64, bf, gen)
     prefill_case("unaligned", 1, 4, 1, 77, 30, f32, gen)
+    # the wgmma design at its head dims: ragged and whole tiles, GQA 8 over 2
+    # and H = Kh, Tq != Tk; then what keeps the mma.sync design
+    for hd in (64, 128):
+        for t in PREFILL_CHECK_T:
+            prefill_case("gqa", 2, 8, 2, t, hd, bf, gen)
+        for t in (65, 1000):
+            prefill_case("mha", 2, 4, 4, t, hd, bf, gen)
+        prefill_case("tq > tk", 2, 4, 4, 300, hd, bf, gen, tk=200)
+        prefill_case("tq < tk", 1, 4, 1, 100, hd, bf, gen, tk=333)
+    for hd in (32, 96, 256):
+        prefill_case("other hd", 2, 8, 2, 129, hd, bf, gen)
+    prefill_case("misaligned", 2, 8, 2, 129, 128, bf, gen, offset=1)
     return stats
 
 
@@ -2276,53 +2316,56 @@ def time_splitk_attention(label, s_len, kv_len, link, flush, gen, window) -> dic
                 t_bytes=max(loc_b / HBM_BW, rem_b / link), t_ops=flops / BF16_PEAK)
 
 
-def fma_prefill(q, k, v):
-    """The FMA design of flash_prefill (the port's fp32 path) on bf16 inputs,
-    causal: what the tensor-core path replaced, timed beside it."""
-    from repro_torch.kernels import _build
-
-    out = torch.empty_like(q)
-    b, h, t, hd = q.shape
-    _build.check(_build.load().libs["flash_prefill"].dak_flash_prefill_fma(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, k.shape[1], t,
-        k.shape[2], hd, 1, 1, _build.stream_handle(q.device)), "flash_prefill (FMA design)")
-    return out
-
-
 def time_flash_prefill(flush, gen) -> dict:
-    """flash_prefill at B = 4, H = Kh = 32, hd = 128, causal, bf16; the last
-    shape timed (T = 2048) is the one the kernels line reports."""
+    """flash_prefill in bf16 at `PREFILL_TIMING`'s shapes: each bf16 design
+    (`flash_prefill.BF16_DESIGNS`, newest first; the older through the
+    private `_launch`), the plain version and SDPA (``is_causal``,
+    ``enable_gqa`` under GQA; the port never calls it) in `ROUNDS`
+    alternating rounds, medians printed with the bound.  The shape
+    `PREFILL_REPORTED` is the one the kernels line reports."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import flash_prefill
     from repro_torch.kernels.ref import flash_prefill_ref
 
-    b, h, hd = DECODE_BATCH, 32, 128
+    FP = importlib.import_module("repro_torch.kernels.flash_prefill")
     out = {}
-    for t_len in (128, 2048):
-        q, k, v = (torch.randn((b, h, t_len, hd), generator=gen, device="cuda")
-                   .to(torch.bfloat16) for _ in range(3))
+    for b, h, kh, t_len, hd, causal in PREFILL_TIMING:
+        q = torch.randn((b, h, t_len, hd), generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((b, kh, t_len, hd), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
         args = (q, k, v)
-        rel, _ = row_rel_err(fma_prefill(*args), flash_prefill_ref(*args, True))
-        check(rel < TOL[torch.bfloat16], f"flash_prefill FMA design (bf16) T={t_len}: max rel "
-                                         f"err per query row {rel:.2e}")
-        t_fma = time_ms(lambda a=args: fma_prefill(*a), flush=flush)
-        tk = time_ms(lambda a=args: flash_prefill(*a, causal=True), flush=flush)
-        t_plain = time_ms(lambda a=args: flash_prefill_ref(*a, True), flush=flush)
-        t_lib = time_ms(lambda a=args: F.scaled_dot_product_attention(*a, is_causal=True),
-                        flush=flush)
-        nbytes = 4 * q.numel() * 2                       # q, k, v read and out written once
-        flops = 2 * b * h * t_len * (t_len + 1) * hd     # causal: key s <= query t
+        calls = [lambda a=args, d=d: FP._launch(*a, causal, d) for d in FP.BF16_DESIGNS]
+        calls.append(lambda a=args: flash_prefill_ref(*a, causal))
+        calls.append(lambda a=args: F.scaled_dot_product_attention(
+            *a, is_causal=causal, enable_gqa=kh != h))
+        want = flash_prefill_ref(*args, causal)
+        for d, call in zip(FP.BF16_DESIGNS, calls):
+            rel, _ = row_rel_err(call(), want)
+            check(rel < TOL[torch.bfloat16], f"flash_prefill {d} design B={b} H={h} Kh={kh} "
+                                             f"T={t_len} hd={hd}: max rel err per query row "
+                                             f"{rel:.2e}")
+        del want
+        rounds = alternate(calls, flush)
+        med = [statistics.median(r) for r in rounds]
+        nbytes = 2 * (q.numel() + 2 * k.numel() + q.numel())   # q, k, v read, out written once
+        pairs = t_len * (t_len + 1) // 2 if causal else t_len * t_len   # key s <= query t
+        flops = 4 * b * h * pairs * hd
         t_bytes, t_ops = nbytes / HBM_BW, flops / BF16_PEAK
         b_ms = max(t_bytes, t_ops) * 1e3
-        print(f"  flash_prefill B={b} H=Kh={h} T={t_len} hd={hd} causal bf16: kernel {tk:.4f} ms"
-              f" ({flops / (tk * 1e-3) / 1e12:.2f} TFLOP/s) | FMA design {t_fma:.4f} ms "
-              f"({flops / (t_fma * 1e-3) / 1e12:.2f} TFLOP/s) | plain {t_plain:.4f} ms | bound "
-              f"{b_ms:.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}) | SDPA(is_causal) "
-              f"{t_lib:.4f} ms")
-        out = dict(ms=tk, fma_ms=t_fma, plain_ms=t_plain, bound_ms=b_ms, library_ms=t_lib,
-                   t_bytes=t_bytes, t_ops=t_ops)
-        del q, k, v, args
+        designs = " | ".join(f"{d} {m:.4f} ms ({flops / (m * 1e-3) / 1e12:.2f} TFLOP/s)"
+                             for d, m in zip(FP.BF16_DESIGNS, med))
+        wins = sum(x < y for x, y in zip(rounds[0], rounds[1])) if len(rounds) > 3 else 0
+        print(f"  flash_prefill B={b} H={h} Kh={kh} T={t_len} hd={hd} "
+              f"{'causal' if causal else 'full'} bf16: {designs} | plain {med[-2]:.4f} ms | "
+              f"SDPA {med[-1]:.4f} ms ({flops / (med[-1] * 1e-3) / 1e12:.2f} TFLOP/s) | bound "
+              f"{b_ms:.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}) | "
+              f"{FP.BF16_DESIGNS[0]} faster than {FP.BF16_DESIGNS[-1]} in {wins} of "
+              f"{len(rounds[0])} rounds")
+        if (b, h, kh, t_len, hd, causal) == PREFILL_REPORTED:
+            out = dict(ms=med[0], replaced_ms=med[1] if len(med) > 3 else None,
+                       plain_ms=med[-2], bound_ms=b_ms, library_ms=med[-1], t_bytes=t_bytes,
+                       t_ops=t_ops)
+        del q, k, v, args, calls
     return out
 
 
@@ -2483,15 +2526,17 @@ def phase_flash_prefill() -> dict:
     q, k, v = (torch.randn((b, h, t_len, hd), generator=gen, device="cuda").to(torch.bfloat16)
                for _ in range(3))
     flash_prefill.launches = 0
+    by_design = flash_prefill.launches_by_design
+    by_design.update(dict.fromkeys(by_design, 0))
     outs_ok = True
     for _ in range(n_layers):
         o = flash_prefill(q, k, v, causal=True)
         outs_ok = outs_ok and o.shape == q.shape and bool(torch.isfinite(o.float()).all())
     torch.cuda.synchronize()
     launches = flash_prefill.launches
-    check(outs_ok and launches == n_layers,
+    check(outs_ok and launches == n_layers and by_design["wgmma"] == n_layers,
           f"flash_prefill B={b} H=Kh={h} T={t_len} hd={hd} causal bf16, once per layer: "
-          f"{launches} launches, outputs finite and [B, H, T, hd]")
+          f"{launches} launches ({by_design}), outputs finite and [B, H, T, hd]")
     return {"launches": {"flash_prefill": launches}}
 
 
@@ -3655,14 +3700,17 @@ def surface_lints(tuner, card) -> None:
                    A.ring_stages(w, 2 * A._box_bytes(chunk, hd, 2), n)[0])
         if got != want:
             bad.append(((kind, h, kh, hd, chunk, n, w), got, want))
-    for dtype in (torch.bfloat16, torch.float32):
-        if fp.smem_footprint_bytes(128, dtype=dtype) != fp.smem_query(128, dtype=dtype):
-            bad.append((("flash_prefill", dtype), fp.smem_footprint_bytes(128, dtype=dtype),
-                        fp.smem_query(128, dtype=dtype)))
+    prefill_cfgs = [(torch.bfloat16, which) for which in fp.BF16_DESIGNS]
+    prefill_cfgs.append((torch.float32, None))
+    for dtype, which in prefill_cfgs:
+        got = fp.smem_footprint_bytes(128, dtype=dtype, which=which)
+        want = fp.smem_query(128, dtype=dtype, which=which)
+        if got != want:
+            bad.append((("flash_prefill", dtype, which), got, want))
     check(not bad, f"smem_footprint_bytes equals the kernel's own count (bytes and ring stages) "
-                   f"for all {len(gemm_cfgs)} GEMM, {len(attn_cfgs)} attention and 2 "
-                   f"flash_prefill launch configurations of phase 30" + (f": {bad[:3]}" if bad
-                                                                        else ""))
+                   f"for all {len(gemm_cfgs)} GEMM, {len(attn_cfgs)} attention and "
+                   f"{len(prefill_cfgs)} flash_prefill launch configurations of phase 30"
+                   + (f": {bad[:3]}" if bad else ""))
     findings = []
     for arch, n_layers, ratio, page, slots, max_len, db in SERVED_PLANS:
         cfg = C.get(arch)

@@ -140,8 +140,9 @@ class AttnLaunch:
 
 @dataclasses.dataclass(frozen=True)
 class PrefillLaunch:
-    """Geometry of one ``flash_prefill`` launch (its tiles are compiled in:
-    128 x 64 in bf16, 64 x 64 in fp32)."""
+    """Geometry of one ``flash_prefill`` launch (its design's tiles are
+    compiled in, `flash_prefill.TILES`: 128 x 128 in bf16 at hd 64 and 128,
+    128 x 64 at other bf16 head dims, 64 x 64 in fp32)."""
     name: str
     hd: int
     tq: int
@@ -410,7 +411,7 @@ def check_prefill_launch(launch: PrefillLaunch, hw: HardwareSpec, *,
     site = f"{where}.prefill[{launch.name}]"
     out: list[Finding] = []
     dt = _dtype_name(launch.dtype_bytes)
-    tiles = flash_prefill.tiles(dt)
+    tiles = flash_prefill.tiles(launch.hd, dtype=dt)
     given = (launch.block_q or tiles[0], launch.block_k or tiles[1])
     if launch.tq < 1 or launch.tk < 1 or not 1 <= launch.hd <= 256:
         out.append(Finding("DAK102", site,
@@ -421,7 +422,7 @@ def check_prefill_launch(launch: PrefillLaunch, hw: HardwareSpec, *,
         out.append(Finding(
             "DAK102", site,
             f"tiles {given[0]} x {given[1]} are not the {tiles[0]} x {tiles[1]} the {dt} "
-            "kernel is compiled with"))
+            f"{flash_prefill.design(launch.hd, dt)} design is compiled with"))
         return out
     out.extend(_smem_finding(site, flash_prefill.smem_footprint_bytes(launch.hd, dtype=dt), hw))
     # DAK103: the q-tile axis of the grid (blockIdx.z) reaches every tile

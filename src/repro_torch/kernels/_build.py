@@ -62,9 +62,8 @@ _SIGNATURES = {
         "dak_splitk_attention_smem": [_I] * 6 + [_LLP, _IP],
     },
     "flash_prefill": {
-        "dak_flash_prefill": [_P] * 4 + [_I] * 8 + [_P],
-        "dak_flash_prefill_fma": [_P] * 4 + [_I] * 8 + [_P],
-        "dak_flash_prefill_smem": [_I, _I, _LLP],
+        "dak_flash_prefill": [_P] * 4 + [_I] * 9 + [_P],
+        "dak_flash_prefill_smem": [_I, _I, _I, _LLP],
     },
     "host_mem": {
         "dak_host_alloc": [ctypes.c_size_t, ctypes.POINTER(ctypes.c_void_p)],

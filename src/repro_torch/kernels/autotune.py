@@ -24,7 +24,7 @@ winner.  The candidates:
 * ``paged_splitk_flashattn`` and ``splitk_flashattn``: ``{"slots": w}``
   for ``w`` in `SLOT_CANDIDATES`; as in the reference, the tuned value
   caps the step's window and never changes results.
-* ``flash_prefill``: the one tile it is compiled with.
+* ``flash_prefill``: the one tile the launch's design is compiled with.
 
 Candidates the kernel would clamp to the same ring are the same kernel:
 each is counted once, at its smallest window.  Every candidate passes the
@@ -339,15 +339,16 @@ class Autotuner:
 
     def best_prefill(self, hd: int, tq: int, tk: int,
                      dtype: str = "float32") -> dict[str, int] | None:
-        """The ``(block_q, block_k)`` flash_prefill is compiled with for
-        ``dtype``, once it passes the lints: its tiles are fixed."""
+        """The ``(block_q, block_k)`` of the flash_prefill design a launch at
+        ``hd`` in ``dtype`` takes (`flash_prefill.design`), once it passes
+        the lints: each design's tiles are fixed."""
         key = ("flash_prefill", (hd, tq, tk), dtype, 0.0, self.hw.name)
 
         def sweep():
             from repro_torch.kernels.flash_prefill import tiles
 
             db = G.elem_bytes(dtype)
-            bq, bk = tiles(dtype)
+            bq, bk = tiles(hd, dtype=dtype)
             if not self._prefill_ok(hd, tq, tk, bq, bk, db):
                 return None, 0.0
             return self._best([({"block_q": bq, "block_k": bk},

@@ -66,6 +66,17 @@ def test_table_round_trip_is_byte_stable_and_reproduces_winners(tmp_path):
     assert again.read_bytes() == path.read_bytes()
 
 
+@pytest.mark.parametrize("hd,dtype,tiles", [(128, "bfloat16", (128, 128)),
+                                             (64, "bfloat16", (128, 128)),
+                                             (80, "bfloat16", (128, 64)),
+                                             (128, "float32", (64, 64))])
+def test_best_prefill_is_the_designs_tile(hd, dtype, tiles):
+    """flash_prefill's one candidate is the tile of the design a launch at
+    ``hd`` in ``dtype`` takes: the wgmma design's at bf16 hd 64 and 128."""
+    got = TA.Autotuner(H100_SXM).best_prefill(hd, 2048, 2048, dtype)
+    assert (got["block_q"], got["block_k"]) == tiles
+
+
 def test_lookup_only_miss_and_negative_cache():
     tuner = TA.Autotuner(sweep=False)
     assert tuner.best_gemm(4, 4096, 2048, 2048) is None

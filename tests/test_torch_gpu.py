@@ -605,22 +605,86 @@ def _row_rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(((a - b).abs().amax(-1) / (b.abs().amax(-1) + 1e-9)).max())
 
 
+def _prefill_operands(device, b, h, kh, tq, tk, hd, seed, offset=0):
+    """bf16 q [B, H, Tq, hd], k, v [B, Kh, Tk, hd]; ``offset`` > 0 views each
+    one element into its storage, off 16-byte alignment."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def operand(heads, rows):
+        flat = torch.randn(b * heads * rows * hd + offset, generator=gen, device=device)
+        return flat.to(torch.bfloat16)[offset:].view(b, heads, rows, hd)
+
+    return operand(h, tq), operand(kh, tk), operand(kh, tk)
+
+
+def _prefill_twice(q, k, v, causal, design):
+    """Two launches through the wrapper, which must take ``design``; returns
+    the first output and whether the second is the same bits."""
+    before = dict(flash_prefill.launches_by_design)
+    got = flash_prefill(q, k, v, causal=causal)
+    again = flash_prefill(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches_by_design[design] == before[design] + 2
+    return got, torch.equal(got, again)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("t", [1, 63, 65, 1000, 2048])
-def test_flash_prefill_tensor_cores_match_plain(cuda_device, causal, hd, t):
-    """The bf16 tensor-core path at ragged and full-tile T, GQA (8 q heads
-    over 2 kv heads), checked row by row."""
-    gen = torch.Generator(device=cuda_device).manual_seed(t * hd)
-    q = torch.randn((2, 8, t, hd), generator=gen, device=cuda_device).to(torch.bfloat16)
-    k, v = (torch.randn((2, 2, t, hd), generator=gen, device=cuda_device).to(torch.bfloat16)
-            for _ in range(2))
-    before = flash_prefill.launches
-    got = flash_prefill(q, k, v, causal=causal)
-    torch.cuda.synchronize()
-    assert flash_prefill.launches == before + 1
-    assert torch.isfinite(got.float()).all()
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 128, 129, 1000, 2048])
+@pytest.mark.parametrize("h,kh", [(8, 2), (4, 4)])
+def test_flash_prefill_tensor_cores_match_plain(cuda_device, causal, hd, t, h, kh):
+    """The bf16 wgmma design (hd 64 and 128, aligned operands) at ragged and
+    whole-tile T, GQA (8 q heads over 2 kv heads) and H = Kh, checked row by
+    row; a second launch is the same bits."""
+    q, k, v = _prefill_operands(cuda_device, 2, h, kh, t, t, hd, seed=t * hd + kh)
+    got, same = _prefill_twice(q, k, v, causal, "wgmma")
+    assert same and torch.isfinite(got.float()).all()
     assert _row_rel_err(got, tref.flash_prefill_ref(q, k, v, causal)) < TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("tq,tk", [(300, 200), (100, 333), (77, 1), (129, 2048)])
+def test_flash_prefill_wgmma_design_takes_tq_other_than_tk(cuda_device, causal, hd, tq, tk):
+    """Tq != Tk on the wgmma design: query and key positions both counted
+    from 0, as the reference counts them."""
+    q, k, v = _prefill_operands(cuda_device, 2, 4, 2, tq, tk, hd, seed=tq + tk)
+    got, same = _prefill_twice(q, k, v, causal, "wgmma")
+    assert same
+    assert _row_rel_err(got, tref.flash_prefill_ref(q, k, v, causal)) < TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("hd,offset", [(32, 0), (96, 0), (256, 0), (64, 1), (128, 1)])
+def test_flash_prefill_other_head_dims_and_misaligned_views_take_mma(cuda_device, hd, offset):
+    """Head dims the wgmma design does not take, and operands off 16-byte
+    alignment (no tensor map takes them), run the mma.sync design; the
+    kernel's entry refuses the wgmma design for them."""
+    import importlib
+
+    fp = importlib.import_module("repro_torch.kernels.flash_prefill")
+    q, k, v = _prefill_operands(cuda_device, 2, 8, 2, 129, 129, hd, seed=hd + offset,
+                                offset=offset)
+    for causal in (True, False):
+        got, same = _prefill_twice(q, k, v, causal, "mma")
+        assert same
+        assert _row_rel_err(got, tref.flash_prefill_ref(q, k, v, causal)) < TOL[torch.bfloat16]
+    with pytest.raises(RuntimeError, match="wgmma design"):
+        fp._launch(q, k, v, True, "wgmma")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_prefill_replaced_design_matches_the_wgmma_design(cuda_device, causal, hd):
+    """The mma.sync design the wgmma design replaced at hd 64 and 128, still
+    reachable through the private launch, agrees with it within the bf16
+    bound, row by row."""
+    import importlib
+
+    fp = importlib.import_module("repro_torch.kernels.flash_prefill")
+    q, k, v = _prefill_operands(cuda_device, 2, 8, 2, 1000, 1000, hd, seed=hd)
+    new, old = (fp._launch(q, k, v, causal, which) for which in ("wgmma", "mma"))
+    torch.cuda.synchronize()
+    assert _row_rel_err(old, new) < TOL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("ratio", [0.0, 0.5, 1.0])
@@ -1199,13 +1263,18 @@ def test_attention_smem_footprints_equal_the_kernels_counts(cuda_device, dtype):
                     stages) == want, (h, kh, hd, kv_len, window)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_prefill_smem_footprint_equals_the_kernels_count(cuda_device, dtype):
+@pytest.mark.parametrize("dtype,which", [(torch.float32, None), (torch.bfloat16, "wgmma"),
+                                         (torch.bfloat16, "mma")])
+def test_flash_prefill_smem_footprint_equals_the_kernels_count(cuda_device, dtype, which):
+    """Every design's shared memory by the wrapper's arithmetic equals the
+    kernel's own count, at each head dim the design takes."""
     import importlib
 
     fp = importlib.import_module("repro_torch.kernels.flash_prefill")
-    for hd in (30, 64, 80, 128, 192, 256):
-        assert fp.smem_footprint_bytes(hd, dtype=dtype) == fp.smem_query(hd, dtype=dtype), hd
+    hds = fp.WGMMA_HEAD_DIMS if which == "wgmma" else (30, 64, 80, 128, 192, 256)
+    for hd in hds:
+        assert fp.smem_footprint_bytes(hd, dtype=dtype, which=which) == \
+            fp.smem_query(hd, dtype=dtype, which=which), hd
 
 
 def test_smem_limit_of_the_lints_is_the_cards_opt_in_limit(cuda_device):

@@ -95,6 +95,24 @@ def test_dak102_fires_on_the_tma_rules():
         assert _rules(KL.check_prefill_launch(p, H100_SXM)) == {"DAK102"}
 
 
+@pytest.mark.parametrize("hd,db,tiles,other", [
+    (128, 2, (128, 128), (128, 64)),     # the wgmma design; mma.sync's tile is a finding here
+    (64, 2, (128, 128), (128, 64)),
+    (80, 2, (128, 64), (128, 128)),      # the mma.sync design
+    (128, 4, (64, 64), (128, 64)),       # the FMA design
+])
+def test_dak102_holds_each_design_to_its_tiles(hd, db, tiles, other):
+    """A tuned prefill tile must be the one the launch's design is compiled
+    with (`flash_prefill.tiles`), which depends on hd as well as dtype."""
+    ok = KL.PrefillLaunch("p", hd, 256, 256, block_q=tiles[0], block_k=tiles[1],
+                          dtype_bytes=db)
+    assert KL.check_prefill_launch(ok, H100_SXM) == []
+    fs = KL.check_prefill_launch(dataclasses.replace(ok, block_q=other[0], block_k=other[1]),
+                                 H100_SXM)
+    assert _rules(fs) == {"DAK102"}
+    assert FP.design(hd, {2: BF, 4: F32}[db]) in fs[0].detail
+
+
 def test_dak103_fires_on_grid_coverage_and_schedules():
     fs = KL.check_gemm_launch(_gemm(grid=5), H100_SXM)
     assert _rules(fs) == {"DAK103"}
@@ -270,11 +288,14 @@ def test_footprints_match_hand_worked_numbers():
     assert A.smem_footprint_bytes(32, 32, 128, 288, window=1, dtype=BF) == 2 * 16384 + 16
     # window 8 -> 9 stages, RING_MAX 98304 / 16384 fits 6
     assert A.smem_footprint_bytes(32, 32, 128, 288, window=8, dtype=BF) == 6 * 16384 + 48
-    # flash_prefill (fma_smem, tc_smem): fp32 (3*64*(hd+1) + 64*65 + 192) * 4;
-    # bf16 (128 + 4*64) * (padded hd + 8) * 2
+    # flash_prefill (fma_smem, tc_smem, wg_smem): fp32 (3*64*(hd+1) + 64*65 +
+    # 192) * 4; bf16 off hd 64 and 128 (mma.sync) (128 + 4*64) * (padded hd +
+    # 8) * 2; bf16 at hd 64 and 128 (wgmma) 1024 + (128 + 4*128) * hd * 2 + 9 * 8
     assert FP.smem_footprint_bytes(128, dtype=F32) == (3 * 64 * 129 + 64 * 65 + 192) * 4
     assert FP.smem_footprint_bytes(80, dtype=BF) == 384 * 136 * 2
     assert FP.smem_footprint_bytes(256, dtype=F32) == 214784 <= KL.SMEM_OPTIN_BYTES
+    assert FP.smem_footprint_bytes(128, dtype=BF) == 1024 + 640 * 256 + 72 == 164936
+    assert FP.smem_footprint_bytes(128, dtype=BF, which="mma") == 384 * 136 * 2
 
 
 @pytest.mark.parametrize("arch", TC.ARCH_IDS)
