@@ -159,7 +159,8 @@ class TieringPlan:
         (`launch.sharding`): every remote tier P divides is built as this
         rank's 1/P slice alone, pinned, beside a device buffer of its whole
         extent that the fetch-once broadcast fills, so no rank ever pins
-        the whole tier."""
+        the whole tier.  Each pinned allocation of a remote stack, and each
+        layer's copy into it, is a `dak.pin` region (`kernels._build`)."""
         from repro_torch.kernels import _build
         from repro_torch.launch import sharding
 
@@ -202,8 +203,7 @@ class TieringPlan:
             if sharded:
                 starts[key], host_shape[axis] = sharding.host_slice(
                     tuple(remote_shape), axis, mesh, axis_name)
-            host = (_build.pinned_empty(host_shape, meta.dtype) if device.type == "cuda"
-                    else torch.empty(host_shape, dtype=meta.dtype, device=device))
+            host = _build.host_tier(host_shape, meta.dtype, device)
             layers[key] = (sharding.sharded_tiered(local, tuple(remote_shape), host, axis,
                                                    axis_name) if sharded
                            else tiering.TieredTensor(local=local, remote=host, axis=axis))
@@ -240,16 +240,18 @@ def _write_layer(layers: dict[str, Any], i: int, layer: dict[str, Any],
     """Write one layer's leaves into slot i of the stacks (each tiered leaf's
     two halves into its two tiers, a mesh-sharded one's remote half as this
     rank's slice from ``starts[key]`` on); the layer is dropped on return."""
+    from repro_torch.kernels import _build
+
     for key, leaf in layer.items():
         dst = layers[key]
         if isinstance(dst, tiering.TieredTensor):
             local, remote = tiering.halves(leaf, dst.axis, dst.local.shape[dst.axis])
             dst.local[i].copy_(local)
             if dst.shard is not None:
-                dst.shard[i].copy_(remote.narrow(dst.axis, starts[key],
-                                                 dst.shard.shape[dst.axis]))
+                _build.copy_to_host(dst.shard[i], remote.narrow(dst.axis, starts[key],
+                                                                dst.shard.shape[dst.axis]))
             else:
-                dst.remote[i].copy_(remote)
+                _build.copy_to_host(dst.remote[i], remote)
         else:
             dst[i].copy_(leaf)
 

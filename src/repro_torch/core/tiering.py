@@ -114,8 +114,7 @@ def place(t: TieredTensor) -> TieredTensor:
         return t
     from repro_torch.kernels import _build
 
-    remote = _build.pinned_empty(t.remote.shape, t.remote.dtype)
-    remote.copy_(t.remote)
+    remote = _build.host_tier(t.remote.shape, t.remote.dtype, t.local.device, fill=t.remote)
     return TieredTensor(local=t.local, remote=remote, axis=t.axis)
 
 

@@ -26,6 +26,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.obs.trace import PIN, region
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("splitk_gemm", "paged_flashattn", "splitk_flashattn", "flash_prefill",
            "host_mem")
@@ -223,3 +225,39 @@ def pinned_empty(shape, dtype: torch.dtype) -> torch.Tensor:
     _PINNED["bytes"] += nbytes
     weakref.finalize(buf, _free_pinned, host, ptr.value, nbytes).atexit = False
     return torch.frombuffer(buf, dtype=torch.uint8)[:n].view(dtype).view(tuple(shape))
+
+
+def _ready(src: torch.Tensor) -> None:
+    """Wait for the device work that makes ``src``, so that a `dak.pin`
+    region around its copy holds the copy alone."""
+    if src.is_cuda:
+        torch.cuda.current_stream(src.device).synchronize()
+
+
+def host_tier(shape, dtype: torch.dtype, device, fill=None) -> torch.Tensor:
+    """Host memory for a remote tier, as one `dak.pin` region carrying its
+    bytes: `pinned_empty` when ``device`` is a card, a plain tensor on
+    ``device`` otherwise.  ``fill`` 0 zeroes it, a tensor is copied into it,
+    None leaves it uninitialised.  The kernels' first build, and the device
+    work that makes a tensor ``fill``, finish before the region opens."""
+    card = torch.device(device).type == "cuda"
+    if card:
+        load()
+    if isinstance(fill, torch.Tensor):
+        _ready(fill)
+    with region(PIN, bytes=math.prod(shape) * dtype.itemsize):
+        out = (pinned_empty(shape, dtype) if card
+               else torch.empty(tuple(shape), dtype=dtype, device=device))
+        if isinstance(fill, torch.Tensor):
+            out.copy_(fill)
+        elif fill is not None:
+            out.fill_(fill)
+    return out
+
+
+def copy_to_host(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)`` into a remote tier's host memory, as one `dak.pin`
+    region; the device work that makes ``src`` finishes before it opens."""
+    _ready(src)
+    with region(PIN):
+        dst.copy_(src)

@@ -250,13 +250,9 @@ def pin_like(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     """A contiguous copy of `t` in this rank's host tier: pinned,
     device-mapped host memory when `device` is a card, a CPU tensor on the
     CPU."""
-    if device.type != "cuda":
-        return t.to("cpu", copy=True).contiguous()
     from repro_torch.kernels import _build
 
-    out = _build.pinned_empty(tuple(t.shape), t.dtype)
-    out.copy_(t)
-    return out
+    return _build.host_tier(tuple(t.shape), t.dtype, device, fill=t)
 
 
 def sharded_tiered(local: torch.Tensor, full_remote_shape: tuple[int, ...],

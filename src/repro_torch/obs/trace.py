@@ -14,7 +14,10 @@ The recorder produces the `Chrome trace-event format
   health state;
 * a **requests** process — one track per request id with the lifecycle
   spans (``queued`` submit→admit, ``active`` admit→done) and instant
-  markers (``submit``, ``first_token``, ``preempted``).
+  markers (``submit``, ``first_token``, ``preempted``);
+* a **host phases** process (the port's own) — the engine's `region`
+  spans (``dak.step``, ``dak.admit``, ``dak.prefill``, ...) nested on one
+  track, on a wall clock only.
 
 Every timestamp comes from the engine's `frontend.metrics.Clock` (wall
 or modeled seconds, written as trace microseconds), so a modeled-clock
@@ -24,17 +27,33 @@ overlap story the paper's figures tell, reconstructable per step.
 :data:`NULL_RECORDER` is the engine's default: every emission method is a
 no-op and ``enabled`` is False, so the serving path stays bitwise
 identical when tracing is off (the parity tests pin this).
+
+**Phase regions.**  `region` is the port's one instrumentation point
+inside the engine: a context manager stamped with ``time.time`` (the
+`WallClock`'s clock, and the clock torch.profiler stamps its events
+with), whose inclusive seconds always go to the engine's `PhaseLedger`.
+While a torch profiler records, it also opens a ``record_function`` range
+of its name; under an enabled recorder on a wall clock it also emits a
+span on the host phases track.  The ledger holds plain numbers only, and
+`latest_ledger` reaches the ledger of the engine built or stepped last
+without the engine.  ``docs/torch_observability.md`` lists the regions.
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
 import json
+import time
 from typing import Any
+
+import torch
 
 TRACE_SCHEMA_VERSION = 1
 
-# Stable process ids for the three track groups (Perfetto sorts by pid).
-ENGINE, LINKS, REQUESTS = 1, 2, 3
-_PROCESS_NAMES = {ENGINE: "engine", LINKS: "links", REQUESTS: "requests"}
+# Stable process ids for the track groups (Perfetto sorts by pid).
+ENGINE, LINKS, REQUESTS, HOST_PHASES = 1, 2, 3, 4
+_PROCESS_NAMES = {ENGINE: "engine", LINKS: "links", REQUESTS: "requests",
+                  HOST_PHASES: "host phases"}
 
 # Numeric encoding of the health ladder for the counter track.
 HEALTH_LEVEL = {"healthy": 0, "recovering": 1, "spilling": 2}
@@ -132,6 +151,161 @@ class ChromeTraceRecorder(TraceRecorder):
         """The last ``n`` non-metadata events (flight-recorder context)."""
         evs = [e for e in self.events if e["ph"] != "M"]
         return evs[-n:]
+
+
+# ---------------------------------------------------------------------------
+# Phase regions and the engine's phase ledger
+# ---------------------------------------------------------------------------
+STEP, PREFILL, PROMPT_WRITE, PIN = "dak.step", "dak.prefill", "dak.prompt_write", "dak.pin"
+MAX_STEPS = 4096                    # step records a ledger keeps
+
+
+@dataclasses.dataclass
+class PassRecord:
+    """One prefill pass (`dak.prefill`).  ``t_submit`` and ``t_prefill`` (the
+    start of the request's first pass) are the engine clock's stamps;
+    ``t0``/``t1`` and the prompt write's seconds are wall time."""
+
+    rid: int
+    t_submit: float
+    t_prefill: float
+    pos: int                        # prompt tokens done before this pass (0: its first)
+    tokens: int
+    t0: float
+    t1: float
+    write_s: float = 0.0            # `dak.prompt_write` inside the pass
+    write_local_bytes: int = 0
+    write_remote_bytes: int = 0
+
+
+@dataclasses.dataclass
+class StepRecord:
+    """One engine step (`dak.step`): its wall span, the inclusive seconds of
+    every region inside it by name (``dak.step`` included), and its passes."""
+
+    index: int
+    t0: float
+    t1: float = 0.0
+    seconds: dict[str, float] = dataclasses.field(default_factory=dict)
+    passes: list[PassRecord] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class BuildRecord:
+    """The regions outside every step: the engine's build (`dak.build`) and
+    the pinned allocations, zero-fills and copies of the remote tiers in it
+    (`dak.pin`, with their bytes)."""
+
+    seconds: dict[str, float] = dataclasses.field(default_factory=dict)
+    pin_bytes: int = 0
+
+
+class PhaseLedger:
+    """An engine's phase regions as plain numbers: a ring of the last
+    `MAX_STEPS` step records and one build record."""
+
+    def __init__(self):
+        self.steps: collections.deque[StepRecord] = collections.deque(maxlen=MAX_STEPS)
+        self.build = BuildRecord()
+        self.n_steps = 0                # steps begun, those the ring dropped included
+        self._step: StepRecord | None = None
+        self._write = [0.0, 0, 0]       # the open pass's prompt write: seconds, bytes
+
+    def enter(self, name: str, t0: float) -> None:
+        if name == STEP:
+            self._step = StepRecord(index=self.n_steps, t0=t0)
+            self.n_steps += 1
+        elif name == PREFILL:
+            self._write = [0.0, 0, 0]
+
+    def exit(self, name: str, t0: float, t1: float, args: dict[str, Any]) -> None:
+        rec = self._step if self._step is not None else self.build
+        rec.seconds[name] = rec.seconds.get(name, 0.0) + (t1 - t0)
+        if name == PROMPT_WRITE:
+            self._write[0] += t1 - t0
+            self._write[1] += args.get("local_bytes", 0)
+            self._write[2] += args.get("remote_bytes", 0)
+        elif name == PREFILL and self._step is not None:
+            self._step.passes.append(PassRecord(
+                args["rid"], args["t_submit"], args["t_prefill"], args["pos"], args["tokens"],
+                t0, t1, *self._write))
+        elif name == PIN and rec is self.build:
+            self.build.pin_bytes += args.get("bytes", 0)
+        elif name == STEP and self._step is not None:
+            self._step.t1 = t1
+            self.steps.append(self._step)
+            self._step = None
+
+    def window(self, n: int) -> list[StepRecord] | None:
+        """The last ``n`` whole steps, oldest first (None when the ring holds
+        fewer)."""
+        return list(self.steps)[-n:] if 0 < n <= len(self.steps) else None
+
+
+_ACTIVE: dict[str, Any] = {"ledger": None, "spans": None, "latest": None}
+
+
+class recording:
+    """``with recording(ledger, recorder):`` regions opened inside record
+    into ``ledger`` and, with an enabled ``recorder``, onto its host phases
+    track (an engine passes its recorder on a wall clock only: a modeled
+    trace's other spans are in modeled seconds).  ``ledger`` becomes
+    `latest_ledger`."""
+
+    __slots__ = ("ledger", "spans", "_saved")
+
+    def __init__(self, ledger: PhaseLedger, recorder: TraceRecorder | None = None):
+        self.ledger = ledger
+        self.spans = recorder if recorder is not None and recorder.enabled else None
+
+    def __enter__(self) -> PhaseLedger:
+        self._saved = (_ACTIVE["ledger"], _ACTIVE["spans"])
+        _ACTIVE.update(ledger=self.ledger, spans=self.spans, latest=self.ledger)
+        return self.ledger
+
+    def __exit__(self, *exc) -> bool:
+        _ACTIVE["ledger"], _ACTIVE["spans"] = self._saved
+        return False
+
+
+def latest_ledger() -> PhaseLedger | None:
+    """The ledger of the engine built or stepped last in this process."""
+    return _ACTIVE["latest"]
+
+
+class region:
+    """A phase region, ``with region("dak.fetch"): ...``.  ``args`` go to
+    the ledger and the span, and the body may add to them (``with region(n)
+    as r: r.args[k] = v``).  Adds no host sync, device allocation or
+    tensor read."""
+
+    __slots__ = ("name", "args", "t0", "t1", "_rf")
+
+    def __init__(self, name: str, **args: Any):
+        self.name, self.args = name, args
+
+    def __enter__(self) -> region:
+        # the wall stamps enclose the profiler's range, whose own stamps lie
+        # within tens of microseconds of them
+        self.t0 = time.time()
+        self._rf = None
+        if torch.autograd._profiler_enabled():
+            self._rf = torch.autograd.profiler.record_function(self.name)
+            self._rf.__enter__()
+        if _ACTIVE["ledger"] is not None:
+            _ACTIVE["ledger"].enter(self.name, self.t0)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+        self.t1 = time.time()
+        ledger, spans = _ACTIVE["ledger"], _ACTIVE["spans"]
+        if ledger is not None:
+            ledger.exit(self.name, self.t0, self.t1, self.args)
+        if spans is not None:
+            spans.span(HOST_PHASES, 0, self.name, self.t0, self.t1, cat="host", **self.args)
+        return False
 
 
 # ---------------------------------------------------------------------------

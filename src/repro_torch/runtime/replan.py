@@ -217,12 +217,10 @@ def _resplit(leaf: Any, axis: int, n_local: int, *, stacked: bool) -> Any:
     local_shape[ax] = n_local
     remote_shape[ax] -= n_local
     news = [torch.empty(local_shape, dtype=olds[0].dtype, device=device)]
-    if remote_shape[ax] and device.type == "cuda":
+    if remote_shape[ax]:
         from repro_torch.kernels import _build
 
-        news.append(_build.pinned_empty(remote_shape, olds[0].dtype))
-    elif remote_shape[ax]:
-        news.append(torch.empty(remote_shape, dtype=olds[0].dtype, device=device))
+        news.append(_build.host_tier(remote_shape, olds[0].dtype, device))
 
     def starts(parts: list[torch.Tensor]) -> list[tuple[torch.Tensor, int]]:
         """Each part with the offset of its first column along `axis`."""

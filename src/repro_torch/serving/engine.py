@@ -141,7 +141,10 @@ from repro_torch.obs.trace import (
     LINKS,
     NULL_RECORDER,
     REQUESTS,
+    PhaseLedger,
     TraceRecorder,
+    recording,
+    region,
 )
 from repro_torch.runtime.controller import RuntimeController
 from repro_torch.runtime.health import HEALTHY, HealthMonitor
@@ -214,6 +217,7 @@ class Request:
     #                                        None = ready at submit
     slo_ttft_s: float | None = None        # TTFT SLO (None = best effort)
     t_admit: float = 0.0                   # first prefill chunk scheduled
+    t_prefill: float = 0.0                 # start of its first prefill pass
     preemptions: int = 0                   # tier-demotion preemptions suffered
     admitted_degraded: bool = False        # admitted while health != healthy
 
@@ -409,97 +413,103 @@ class ServingEngine:
         runs the same requests.  Each remote partition and remote KV page
         is pinned as this rank's 1/P slice and gathered whole every step;
         ``device`` is this rank's (ranks may share one card under gloo)."""
-        self.device = resolve_device(device)
-        M.require_served(cfg)
-        self.cfg = cfg
-        self.hw = hw
-        self.max_batch = max_batch
-        self.max_len = max_len
-        self.page_size = page_size
-        self.clock = clock if clock is not None else WallClock()
-        if isinstance(scheduler, Scheduler):
-            self.scheduler = scheduler
-        else:
-            kw = {"chunk_tokens": prefill_chunk} if prefill_chunk else {}
-            self.scheduler = get_scheduler(scheduler or "fcfs", **kw)
-        self.mesh = mesh
-        self.mesh_axis = (mesh_axis or mesh.axis_names[-1]) if mesh is not None else None
-        self.n_links = int(mesh.shape[self.mesh_axis]) if mesh is not None else 1
-        wl = WorkloadSpec(batch=max_batch, seq_len=max_len, phase="decode")
-        self.plan = offload_engine.plan(
-            cfg, wl, hw, hbm_budget_bytes=hbm_budget_bytes,
-            global_ratio=global_offload_ratio, kv_page_size=page_size,
-            mesh=(MeshSpec(n_devices=self.n_links, axis_name=self.mesh_axis)
-                  if mesh is not None else None))
-        self.window = self.plan.window.n_inflight
-        self._align = 32 if cfg.d_model < 1024 else 128
-        self.tiered = bool(use_kernels)
-        source = params if isinstance(params, M.LayerSource) else M.LayerSource.from_tree(params)
-        if self.tiered:
-            self.params = self.plan.partition_source(source, align=self._align, mesh=mesh)
-        else:
-            self.params = params if isinstance(params, dict) else M.stack_source(source)
-        # Adaptive runtime: seeded from the static plan; pass `runtime` to
-        # choose the budgets and the measurement source.
-        self.runtime: RuntimeController | None = runtime
-        if adaptive and self.runtime is None:
-            self.runtime = RuntimeController(cfg, self.plan, hw, align=self._align)
-        self._weight_bytes = weight_tier_bytes(self.params)
-        self._weight_link_bytes = weight_link_bytes(self.params, self.n_links)
-        self._step_params: dict[str, Any] | None = None   # the step's fetched tree
-        self._dtype = source.dtype
-        self.pcache: PagedTieredCache | None = None
-        self.cache: dict[str, torch.Tensor] | None = None
-        if not self.tiered:
-            # the reference path: one dense cache, K/V included, in HBM
-            self.cache = M.init_cache(cfg, max_batch, max_len, self._dtype, self.device)
-        elif cfg.family in ("ssm", "hybrid"):
-            # the recurrent conv window and SSD state of every layer, one row
-            # per slot, in HBM (a hybrid's K/V goes to the page cache)
-            self.cache = {k: v for k, v in M.init_cache(cfg, max_batch, max_len, self._dtype,
-                                                        self.device).items()
-                          if k in ("conv", "state")}
-        if self.tiered and cfg.family != "ssm":
-            self.pcache = self._make_pcache()
-        self._t0 = self.clock.now()
-        self.lens = np.zeros(max_batch, dtype=np.int32)     # per-slot kv length
-        self.active: list[Request | None] = [None] * max_batch
-        self.prefilling: dict[int, PrefillState] = {}   # slot -> in-flight prefill
-        self.stats = EngineStats()
-        self.stats.final_window = self.window
-        self._next_tok = np.zeros((max_batch, 1), dtype=np.int32)
-        self._prefill_calls_step = 0       # prefill passes in the last _admit
-        self._preempt_moved_step = 0       # preemption and elastic demotions this step
-        # Elastic degradation: the engine always owns a health monitor
-        # (runtime attached or not); with no pressure it never leaves
-        # `healthy` and every counter stays zero.
-        self.health = HealthMonitor()
-        self._pending_shrink: tuple[int, float] | None = None
-        # Compiled decode step: one CUDA graph per (kind, window bucket, pool
-        # shape) bucket, on fixed input buffers filled by one staged copy.
-        # The untiered reference path stays eager (it is the oracle).
-        self.tuner = tuner
-        self._jit = bool(jit_step) and self.tiered
-        self.check_invariants = check_invariants
-        self._compiled: dict[tuple, StepGraph] = {}
-        self.compile_count = 0             # fresh buckets (one graph each)
-        self.compile_cache_hits = 0        # steps served by an existing bucket
-        self._params_fp = pointer_fingerprint(self.params)
-        self._inputs = StepInputs(max_batch, -(-max_len // page_size), self.device,
-                                  paged=self.pcache is not None)
-        self._graph_pool = None            # the memory pool every bucket's graph shares
-        self._capture_stream = None        # the side stream captures run on
         # Observability: all off by default, every emission site guarded.
+        # The phase regions' ledger is always on (`obs.trace.region`); their
+        # spans go to the recorder's host phases track on a wall clock only.
+        self.clock = clock if clock is not None else WallClock()
         self.recorder = recorder if recorder is not None else NULL_RECORDER
-        self.flight = flight
-        self.profiler = profiler if profiler is not None else NULL_PROFILER
-        if self.profiler.enabled:
-            # the optimality-fraction denominator: the plan's converged AIMD aggregate
-            self.profiler.attach(clock_kind=self.clock.kind,
-                                 optimal_bw=float(self.plan.window.aggregate_bw))
-        self._slo_dumped = False
-        if self.recorder.enabled:
-            self._wire_observability()
+        self.phases = PhaseLedger()
+        self._phase_spans = self.recorder if self.clock.kind == "wall" else None
+        with recording(self.phases, self._phase_spans), region("dak.build"):
+            self.device = resolve_device(device)
+            M.require_served(cfg)
+            self.cfg = cfg
+            self.hw = hw
+            self.max_batch = max_batch
+            self.max_len = max_len
+            self.page_size = page_size
+            if isinstance(scheduler, Scheduler):
+                self.scheduler = scheduler
+            else:
+                kw = {"chunk_tokens": prefill_chunk} if prefill_chunk else {}
+                self.scheduler = get_scheduler(scheduler or "fcfs", **kw)
+            self.mesh = mesh
+            self.mesh_axis = (mesh_axis or mesh.axis_names[-1]) if mesh is not None else None
+            self.n_links = int(mesh.shape[self.mesh_axis]) if mesh is not None else 1
+            wl = WorkloadSpec(batch=max_batch, seq_len=max_len, phase="decode")
+            self.plan = offload_engine.plan(
+                cfg, wl, hw, hbm_budget_bytes=hbm_budget_bytes,
+                global_ratio=global_offload_ratio, kv_page_size=page_size,
+                mesh=(MeshSpec(n_devices=self.n_links, axis_name=self.mesh_axis)
+                      if mesh is not None else None))
+            self.window = self.plan.window.n_inflight
+            self._align = 32 if cfg.d_model < 1024 else 128
+            self.tiered = bool(use_kernels)
+            source = (params if isinstance(params, M.LayerSource)
+                      else M.LayerSource.from_tree(params))
+            if self.tiered:
+                self.params = self.plan.partition_source(source, align=self._align, mesh=mesh)
+            else:
+                self.params = params if isinstance(params, dict) else M.stack_source(source)
+            # Adaptive runtime: seeded from the static plan; pass `runtime` to
+            # choose the budgets and the measurement source.
+            self.runtime: RuntimeController | None = runtime
+            if adaptive and self.runtime is None:
+                self.runtime = RuntimeController(cfg, self.plan, hw, align=self._align)
+            self._weight_bytes = weight_tier_bytes(self.params)
+            self._weight_link_bytes = weight_link_bytes(self.params, self.n_links)
+            self._step_params: dict[str, Any] | None = None   # the step's fetched tree
+            self._dtype = source.dtype
+            self.pcache: PagedTieredCache | None = None
+            self.cache: dict[str, torch.Tensor] | None = None
+            if not self.tiered:
+                # the reference path: one dense cache, K/V included, in HBM
+                self.cache = M.init_cache(cfg, max_batch, max_len, self._dtype, self.device)
+            elif cfg.family in ("ssm", "hybrid"):
+                # the recurrent conv window and SSD state of every layer, one row
+                # per slot, in HBM (a hybrid's K/V goes to the page cache)
+                self.cache = {k: v for k, v in M.init_cache(cfg, max_batch, max_len, self._dtype,
+                                                            self.device).items()
+                              if k in ("conv", "state")}
+            if self.tiered and cfg.family != "ssm":
+                self.pcache = self._make_pcache()
+            self._t0 = self.clock.now()
+            self.lens = np.zeros(max_batch, dtype=np.int32)     # per-slot kv length
+            self.active: list[Request | None] = [None] * max_batch
+            self.prefilling: dict[int, PrefillState] = {}   # slot -> in-flight prefill
+            self.stats = EngineStats()
+            self.stats.final_window = self.window
+            self._next_tok = np.zeros((max_batch, 1), dtype=np.int32)
+            self._prefill_calls_step = 0       # prefill passes in the last _admit
+            self._preempt_moved_step = 0       # preemption and elastic demotions this step
+            # Elastic degradation: the engine always owns a health monitor
+            # (runtime attached or not); with no pressure it never leaves
+            # `healthy` and every counter stays zero.
+            self.health = HealthMonitor()
+            self._pending_shrink: tuple[int, float] | None = None
+            # Compiled decode step: one CUDA graph per (kind, window bucket, pool
+            # shape) bucket, on fixed input buffers filled by one staged copy.
+            # The untiered reference path stays eager (it is the oracle).
+            self.tuner = tuner
+            self._jit = bool(jit_step) and self.tiered
+            self.check_invariants = check_invariants
+            self._compiled: dict[tuple, StepGraph] = {}
+            self.compile_count = 0             # fresh buckets (one graph each)
+            self.compile_cache_hits = 0        # steps served by an existing bucket
+            self._params_fp = pointer_fingerprint(self.params)
+            self._inputs = StepInputs(max_batch, -(-max_len // page_size), self.device,
+                                      paged=self.pcache is not None)
+            self._graph_pool = None            # the memory pool every bucket's graph shares
+            self._capture_stream = None        # the side stream captures run on
+            self.flight = flight
+            self.profiler = profiler if profiler is not None else NULL_PROFILER
+            if self.profiler.enabled:
+                # the optimality-fraction denominator: the plan's converged AIMD aggregate
+                self.profiler.attach(clock_kind=self.clock.kind,
+                                     optimal_bw=float(self.plan.window.aggregate_bw))
+            self._slo_dumped = False
+            if self.recorder.enabled:
+                self._wire_observability()
 
     @property
     def graphed(self) -> bool:
@@ -703,16 +713,27 @@ class ServingEngine:
         return prefill_tokens
 
     def _run_prefill_chunk(self, slot: int, ps: PrefillState, n: int) -> None:
-        """Prefill `n` prompt tokens of the slot's in-flight prefill.  A
-        whole prompt in one chunk runs `models.prefill`; otherwise each
-        chunk runs `models.prefill_chunk` on the request's private cache.
-        The last chunk commits: the first token is sampled from its final
-        logits, the cache written to the slot, and the request joins the
-        decode batch."""
+        """Prefill `n` prompt tokens of the slot's in-flight prefill, one
+        `dak.prefill` region; a request's first pass stamps its
+        ``t_prefill``."""
+        req = ps.req
+        with region("dak.prefill", rid=req.rid, tokens=n, pos=ps.pos,
+                    t_submit=req.t_submit) as reg:
+            if ps.pos == 0:
+                req.t_prefill = reg.t0 if self.clock.kind == "wall" else self.clock.now()
+            reg.args["t_prefill"] = req.t_prefill
+            self._prefill_pass(slot, ps, n, reg.t0)
+
+    def _prefill_pass(self, slot: int, ps: PrefillState, n: int, t0: float) -> None:
+        """The pass itself, begun at wall time `t0`.  A whole prompt in one
+        chunk runs `models.prefill`; otherwise each chunk runs
+        `models.prefill_chunk` on the request's private cache.  The last
+        chunk commits: the first token is sampled from its final logits,
+        the cache written to the slot, and the request joins the decode
+        batch."""
         req = ps.req
         self._prefill_calls_step += 1
         mm = TD.kernel_mm(self.window)     # prefill's GEMMs at the live window, as decode's
-        t0 = time.time()
         tc0 = self.clock.now() if self.recorder.enabled else 0.0
         chunk = torch.as_tensor(req.prompt[ps.pos:ps.pos + n], dtype=torch.int32,
                                 device=self.device)[None, :]
@@ -738,7 +759,8 @@ class ServingEngine:
         if ps.pos < len(req.prompt):
             return
         del self.prefilling[slot]
-        nxt = int(torch.argmax(ps.logits[0, -1]))
+        with region("dak.first_token", rid=req.rid):
+            nxt = int(torch.argmax(ps.logits[0, -1]))
         req.out_tokens.append(nxt)
         self.stats.generated_tokens += 1
         req.t_first = self.clock.now()
@@ -763,7 +785,9 @@ class ServingEngine:
             # growth may have taken the freed pages in between.  (A no-op for
             # a whole prompt: nothing allocated since the admission check.)
             self._maybe_preempt(req)
-        self._write_slot_cache(slot, ps.cache, len(req.prompt))
+        with region("dak.prompt_write", rid=req.rid) as reg:
+            reg.args["local_bytes"], reg.args["remote_bytes"] = self._write_slot_cache(
+                slot, ps.cache, len(req.prompt))
         self.lens[slot] = len(req.prompt)
         self._next_tok[slot, 0] = nxt
         self.active[slot] = req
@@ -1010,12 +1034,16 @@ class ServingEngine:
             self.profiler.on_tick(cost)
 
     def _write_slot_cache(self, slot: int, cache1: dict[str, torch.Tensor],
-                          prompt_len: int) -> None:
+                          prompt_len: int) -> tuple[int, int]:
+        """Commit a prefilled batch-1 cache to `slot`.  Returns the bytes
+        put into local and into remote KV pages: the prompt's, and those of
+        the pages its allocation spilled."""
         if self.cache is not None:             # conv/state recurrent state
             for name, c in self.cache.items():
                 c[:, slot] = cache1[name][:, 0]
         if self.pcache is None:
-            return
+            return 0, 0
+        before = tuple(self.pcache.written)
         # write_prompt's own ensure_capacity is the allocation edge: allocate
         # through the elastic guard first, so a full pool degrades instead.
         self._ensure_capacity_elastic(slot, prompt_len)
@@ -1023,9 +1051,10 @@ class ServingEngine:
             ckv = cache1["ckv"][:, 0, :prompt_len]       # [L, T, rank]
             krope = cache1["krope"][:, 0, :prompt_len]   # [L, T, rd]
             self.pcache.write_prompt(slot, torch.cat([ckv, krope], dim=-1)[:, :, None, :])
-            return
-        self.pcache.write_prompt(
-            slot, cache1["k"][:, 0, :prompt_len], cache1["v"][:, 0, :prompt_len])
+        else:
+            self.pcache.write_prompt(
+                slot, cache1["k"][:, 0, :prompt_len], cache1["v"][:, 0, :prompt_len])
+        return self.pcache.written[0] - before[0], self.pcache.written[1] - before[1]
 
     def _note_occupancy(self) -> None:
         if self.pcache is None:
@@ -1102,7 +1131,14 @@ class ServingEngine:
         (chunks and admissions), then one ragged decode step for all active
         slots, graphed or eager.  With the adaptive runtime attached, the
         in-flight window is re-read from the controller every step and a
-        telemetry sample is reported after the compute."""
+        telemetry sample is reported after the compute.  The step is one
+        `dak.step` region, split into `dak.admit` (its passes `dak.prefill`),
+        `dak.stage`, `dak.launch`, `dak.fetch` and `dak.finish`."""
+        with recording(self.phases, self._phase_spans), \
+                region("dak.step", step=self.phases.n_steps):
+            self._step()
+
+    def _step(self) -> None:
         t_step_clock = self.clock.now()    # engine-clock step origin (wall or modeled)
         self._preempt_moved_step = 0
         self._step_params = None           # a new step fetches the remote tiers again
@@ -1114,92 +1150,107 @@ class ServingEngine:
             self._pending_shrink = None
             self.shrink_local_budget(frac)
         self._elastic_step()               # drain any local-budget deficit
-        t_admit0 = self.clock.now() if self.recorder.enabled else 0.0
-        prefill_tokens = self._admit()
-        if self.recorder.enabled:
-            self.recorder.span(ENGINE, 0, "admission", t_admit0,
-                               self.clock.now(), cat="sched",
-                               prefill_tokens=prefill_tokens)
+        with region("dak.admit") as reg:
+            t_admit0 = self.clock.now() if self.recorder.enabled else 0.0
+            prefill_tokens = self._admit()
+            if self.recorder.enabled:
+                self.recorder.span(ENGINE, 0, "admission", t_admit0,
+                                   self.clock.now(), cat="sched",
+                                   prefill_tokens=prefill_tokens)
+            reg.args.update(passes=self._prefill_calls_step, prompt_tokens=prefill_tokens)
         if not any(r is not None for r in self.active):
-            if prefill_tokens:
-                self._runtime_step(t_step_clock, prefill_tokens,
-                                   np.zeros(self.max_batch, dtype=bool))
-            elif not self.prefilling and self.scheduler.waiting:
-                # Idle with an arrival pending: fast-forward the modeled clock
-                # to it (a no-op on the wall clock, which polls until then).
-                nxt = self.scheduler.next_arrival()
-                if nxt is not None:
-                    self.clock.advance(max(0.0, nxt - self.clock.now()))
-            self._finish_step_health()
-            if self.flight is not None:
-                self.flight.record(self._flight_snapshot())
-            self._audit_page_table()
+            with region("dak.finish"):
+                if prefill_tokens:
+                    self._runtime_step(t_step_clock, prefill_tokens,
+                                       np.zeros(self.max_batch, dtype=bool))
+                elif not self.prefilling and self.scheduler.waiting:
+                    # Idle with an arrival pending: fast-forward the modeled clock
+                    # to it (a no-op on the wall clock, which polls until then).
+                    nxt = self.scheduler.next_arrival()
+                    if nxt is not None:
+                        self.clock.advance(max(0.0, nxt - self.clock.now()))
+                self._finish_step_health()
+                if self.flight is not None:
+                    self.flight.record(self._flight_snapshot())
+                self._audit_page_table()
             return
         active = np.array([r is not None for r in self.active])
         if not self.tiered:
             self._reference_decode(t_step_clock, prefill_tokens, active)
             return
         rows = None                        # the step's remote row writes (tier, page)
-        if self.pcache is None:
-            self._inputs.load(tokens=self._next_tok)
-        else:
-            self.pcache.touch_step(self.lens, active)
-            for slot in np.nonzero(active)[0]:
-                self._ensure_capacity_elastic(int(slot), int(self.lens[slot]) + 1)
-            self._note_occupancy()
-            wr_tier, wr_idx, wr_off = self.pcache.write_target_arrays(self.lens, active)
-            self._inputs.load(
-                tokens=self._next_tok, positions=np.where(active, self.lens, 0),
-                attn_lens=np.where(active, self.lens + 1, 0), table=self.pcache.table,
-                tier=self.pcache.tier, wr_tier=wr_tier, wr_idx=wr_idx, wr_off=wr_off)
-            rows = (wr_tier, wr_idx)
+        with region("dak.stage"):
+            if self.pcache is None:
+                self._inputs.load(tokens=self._next_tok)
+            else:
+                self.pcache.touch_step(self.lens, active)
+                for slot in np.nonzero(active)[0]:
+                    self._ensure_capacity_elastic(int(slot), int(self.lens[slot]) + 1)
+                self._note_occupancy()
+                wr_tier, wr_idx, wr_off = self.pcache.write_target_arrays(self.lens, active)
+                self._inputs.load(
+                    tokens=self._next_tok, positions=np.where(active, self.lens, 0),
+                    attn_lens=np.where(active, self.lens + 1, 0), table=self.pcache.table,
+                    tier=self.pcache.tier, wr_tier=wr_tier, wr_idx=wr_idx, wr_off=wr_off)
+                rows = (wr_tier, wr_idx)
         timer = self._step_timer()
         tc0 = self.clock.now() if self.recorder.enabled else 0.0
-        t0 = time.time()
         bucket = None                      # compile-span label on a fresh bucket
-        if timer is not None:
-            timer.begin()
-        state = self._decode_state()       # under a mesh: the step's gathers, timed with it
-        if self._jit:
-            graph, bucket = self._compiled_step(self._decode_kind())
-            tok_dev = graph.run(*state)
-        else:
-            sinks = ((self.pcache.sink_local, self.pcache.sink_remote)
-                     if self.pcache is not None else (0, 0))
-            tok_dev = self._decode_fn(self._decode_kind(), self.window, *sinks,
-                                      self.tuner)(*state)
-        if timer is not None:
-            timer.end()
-        nxt = self._inputs.fetch(tok_dev)  # the step's only host sync
-        if self.pcache is not None:
-            self.pcache.commit_pools(state[1], rows=rows)
-        self._finish_decode(t_step_clock, prefill_tokens, active, nxt, t0, tc0, bucket)
+        with region("dak.launch", captured=False) as launch:
+            if timer is not None:
+                timer.begin()
+            state = self._decode_state()   # under a mesh: the step's gathers, timed with it
+            if self._jit:
+                graph, bucket = self._compiled_step(self._decode_kind())
+                launch.args["captured"] = self.device.type == "cuda" and not graph.captured
+                tok_dev = graph.run(*state)
+            else:
+                sinks = ((self.pcache.sink_local, self.pcache.sink_remote)
+                         if self.pcache is not None else (0, 0))
+                tok_dev = self._decode_fn(self._decode_kind(), self.window, *sinks,
+                                          self.tuner)(*state)
+            if timer is not None:
+                timer.end()
+        with region("dak.fetch") as fetch:
+            nxt = self._inputs.fetch(tok_dev)  # the step's only host sync
+        with region("dak.finish"):
+            if self.pcache is not None:
+                self.pcache.commit_pools(state[1], rows=rows)
+            self._finish_decode(t_step_clock, prefill_tokens, active, nxt,
+                                fetch.t1 - launch.t0, tc0, bucket)
 
     def _reference_decode(self, t_step_clock: float, prefill_tokens: int,
                           active: np.ndarray) -> None:
         """The untiered decode step (``use_kernels=False``): `models.decode_step`
         over the dense cache, every slot at its own position."""
         tc0 = self.clock.now() if self.recorder.enabled else 0.0
-        t0 = time.time()
-        tokens = torch.as_tensor(self._next_tok, dtype=torch.int32, device=self.device)
-        positions = torch.as_tensor(np.where(active, self.lens, 0), dtype=torch.int32,
-                                    device=self.device)
-        logits, self.cache = M.decode_step(self.cfg, self.params, self.cache, tokens, positions)
-        nxt = torch.argmax(logits[:, 0], dim=-1).to(torch.int32).cpu().numpy()
-        self._finish_decode(t_step_clock, prefill_tokens, active, nxt, t0, tc0, None)
+        with region("dak.launch", captured=False) as launch:
+            tokens = torch.as_tensor(self._next_tok, dtype=torch.int32, device=self.device)
+            positions = torch.as_tensor(np.where(active, self.lens, 0), dtype=torch.int32,
+                                        device=self.device)
+            logits, self.cache = M.decode_step(self.cfg, self.params, self.cache, tokens,
+                                               positions)
+            tok_dev = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+        with region("dak.fetch") as fetch:
+            nxt = tok_dev.cpu().numpy()
+        with region("dak.finish"):
+            self._finish_decode(t_step_clock, prefill_tokens, active, nxt,
+                                fetch.t1 - launch.t0, tc0, None)
 
     def _finish_decode(self, t_step_clock: float, prefill_tokens: int, active: np.ndarray,
-                       nxt: np.ndarray, t0: float, tc0: float, bucket: str | None) -> None:
+                       nxt: np.ndarray, decode_s: float, tc0: float,
+                       bucket: str | None) -> None:
         """The rest of a decode step once its tokens are on the host: stats,
-        the clock, spans, the runtime, health, and each slot's new token."""
-        self.stats.decode_time += time.time() - t0
+        the clock, spans, the runtime, health, and each slot's new token.
+        ``decode_s`` is the step's launch and fetch, wall seconds."""
+        self.stats.decode_time += decode_s
         self.stats.decode_steps += 1
         self._clock_tick_decode(active)
         if self.recorder.enabled:
             if bucket is not None:
                 self.recorder.span(ENGINE, 0, f"compile[{bucket}]", tc0,
                                    self.clock.now(), cat="compile",
-                                   wall_ms=(time.time() - t0) * 1e3)
+                                   wall_ms=decode_s * 1e3)
             self.recorder.span(ENGINE, 0, "decode", tc0, self.clock.now(),
                                cat="decode", slots=int(active.sum()),
                                step=self.stats.decode_steps)

@@ -136,13 +136,14 @@ class PagedTieredCache:
         self.spills = 0                # pressure-driven local->remote moves
         self.promotions = 0            # remote->local page moves
         self.demotions = 0             # local->remote moves not forced by pressure
+        self.written = [0, 0]          # bytes host-side writes put into (local, remote) pages
 
     def _host_pool(self, shape: tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
-        if self.device.type != "cuda":
-            return torch.zeros(shape, dtype=dtype, device=self.device)
+        """A zeroed remote pool, one `dak.pin` region: pinned host memory on
+        a card, a plain tensor on the CPU."""
         from repro_torch.kernels import _build
 
-        return _build.pinned_empty(shape, dtype).zero_()
+        return _build.host_tier(shape, dtype, self.device, fill=0)
 
     @property
     def _host_rows(self) -> tuple[int, int]:
@@ -211,7 +212,8 @@ class PagedTieredCache:
 
     def _put_pages(self, key: str, idx, pages: torch.Tensor) -> None:
         """``pools[key][:, idx] = pages`` across devices (pages [L, n, page,
-        ...] whole; a sharded remote pool keeps this rank's in-page rows)."""
+        ...] whole; a sharded remote pool keeps this rank's in-page rows),
+        counted in `written`."""
         self._sync_host()
         pool = self.pools[key]
         if self.remote_sharded and key.endswith("_remote"):
@@ -220,6 +222,7 @@ class PagedTieredCache:
         pages = pages.to(device=pool.device, dtype=pool.dtype)
         pool[:, torch.as_tensor(np.asarray(idx), dtype=torch.long,
                                 device=pool.device)] = pages
+        self.written[REMOTE if key.endswith("_remote") else LOCAL] += pages.nbytes
 
     def _take_pages(self, key: str, idx) -> torch.Tensor:
         """``pools[key][:, idx]`` whole, as a new tensor on the pool's device

@@ -80,7 +80,7 @@ def split_cache_batch(cache: dict[str, torch.Tensor], kv_ratio: float,
     Requests [0, B_loc) stay local and the last B_rem ~ kv_ratio * B go
     remote.  Both halves are fresh copies: the local one on the cache's
     device, the remote one, on a CUDA device, in one exact-size pinned,
-    device-mapped host buffer (`kernels._build.pinned_empty`).  A caller
+    device-mapped host buffer (`kernels._build.host_tier`).  A caller
     that drops the unsplit cache frees it, so the remote half does not stay
     in HBM."""
     b = cache["k"].shape[1]
@@ -91,11 +91,8 @@ def split_cache_batch(cache: dict[str, torch.Tensor], kv_ratio: float,
         full = cache[name]
         out[f"{name}_local"] = full[:, :b_loc].clone(memory_format=torch.contiguous_format)
         remote = full[:, b_loc:]
-        if full.device.type == "cuda":
-            out[f"{name}_remote"] = _build.pinned_empty(remote.shape, remote.dtype)
-            out[f"{name}_remote"].copy_(remote)
-        else:
-            out[f"{name}_remote"] = remote.clone(memory_format=torch.contiguous_format)
+        out[f"{name}_remote"] = _build.host_tier(remote.shape, remote.dtype, full.device,
+                                                 fill=remote)
     return out
 
 

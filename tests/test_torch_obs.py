@@ -40,6 +40,7 @@ from repro_torch.obs.flight import FlightRecorder as TFlight
 from repro_torch.obs.flight import load_bundle as tload
 from repro_torch.obs.metrics import provenance as tprovenance
 from repro_torch.obs.metrics import serving_registry as tregistry
+from repro_torch.obs.trace import HOST_PHASES
 from repro_torch.obs.trace import ChromeTraceRecorder as TTrace
 from repro_torch.obs.trace import validate_trace
 from repro_torch.serving.engine import Request as TRequest
@@ -133,7 +134,9 @@ def runs(weights):
 
 def test_trace_equals_reference_trace(runs):
     """Every Chrome trace event (spans, instants, counters, track names),
-    in order, with the compile span's wall time left out."""
+    in order, with the compile span's wall time left out.  The port's own
+    host phases process is compared on its own: on this modeled clock it
+    holds its name and no span (its regions are wall time)."""
     (jeng, jtok), (teng, ttok) = runs["jax"], runs["torch"]
     assert ttok == jtok
     want, got = jeng.recorder.to_json(), teng.recorder.to_json()
@@ -141,6 +144,11 @@ def test_trace_equals_reference_trace(runs):
     names = {e["name"] for e in got["traceEvents"]}
     assert {"admission", "decode", "compile[paged/w1]", "queued", "active",
             "first_token", "link_bytes", "attribution"} <= names
+    phases = [e for e in got["traceEvents"] if e["pid"] == HOST_PHASES]
+    assert phases == [{"ph": "M", "name": "process_name", "pid": HOST_PHASES, "tid": 0,
+                       "args": {"name": "host phases"}}]
+    assert not any(e["pid"] == HOST_PHASES for e in want["traceEvents"])
+    got = {**got, "traceEvents": [e for e in got["traceEvents"] if e["pid"] != HOST_PHASES]}
     assert_same(_strip(got), _strip(want))
 
 
@@ -183,7 +191,8 @@ def test_flight_bundle_equals_reference(weights, tmp_path, kind):
 
 def test_cli_reads_the_port_trace_as_the_reference_cli(runs, tmp_path, capsys):
     """`python -m repro_torch.obs summarize` of the port's trace prints what
-    the reference's prints for its own."""
+    the reference's prints for its own, but for the port's own (empty, on
+    this modeled clock) host phases process."""
     out = {}
     for side, cli in (("jax", jcli), ("torch", tcli)):
         path = tmp_path / f"{side}.json"
@@ -192,12 +201,24 @@ def test_cli_reads_the_port_trace_as_the_reference_cli(runs, tmp_path, capsys):
         capsys.readouterr()
         assert cli.main(["summarize", str(path)]) == 0
         out[side] = json.loads(capsys.readouterr().out)
+    assert out["torch"]["processes"].pop(str(HOST_PHASES)) == "host phases"
     assert_same(out["torch"], out["jax"])
+
+
+def _phase_shape(eng) -> list:
+    """The ledger's steps without their wall times: regions, passes."""
+    return [(sorted(s.seconds), [(p.rid, p.pos, p.tokens, p.t_submit, p.t_prefill,
+                                  p.write_local_bytes, p.write_remote_bytes) for p in s.passes])
+            for s in eng.phases.steps]
 
 
 def test_hooks_off_is_bitwise_identical(weights, runs):
     """No recorder, profiler or flight recorder: the same tokens and the
-    same stats, field for field, as the instrumented run."""
+    same stats, field for field, as the instrumented run; the phase ledger
+    (always on) the same regions and passes.  A torch profiler recording
+    the hooks-off run (the regions' third sink) changes nothing either."""
+    from torch.profiler import ProfilerActivity, profile
+
     teng, ttok = runs["torch"]
     eng, tok = _run("torch", weights["torch"], hooks=False)
     assert tok == ttok
@@ -209,6 +230,12 @@ def test_hooks_off_is_bitwise_identical(weights, runs):
     assert off == on and list(off) == list(on)
     assert [s.duration_s for s in eng.runtime.telemetry.ring] == \
         [s.duration_s for s in teng.runtime.telemetry.ring]
+    assert _phase_shape(eng) == _phase_shape(teng) and len(eng.phases.steps) > 3
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        peng, ptok = _run("torch", weights["torch"], hooks=False)
+    assert ptok == ttok and _metrics("torch", peng) == off
+    assert _phase_shape(peng) == _phase_shape(eng)
+    assert any(e.name() == "dak.step" for e in prof.profiler.kineto_results.events())
 
 
 def test_serve_writes_trace_metrics_and_flight_bundles(tmp_path):
